@@ -11,14 +11,24 @@ the result line:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the port, compiled from ``csrc/`` by
    ``nvcc`` for sm_90a (with the ptxas register report);
-3. kernels: each kernel against its plain PyTorch twin at the serving
+3. kernels: kernel B4 against its plain PyTorch twin at the serving
    path's shapes and dtypes, with its time beside the plain twin's, a
    one-call PyTorch yardstick's and the least time the card could take;
-4. serve: GPT-2-small at full width (random weights from ``seed(0)``)
+4. flash kernels: B1, B2 and B3 the same way at the training path's
+   shapes (gpt2-small bf16 and f32, llama-style GQA, cross-length);
+5. serve: GPT-2-small at full width (random weights from ``seed(0)``)
    serving eight requests through ``LLMEngine`` on kernel B4, then on
    the plain twin (token streams must be identical), then 32 greedy
    streams on an int8 KV pool against an f32 pool (agreement >= 0.9);
-5. a ``{"kernels": [...]}`` summary line, then the result line
+6. train: GPT-2-small at full width as ``bench.py bench_gpt`` configures
+   it (seq 1024, batch 8, fused loss, AdamW 1e-4 / wd 0.01, AMP O1)
+   through ``Model.train_batch`` on kernels B1-B3: 3 warm-up and 10
+   timed steps, a 2-step ``torch.profiler`` window (device time by
+   kernel), then 3 steps on the kernels against 3 on the plain twins
+   from the same weights (losses) and one fwd+bwd each (the qkv
+   projections' gradient), the fused loss's peak memory against the
+   dense head's, and the flash dispatch's eager path for a short input;
+7. a ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -42,6 +52,19 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
                   torch.float16: 989e12, torch.int8: 1979e12}
 TOLERANCE = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.int8: 1e-4}
+# flash kernels against their twins, element by element: |kernel - twin|
+# <= atol + rtol * |twin|, as (rtol, atol). Half types: rtol 2 eps (each
+# side rounds its output once, from f32 values that differ in summation
+# order and, in B1, in the running max P is rounded against), atol eps/4
+# for entries near 0. f32: 1e-5 (summation order over up to 2048 keys).
+# The lse is f32 on both sides and held at the f32 limit in every case.
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2 ** -6, 2 ** -9),
+             torch.float16: (2 ** -9, 2 ** -12)}
+TRAIN_LOSS_RTOL = 5e-4   # kernel run vs twin run, per step over 3 steps
+# kernel run vs twin run: ||g_kernel - g_twin|| / ||g_twin|| of the qkv
+# projections' gradient after one O1 fwd+bwd (bf16 roundings of O, dQ,
+# dK, dV differ by an ulp here and there; a wrong tile moves it by ~0.1)
+QKV_GRAD_RTOL = 1e-2
 PAGE_SIZE = 16
 NUM_PAGES = 1024
 PAGES_PER_SEQ = 64   # max_len 1024 over 16-token pages
@@ -375,21 +398,459 @@ def phase_serve() -> int:
     return run_k["kernel_launches"]
 
 
+# ---------------------------------------------------------------------------
+# kernels B1, B2, B3 against their plain twins
+# ---------------------------------------------------------------------------
+
+def _time_calls(fn, reps=REPS) -> float:
+    """Mean ms of one call over ``reps`` calls after two warm-up calls
+    (CUDA events)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _visible_pairs(sq, sk, causal):
+    """(query, key) pairs the bottom-right causal mask leaves visible."""
+    if not causal:
+        return sq * sk
+    offset = sk - sq
+    return sq * (offset + 1) + sq * (sq - 1) // 2
+
+
+def _flash_bound(kernel, b, sq, sk, hq, hkv, d, causal, dtype):
+    """The least time the card could take for one launch: every input
+    read once and every output written once over HBM bandwidth, or
+    c * b * hq * d * (visible pairs) operations over the input type's
+    peak (c = 4 for B1, 6 for B2, 8 for B3)."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    q_b = b * sq * hq * d * elt
+    kv_b = b * sk * hkv * d * elt
+    lse_b = b * hq * sq * 4
+    nbytes = {"flash_attention_fwd": 2 * q_b + 2 * kv_b + lse_b,
+              "flash_attention_bwd_dq": 4 * q_b + 2 * kv_b + lse_b,
+              "flash_attention_bwd_dkv": 3 * q_b + 4 * kv_b + lse_b}[kernel]
+    c = {"flash_attention_fwd": 4, "flash_attention_bwd_dq": 6,
+         "flash_attention_bwd_dkv": 8}[kernel]
+    ops = c * b * hq * d * _visible_pairs(sq, sk, causal)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), nbytes, ops
+
+
+def _sdpa_calls(q, k, v, do, causal):
+    """The one-call yardstick: torch's scaled_dot_product_attention on
+    the same tensors (forward, and its autograd backward for dQ, dK, dV
+    together)."""
+    import torch.nn.functional as TF
+    from torch.nn.attention.bias import causal_lower_right
+    sq, sk = q.shape[1], k.shape[1]
+    qt, kt, vt = [x.detach().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v)]
+    kw = {"enable_gqa": q.shape[2] != k.shape[2]}
+    if causal and sq == sk:
+        kw["is_causal"] = True
+    elif causal:
+        kw["attn_mask"] = causal_lower_right(sq, sk)
+    out = TF.scaled_dot_product_attention(qt, kt, vt, **kw)
+    dot = do.transpose(1, 2)
+
+    def fwd():
+        with torch.no_grad():
+            return TF.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+    def bwd():
+        return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+    return fwd, bwd
+
+
+def phase_flash_kernels() -> dict:
+    from paddle_tpu_torch.ops import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(1)
+    shapes = [  # name, b, sq, sk, hq, hkv, d, dtype
+        ("train gpt2 bf16", 8, 1024, 1024, 12, 12, 64, torch.bfloat16),
+        ("train gpt2 f32", 8, 1024, 1024, 12, 12, 64, torch.float32),
+        ("gqa llama bf16", 2, 2048, 2048, 16, 4, 128, torch.bfloat16),
+        ("cross 512x1024 bf16", 8, 512, 1024, 12, 12, 64, torch.bfloat16),
+    ]
+    cases, heads = [], {}
+    for name, b, sq, sk, hq, hkv, d, dt in shapes:
+        causal = True
+        scale = 1.0 / math.sqrt(d)
+        q = torch.randn(b, sq, hq, d, generator=g, device="cuda").to(dt)
+        k = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(dt)
+        v = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(dt)
+        do = torch.randn(b, sq, hq, d, generator=g, device="cuda").to(dt)
+        o, lse = fa.flash_attention_fwd_kernel(q, k, v, scale, causal)
+        want_o, want_lse = fa.flash_attention_fwd_torch(q, k, v, scale,
+                                                        causal)
+        dq = fa.flash_attention_bwd_dq_kernel(q, k, v, o, lse, do, scale,
+                                              causal)
+        dk, dv = fa.flash_attention_bwd_dkv_kernel(q, k, v, o, lse, do,
+                                                   scale, causal)
+        want_dq, want_dk, want_dv = fa.flash_attention_bwd_torch(
+            q, k, v, o, lse, do, scale, causal)
+        torch.cuda.synchronize()
+
+        def err(got, want):
+            """(max |got - want|, max |got - want| / (atol + rtol |want|))
+            at the limits of got's dtype."""
+            rtol, atol = FLASH_TOL[got.dtype]
+            d = (got.float() - want.float()).abs()
+            return d.max().item(), \
+                (d / (atol + rtol * want.float().abs())).max().item()
+        checks = {
+            "flash_attention_fwd": [err(o, want_o), err(lse, want_lse)],
+            "flash_attention_bwd_dq": [err(dq, want_dq)],
+            "flash_attention_bwd_dkv": [err(dk, want_dk),
+                                        err(dv, want_dv)]}
+        lib_fwd, lib_bwd = _sdpa_calls(q, k, v, do, causal)
+        timed = {
+            "flash_attention_fwd": (
+                lambda: fa.flash_attention_fwd_kernel(q, k, v, scale,
+                                                      causal),
+                lambda: fa.flash_attention_fwd_torch(q, k, v, scale,
+                                                     causal),
+                lib_fwd),
+            "flash_attention_bwd_dq": (
+                lambda: fa.flash_attention_bwd_dq_kernel(
+                    q, k, v, o, lse, do, scale, causal),
+                lambda: fa.flash_attention_bwd_torch(
+                    q, k, v, o, lse, do, scale, causal), lib_bwd),
+            "flash_attention_bwd_dkv": (
+                lambda: fa.flash_attention_bwd_dkv_kernel(
+                    q, k, v, o, lse, do, scale, causal),
+                lambda: fa.flash_attention_bwd_torch(
+                    q, k, v, o, lse, do, scale, causal), lib_bwd)}
+        for kernel, (kern, plain, lib) in timed.items():
+            errs = checks[kernel]
+            bound_ms, bound_by, nbytes, ops = _flash_bound(
+                kernel, b, sq, sk, hq, hkv, d, causal, dt)
+            case = {"phase": "kernel_case", "kernel": kernel, "case": name,
+                    "b": b, "sq": sq, "sk": sk, "hq": hq, "hkv": hkv,
+                    "head_dim": d, "causal": causal, "dtype": str(dt),
+                    "max_abs_err": max(e for e, _ in errs),
+                    "rtol_atol": FLASH_TOL[dt],
+                    "lse_rtol_atol": FLASH_TOL[torch.float32],
+                    "err_over_limit": [r for _, r in errs],
+                    "ok": all(math.isfinite(r) and r <= 1.0
+                              for _, r in errs),
+                    "ms": _time_calls(kern), "plain_ms": _time_calls(plain),
+                    "library_ms": _time_calls(lib), "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+            emit(case)
+            cases.append(case)
+            heads.setdefault(kernel, case)   # the gpt2 bf16 train shape
+        del q, k, v, do, o, lse, want_o, want_lse, dq, dk, dv
+        del want_dq, want_dk, want_dv, lib_fwd, lib_bwd, timed
+        torch.cuda.empty_cache()
+    bad = [(c["kernel"], c["case"], c["max_abs_err"]) for c in cases
+           if not c["ok"]]
+    if bad:
+        raise SystemExit(f"flash kernels disagree with their twins: {bad}")
+    return heads
+
+
+# ---------------------------------------------------------------------------
+# GPT-2-small trained through Model.train_batch
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+WARMUP_STEPS, TIMED_STEPS, PARITY_STEPS, PROFILE_STEPS = 3, 10, 3, 2
+
+
+def _train_model(net):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.gpt import GPTFusedPretrainingCriterion
+    model = pt.Model(net)
+    model.prepare(pt.optimizer.AdamW(learning_rate=1e-4, parameters=net,
+                                     weight_decay=0.01),
+                  GPTFusedPretrainingCriterion(), amp_configs="O1")
+    return model
+
+
+def _flash_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return dict(fa.launches)
+
+
+def _reset_flash_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    for k in fa.launches:
+        fa.launches[k] = 0
+
+
+def _parity_losses(net, init, ids, impl):
+    """PARITY_STEPS train steps from the initial weights with the flash
+    kernels (impl "kernel") or their plain twins ("plain"); the losses
+    and the launch counts of the run."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    net.load_state_dict(init)
+    model = _train_model(net)
+    fa.impl = impl
+    try:
+        _reset_flash_counts()
+        losses = [model.train_batch([ids], [ids])["loss"]
+                  for _ in range(PARITY_STEPS)]
+        torch.cuda.synchronize()
+        counts = _flash_counts()
+    finally:
+        fa.impl = "kernel"
+    return [float(x) for x in losses], counts
+
+
+def _qkv_grad(net, init, ids, impl):
+    """The gradient of every layer's qkv projection (weights and biases,
+    flattened) after one fwd+bwd under AMP O1 from the initial weights,
+    on the flash kernels or on their twins. It flows through dQ, dK and
+    dV, so it holds B1-B3 where the loss cannot: at random init the loss
+    is about ln V whatever attention does."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPTFusedPretrainingCriterion
+    from paddle_tpu_torch.ops import flash_attention as fa
+    net.load_state_dict(init)
+    net.train()
+    net.zero_grad(set_to_none=True)
+    fa.impl = impl
+    try:
+        with amp.auto_cast(level="O1"):
+            hidden, w = net(ids)
+        GPTFusedPretrainingCriterion()(hidden, w, ids).float().backward()
+    finally:
+        fa.impl = "kernel"
+    g = torch.cat([p.grad.flatten() for n, p in net.named_parameters()
+                   if "qkv_proj" in n])
+    net.zero_grad(set_to_none=True)
+    return g
+
+
+def _profile_steps(model, ids, steps=PROFILE_STEPS):
+    """Device time by kernel over ``steps`` train steps, from
+    ``torch.profiler``: the kernels' own device time (the host ops that
+    launched them carry the same time and are left out), against the
+    host wall of the same window (profiling inflates the wall, so the
+    idle share is an upper bound)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            model.train_batch([ids], [ids])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.self_device_time_total / 1e3 / steps, e.count / steps,
+                    e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and
+                   e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+
+    def share(*words):
+        return sum(r[0] for r in rows
+                   if any(w in r[2].lower() for w in words)) / busy \
+            if busy else None
+    return {"phase": "train", "run": "profile", "steps": steps,
+            "wall_ms_per_step": wall / steps * 1e3,
+            "device_busy_ms_per_step": busy if busy else "not measured",
+            "idle_share": 1 - busy / (wall / steps * 1e3) if busy else None,
+            "flash_share": share("flash_"),
+            "gemm_share": share("gemm", "xmma", "cutlass", "nvjet"),
+            "gemm_f32_share": share("f32f32", "sgemm"),
+            "top": [{"kernel": k[:120], "ms_per_step": ms,
+                     "calls_per_step": n} for ms, n, k in rows[:15]]}
+
+
+def _peak_fwd_bwd(net, crit, ids):
+    """Peak device bytes of one forward + backward under AMP O1."""
+    from paddle_tpu_torch import amp
+    net.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with amp.auto_cast(level="O1"):
+        out = net(ids)
+    loss = crit(*(out if isinstance(out, tuple) else (out,)), ids)
+    loss.float().backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    net.zero_grad(set_to_none=True)
+    return peak, float(loss.detach())
+
+
+def phase_train() -> dict:
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+                                             GPTPretrainingCriterion,
+                                             GPTFusedPretrainingCriterion,
+                                             gpt_config)
+    cfg = gpt_config("gpt2-small", max_position_embeddings=TRAIN_SEQ,
+                     hidden_dropout=0.0, attention_dropout=0.0,
+                     fused_loss=True)
+    pt.seed(0)
+    net = GPTForCausalLM(cfg, device="cuda")
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    n_params = sum(p.numel() for p in net.parameters())
+    rng = np.random.RandomState(0)
+    ids_np = rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    ids = torch.as_tensor(ids_np, device="cuda")
+
+    # the repair: use_flash=True on the card with a 17-token input runs
+    # the eager math (flash_attention_available says no), launching
+    # nothing, and gives what use_flash=False gives
+    _reset_flash_counts()
+    with torch.no_grad():
+        net.eval()
+        short = ids[:1, :17]
+        lg_flash = net(short)
+        cfg.use_flash = False
+        lg_eager = net(short)
+        cfg.use_flash = True
+    torch.cuda.synchronize()
+    repair = {"eager_for_17_tokens": torch.equal(lg_flash, lg_eager),
+              "no_launches": sum(_flash_counts().values()) == 0,
+              "finite": bool(torch.isfinite(lg_flash).all()),
+              "shape": list(lg_flash.shape) == [1, 17, cfg.vocab_size]}
+
+    # main path: warm-up, then the timed steps with the counts from 0
+    model = _train_model(net)
+    for _ in range(WARMUP_STEPS):
+        model.train_batch([ids_np], [ids_np])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts()
+    t0 = time.perf_counter()
+    losses = [model.train_batch([ids_np], [ids_np])["loss"]
+              for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _flash_counts()
+    peak_train = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * TIMED_STEPS / wall
+    flops_per_token = 6 * n_params + \
+        6 * cfg.num_layers * TRAIN_SEQ * cfg.hidden_size
+    emit({"phase": "train", "run": "main", "model": "gpt2-small",
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "params": n_params,
+          "amp": "O1", "fused_loss": True, "optimizer": "AdamW",
+          "steps": TIMED_STEPS, "wall_s": wall,
+          "step_ms": wall / TIMED_STEPS * 1e3, "tokens_per_s": tokens_per_s,
+          "mfu": tokens_per_s * flops_per_token / 989e12,
+          "losses": losses, "max_memory_allocated": peak_train,
+          "launches": launches})
+    emit(_profile_steps(model, ids_np))
+
+    # kernels against twins from the same initial weights
+    k_losses, k_counts = _parity_losses(net, init, ids_np, "kernel")
+    p_losses, p_counts = _parity_losses(net, init, ids_np, "plain")
+    rel = [abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses)]
+    g_k = _qkv_grad(net, init, ids, "kernel")
+    g_p = _qkv_grad(net, init, ids, "plain")
+    qkv_rel = float((g_k - g_p).norm() / g_p.norm())
+    emit({"phase": "train", "run": "kernels vs twins",
+          "steps": PARITY_STEPS, "kernel_losses": k_losses,
+          "plain_losses": p_losses, "rel_diff": rel,
+          "rtol": TRAIN_LOSS_RTOL, "kernel_launches": k_counts,
+          "plain_launches": p_counts, "qkv_grad_rel_diff": qkv_rel,
+          "qkv_grad_rtol": QKV_GRAD_RTOL,
+          "qkv_grad_norm": float(g_p.norm())})
+    del g_k, g_p
+
+    # fused vocab loss against the dense head: one fwd+bwd each
+    net.load_state_dict(init)
+    net.train()
+    dense_cfg = gpt_config("gpt2-small", max_position_embeddings=TRAIN_SEQ,
+                           hidden_dropout=0.0, attention_dropout=0.0,
+                           fused_loss=False)
+    dense = GPTForCausalLM(dense_cfg, device="cuda")
+    dense.load_state_dict(init)
+    dense.train()
+    peak_fused, loss_fused = _peak_fwd_bwd(
+        net, GPTFusedPretrainingCriterion(), ids)
+    peak_dense, loss_dense = _peak_fwd_bwd(
+        dense, GPTPretrainingCriterion(), ids)
+    tv_f32 = TRAIN_BATCH * TRAIN_SEQ * cfg.vocab_size * 4
+    emit({"phase": "train", "run": "fused vs dense head",
+          "peak_fused": peak_fused, "peak_dense": peak_dense,
+          "saved": peak_dense - peak_fused, "one_TV_f32": tv_f32,
+          "loss_fused": loss_fused, "loss_dense": loss_dense})
+    del dense
+
+    want = cfg.num_layers * TIMED_STEPS
+    want_p = cfg.num_layers * PARITY_STEPS
+    checks = {
+        "launches_main_run": all(v == want for v in launches.values()),
+        "launches_kernel_parity_run": all(v == want_p
+                                          for v in k_counts.values()),
+        "launches_plain_run": all(v == 0 for v in p_counts.values()),
+        "losses_finite": all(math.isfinite(x)
+                             for x in losses + k_losses + p_losses),
+        "last_loss_below_first": losses[-1] < losses[0],
+        "kernel_losses_match_twins": max(rel) <= TRAIN_LOSS_RTOL,
+        "kernel_qkv_grad_matches_twins": qkv_rel <= QKV_GRAD_RTOL,
+        "fused_peak_below_dense_by_one_TV_f32":
+            peak_dense - peak_fused >= tv_f32,
+        "fused_loss_eq_dense_loss": abs(loss_fused - loss_dense) <=
+            1e-2 * abs(loss_dense),
+        **{f"repair_{k}": v for k, v in repair.items()},
+    }
+    emit({"phase": "train_checks", "expected_launches": want,
+          "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"train checks failed: {failed}")
+    return launches
+
+
+def _summary(name, source, replaces, launches, case):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+            "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"]}
+
+
 def main() -> None:
     info = phase_device()
+    # float32 products in full float32, bf16 products with float32
+    # reductions: the JAX package's numerics
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
     phase_build()
     head = phase_kernels()
+    flash_heads = phase_flash_kernels()
     launches = phase_serve()
-    emit({"kernels": [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "paddle_tpu/ops/paged_attention.py:216",
-        "launches": launches, "max_abs_err": head["max_abs_err"],
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"]}]})
+    train_launches = phase_train()
+    flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    emit({"kernels": [
+        _summary("paged_attention",
+                 "paddle_tpu_torch/csrc/paged_attention.cu",
+                 "paddle_tpu/ops/paged_attention.py:216", launches, head),
+        _summary("flash_attention_fwd", flash_src,
+                 "paddle_tpu/ops/flash_attention.py:129",
+                 train_launches["flash_attention_fwd"],
+                 flash_heads["flash_attention_fwd"]),
+        _summary("flash_attention_bwd_dq", flash_src,
+                 "paddle_tpu/ops/flash_attention.py:256",
+                 train_launches["flash_attention_bwd_dq"],
+                 flash_heads["flash_attention_bwd_dq"]),
+        _summary("flash_attention_bwd_dkv", flash_src,
+                 "paddle_tpu/ops/flash_attention.py:256",
+                 train_launches["flash_attention_bwd_dkv"],
+                 flash_heads["flash_attention_bwd_dkv"])]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
                                  "count": info["count"]}})
 

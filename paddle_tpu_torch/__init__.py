@@ -8,6 +8,7 @@ on a ported path becomes a CUDA kernel written by hand for sm_90a
 package imports torch, numpy and the standard library only.
 """
 
-from . import inference, models, nn  # noqa: F401
+from . import amp, inference, models, nn, ops, optimizer  # noqa: F401
 from .core.rng import seed  # noqa: F401
+from .hapi.model import Model  # noqa: F401
 from .inference import LLMEngine  # noqa: F401

@@ -101,6 +101,12 @@ def set_flags(flags: Mapping[str, Any]) -> None:
 
 define_flag("default_dtype", "float32",
             "Default floating dtype for new parameters.")
+define_flag("amp_dtype", "bfloat16",
+            "Compute dtype used by amp.auto_cast.")
+define_flag("flash_attention", True,
+            "Dispatch scaled_dot_product_attention to the flash kernels "
+            "(B1 forward, B2 + B3 backward) when "
+            "flash_attention_available says the configuration fits.")
 define_flag("decode_ticks_per_dispatch", 1,
             "Default for LLMEngine(decode_ticks_per_dispatch=...). The "
             "port runs one decode tick per dispatch; values above 1 (the "

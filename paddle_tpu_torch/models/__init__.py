@@ -1,4 +1,5 @@
 """Model zoo of the port (GPT in this slice)."""
 
-from .gpt import (PRESETS, GPTConfig, GPTForCausalLM, GPTModel,  # noqa: F401
-                  gpt_config, llama_config)
+from .gpt import (PRESETS, GPTConfig, GPTForCausalLM,  # noqa: F401
+                  GPTFusedPretrainingCriterion, GPTModel,
+                  GPTPretrainingCriterion, gpt_config, llama_config)

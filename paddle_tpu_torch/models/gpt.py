@@ -6,7 +6,9 @@ so a JAX state dict loads by identical key
 (:func:`paddle_tpu_torch.interop.load_reference_state`). The attention
 of the serving path goes through the paged KV pool of
 :mod:`paddle_tpu_torch.inference.llm`; the dense cache path here serves
-:meth:`GPTForCausalLM.generate`.
+:meth:`GPTForCausalLM.generate`. Training runs the flash kernels through
+``F.scaled_dot_product_attention`` and, with ``fused_loss``, hands
+``(hidden, W)`` to :class:`GPTFusedPretrainingCriterion`.
 """
 
 from __future__ import annotations
@@ -17,12 +19,13 @@ from typing import Optional
 
 import torch
 
-from .. import nn
+from .. import amp, nn
 from ..core import threefry
 from ..core.device import resolve_device
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.layer import Layer, LayerList
+from ..ops.fused_xent import fused_linear_cross_entropy
 from ..ops.rotary import apply_rotary_pos_emb, rope_tables
 
 
@@ -45,13 +48,13 @@ class GPTConfig:
     layer_norm_epsilon: float = 1e-5
     tie_word_embeddings: bool = True
     use_flash: bool = True
-    # features of the JAX package not ported yet: each raises at
-    # construction, naming the ROADMAP item that brings it
+    # remat, sequence_parallel and scan_layers are not ported yet: each
+    # raises at construction, naming the ROADMAP item that brings it
     remat: bool = False
     sequence_parallel: bool = False
     ring_chunk_size: Optional[int] = None
     scan_layers: bool = False
-    fused_loss: bool = False
+    fused_loss: bool = False   # training forward returns (hidden, W)
 
     def __post_init__(self):
         if self.ffn_hidden_size is None:
@@ -60,8 +63,7 @@ class GPTConfig:
             self.num_kv_heads = self.num_heads
         for flag, item in (("sequence_parallel", "ring attention"),
                            ("scan_layers", "scan_layers and remat"),
-                           ("remat", "scan_layers and remat"),
-                           ("fused_loss", "fused vocab loss")):
+                           ("remat", "scan_layers and remat")):
             if getattr(self, flag):
                 raise NotImplementedError(
                     f"GPTConfig({flag}=True) is not ported yet "
@@ -303,10 +305,12 @@ class GPTModel(Layer):
 
 def _lm_logits(cfg: GPTConfig, embeddings: GPTEmbeddings, hidden,
                lm_head=None):
-    """Shared head: the tied-embedding product in the parameter dtype
-    (AMP comes with the training slice), or a separate lm_head."""
+    """Shared head: the tied-embedding product (in the AMP compute dtype
+    under auto_cast; the loss upcasts to f32) or a separate lm_head."""
     if cfg.tie_word_embeddings:
-        return torch.matmul(hidden, embeddings.word_embeddings.weight.t())
+        hidden, w = amp.white_cast(hidden,
+                                   embeddings.word_embeddings.weight)
+        return torch.matmul(hidden, w.t())
     return lm_head(hidden)
 
 
@@ -336,6 +340,12 @@ class GPTForCausalLM(Layer):
         if caches is not None:
             hidden, new_caches = out
             return self._logits(hidden), new_caches
+        if self.cfg.fused_loss and self.training:
+            # (hidden, W [vocab, hidden]) for the fused criterion; W rides
+            # the output so its gradient flows through the loss
+            if not self.cfg.tie_word_embeddings:
+                return out, self.lm_head.weight.t()  # Linear is [H, V]
+            return out, self.gpt.embeddings.word_embeddings.weight
         return self._logits(out)
 
     # -- decode-time KV cache -------------------------------------------
@@ -387,3 +397,35 @@ class GPTForCausalLM(Layer):
                                        caches=caches)
             next_logits = next_logits[:, -1]
         return tokens
+
+
+class GPTPretrainingCriterion(Layer):
+    """Shifted next-token cross entropy over dense logits."""
+
+    def __init__(self, ignore_index: int = -100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, logits, labels):
+        # logits [b, s, v], labels [b, s]: predict token t+1 at position t
+        lg = logits[:, :-1].reshape(-1, logits.shape[-1])
+        lb = labels[:, 1:].reshape(-1)
+        return F.cross_entropy(lg, lb, ignore_index=self.ignore_index)
+
+
+class GPTFusedPretrainingCriterion(GPTPretrainingCriterion):
+    """Streaming vocab-path loss for ``cfg.fused_loss`` models: takes
+    (hidden [b, s, h], weight [v, h]) from the model's training forward
+    and computes the shifted next-token cross entropy over vocab chunks,
+    with no [b, s, v] logits (``ops/fused_xent.py``). With two arguments
+    (an eval-mode forward's logits and the labels) it is the dense
+    criterion."""
+
+    def forward(self, *args):
+        if len(args) == 2:
+            return super().forward(*args)
+        hidden, weight, labels = args
+        hidden, weight = amp.white_cast(hidden, weight, op="matmul")
+        h = hidden[:, :-1].reshape(-1, hidden.shape[-1])
+        lb = labels[:, 1:].reshape(-1)
+        return fused_linear_cross_entropy(h, weight, lb, self.ignore_index)

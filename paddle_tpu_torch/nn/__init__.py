@@ -1,5 +1,8 @@
-"""Neural-net layers of the port (the subset GPT serving uses)."""
+"""Neural-net layers of the port (the subset GPT serving and training
+use)."""
 
-from . import functional, initializer  # noqa: F401
+from . import clip, functional, initializer  # noqa: F401
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
+                   ClipGradByValue)
 from .layer import Layer, LayerList  # noqa: F401
 from .layers import Dropout, Embedding, LayerNorm, Linear, RMSNorm  # noqa: F401

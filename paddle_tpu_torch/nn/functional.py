@@ -1,7 +1,9 @@
-"""The subset of ``paddle_tpu/nn/functional.py`` that GPT serving uses,
-as plain tensor functions with the JAX package's names, arguments and
-layouts (``linear`` takes a ``[in, out]`` weight; attention takes
-``[batch, seq, heads, head_dim]``)."""
+"""The subset of ``paddle_tpu/nn/functional.py`` that GPT serving and
+training use, as plain tensor functions with the JAX package's names,
+arguments and layouts (``linear`` takes a ``[in, out]`` weight;
+attention takes ``[batch, seq, heads, head_dim]``). Under
+``amp.auto_cast`` the matmul-like ops cast their operands at the same
+call sites as in the JAX package."""
 
 from __future__ import annotations
 
@@ -10,6 +12,9 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as TF
+
+from .. import amp
+from ..core import flags
 
 
 def gelu(x, approximate: bool = False):
@@ -24,8 +29,17 @@ def swiglu(x, gate=None):
     return TF.silu(x) * gate
 
 
+def softmax(x, axis: int = -1):
+    if amp.op_in_white("softmax"):
+        x = x.to(amp.compute_dtype())
+    return torch.softmax(x, dim=axis)
+
+
 def linear(x, weight, bias=None):
-    """y = x @ W + b with W shaped [in, out] (Paddle's convention)."""
+    """y = x @ W + b with W shaped [in, out] (Paddle's convention). Under
+    amp.auto_cast the matmul runs in the AMP compute dtype; a float32
+    bias then promotes the result to float32, as in the JAX package."""
+    x, weight = amp.white_cast(x, weight, op="matmul")
     y = torch.matmul(x, weight)
     if bias is not None:
         y = y + bias
@@ -53,10 +67,15 @@ def _f32_stats(x):
 
 def layer_norm(x, normalized_shape, weight=None, bias=None,
                epsilon: float = 1e-5):
+    """float32 statistics for half inputs, unless the user
+    custom_white_listed layer_norm, which forces the compute dtype."""
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
-    y = TF.layer_norm(_f32_stats(x), tuple(normalized_shape),
-                      eps=epsilon).to(x.dtype)
+    if amp.op_in_white("layer_norm"):
+        x = xf = x.to(amp.compute_dtype())
+    else:
+        xf = _f32_stats(x)
+    y = TF.layer_norm(xf, tuple(normalized_shape), eps=epsilon).to(x.dtype)
     if weight is not None:
         y = y * weight
     if bias is not None:
@@ -73,6 +92,62 @@ def rms_norm(x, weight=None, epsilon: float = 1e-6):
     return y
 
 
+def label_smooth(label, epsilon: float = 0.1):
+    k = label.shape[-1]
+    return (1 - epsilon) * label + epsilon / k
+
+
+def _reduce(loss, reduction: str):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    if reduction == "none":
+        return loss
+    raise ValueError(f"unknown reduction {reduction!r}")
+
+
+def cross_entropy(logits, label, weight=None, ignore_index: int = -100,
+                  reduction: str = "mean", soft_label: bool = False,
+                  axis: int = -1, label_smoothing: float = 0.0):
+    """Paddle's cross_entropy, accumulated in float32 whatever the input
+    dtype. Hard labels take the streaming logsumexp form; rows labelled
+    ``ignore_index`` are zero and leave the mean's denominator (with
+    ``weight``, the denominator is the weight of the valid rows)."""
+    if soft_label:
+        logp = torch.log_softmax(logits.float(), dim=axis)
+        tgt = label.float()
+        if label_smoothing:
+            tgt = label_smooth(tgt, label_smoothing)
+        return _reduce(-(tgt * logp).sum(dim=axis), reduction)
+    xf = logits.float()
+    label = label.long()
+    if label.dim() == xf.dim():  # [..., 1] index form
+        label = label.squeeze(axis)
+    safe = torch.where(label == ignore_index, torch.zeros_like(label), label)
+    m = xf.amax(dim=axis, keepdim=True).detach()
+    lse = m.squeeze(axis) + torch.log(torch.exp(xf - m).sum(dim=axis))
+    picked = xf.gather(axis, safe.unsqueeze(axis)).squeeze(axis) - lse
+    if label_smoothing:
+        # mean(log_softmax) == mean(x) - lse
+        picked = (1 - label_smoothing) * picked + \
+            label_smoothing * (xf.mean(dim=axis) - lse)
+    valid = label != ignore_index
+    loss = torch.where(valid, -picked, torch.zeros_like(picked))
+    if weight is not None:
+        loss = loss * weight[safe]
+    if reduction == "mean":
+        if weight is not None:
+            denom = torch.clamp((weight[safe] * valid).sum(), min=1e-8)
+        else:
+            denom = torch.clamp(valid.sum(), min=1)
+        return loss.sum() / denom
+    return _reduce(loss, reduction)
+
+
+softmax_with_cross_entropy = cross_entropy
+
+
 def scaled_dot_product_attention(q, k, v, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
@@ -81,16 +156,21 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None,
                                  use_flash: bool = True):
     """q, k, v: [batch, seq, heads, head_dim].
 
-    ``use_flash`` selects the flash-attention kernel B1 in the JAX
-    package. Until B1 is ported (ROADMAP Queue B), a CUDA tensor with
-    ``use_flash=True`` raises rather than quietly filling the kernel's
-    place with plain code; CPU tensors run the eager math below."""
-    if use_flash and q.is_cuda:
-        raise NotImplementedError(
-            "flash-attention kernel B1 is not ported yet (ROADMAP Queue "
-            "B1); call with use_flash=False")
+    Dispatches to the flash kernels (``ops.flash_attention``) exactly
+    where the JAX package does: ``use_flash``, the ``flash_attention``
+    flag, and a configuration ``flash_attention_available`` admits;
+    otherwise it runs the eager math below, on any device."""
+    q, k, v = amp.white_cast(q, k, v, op="attention")
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if use_flash and flags.get_flag("flash_attention"):
+        from ..ops.flash_attention import (flash_attention,
+                                           flash_attention_available)
+        if flash_attention_available(q.shape, k.shape, attn_mask,
+                                     dropout_p, training,
+                                     is_causal=is_causal):
+            return flash_attention(q, k, v, causal=is_causal,
+                                   sm_scale=scale)
     if q.shape[2] != k.shape[2]:  # grouped-query: materialize kv repeat
         rep = q.shape[2] // k.shape[2]
         k = k.repeat_interleave(rep, dim=2)

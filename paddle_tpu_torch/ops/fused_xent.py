@@ -1,0 +1,150 @@
+"""Fused linear + cross-entropy: the LM vocab path without the
+``[tokens, vocab]`` logits (the port's counterpart of
+``paddle_tpu/ops/fused_xent.py``).
+
+The head product and the loss are one streaming computation over vocab
+chunks, an online logsumexp: per chunk, ``logits_c = h @ W_c^T`` (f32,
+``[T, chunk]``), the running max and sum of exponentials, and the label
+logits that fall in the chunk. The backward replays the chunks, forms
+each chunk's softmax gradient and contracts it at once into dh and
+dW_c. Peak memory is ``[T, chunk]`` instead of ``[T, V]``.
+
+Dtypes follow the JAX package: the chunk products take the operands in
+the activation's dtype (the weight is cast to it) and give float32
+results; the softmax statistics are float32; the backward casts each
+chunk's float32 gradient to the weight's compute dtype and contracts it
+with float32 results. A float32 result from half operands is taken
+without rounding: ``torch.mm(..., out_dtype=torch.float32)`` on the
+card, exactly upcast operands on the CPU. This is not a Pallas kernel in
+the JAX package (a ``lax.scan``), so its products are library matmuls.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def _pick_chunk(v: int, target: int = 8192) -> int:
+    return min(target, v)
+
+
+def _mm_f32(a, b):
+    """a @ b with a float32 result, never rounded to the operands'
+    dtype."""
+    if a.dtype in _HALF:
+        if a.is_cuda:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.mm(a.float(), b.float())
+    return torch.mm(a, b)
+
+
+def _chunk_rows(x, chunk: int):
+    """[V, ...] zero-padded to a multiple of ``chunk`` rows and split
+    into chunks of that many rows; pad rows are masked out of the
+    statistics by the caller."""
+    pad = (-x.shape[0]) % chunk
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    return x.split(chunk)
+
+
+def _chunk_logits(hidden, w_c, b_c, off: int, v: int):
+    logits = _mm_f32(hidden, w_c.t())                  # [T, C] f32
+    if b_c is not None:
+        logits = logits + b_c[None, :]
+    cols = off + torch.arange(w_c.shape[0], device=hidden.device)
+    return logits.masked_fill((cols >= v)[None, :], float("-inf"))
+
+
+def _local_labels(labels, off: int, c: int):
+    local = labels - off
+    inside = (local >= 0) & (local < c)
+    return torch.clamp(local, 0, c - 1), inside
+
+
+class _FusedLinearCrossEntropy(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, hidden, weight, labels, bias, ignore_index, chunk):
+        t = hidden.shape[0]
+        v = weight.shape[0]
+        w = weight if weight.dtype == hidden.dtype else \
+            weight.to(hidden.dtype)
+        c = chunk or _pick_chunk(v)
+        bias_c = None if bias is None else \
+            _chunk_rows(bias.float(), c)
+        labels = labels.long()
+        m = torch.full((t,), float("-inf"), device=hidden.device)
+        l = torch.zeros((t,), device=hidden.device)
+        picked = torch.zeros((t,), device=hidden.device)
+        for i, w_c in enumerate(_chunk_rows(w, c)):
+            off = i * c
+            logits = _chunk_logits(hidden, w_c, None if bias_c is None
+                                   else bias_c[i], off, v)
+            m_new = torch.maximum(m, logits.amax(dim=-1))
+            l = l * torch.exp(m - m_new) + \
+                torch.exp(logits - m_new[:, None]).sum(dim=-1)
+            m = m_new
+            col, inside = _local_labels(labels, off, c)
+            picked = picked + torch.where(
+                inside, logits.gather(1, col[:, None])[:, 0],
+                torch.zeros_like(picked))
+        lse = m + torch.log(l)
+        valid = labels != ignore_index
+        per_tok = torch.where(valid, lse - picked, torch.zeros_like(lse))
+        n = torch.clamp(valid.sum(), min=1)
+        ctx.save_for_backward(hidden, weight, labels, bias, lse, valid, n)
+        ctx.chunk = c
+        return per_tok.sum() / n
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, weight, labels, bias, lse, valid, n = ctx.saved_tensors
+        t, h = hidden.shape
+        v = weight.shape[0]
+        c = ctx.chunk
+        w = weight if weight.dtype == hidden.dtype else \
+            weight.to(hidden.dtype)
+        bias_c = None if bias is None else _chunk_rows(bias.float(), c)
+        # d(loss)/d(logits) = (softmax - onehot) * g / n, 0 on ignored rows
+        scale = (valid.float() * g / n).float()
+        rows = torch.arange(t, device=hidden.device)
+        h_w = hidden.to(w.dtype)
+        dh = torch.zeros((t, h), dtype=torch.float32, device=hidden.device)
+        dw_chunks, db_chunks = [], []
+        for i, w_c in enumerate(_chunk_rows(w, c)):
+            off = i * c
+            logits = _chunk_logits(hidden, w_c, None if bias_c is None
+                                   else bias_c[i], off, v)
+            p = torch.exp(logits - lse[:, None])
+            col, inside = _local_labels(labels, off, c)
+            p[rows[inside], col[inside]] -= 1.0
+            dlog_f = p * scale[:, None]                         # [T, C]
+            if bias is not None:
+                db_chunks.append(dlog_f.sum(dim=0))
+            dlog = dlog_f.to(w.dtype)
+            dh = dh + _mm_f32(dlog, w_c)                        # [T, H]
+            dw_chunks.append(_mm_f32(dlog.t(), h_w))            # [C, H]
+        dw = torch.cat(dw_chunks)[:v].to(weight.dtype)
+        dbias = None if bias is None else \
+            torch.cat(db_chunks)[:v].to(bias.dtype)
+        return dh.to(hidden.dtype), dw, None, dbias, None, None
+
+
+def fused_linear_cross_entropy(hidden, weight, labels,
+                               ignore_index: int = -100,
+                               chunk: Optional[int] = None, bias=None):
+    """Mean cross-entropy of ``softmax(hidden @ weight.T + bias)``
+    against ``labels`` without materialising the logits.
+
+    hidden: [T, H] (callers flatten batch/seq); weight: [V, H] (the
+    tied-embedding layout); labels: [T] int; bias: optional [V] logits
+    bias. ``ignore_index`` rows leave the mean. ``chunk`` (default
+    min(8192, V)) need not divide V: the last chunk is zero-padded and
+    its pad columns are masked to -inf."""
+    return _FusedLinearCrossEntropy.apply(hidden, weight, labels, bias,
+                                          ignore_index, chunk)

@@ -113,7 +113,7 @@ def test_load_reference_state_raises_on_mismatch():
 
 
 @pytest.mark.parametrize("flag", ["sequence_parallel", "scan_layers",
-                                  "remat", "fused_loss"])
+                                  "remat"])
 def test_unported_config_flags_raise(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgpt.gpt_config("gpt2-small", **{flag: True})

@@ -10,12 +10,16 @@ the result line:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the port, compiled from ``csrc/`` by
-   ``nvcc`` for sm_90a (with the ptxas register report);
+   ``nvcc`` for sm_90a (with the ptxas register report and, where the
+   toolkit has ``cuobjdump``, each kernel's count of tensor-core
+   instructions in its SASS);
 3. kernels: kernel B4 against its plain PyTorch twin at the serving
    path's shapes and dtypes, with its time beside the plain twin's, a
    one-call PyTorch yardstick's and the least time the card could take;
 4. flash kernels: B1, B2 and B3 the same way at the training path's
-   shapes (gpt2-small bf16 and f32, llama-style GQA, cross-length);
+   shapes (gpt2-small bf16 and f32, llama-style GQA, cross-length, head
+   dim 80), each kernel's device time (``torch.profiler``) taken in
+   turns with its twin's and SDPA's (median of 3 windows of 20 calls);
 5. serve: GPT-2-small at full width (random weights from ``seed(0)``)
    serving eight requests through ``LLMEngine`` on kernel B4, then on
    the plain twin (token streams must be identical), then 32 greedy
@@ -38,6 +42,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -70,6 +76,7 @@ NUM_PAGES = 1024
 PAGES_PER_SEQ = 64   # max_len 1024 over 16-token pages
 LAYERS = 12          # one launch per layer, as in one engine step
 REPS = 5
+FLASH_REPS, FLASH_WINDOWS = 20, 3
 
 
 def emit(obj) -> None:
@@ -94,16 +101,72 @@ def phase_device() -> dict:
     return info
 
 
+def _kernel_name(mangled: str) -> str:
+    """``flash_fwd_mma<__nv_bfloat16,64>`` from a mangled kernel name."""
+    m = re.search(r"\d+((?:flash|paged)_[a-z_]+?)I(?:\d+(__nv_bfloat16|"
+                  r"__half)|([fa]))Li(\d+)E", mangled)
+    if m:
+        dtype = m.group(2) or {"f": "float", "a": "int8"}[m.group(3)]
+        return f"{m.group(1)}<{dtype},{m.group(4)}>"
+    m = re.search(r"\d+((?:flash|paged)_\w+?)(?:I|Ev|$)", mangled)
+    return m.group(1) if m else mangled[:80]
+
+
+def _ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each kernel, from ``-Xptxas=-v``."""
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            report[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m:
+                report[name]["spill_store_bytes"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report[name]["registers"] = int(m.group(1))
+    return report
+
+
+def _sass_mma_counts(lib_path: str, nvcc: str):
+    """Tensor-core instructions (HMMA, HGMMA) in each kernel's SASS, by
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = _kernel_name(part.split("\n", 1)[0].strip())
+        counts[name] = counts.get(name, 0) + len(
+            re.findall(r"\bH(?:G)?MMA\.", part))
+    return counts
+
+
 def phase_build() -> None:
     from paddle_tpu_torch.ops import _kernels
     t0 = time.perf_counter()
     per_kernel = _kernels.build_all()
-    ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n, log in _kernels.build_logs.items()}
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "per_kernel_s": per_kernel, "nvcc": _kernels.nvcc_path(),
-          "flags": list(_kernels.NVCC_FLAGS), "ptxas": ptxas})
+    seconds = time.perf_counter() - t0
+    ptxas = {n: _ptxas_report(log) for n, log in _kernels.build_logs.items()}
+    nvcc = _kernels.nvcc_path()
+    sass = {n: _sass_mma_counts(str(_kernels._library_path(n)), nvcc)
+            for n in _kernels.SOURCES}
+    emit({"phase": "build", "seconds": seconds,
+          "per_kernel_s": per_kernel, "nvcc": nvcc,
+          "flags": list(_kernels.NVCC_FLAGS), "ptxas": ptxas,
+          "sass_tensor_core_instructions": sass})
+    # the half-type B1 and B2 are tensor-core kernels: their SASS must
+    # hold mma instructions
+    flash = sass.get("flash_attention")
+    if flash is not None:
+        mma = {k: v for k, v in flash.items() if "_mma<" in k}
+        if len(mma) < 4 or not all(mma.values()):
+            raise SystemExit(f"tensor-core flash kernels without mma "
+                             f"instructions in their SASS: {mma}")
 
 
 # ---------------------------------------------------------------------------
@@ -402,20 +465,39 @@ def phase_serve() -> int:
 # kernels B1, B2, B3 against their plain twins
 # ---------------------------------------------------------------------------
 
-def _time_calls(fn, reps=REPS) -> float:
-    """Mean ms of one call over ``reps`` calls after two warm-up calls
-    (CUDA events)."""
-    for _ in range(2):
+def _device_ms(fn, reps) -> float:
+    """Device ms of one call of ``fn``: the time its kernels run on the
+    card over ``reps`` calls, from ``torch.profiler``. CUDA events around
+    the calls would also count the gaps in which the card waits for the
+    host: SDPA's autograd backward takes more host time to launch than
+    its kernels take on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    if busy <= 0:
+        raise SystemExit("torch.profiler recorded no device time")
+    return busy / 1e3 / reps
+
+
+def _time_interleaved(fns, reps=FLASH_REPS, windows=FLASH_WINDOWS):
+    """Median device ms of one call of each function in ``fns`` over
+    ``windows`` windows of ``reps`` calls, the windows taken in turns
+    (a, b, c, a, b, c, ...) after two warm-up calls each, so that a drift
+    of the card's clock moves every function alike."""
+    for fn in fns.values():
+        fn()
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    ms = {name: [] for name in fns}
+    for _ in range(windows):
+        for name, fn in fns.items():
+            ms[name].append(_device_ms(fn, reps))
+    return {name: float(np.median(v)) for name, v in ms.items()}
 
 
 def _visible_pairs(sq, sk, causal):
@@ -482,6 +564,8 @@ def phase_flash_kernels() -> dict:
         ("train gpt2 f32", 8, 1024, 1024, 12, 12, 64, torch.float32),
         ("gqa llama bf16", 2, 2048, 2048, 16, 4, 128, torch.bfloat16),
         ("cross 512x1024 bf16", 8, 512, 1024, 12, 12, 64, torch.bfloat16),
+        # head dim 80 (hidden 640, 8 heads), run padded to 128
+        ("d80 bf16", 8, 1024, 1024, 8, 8, 80, torch.bfloat16),
     ]
     cases, heads = [], {}
     for name, b, sq, sk, hq, hkv, d, dt in shapes:
@@ -515,25 +599,27 @@ def phase_flash_kernels() -> dict:
             "flash_attention_bwd_dkv": [err(dk, want_dk),
                                         err(dv, want_dv)]}
         lib_fwd, lib_bwd = _sdpa_calls(q, k, v, do, causal)
-        timed = {
-            "flash_attention_fwd": (
-                lambda: fa.flash_attention_fwd_kernel(q, k, v, scale,
-                                                      causal),
-                lambda: fa.flash_attention_fwd_torch(q, k, v, scale,
-                                                     causal),
-                lib_fwd),
-            "flash_attention_bwd_dq": (
+        # every kernel in turns with its twin and SDPA; the backward twin
+        # and SDPA's backward compute dQ, dK and dV together, so one time
+        # of each stands in the B2 and the B3 row
+        ms = _time_interleaved({
+            "flash_attention_fwd": lambda: fa.flash_attention_fwd_kernel(
+                q, k, v, scale, causal),
+            "fwd_plain": lambda: fa.flash_attention_fwd_torch(
+                q, k, v, scale, causal),
+            "fwd_library": lib_fwd,
+            "flash_attention_bwd_dq":
                 lambda: fa.flash_attention_bwd_dq_kernel(
                     q, k, v, o, lse, do, scale, causal),
-                lambda: fa.flash_attention_bwd_torch(
-                    q, k, v, o, lse, do, scale, causal), lib_bwd),
-            "flash_attention_bwd_dkv": (
+            "flash_attention_bwd_dkv":
                 lambda: fa.flash_attention_bwd_dkv_kernel(
                     q, k, v, o, lse, do, scale, causal),
-                lambda: fa.flash_attention_bwd_torch(
-                    q, k, v, o, lse, do, scale, causal), lib_bwd)}
-        for kernel, (kern, plain, lib) in timed.items():
+            "bwd_plain": lambda: fa.flash_attention_bwd_torch(
+                q, k, v, o, lse, do, scale, causal),
+            "bwd_library": lib_bwd})
+        for kernel in checks:
             errs = checks[kernel]
+            side = "fwd" if kernel == "flash_attention_fwd" else "bwd"
             bound_ms, bound_by, nbytes, ops = _flash_bound(
                 kernel, b, sq, sk, hq, hkv, d, causal, dt)
             case = {"phase": "kernel_case", "kernel": kernel, "case": name,
@@ -545,14 +631,17 @@ def phase_flash_kernels() -> dict:
                     "err_over_limit": [r for _, r in errs],
                     "ok": all(math.isfinite(r) and r <= 1.0
                               for _, r in errs),
-                    "ms": _time_calls(kern), "plain_ms": _time_calls(plain),
-                    "library_ms": _time_calls(lib), "bound_ms": bound_ms,
+                    "ms": ms[kernel], "plain_ms": ms[f"{side}_plain"],
+                    "library_ms": ms[f"{side}_library"],
+                    "timing": f"device time, median of {FLASH_WINDOWS} "
+                              f"windows of {FLASH_REPS} calls, in turns",
+                    "bound_ms": bound_ms,
                     "bound_by": bound_by, "bytes": nbytes, "ops": ops}
             emit(case)
             cases.append(case)
             heads.setdefault(kernel, case)   # the gpt2 bf16 train shape
         del q, k, v, do, o, lse, want_o, want_lse, dq, dk, dv
-        del want_dq, want_dk, want_dv, lib_fwd, lib_bwd, timed
+        del want_dq, want_dk, want_dv, lib_fwd, lib_bwd
         torch.cuda.empty_cache()
     bad = [(c["kernel"], c["case"], c["max_abs_err"]) for c in cases
            if not c["ok"]]

@@ -3,8 +3,10 @@ batch-level part of ``paddle_tpu/hapi/model.py``).
 
 ``prepare`` takes the optimizer, the loss and the AMP configuration;
 ``train_batch`` runs one eager step on the network's device: the
-forward under the AMP context, the loss outside it (as in the JAX
-package's step), ``loss.float().backward()``, then the optimizer's
+forward under the AMP context and under ``rng.key_guard`` of the step's
+key (``rng.split_for_step(step)``, so that dropout draws the JAX
+package's masks), the loss outside it (as in the JAX package's step),
+``loss.float().backward()``, then the optimizer's
 ``apply_in_place`` (its pure ``apply_gradients``, written back into the
 parameters) at ``step_idx = self._step_count`` on the model's own
 optimizer state. It returns the loss as a 0-dim device tensor and never
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import amp
+from ..core import rng
 from ..optimizer.optimizer import Optimizer
 
 
@@ -109,7 +112,8 @@ class Model:
         labels = self._to_device(_as_tuple(labels)) \
             if labels is not None else ()
         params = self._trainable()
-        with self._amp_context():
+        with rng.key_guard(rng.split_for_step(self._step_count)), \
+                self._amp_context():
             out = self.network(*inputs)
         loss = self._compute_loss(out, labels).float()
         loss.backward()

@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as TF
 
 from .. import amp
-from ..core import flags
+from ..core import flags, rng, threefry
 
 
 def gelu(x, approximate: bool = False):
@@ -53,11 +53,24 @@ def embedding(ids, weight, padding_idx: Optional[int] = None):
     return out
 
 
-def dropout(x, p: float = 0.5, training: bool = True):
-    """Paddle's default "upscale_in_train" dropout."""
+def dropout(x, p: float = 0.5, training: bool = True,
+            mode: str = "upscale_in_train", rng_name: str = "global"):
+    """Dropout with the JAX package's masks: ``uniform(key) < 1 - p``
+    under JAX's threefry, on the key ``rng.next_key(rng_name)`` (the
+    recipe of ``jax.random.bernoulli``), so that a step under the same
+    ``key_guard`` drops the same elements in both packages. As there,
+    ``x / keep`` divides by ``keep`` rounded to x's dtype (JAX's weak
+    type)."""
     if not training or p == 0.0:
+        if mode == "downscale_in_infer" and not training:
+            return x * (1.0 - p)
         return x
-    return TF.dropout(x, p, training=True)
+    keep = 1.0 - p
+    key = rng.next_key(rng_name).to(x.device)
+    mask = threefry.uniform(key, x.shape) < keep
+    if mode == "upscale_in_train":
+        x = x / torch.tensor(keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, x, 0.0).to(x.dtype)
 
 
 def _f32_stats(x):

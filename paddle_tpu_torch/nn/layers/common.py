@@ -50,9 +50,10 @@ class Embedding(Layer):
 
 
 class Dropout(Layer):
-    def __init__(self, p: float = 0.5):
+    def __init__(self, p: float = 0.5, mode: str = "upscale_in_train"):
         super().__init__()
         self.p = p
+        self.mode = mode
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training)
+        return F.dropout(x, self.p, training=self.training, mode=self.mode)

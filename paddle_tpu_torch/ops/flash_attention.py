@@ -16,6 +16,12 @@ a run on the card can be compared with its kernels.
 
 The kernels read q/k/v through their (b, s, h) strides, so the strided
 views GPT's attention cuts from its fused qkv projection are not copied.
+Each kernel is built at a few padded head dims (:func:`padded_head_dim`
+picks one for the operands' head dim d and dtype): tiles are loaded
+with zeros in columns d..D-1, which change neither QK^T nor the written
+columns, and stored in columns < d only. In bfloat16 and float16, B1 and
+B2 run on the tensor cores (``mma.sync``); float32 runs the SIMT
+kernels, as does B3 in every dtype.
 """
 
 from __future__ import annotations
@@ -35,15 +41,29 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0}
 
-# dtype codes and head dims of csrc/flash_attention.cu
+# dtype codes and padded head dims of csrc/flash_attention.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (64, 128)
+PADDED_HEAD_DIMS = (64, 128, 256)
+# float32 stops at 128: its SIMT B2 and B3 stage float32 tiles, which at
+# 256 would take 280 and 297 KB of shared memory (a block may use 227 KB)
+_MAX_HEAD_DIM = {torch.float32: 128, torch.bfloat16: 256, torch.float16: 256}
 _TILE = 64
 _FWD, _BWD_DQ, _BWD_DKV = 0, 1, 2
 _launcher = None
 
 # "kernel": CUDA tensors launch B1-B3; "plain": the twins run everywhere
 impl = "kernel"
+
+
+def padded_head_dim(d: int, dtype: torch.dtype) -> Optional[int]:
+    """The head dim D at which the kernels run head dim ``d`` in
+    ``dtype``: the smallest of :data:`PADDED_HEAD_DIMS` that is >= d, for
+    a multiple of 8 (rows of whole 16-byte chunks) up to 256 in bfloat16
+    and float16 and up to 128 in float32; None where no kernel takes it
+    (ROADMAP Queue C)."""
+    if d <= 0 or d % 8 or d > _MAX_HEAD_DIM[dtype]:
+        return None
+    return next(D for D in PADDED_HEAD_DIMS if d <= D)
 
 
 def _pick_block(seq: int, target: int) -> int:
@@ -126,7 +146,7 @@ def _load_launcher():
     if _launcher is None:
         fn = _kernels.library("flash_attention").flash_attention_launch
         i = ctypes.c_int
-        fn.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_void_p),
+        fn.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_void_p),
                        ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i,
                        ctypes.c_float, i, ctypes.c_void_p]
         fn.restype = i
@@ -153,11 +173,12 @@ def _check_cuda_args(q, k, v, *more):
     if k.shape[0] != b or k.shape[3] != d or hq % k.shape[2]:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if d not in _HEAD_DIMS:
+    if padded_head_dim(d, q.dtype) is None:
         raise NotImplementedError(
-            f"head_dim {d} has no instantiation of the flash kernels on "
-            f"the card (built: {_HEAD_DIMS}; ROADMAP Queue C: head dims "
-            f"admitted by flash_attention_available but not instantiated)")
+            f"head_dim {d} in {q.dtype} has no instantiation of the flash "
+            f"kernels on the card (they take multiples of 8 up to "
+            f"{_MAX_HEAD_DIM[q.dtype]}; ROADMAP Queue C: float32 above 128, "
+            f"any dtype above 256)")
     if sq % _TILE or k.shape[1] % _TILE:
         raise NotImplementedError(
             f"the flash kernels take sequence lengths that are multiples "
@@ -172,8 +193,20 @@ def _strides(x):
     return list(x.stride()[:3]) if x is not None else [0, 0, 0]
 
 
+def _aligned(x):
+    """Input ``x`` itself if its rows start on 16 bytes (the kernels copy
+    whole 16-byte chunks), else a contiguous copy."""
+    if x is None or (x.data_ptr() % 16 == 0 and all(
+            st * x.element_size() % 16 == 0 for st in x.stride()[:3])):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def _launch(which, q, k, v, o, do, lse, dq, dk, dv, sm_scale, causal):
     fn = _load_launcher()
+    q, k, v, do = (_aligned(x) for x in (q, k, v, do))
+    if which != _FWD:   # B1 writes o, B2 and B3 read it
+        o = _aligned(o)
     ptrs = (ctypes.c_void_p * 9)(*[
         None if x is None else x.data_ptr()
         for x in (q, k, v, o, do, lse, dq, dk, dv)])
@@ -181,9 +214,9 @@ def _launch(which, q, k, v, o, do, lse, dq, dk, dv, sm_scale, causal):
     strides = (ctypes.c_longlong * 24)(*st)
     b, sq, hq, d = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(which, _DTYPE_CODES[q.dtype], d, ptrs, strides, b, sq,
-             k.shape[1], hq, k.shape[2], float(sm_scale), int(causal),
-             stream)
+    err = fn(which, _DTYPE_CODES[q.dtype], d, padded_head_dim(d, q.dtype),
+             ptrs, strides, b, sq, k.shape[1], hq, k.shape[2],
+             float(sm_scale), int(causal), stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel {which} launch failed: "
                            f"cudaError {err}")

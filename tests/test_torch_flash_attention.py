@@ -48,6 +48,9 @@ FWD_CASES = {
     "cross": ((1, 128, 2, 64), (1, 256, 2, 64), False, "float32"),
     "cross-causal": ((1, 128, 2, 64), (1, 256, 2, 64), True, "float32"),
     "bf16-causal": ((1, 128, 2, 64), (1, 128, 2, 64), True, "bfloat16"),
+    # head dims the kernels run padded to 128
+    "d80-causal": ((1, 128, 2, 80), (1, 128, 2, 80), True, "float32"),
+    "d96-gqa": ((1, 128, 4, 96), (1, 128, 2, 96), False, "float32"),
 }
 GRAD_CASES = {
     "mha": ((1, 128, 2, 64), (1, 128, 2, 64), False, "float32"),
@@ -55,6 +58,8 @@ GRAD_CASES = {
     "gqa-causal": ((1, 128, 4, 64), (1, 128, 2, 64), True, "float32"),
     "cross-causal": ((1, 128, 2, 64), (1, 256, 2, 64), True, "float32"),
     "bf16-causal": ((1, 128, 2, 64), (1, 128, 2, 64), True, "bfloat16"),
+    "d80-causal": ((1, 128, 2, 80), (1, 128, 2, 80), True, "float32"),
+    "d96-gqa-causal": ((1, 128, 4, 96), (1, 128, 2, 96), True, "float32"),
 }
 
 
@@ -200,6 +205,23 @@ def test_pick_block_matches_jax(n):
     assert tfa._pick_block(n, 128) == jfa._pick_block(n, 128)
 
 
+@pytest.mark.parametrize("d,D,D_f32", [
+    (64, 64, 64), (8, 64, 64), (56, 64, 64), (72, 128, 128),
+    (80, 128, 128), (96, 128, 128), (128, 128, 128), (136, 256, None),
+    (192, 256, None), (256, 256, None), (264, None, None),
+    (68, None, None), (0, None, None)])
+def test_padded_head_dim(d, D, D_f32):
+    """Every head dim flash_attention_available admits up to 256 runs
+    at a built padded dim in the half types, and up to 128 in float32;
+    what stays out (ROADMAP Queue C) is float32 above 128, any dtype above
+    256, and what no 16-byte row holds."""
+    for dtype in (torch.bfloat16, torch.float16):
+        assert tfa.padded_head_dim(d, dtype) == D
+    assert tfa.padded_head_dim(d, torch.float32) == D_f32
+    if D is not None:
+        assert d <= D and D in tfa.PADDED_HEAD_DIMS
+
+
 def test_mask_value_matches_jax():
     assert tfa.DEFAULT_MASK_VALUE == jfa.DEFAULT_MASK_VALUE
 
@@ -294,6 +316,13 @@ CARD_CASES = {
     "f32-gqa-d128": (1, 128, 128, 4, 2, 128, True, "float32"),
     "bf16-cross-causal": (1, 128, 256, 2, 2, 64, True, "bfloat16"),
     "f16-cross": (1, 128, 256, 2, 2, 64, False, "float16"),
+    "f16-causal": (2, 256, 256, 4, 4, 64, True, "float16"),
+    "bf16-d80-causal": (2, 256, 256, 4, 4, 80, True, "bfloat16"),
+    "f32-d80-causal": (1, 192, 192, 2, 2, 80, True, "float32"),
+    "f16-gqa-d96": (1, 128, 256, 4, 2, 96, True, "float16"),
+    "bf16-d72": (1, 128, 128, 2, 2, 72, False, "bfloat16"),
+    "bf16-d256-causal": (1, 192, 192, 2, 2, 256, True, "bfloat16"),
+    "f16-gqa-d192": (1, 128, 256, 4, 2, 192, True, "float16"),
 }
 
 
@@ -356,6 +385,25 @@ def test_kernels_match_twins_on_card(case):
 def test_kernel_refuses_unbuilt_head_dim_on_card():
     if not torch.cuda.is_available():
         pytest.skip("kernels B1-B3 run only on a CUDA card")
-    q = torch.zeros(1, 128, 2, 96, device="cuda")
-    with pytest.raises(NotImplementedError, match="Queue C"):
-        tfa.flash_attention_fwd_kernel(q, q, q, 0.1, True)
+    for d, dtype in ((256, torch.float32), (264, torch.bfloat16)):
+        q = torch.zeros(1, 128, 2, d, device="cuda", dtype=dtype)
+        with pytest.raises(NotImplementedError, match="Queue C"):
+            tfa.flash_attention_fwd_kernel(q, q, q, 0.1, True)
+
+
+@pytest.mark.cuda
+def test_misaligned_views_give_the_aligned_result_on_card():
+    """Operands whose rows do not start on 16 bytes are copied before
+    the launch, not read astray."""
+    if not torch.cuda.is_available():
+        pytest.skip("kernels B1-B3 run only on a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    base = torch.randn(1, 128, 2 * 64 + 1, generator=g,
+                       device="cuda").to(torch.bfloat16)
+    q = base[..., 1:].reshape(1, 128, 2, 64)   # 2-byte offset
+    o, lse = tfa.flash_attention_fwd_kernel(q, q, q, 0.125, True)
+    want, want_lse = tfa.flash_attention_fwd_kernel(q.contiguous(),
+                                                    q.contiguous(),
+                                                    q.contiguous(), 0.125,
+                                                    True)
+    assert torch.equal(o, want) and torch.equal(lse, want_lse)

@@ -14,15 +14,20 @@ the result line:
    toolkit has ``cuobjdump``, each kernel's count of tensor-core
    instructions in its SASS);
 3. kernels: kernel B4 against its plain PyTorch twin at the serving
-   path's shapes and dtypes, with its time beside the plain twin's, a
-   one-call PyTorch yardstick's and the least time the card could take;
+   path's shapes and dtypes (decode, a prefill chunk of two sequences
+   and padding, GQA, one 1024-token row, head dims 80 and 256), with its
+   device time (``torch.profiler``; CUDA events beside it) beside the
+   plain twin's, a one-call PyTorch yardstick's and the least time the
+   card could take;
 4. flash kernels: B1, B2 and B3 the same way at the training path's
    shapes (gpt2-small bf16 and f32, llama-style GQA, cross-length, head
-   dim 80), each kernel's device time (``torch.profiler``) taken in
+   dim 80, and head dims 256 f32, 320 bf16 and 264 f16 in the split-d
+   kernels), each kernel's device time (``torch.profiler``) taken in
    turns with its twin's and SDPA's (median of 3 windows of 20 calls);
 5. serve: GPT-2-small at full width (random weights from ``seed(0)``)
    serving eight requests through ``LLMEngine`` on kernel B4, then on
-   the plain twin (token streams must be identical), then 32 greedy
+   the plain twin (token streams must be identical), then once more
+   under ``torch.profiler`` (device time by kernel), then 32 greedy
    streams on an int8 KV pool against an f32 pool (agreement >= 0.9);
 6. train: GPT-2-small at full width as ``bench.py bench_gpt`` configures
    it (seq 1024, batch 8, fused loss, AdamW 1e-4 / wd 0.01, AMP O1)
@@ -40,6 +45,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -102,13 +108,15 @@ def phase_device() -> dict:
 
 
 def _kernel_name(mangled: str) -> str:
-    """``flash_fwd_mma<__nv_bfloat16,64>`` from a mangled kernel name."""
+    """``flash_fwd_mma<__nv_bfloat16,64>`` or ``paged_attention<int8>``
+    from a mangled kernel name."""
     m = re.search(r"\d+((?:flash|paged)_[a-z_]+?)I(?:\d+(__nv_bfloat16|"
-                  r"__half)|([fa]))Li(\d+)E", mangled)
+                  r"__half)|([fa]))(?:Li(\d+)E)?E", mangled)
     if m:
         dtype = m.group(2) or {"f": "float", "a": "int8"}[m.group(3)]
-        return f"{m.group(1)}<{dtype},{m.group(4)}>"
-    m = re.search(r"\d+((?:flash|paged)_\w+?)(?:I|Ev|$)", mangled)
+        d = f",{m.group(4)}" if m.group(4) else ""
+        return f"{m.group(1)}<{dtype}{d}>"
+    m = re.search(r"\d+((?:flash|paged)_[a-z_]+?)[IE]", mangled)
     return m.group(1) if m else mangled[:80]
 
 
@@ -159,12 +167,14 @@ def phase_build() -> None:
           "per_kernel_s": per_kernel, "nvcc": nvcc,
           "flags": list(_kernels.NVCC_FLAGS), "ptxas": ptxas,
           "sass_tensor_core_instructions": sass})
-    # the half-type B1 and B2 are tensor-core kernels: their SASS must
-    # hold mma instructions
+    # the half-type B1, B2 and B3 are tensor-core kernels: the SASS of
+    # each must hold mma instructions
     flash = sass.get("flash_attention")
     if flash is not None:
         mma = {k: v for k, v in flash.items() if "_mma<" in k}
-        if len(mma) < 4 or not all(mma.values()):
+        kinds = {k.split("<")[0] for k in mma}
+        if kinds != {"flash_fwd_mma", "flash_bwd_dq_mma",
+                     "flash_bwd_dkv_mma"} or not all(mma.values()):
             raise SystemExit(f"tensor-core flash kernels without mma "
                              f"instructions in their SASS: {mma}")
 
@@ -207,9 +217,12 @@ def _layer_args(pools, i):
             None if vs is None else vs[i])
 
 
-def _time_ms(fn) -> float:
-    """Mean ms of one call, over LAYERS calls on the LAYERS pools (so
-    L2 holds no layer's pages when its turn comes), after warm-up."""
+def _time_ms(fn):
+    """Mean ms of one call over LAYERS calls on the LAYERS pools (so L2
+    holds no layer's pages when its turn comes), after warm-up: the
+    device time of its kernels from ``torch.profiler`` and, beside it,
+    CUDA events around the calls (which also count the gaps in which the
+    card waits for the host's launches)."""
     for i in range(LAYERS):
         fn(i)
     torch.cuda.synchronize()
@@ -221,7 +234,9 @@ def _time_ms(fn) -> float:
             fn(i)
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / (REPS * LAYERS)
+    events = start.elapsed_time(end) / (REPS * LAYERS)
+    layer = itertools.cycle(range(LAYERS))
+    return _device_ms(lambda: fn(next(layer)), REPS * LAYERS), events
 
 
 def _bound(lens, seqs, t, heads, kv_heads, d, pages_per_seq, kv_dtype,
@@ -286,18 +301,26 @@ def phase_kernels() -> dict:
     # first 20 of another, 4 padding rows
     chunk_lens = list(range(861, 901)) + list(range(1, 21)) + [0] * 4
     chunk_seqs = [0] * 40 + [1] * 20 + [2] * 4
-    shapes = [
-        ("decode gpt2", 8, 12, 12, 64, decode_lens, list(range(8))),
-        ("chunk gpt2", 64, 12, 12, 64, chunk_lens, chunk_seqs),
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    all_dtypes = [(f32, f32), (bf16, f32), (bf16, bf16), (i8, f32)]
+    shapes = [  # name, T, heads, kv heads, d, lens, seqs, (kv, q) dtypes
+        ("decode gpt2", 8, 12, 12, 64, decode_lens, list(range(8)),
+         all_dtypes),
+        ("chunk gpt2", 64, 12, 12, 64, chunk_lens, chunk_seqs, all_dtypes),
         ("decode llama-gqa", 8, 16, 4, 128,
-         [int(n) for n in rng.permutation(decode_lens)], list(range(8))),
+         [int(n) for n in rng.permutation(decode_lens)], list(range(8)),
+         all_dtypes),
+        # one row with a 1024-token context: the page split's own case
+        ("decode long row", 1, 12, 12, 64, [1024], [0],
+         [(f32, f32), (i8, f32)]),
+        # head dim 80 (hidden 640, 8 heads) and 256, zero-filled
+        ("decode d80", 8, 8, 8, 80, decode_lens, list(range(8)),
+         [(f32, f32)]),
+        ("decode d256 gqa", 8, 8, 2, 256, decode_lens, list(range(8)),
+         [(bf16, f32)]),
     ]
-    dtypes = [(torch.float32, torch.float32), (torch.bfloat16,
-                                               torch.float32),
-              (torch.bfloat16, torch.bfloat16), (torch.int8,
-                                                 torch.float32)]
     cases = []
-    for name, t, heads, kv_heads, d, lens_list, seqs in shapes:
+    for name, t, heads, kv_heads, d, lens_list, seqs, dtypes in shapes:
         for kv_dtype, q_dtype in dtypes:
             pools, tables, lens, q = _case_inputs(
                 g, t, heads, kv_heads, d, kv_dtype, q_dtype, lens_list,
@@ -326,10 +349,10 @@ def phase_kernels() -> dict:
                 return pa.paged_attention_torch(q, a[0], a[1], tables,
                                                 lens, k_scales=a[2],
                                                 v_scales=a[3])
-            ms = _time_ms(kern)
-            plain_ms = _time_ms(plain)
-            library_ms = _time_ms(_library_fn(pools, tables, lens, q,
-                                              heads, kv_heads))
+            ms, ms_events = _time_ms(kern)
+            plain_ms, _ = _time_ms(plain)
+            library_ms, _ = _time_ms(_library_fn(pools, tables, lens, q,
+                                                 heads, kv_heads))
             bound_ms, bound_by, nbytes, ops = _bound(
                 lens_list, seqs, t, heads, kv_heads, d, tables.shape[1],
                 kv_dtype, q_dtype)
@@ -340,9 +363,12 @@ def phase_kernels() -> dict:
                     "pages_per_seq": tables.shape[1],
                     "kv_dtype": str(kv_dtype), "q_dtype": str(q_dtype),
                     "lens": lens_list, "max_abs_err": err, "tol": tol,
-                    "ok": ok, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": library_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+                    "ok": ok, "ms": ms, "ms_events": ms_events,
+                    "plain_ms": plain_ms, "library_ms": library_ms,
+                    "timing": f"device time (torch.profiler) of "
+                              f"{REPS * LAYERS} calls over {LAYERS} pools",
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bytes": nbytes, "ops": ops}
             emit(case)
             cases.append(case)
             del pools, got, want
@@ -413,6 +439,12 @@ def phase_serve() -> int:
                            "main")
     outs_p, run_p = _serve(net, prompts, temps, nonces, "plain", "f32",
                            "plain twin")
+    # the main run again under torch.profiler: where serving's device
+    # time goes, by kernel
+    emit(_profile(lambda: _serve(net, prompts, temps, nonces, "kernel",
+                                 "f32", "profiled"),
+                  1, "run", phase="serve", run="profile",
+                  requests=len(prompts)))
     # int8 pool against the f32 pool: greedy streams of the 8 serve
     # prompts and 24 more (a flipped argmax derails the rest of its
     # stream, so the floor is held over 32 streams, not 4)
@@ -465,23 +497,27 @@ def phase_serve() -> int:
 # kernels B1, B2, B3 against their plain twins
 # ---------------------------------------------------------------------------
 
-def _device_ms(fn, reps) -> float:
+def _device_ms(fn, reps, attempts=3) -> float:
     """Device ms of one call of ``fn``: the time its kernels run on the
     card over ``reps`` calls, from ``torch.profiler``. CUDA events around
     the calls would also count the gaps in which the card waits for the
     host: SDPA's autograd backward takes more host time to launch than
-    its kernels take on the card."""
+    its kernels take on the card. Now and then a profiler window comes
+    back without device events; such a window is run again, up to
+    ``attempts`` windows in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
-    if busy <= 0:
-        raise SystemExit("torch.profiler recorded no device time")
-    return busy / 1e3 / reps
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+        if busy > 0:
+            return busy / 1e3 / reps
+    raise SystemExit(f"torch.profiler recorded no device time in "
+                     f"{attempts} windows")
 
 
 def _time_interleaved(fns, reps=FLASH_REPS, windows=FLASH_WINDOWS):
@@ -566,6 +602,10 @@ def phase_flash_kernels() -> dict:
         ("cross 512x1024 bf16", 8, 512, 1024, 12, 12, 64, torch.bfloat16),
         # head dim 80 (hidden 640, 8 heads), run padded to 128
         ("d80 bf16", 8, 1024, 1024, 8, 8, 80, torch.bfloat16),
+        # split d: the SIMT kernels summing over 64-column slices
+        ("d256 f32 split", 2, 1024, 1024, 8, 8, 256, torch.float32),
+        ("d320 bf16 split", 2, 1024, 1024, 8, 8, 320, torch.bfloat16),
+        ("gqa d264 f16 split", 1, 1024, 1024, 8, 2, 264, torch.float16),
     ]
     cases, heads = [], {}
     for name, b, sq, sk, hq, hkv, d, dt in shapes:
@@ -723,23 +763,22 @@ def _qkv_grad(net, init, ids, impl):
     return g
 
 
-def _profile_steps(model, ids, steps=PROFILE_STEPS):
-    """Device time by kernel over ``steps`` train steps, from
-    ``torch.profiler``: the kernels' own device time (the host ops that
-    launched them carry the same time and are left out), against the
-    host wall of the same window (profiling inflates the wall, so the
-    idle share is an upper bound)."""
+def _profile(work, per, unit, **fields):
+    """Device time by kernel of ``work()``, per ``unit`` (``per`` of them
+    in the window), from ``torch.profiler``: the kernels' own device time
+    (the host ops that launched them carry the same time and are left
+    out), against the host wall of the same window (profiling inflates
+    the wall, so the idle share is an upper bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            model.train_batch([ids], [ids])
+        work()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = sorted(((e.self_device_time_total / 1e3 / steps, e.count / steps,
+        wall = (time.perf_counter() - t0) / per * 1e3
+    rows = sorted(((e.self_device_time_total / 1e3 / per, e.count / per,
                     e.key) for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and
                    e.self_device_time_total > 0), reverse=True)
@@ -749,15 +788,24 @@ def _profile_steps(model, ids, steps=PROFILE_STEPS):
         return sum(r[0] for r in rows
                    if any(w in r[2].lower() for w in words)) / busy \
             if busy else None
-    return {"phase": "train", "run": "profile", "steps": steps,
-            "wall_ms_per_step": wall / steps * 1e3,
-            "device_busy_ms_per_step": busy if busy else "not measured",
-            "idle_share": 1 - busy / (wall / steps * 1e3) if busy else None,
+    return {**fields, f"wall_ms_per_{unit}": wall,
+            f"device_busy_ms_per_{unit}": busy if busy else "not measured",
+            "idle_share": 1 - busy / wall if busy else None,
             "flash_share": share("flash_"),
+            "paged_attention_share": share("paged_attention"),
             "gemm_share": share("gemm", "xmma", "cutlass", "nvjet"),
             "gemm_f32_share": share("f32f32", "sgemm"),
-            "top": [{"kernel": k[:120], "ms_per_step": ms,
-                     "calls_per_step": n} for ms, n, k in rows[:15]]}
+            "top": [{"kernel": k[:120], f"ms_per_{unit}": ms,
+                     f"calls_per_{unit}": n} for ms, n, k in rows[:15]]}
+
+
+def _profile_steps(model, ids, steps=PROFILE_STEPS):
+    """Device time by kernel over ``steps`` train steps."""
+    def work():
+        for _ in range(steps):
+            model.train_batch([ids], [ids])
+    return _profile(work, steps, "step", phase="train", run="profile",
+                    steps=steps)
 
 
 def _peak_fwd_bwd(net, crit, ids):

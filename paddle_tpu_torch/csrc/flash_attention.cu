@@ -18,12 +18,16 @@
 //   B3: dV = P^T . dO and dK = dS^T . Q, summed over the q heads of the
 //       GQA group inside the block (the TPU kernel writes per-q-head f32
 //       partials and sums them afterwards), written in k's / v's dtype.
-// Every sum is float32; inputs are read as their dtype.
+// Every sum is float32; inputs are read as their dtype. delta is computed
+// once per (b, q head, q row) by flash_bwd_delta into a float32 buffer
+// that B2 and B3 read (the TPU kernels recompute it per tile).
 //
-// Head dims. Each kernel is instantiated at a padded head dim D (64, 128,
-// and 256 in the half types) and takes the operands' d <= D at run time:
-// loads fill columns d..D-1 with zeros, which change neither q . k nor the
-// columns < d of a product, and stores write columns < d only.
+// Head dims: any multiple of 8. The tensor-core kernels are instantiated
+// at a padded head dim D (64, 128, 256) and take the operands' d <= D at
+// run time: loads fill columns d..D-1 with zeros, which change neither
+// q . k nor the columns < d of a product, and stores write columns < d
+// only. The SIMT kernels take any d at D = 64 or 128 by summing the score
+// tiles over d in D-column slices (see "Split d" below).
 //
 // Bound. Each kernel does 4-8 flops per visible (query, key) pair per
 // head-dim element. At the gpt2-small train shape (s 1024, d 64, causal)
@@ -36,37 +40,39 @@
 //
 // Two designs.
 //
-// bf16 / f16, B1 and B2 (flash_fwd_mma, flash_bwd_dq_mma): FlashAttention-2
-// on the tensor cores. A block of 4 warps owns a 64-row q tile of one
-// (b, q head), 16 rows a warp, and walks the 64-key tiles of K and V. The
-// tiles stay in the input dtype in shared memory, in rows of 16-byte
-// chunks whose chunk index is XORed with the row (so the 8 rows of one
-// ldmatrix fall in 8 distinct bank groups), loaded by cp.async into two
-// stages: tile kt+1 is in flight while tile kt is computed. Products are
-// mma.sync m16n8k16 with float32 sums; operands come from ldmatrix (V and,
-// in B2, K transposed by ldmatrix.trans). The score tile stays in
-// registers: the online softmax reduces a row over its quad of lanes, and
-// since the m16n8 accumulator layout is the m16n8k16 A-operand layout, the
-// rounded P (B1) or dS (B2) feeds the next product without a trip through
-// shared memory. B2 keeps dS . K at float32-level accuracy, as the TPU
-// kernel's f32 product: dS is split into hi = round(dS) and
-// lo = round(dS - hi) in the input dtype and both are multiplied by the
-// exact K (about 16 mantissa bits of dS). Only the diagonal k tile is
-// masked; tiles above it are skipped; q tiles are scheduled heaviest
-// first (reverse order on the grid's slowest axis) to shorten the tail.
+// bf16 / f16 up to d = 256 (flash_fwd_mma, flash_bwd_dq_mma,
+// flash_bwd_dkv_mma): FlashAttention-2 on the tensor cores. A block of 4
+// warps owns a 64-row tile (B1, B2: q rows of one (b, q head); B3: k rows
+// of one (b, kv head)), 16 rows a warp, and walks the 64-row tiles of the
+// other side. The tiles stay in the input dtype in shared memory, in rows
+// of 16-byte chunks whose chunk index is XORed with the row (so the 8
+// rows of one ldmatrix fall in 8 distinct bank groups), loaded by cp.async
+// into two stages: tile kt+1 is in flight while tile kt is computed.
+// Products are mma.sync m16n8k16 with float32 sums; operands come from
+// ldmatrix (.trans where the tile is the B operand's k-major side). The
+// score tile stays in registers: since the m16n8 accumulator layout is the
+// m16n8k16 A-operand layout, the rounded P (B1), dS (B2) or P^T and dS^T
+// (B3, which computes the transposed tiles K Q^T and V dO^T so that their
+// rows are its k rows) feed the next product without a trip through
+// shared memory. Where the reference's product is float32 (dS . K in B2,
+// P^T . dO and dS^T . Q in B3), the score operand is split into
+// hi = round(x) and lo = round(x - hi) in the input dtype and both are
+// multiplied by the exact other operand (about 16 mantissa bits). Only the
+// diagonal tile is masked; tiles beyond it are skipped; the heaviest tiles
+// are scheduled first (the grid's slowest axis) to shorten the tail.
 //
-// float32 (B1, B2) and B3 in every dtype (flash_fwd, flash_bwd_dq,
+// float32, and the half types above d = 256 (flash_fwd, flash_bwd_dq,
 // flash_bwd_dkv): SIMT float32 FMAs. One block of 256 threads owns a
 // 64-row tile (B1, B2: q rows of one (b, q head); B3: k rows of one
 // (b, kv head)) and loops over the 64-row tiles of the other side, staged
-// in shared memory as float32 (B3 at D = 256: in the half dtype) in rows
-// padded to an odd count of 32-bit words. Each thread keeps a 4 x 4 block
-// of the 64 x 64 score tile and a 4 x D/16 block of the output tile in
-// registers; a row's 16 owners reduce with shuffles. There is no
-// full-float32 tensor-core product (TF32 keeps 10 mantissa bits).
+// in shared memory as float32 in rows padded to an odd count of 32-bit
+// words. Each thread keeps a 4 x 4 block of the 64 x 64 score tile and a
+// 4 x D/16 block of the output tile in registers; a row's 16 owners
+// reduce with shuffles. There is no full-float32 tensor-core product
+// (TF32 keeps 10 mantissa bits).
 //
-// Both run k tile 0 first, which every row sees, so the finite mask value
-// never leaks into a result.
+// B1 runs k tile 0 first, which every row sees, so the finite mask value
+// never leaks into a result; B2 and B3 give masked entries P = 0.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -103,12 +109,13 @@ struct Params {
   void* o;           // B1 writes it, B2/B3 read it
   const void* dout;  // dO
   float* lse;        // [b, hq, sq], contiguous
+  float* delta;      // [b, hq, sq], contiguous: rowsum(O * dO)
   void* dq;
   void* dk;
   void* dv;
   Strides st[kSlots];
   int sq, sk, hq, hkv;
-  int d;             // the operands' head dim, <= the kernel's D
+  int d;             // the operands' head dim (any multiple of 8)
   float scale;
   int causal;
 };
@@ -173,66 +180,47 @@ __device__ __forceinline__ int k_tiles_seen(const Params& p, int q0) {
 // SIMT kernels (float32 B1/B2, B3 in every dtype)
 // ---------------------------------------------------------------------------
 
-// The SIMT kernels stage their tiles in shared memory as float32 (type
-// S = float), except B3 at D = 256 in the half types, whose tiles keep the
-// input dtype: as float32 they would take 297 KB, above a block's 227 KB.
-// A row is padded to an odd count of 32-bit words (D + 1 floats, D + 2
-// halves), so that 16 lanes reading one column of 16 rows hit 16 banks.
+// The SIMT kernels stage their tiles in shared memory as float32, in rows
+// padded to D + 1 floats, so that 16 lanes reading one column of 16 rows
+// hit 16 banks.
+//
+// Split d. A kernel instantiated at D takes any d: the score tiles S
+// (and dP) are summed over the head dim in slices of D columns streamed
+// through shared memory, and grid axis z runs over the D-column slices
+// of the output, each block accumulating only its own slice of O, dQ or
+// dK and dV. With d <= D there is one slice, and the block's own tiles
+// stay resident; with d > D (D = 64: float32 above 128, the half types
+// above 256) the tiles are re-staged slice by slice, so shared memory
+// does not grow with d. Only the block of slice 0 writes the lse.
+
+// Stage rows s0 .. s0+63 of (b, h), columns c0 .. c0+D-1, as float32
+// with zeros in columns >= d.
 template <typename T, int D>
-using b3_stage_t =
-    std::conditional_t<(D > 128 && !std::is_same<T, float>::value), T,
-                       float>;
-
-template <typename S, int D>
-__host__ __device__ constexpr int stage_ld() {
-  return sizeof(S) == sizeof(float) ? D + 1 : D + 2;
-}
-
-// Stage rows s0 .. s0+63 of (b, h) as S, with zeros in columns d .. D-1.
-template <typename T, int D, typename S>
-__device__ __forceinline__ void load_tile(S* dst, const void* base,
+__device__ __forceinline__ void load_tile(float* dst, const void* base,
                                           const Strides& st, int b, int s0,
-                                          int h, int d) {
-  constexpr int LD = stage_ld<S, D>();
-  const T* src = row_ptr<T>(base, st, b, s0, h);
+                                          int h, int c0, int d) {
+  constexpr int LD = D + 1;
+  const T* src = row_ptr<T>(base, st, b, s0, h) + c0;
   for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
     const int r = idx / D;
     const int c = idx - r * D;
-    dst[r * LD + c] = from_f32<S>(c < d ? to_f32(src[r * st.s + c]) : 0.f);
+    dst[r * LD + c] = c0 + c < d ? to_f32(src[r * st.s + c]) : 0.f;
   }
-}
-
-// delta[r] = rowsum(O * dO) of rows s0 .. s0+63, dO staged in smem:
-// four lanes per row.
-template <typename T, int D, typename S>
-__device__ __forceinline__ void row_delta(float* delta, const Params& p,
-                                          const S* dos, int b, int s0,
-                                          int h) {
-  constexpr int LD = stage_ld<S, D>();
-  const int r = threadIdx.x >> 2;
-  const int part = threadIdx.x & 3;
-  const T* o = row_ptr<T>(p.o, p.st[kO], b, s0 + r, h);
-  float acc = 0.f;
-  for (int c = part; c < p.d; c += 4)
-    acc += to_f32(o[c]) * to_f32(dos[r * LD + c]);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  if (part == 0) delta[r] = acc;
 }
 
 // a[i][j] += A[row(i)] . B[col(j)] over D, for this thread's rows
 // tr*4+i and columns tc+16j of a 64 x 64 tile
-template <int D, typename S>
-__device__ __forceinline__ void tile_dot(float (&a)[4][4], const S* A,
-                                         const S* B, int tr, int tc) {
-  constexpr int LD = stage_ld<S, D>();
+template <int D>
+__device__ __forceinline__ void tile_dot(float (&a)[4][4], const float* A,
+                                         const float* B, int tr, int tc) {
+  constexpr int LD = D + 1;
 #pragma unroll 8
   for (int d = 0; d < D; ++d) {
     float x[4], y[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = to_f32(A[(tr * 4 + i) * LD + d]);
+    for (int i = 0; i < 4; ++i) x[i] = A[(tr * 4 + i) * LD + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = to_f32(B[(tc + 16 * j) * LD + d]);
+    for (int j = 0; j < 4; ++j) y[j] = B[(tc + 16 * j) * LD + d];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -240,7 +228,66 @@ __device__ __forceinline__ void tile_dot(float (&a)[4][4], const S* A,
   }
 }
 
-// B1, SIMT
+// acc[i][j] += sum_kk X[row(i)][kk] * Y[kk][col(j)], X a [64][kLP] score
+// tile (row-major if !xt, else read as its transpose), Y a staged tile
+template <int D, bool XT>
+__device__ __forceinline__ void tile_product(float (&acc)[4][D / 16],
+                                             const float* X, const float* Y,
+                                             int tr, int tc) {
+  constexpr int LD = D + 1;
+#pragma unroll 4
+  for (int kk = 0; kk < kTile; ++kk) {
+    float x[4], y[D / 16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = XT ? X[kk * kLP + tr * 4 + i] : X[(tr * 4 + i) * kLP + kk];
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) y[j] = Y[kk * LD + tc + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+  }
+}
+
+// Rows of this thread's output block (rows s0 + tr*4+i, columns
+// c0 + tc+16j < d) in T.
+template <typename T, int D>
+__device__ __forceinline__ void store_block(void* base, const Strides& st,
+                                            int b, int s0, int h, int c0,
+                                            int d, const float (&acc)[4][D / 16],
+                                            int tr, int tc) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    T* row = static_cast<T*>(base) + b * st.b + (s0 + tr * 4 + i) * st.s +
+             h * st.h + c0;
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j)
+      if (c0 + tc + 16 * j < d) row[tc + 16 * j] = from_f32<T>(acc[i][j]);
+  }
+}
+
+// delta[b, h, s] = rowsum(O * dO) in float32, one warp per row: read by
+// B2 and B3 (the TPU kernels recompute it per tile)
+template <typename T>
+__global__ void __launch_bounds__(kThreads) flash_bwd_delta(Params p,
+                                                            int rows) {
+  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const int s = row % p.sq;
+  const int bh = row / p.sq;
+  const T* o = row_ptr<T>(p.o, p.st[kO], bh / p.hq, s, bh % p.hq);
+  const T* dout = row_ptr<T>(p.dout, p.st[kDO], bh / p.hq, s, bh % p.hq);
+  float acc = 0.f;
+  for (int c = lane; c < p.d; c += 32) acc += to_f32(o[c]) * to_f32(dout[c]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) p.delta[row] = acc;
+}
+
+// B1, SIMT; grid (q tile, head + hq * batch, output slice)
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_fwd(Params p) {
   constexpr int LD = D + 1;
@@ -252,14 +299,17 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Params p) {
   float* ps = vs + kTile * LD;  // [64][kLP]
 
   const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.y % p.hq;
+  const int b = blockIdx.y / p.hq;
+  const int c0 = blockIdx.z * D;  // this block's output columns
   const int kvh = h / (p.hq / p.hkv);
   const int tr = threadIdx.x >> 4;
   const int tc = threadIdx.x & 15;
   const int offset = p.sk - p.sq;
+  const int nsl = (p.d + D - 1) / D;  // slices of the score's sum over d
+  const bool resident = nsl == 1;
 
-  load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, h, p.d);
+  if (resident) load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, h, 0, p.d);
   float acc[4][NJ];
   float m[4], l[4];
 #pragma unroll
@@ -273,13 +323,16 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Params p) {
   const int nk = k_tiles_seen(p, q0);
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's P.V is done with ks/vs/ps
-    load_tile<T, D>(ks, p.k, p.st[kK], b, k0, kvh, p.d);
-    load_tile<T, D>(vs, p.v, p.st[kV], b, k0, kvh, p.d);
-    __syncthreads();
-
     float s[4][4] = {};
-    tile_dot<D>(s, qs, ks, tr, tc);
+    for (int sl = 0; sl < nsl; ++sl) {
+      __syncthreads();  // the previous products are done with the tiles
+      if (!resident)
+        load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, h, sl * D, p.d);
+      load_tile<T, D>(ks, p.k, p.st[kK], b, k0, kvh, sl * D, p.d);
+      if (sl == 0) load_tile<T, D>(vs, p.v, p.st[kV], b, k0, kvh, c0, p.d);
+      __syncthreads();
+      tile_dot<D>(s, qs, ks, tr, tc);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int row = q0 + tr * 4 + i + offset;
@@ -306,39 +359,22 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Params p) {
       for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
     }
     __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float x[4], y[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = ps[(tr * 4 + i) * kLP + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) y[j] = vs[kk * LD + tc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-    }
+    tile_product<D, false>(acc, ps, vs, tr, tc);
   }
 
-  T* o = static_cast<T*>(p.o);
-  const Strides& so = p.st[kO];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int r = q0 + tr * 4 + i;
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + b * so.b + r * so.s + h * so.h;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (tc + 16 * j < p.d)
-        orow[tc + 16 * j] = from_f32<T>(acc[i][j] / l_safe);
-    if (tc == 0)
-      p.lse[(static_cast<long long>(b) * p.hq + h) * p.sq + r] =
+    for (int j = 0; j < NJ; ++j) acc[i][j] /= l_safe;
+    if (tc == 0 && blockIdx.z == 0)
+      p.lse[(static_cast<long long>(b) * p.hq + h) * p.sq + q0 + tr * 4 + i] =
           m[i] + logf(l_safe);
   }
+  store_block<T, D>(p.o, p.st[kO], b, q0, h, c0, p.d, acc, tr, tc);
 }
 
-// B2, SIMT
+// B2, SIMT; grid as B1's
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq(Params p) {
   constexpr int LD = D + 1;
@@ -353,21 +389,26 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(Params p) {
   float* delta_s = lse_s + kTile;
 
   const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int h = blockIdx.y % p.hq;
+  const int b = blockIdx.y / p.hq;
+  const int c0 = blockIdx.z * D;
   const int kvh = h / (p.hq / p.hkv);
   const int tr = threadIdx.x >> 4;
   const int tc = threadIdx.x & 15;
   const int offset = p.sk - p.sq;
+  const int nsl = (p.d + D - 1) / D;
+  const bool resident = nsl == 1;
 
-  load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, h, p.d);
-  load_tile<T, D>(dos, p.dout, p.st[kDO], b, q0, h, p.d);
-  if (threadIdx.x < kTile)
-    lse_s[threadIdx.x] =
-        p.lse[(static_cast<long long>(b) * p.hq + h) * p.sq + q0 +
-              threadIdx.x];
-  __syncthreads();
-  row_delta<T, D>(delta_s, p, dos, b, q0, h);
+  if (resident) {
+    load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, h, 0, p.d);
+    load_tile<T, D>(dos, p.dout, p.st[kDO], b, q0, h, 0, p.d);
+  }
+  if (threadIdx.x < kTile) {
+    const long long i =
+        (static_cast<long long>(b) * p.hq + h) * p.sq + q0 + threadIdx.x;
+    lse_s[threadIdx.x] = p.lse[i];
+    delta_s[threadIdx.x] = p.delta[i];
+  }
 
   float acc[4][NJ];
 #pragma unroll
@@ -378,15 +419,20 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(Params p) {
   const int nk = k_tiles_seen(p, q0);
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * kTile;
-    __syncthreads();
-    load_tile<T, D>(ks, p.k, p.st[kK], b, k0, kvh, p.d);
-    load_tile<T, D>(vs, p.v, p.st[kV], b, k0, kvh, p.d);
-    __syncthreads();
-
     float s[4][4] = {};
     float dp[4][4] = {};
-    tile_dot<D>(s, qs, ks, tr, tc);
-    tile_dot<D>(dp, dos, vs, tr, tc);
+    for (int sl = 0; sl < nsl; ++sl) {
+      __syncthreads();
+      if (!resident) {
+        load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, h, sl * D, p.d);
+        load_tile<T, D>(dos, p.dout, p.st[kDO], b, q0, h, sl * D, p.d);
+      }
+      load_tile<T, D>(ks, p.k, p.st[kK], b, k0, kvh, sl * D, p.d);
+      load_tile<T, D>(vs, p.v, p.st[kV], b, k0, kvh, sl * D, p.d);
+      __syncthreads();
+      tile_dot<D>(s, qs, ks, tr, tc);
+      tile_dot<D>(dp, dos, vs, tr, tc);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = tr * 4 + i;
@@ -401,59 +447,47 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(Params p) {
       }
     }
     __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kTile; ++kk) {
-      float x[4], y[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = dss[(tr * 4 + i) * kLP + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) y[j] = ks[kk * LD + tc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+    if (!resident) {  // this block's slice of K for dS . K
+      load_tile<T, D>(ks, p.k, p.st[kK], b, k0, kvh, c0, p.d);
+      __syncthreads();
     }
+    tile_product<D, false>(acc, dss, ks, tr, tc);
   }
-
-  T* dq = static_cast<T*>(p.dq);
-  const Strides& sd = p.st[kDQ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    T* row = dq + b * sd.b + (q0 + tr * 4 + i) * sd.s + h * sd.h;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (tc + 16 * j < p.d) row[tc + 16 * j] = from_f32<T>(acc[i][j]);
-  }
+  store_block<T, D>(p.dq, p.st[kDQ], b, q0, h, c0, p.d, acc, tr, tc);
 }
 
-// B3: dK and dV, the GQA group summed in the block
+// B3, SIMT: dK and dV, the GQA group summed in the block; grid (k tile,
+// kv head + hkv * batch, output slice)
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Params p) {
-  using S = b3_stage_t<T, D>;
-  constexpr int LD = stage_ld<S, D>();
+  constexpr int LD = D + 1;
   constexpr int NJ = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* ks = reinterpret_cast<S*>(smem_raw);
-  S* vs = ks + kTile * LD;
-  S* qs = vs + kTile * LD;
-  S* dos = qs + kTile * LD;
-  float* ps = reinterpret_cast<float*>(dos + kTile * LD);  // [64 q][kLP]
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = ks + kTile * LD;
+  float* qs = vs + kTile * LD;
+  float* dos = qs + kTile * LD;
+  float* ps = dos + kTile * LD;  // [64 q][kLP]
   float* dss = ps + kTile * kLP;
   float* lse_s = dss + kTile * kLP;
   float* delta_s = lse_s + kTile;
 
   const int k0 = blockIdx.x * kTile;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int kvh = blockIdx.y % p.hkv;
+  const int b = blockIdx.y / p.hkv;
+  const int c0 = blockIdx.z * D;
   const int group = p.hq / p.hkv;
   const int tr = threadIdx.x >> 4;
   const int tc = threadIdx.x & 15;
   const int offset = p.sk - p.sq;
   const int nq = p.sq / kTile;
+  const int nsl = (p.d + D - 1) / D;
+  const bool resident = nsl == 1;
 
-  load_tile<T, D>(ks, p.k, p.st[kK], b, k0, kvh, p.d);
-  load_tile<T, D>(vs, p.v, p.st[kV], b, k0, kvh, p.d);
+  if (resident) {
+    load_tile<T, D>(ks, p.k, p.st[kK], b, k0, kvh, 0, p.d);
+    load_tile<T, D>(vs, p.v, p.st[kV], b, k0, kvh, 0, p.d);
+  }
 
   // this thread's output block: k rows tr*4+i, columns tc+16j
   float dk[4][NJ], dv[4][NJ];
@@ -467,22 +501,28 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Params p) {
     for (int qt = 0; qt < nq; ++qt) {
       const int q0 = qt * kTile;
       if (p.causal && q0 + kTile - 1 + offset < k0) continue;
-      __syncthreads();  // the previous tile is done with qs/dos/ps/dss
-      load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, h, p.d);
-      load_tile<T, D>(dos, p.dout, p.st[kDO], b, q0, h, p.d);
-      if (threadIdx.x < kTile)
-        lse_s[threadIdx.x] =
-            p.lse[(static_cast<long long>(b) * p.hq + h) * p.sq + q0 +
-                  threadIdx.x];
-      __syncthreads();
-      row_delta<T, D>(delta_s, p, dos, b, q0, h);
-      __syncthreads();
-
       // score tile with q rows tr*4+i and k columns tc+16j
       float s[4][4] = {};
       float dp[4][4] = {};
-      tile_dot<D>(s, qs, ks, tr, tc);
-      tile_dot<D>(dp, dos, vs, tr, tc);
+      for (int sl = 0; sl < nsl; ++sl) {
+        __syncthreads();  // the previous products are done with the tiles
+        if (!resident) {
+          load_tile<T, D>(ks, p.k, p.st[kK], b, k0, kvh, sl * D, p.d);
+          load_tile<T, D>(vs, p.v, p.st[kV], b, k0, kvh, sl * D, p.d);
+        }
+        load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, h, sl * D, p.d);
+        load_tile<T, D>(dos, p.dout, p.st[kDO], b, q0, h, sl * D, p.d);
+        if (sl == 0 && threadIdx.x < kTile) {
+          const long long i =
+              (static_cast<long long>(b) * p.hq + h) * p.sq + q0 +
+              threadIdx.x;
+          lse_s[threadIdx.x] = p.lse[i];
+          delta_s[threadIdx.x] = p.delta[i];
+        }
+        __syncthreads();
+        tile_dot<D>(s, qs, ks, tr, tc);
+        tile_dot<D>(dp, dos, vs, tr, tc);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = tr * 4 + i;
@@ -499,49 +539,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Params p) {
         }
       }
       __syncthreads();
-
+      if (!resident) {  // this block's slices of Q and dO
+        load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, h, c0, p.d);
+        load_tile<T, D>(dos, p.dout, p.st[kDO], b, q0, h, c0, p.d);
+        __syncthreads();
+      }
       // dV += P^T dO, dK += dS^T Q over the tile's 64 q rows
-#pragma unroll 2
-      for (int qq = 0; qq < kTile; ++qq) {
-        float pk[4], sk_[4], dov[NJ], qv[NJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pk[i] = ps[qq * kLP + tr * 4 + i];
-          sk_[i] = dss[qq * kLP + tr * 4 + i];
-        }
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          dov[j] = to_f32(dos[qq * LD + tc + 16 * j]);
-          qv[j] = to_f32(qs[qq * LD + tc + 16 * j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) {
-            dv[i][j] = fmaf(pk[i], dov[j], dv[i][j]);
-            dk[i][j] = fmaf(sk_[i], qv[j], dk[i][j]);
-          }
-      }
+      tile_product<D, true>(dv, ps, dos, tr, tc);
+      tile_product<D, true>(dk, dss, qs, tr, tc);
     }
   }
-
-  T* dkp = static_cast<T*>(p.dk);
-  T* dvp = static_cast<T*>(p.dv);
-  const Strides& sdk = p.st[kDK];
-  const Strides& sdv = p.st[kDV];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = k0 + tr * 4 + i;
-    T* krow = dkp + b * sdk.b + r * sdk.s + kvh * sdk.h;
-    T* vrow = dvp + b * sdv.b + r * sdv.s + kvh * sdv.h;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      if (tc + 16 * j < p.d) {
-        krow[tc + 16 * j] = from_f32<T>(dk[i][j]);
-        vrow[tc + 16 * j] = from_f32<T>(dv[i][j]);
-      }
-    }
-  }
+  store_block<T, D>(p.dk, p.st[kDK], b, k0, kvh, c0, p.d, dk, tr, tc);
+  store_block<T, D>(p.dv, p.st[kDV], b, k0, kvh, c0, p.d, dv, tr, tc);
 }
 
 // ---------------------------------------------------------------------------
@@ -690,15 +699,15 @@ __device__ __forceinline__ void load_b_trans(unsigned (&b)[4], const T* tile,
 }
 
 // The warp's 16 output rows, held in the accumulator layout (rows g and
-// g+8, columns 8j + 2t, +1), through its rows of a swizzled smem tile into
-// 16-byte stores of columns < d.
-template <typename T, int D>
+// g+8, columns 8j + 2t, +1 of an NC-column slice), through its rows of a
+// swizzled [64][D] smem tile into 16-byte stores of columns c0 + c < d.
+template <typename T, int D, int NC = D>
 __device__ __forceinline__ void store_rows(void* base, const Strides& st,
                                           int b, int s0, int h, T* tile,
-                                          int r0, const float (&acc)[D / 8][4],
-                                          float scale0, float scale1,
+                                          int r0, const float (&acc)[NC / 8][4],
+                                          float scale0, float scale1, int c0,
                                           int d, int lane) {
-  constexpr int C = D / 8;
+  constexpr int C = NC / 8;
   const int g = lane >> 2, t = lane & 3;
   __syncwarp();  // the warp's last reads of these rows are done
 #pragma unroll
@@ -709,13 +718,13 @@ __device__ __forceinline__ void store_rows(void* base, const Strides& st,
         pack2<T>(acc[j][2] * scale1, acc[j][3] * scale1);
   }
   __syncwarp();
-  T* dst = static_cast<T*>(base) + b * st.b + s0 * st.s + h * st.h;
+  T* dst = static_cast<T*>(base) + b * st.b + s0 * st.s + h * st.h + c0;
 #pragma unroll
   for (int it = 0; it < C / 2; ++it) {
     const int i = lane + it * 32;
     const int r = i / C;
     const int ch = i - r * C;
-    if (ch * 8 < d)
+    if (c0 + ch * 8 < d)
       *reinterpret_cast<uint4*>(dst + r * st.s + ch * 8) =
           *reinterpret_cast<const uint4*>(tile + swz<D>(r0 + r, ch * 8));
   }
@@ -865,7 +874,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(Params p) {
   }
   // the warp's rows of the q tile are its own since its Q fragments
   store_rows<T, D>(p.o, p.st[kO], b, q0 + r0, h, qs, r0, o, inv[0], inv[1],
-                   p.d, lane);
+                   0, p.d, lane);
   if (t == 0) {
     float* lse = p.lse + (static_cast<long long>(b) * p.hq + h) * p.sq +
                  q0 + r0 + g;
@@ -903,10 +912,10 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(Params p) {
   cp_async_commit();
 
   // lse (log2 units) and delta of rows g and g+8
-  const float* lse = p.lse + (static_cast<long long>(b) * p.hq + h) * p.sq +
-                     q0 + r0 + g;
-  const float lse2[2] = {lse[0] * kLog2e, lse[8] * kLog2e};
-  float delta[2] = {0.f, 0.f};
+  const long long row = (static_cast<long long>(b) * p.hq + h) * p.sq + q0 +
+                        r0 + g;
+  const float lse2[2] = {p.lse[row] * kLog2e, p.lse[row + 8] * kLog2e};
+  const float delta[2] = {p.delta[row], p.delta[row + 8]};
   float dq[ND][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
@@ -914,29 +923,6 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(Params p) {
   for (int kt = 0; kt < nk; ++kt) {
     cp_async_wait_all();
     __syncthreads();
-    if (kt == 0) {
-      // delta = rowsum(O * dO) of the warp's 16 rows, two lanes a row
-      const int r = lane >> 1;
-      const T* orow = row_ptr<T>(p.o, p.st[kO], b, q0 + r0 + r, h);
-      float acc = 0.f;
-      for (int ch = lane & 1; ch * 8 < p.d; ch += 2) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(orow + ch * 8);
-        const uint4 dv =
-            *reinterpret_cast<const uint4*>(dos + swz<D>(r0 + r, ch * 8));
-        const unsigned ow[4] = {ov.x, ov.y, ov.z, ov.w};
-        const unsigned dw[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-        for (int w = 0; w < 4; ++w) {
-          const float2 a = unpack2<T>(ow[w]);
-          const float2 c = unpack2<T>(dw[w]);
-          acc += a.x * c.x;
-          acc += a.y * c.y;
-        }
-      }
-      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-      delta[0] = __shfl_sync(0xffffffffu, acc, 2 * g);
-      delta[1] = __shfl_sync(0xffffffffu, acc, 2 * (g + 8));
-    }
     if (kt + 1 < nk) {
       const int next = ((kt + 1) & 1) * kTile * D;
       load_tile_async<T, D>(ks + next, p.k, p.st[kK], b, (kt + 1) * kTile,
@@ -1006,8 +992,172 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(Params p) {
     }
   }
 
-  store_rows<T, D>(p.dq, p.st[kDQ], b, q0 + r0, h, qs, r0, dq, 1.f, 1.f, p.d,
-                   lane);
+  store_rows<T, D>(p.dq, p.st[kDQ], b, q0 + r0, h, qs, r0, dq, 1.f, 1.f, 0,
+                   p.d, lane);
+}
+
+// Output columns of one B3 tensor-core block: the whole head dim up to
+// 128; at D = 256 two blocks take 128 columns each (both recompute the
+// score tiles), so the dK and dV accumulators stay at 128 floats a lane.
+template <int D>
+__host__ __device__ constexpr int dkv_cols() {
+  return D < 128 ? D : 128;
+}
+
+// B3 on the tensor cores: dK and dV of one 64-row k tile of one
+// (b, kv head), summed over the GQA group; grid (kv head + hkv * column
+// slice, batch, k tile), k tile 0 (the heaviest under the causal mask)
+// first.
+template <typename T, int D>
+__global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkv_mma(Params p) {
+  constexpr int KD = D / 16;
+  constexpr int NC = dkv_cols<D>();
+  constexpr int NN = NC / 8;  // n8 tiles of the warp's dK / dV rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ks = reinterpret_cast<T*>(smem_raw);
+  T* vs = ks + kTile * D;
+  T* qs = vs + kTile * D;       // two stages
+  T* dos = qs + 2 * kTile * D;  // two stages
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * kTile * D);  // 2 x 64
+  float* delta_s = lse_s + 2 * kTile;                             // 2 x 64
+
+  const int kvh = blockIdx.x % p.hkv;
+  const int c0 = blockIdx.x / p.hkv * NC;  // this block's output columns
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * kTile;
+  const int group = p.hq / p.hkv;
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * 16;  // the warp's k rows in the tile
+  const int g = lane >> 2, t = lane & 3;
+  const int offset = p.sk - p.sq;
+  const float scale2 = p.scale * kLog2e;  // scores in log2 units
+  // q tiles that see this k tile: from the first one that reaches it
+  const int qt0 = p.causal ? max(0, k0 - offset) / kTile : 0;
+  const int nqt = p.sq / kTile - qt0;
+  const int n_it = group * nqt;  // (q head, q tile) pairs
+
+  // Q, dO, lse and delta of pair `it` into stage it & 1
+  auto issue = [&](int it) {
+    const int h = kvh * group + it / nqt;
+    const int q0 = (qt0 + it % nqt) * kTile;
+    const int st = it & 1;
+    load_tile_async<T, D>(qs + st * kTile * D, p.q, p.st[kQ], b, q0, h, p.d);
+    load_tile_async<T, D>(dos + st * kTile * D, p.dout, p.st[kDO], b, q0, h,
+                          p.d);
+    if (threadIdx.x < 32) {  // 64 floats each, 16 bytes a lane
+      const long long row = (static_cast<long long>(b) * p.hq + h) * p.sq + q0;
+      const int c = (threadIdx.x & 15) * 4;
+      const float* src = threadIdx.x < 16 ? p.lse : p.delta;
+      float* dst = (threadIdx.x < 16 ? lse_s : delta_s) + st * kTile;
+      cp_async16(dst + c, src + row + c, true);
+    }
+  };
+
+  load_tile_async<T, D>(ks, p.k, p.st[kK], b, k0, kvh, p.d);
+  load_tile_async<T, D>(vs, p.v, p.st[kV], b, k0, kvh, p.d);
+  if (n_it > 0) issue(0);
+  cp_async_commit();
+
+  float dk[NN][4], dv[NN][4];
+#pragma unroll
+  for (int j = 0; j < NN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int it = 0; it < n_it; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // pair it landed; stage (it+1)&1 is free
+    if (it + 1 < n_it) {
+      issue(it + 1);
+      cp_async_commit();
+    }
+    const int st = it & 1;
+    const T* qb = qs + st * kTile * D;
+    const T* db = dos + st * kTile * D;
+    const float* lse = lse_s + st * kTile;
+    const float* delta = delta_s + st * kTile;
+    const int q0 = (qt0 + it % nqt) * kTile;
+
+    // S^T = K Q^T and dP^T = V dO^T: rows g, g+8 of the warp's k rows,
+    // q columns 8j + 2t, +1 of this lane
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      unsigned ka[4], va[4];
+      load_a<D>(ka, ks, r0, kd * 16, lane);
+      load_a<D>(va, vs, r0, kd * 16, lane);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        unsigned bq[4], bd[4];
+        load_b<D>(bq, qb, jp * 16, kd * 16, lane);
+        load_b<D>(bd, db, jp * 16, kd * 16, lane);
+        mma<T>(s[2 * jp], ka, bq[0], bq[1]);
+        mma<T>(s[2 * jp + 1], ka, bq[2], bq[3]);
+        mma<T>(dp[2 * jp], va, bd[0], bd[1]);
+        mma<T>(dp[2 * jp + 1], va, bd[2], bd[3]);
+      }
+    }
+
+    // P^T = exp(S^T - lse), dS^T = P^T (dP^T - delta) scale; masked 0
+    const bool diag = p.causal && q0 + offset < k0 + kTile - 1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = j * 8 + 2 * t + (e & 1);
+        const bool masked =
+            diag && q0 + qc + offset < k0 + r0 + g + (e >> 1) * 8;
+        const float pe =
+            masked ? 0.f : exp2f(s[j][e] * scale2 - lse[qc] * kLog2e);
+        s[j][e] = pe;
+        dp[j][e] = pe * (dp[j][e] - delta[qc]) * p.scale;
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, P^T and dS^T as hi + lo (the
+    // reference's products are float32), straight from the accumulator
+    // layout into the A operand
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      unsigned phi[4], plo[4], shi[4], slo[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        split2<T>(s[2 * kk + i][0], s[2 * kk + i][1], phi[2 * i],
+                  plo[2 * i]);
+        split2<T>(s[2 * kk + i][2], s[2 * kk + i][3], phi[2 * i + 1],
+                  plo[2 * i + 1]);
+        split2<T>(dp[2 * kk + i][0], dp[2 * kk + i][1], shi[2 * i],
+                  slo[2 * i]);
+        split2<T>(dp[2 * kk + i][2], dp[2 * kk + i][3], shi[2 * i + 1],
+                  slo[2 * i + 1]);
+      }
+#pragma unroll
+      for (int jp = 0; jp < NN / 2; ++jp) {
+        unsigned bo[4], bq[4];
+        load_b_trans<D>(bo, db, kk * 16, c0 + jp * 16, lane);
+        mma<T>(dv[2 * jp], phi, bo[0], bo[1]);
+        mma<T>(dv[2 * jp], plo, bo[0], bo[1]);
+        mma<T>(dv[2 * jp + 1], phi, bo[2], bo[3]);
+        mma<T>(dv[2 * jp + 1], plo, bo[2], bo[3]);
+        load_b_trans<D>(bq, qb, kk * 16, c0 + jp * 16, lane);
+        mma<T>(dk[2 * jp], shi, bq[0], bq[1]);
+        mma<T>(dk[2 * jp], slo, bq[0], bq[1]);
+        mma<T>(dk[2 * jp + 1], shi, bq[2], bq[3]);
+        mma<T>(dk[2 * jp + 1], slo, bq[2], bq[3]);
+      }
+    }
+  }
+
+  // the warp's rows of the K and V tiles are its own: they stage the
+  // warp's dK and dV rows on their way out
+  store_rows<T, D, NC>(p.dk, p.st[kDK], b, k0 + r0, kvh, ks, r0, dk, 1.f,
+                       1.f, c0, p.d, lane);
+  store_rows<T, D, NC>(p.dv, p.st[kDV], b, k0 + r0, kvh, vs, r0, dv, 1.f,
+                       1.f, c0, p.d, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -1016,21 +1166,22 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(Params p) {
 
 enum Which : int { kFwd = 0, kBwdDq = 1, kBwdDkv = 2 };
 
-template <typename T, int D>
+template <int D>
 constexpr size_t simt_smem_bytes(int which) {
-  using S = b3_stage_t<T, D>;
-  return which == kFwd
-             ? sizeof(float) * (3 * kTile * (D + 1) + kTile * kLP)
-         : which == kBwdDq
-             ? sizeof(float) * (4 * kTile * (D + 1) + kTile * kLP + 2 * kTile)
-             : sizeof(S) * 4 * kTile * stage_ld<S, D>() +
-                   sizeof(float) * (2 * kTile * kLP + 2 * kTile);
+  return sizeof(float) *
+         (which == kFwd ? 3 * kTile * (D + 1) + kTile * kLP
+          : which == kBwdDq
+              ? 4 * kTile * (D + 1) + kTile * kLP + 2 * kTile
+              : 4 * kTile * (D + 1) + 2 * kTile * kLP + 2 * kTile);
 }
 
-// q tile (+ dO tile in B2) and two stages of K and V, in the input dtype
+// B1: q tile and two stages of K and V; B2: q and dO tiles and two
+// stages of K and V; B3: K and V tiles, two stages of Q and dO, and two
+// stages of the q tile's lse and delta
 template <typename T, int D>
 constexpr size_t mma_smem_bytes(int which) {
-  return sizeof(T) * kTile * D * (which == kFwd ? 5 : 6);
+  return sizeof(T) * kTile * D * (which == kFwd ? 5 : 6) +
+         (which == kBwdDkv ? sizeof(float) * 4 * kTile : 0);
 }
 
 template <typename Kernel>
@@ -1046,47 +1197,79 @@ cudaError_t launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
+// bf16 / f16 with d <= D run on the tensor cores; float32, and the half
+// types above 256 (at D = 64, split d), the SIMT kernels.
 template <typename T, int D>
 cudaError_t launch(int which, int batch, const Params& p,
                    cudaStream_t stream) {
-  // bf16 / f16 B1 and B2 run on the tensor cores; grid (head, batch,
-  // q tile) with the q tile on the slowest axis, heaviest first
-  constexpr bool kMma = !std::is_same<T, float>::value;
-  const dim3 simt_grid(p.sq / kTile, p.hq, batch);
-  const dim3 mma_grid(p.hq, batch, p.sq / kTile);
-  switch (which) {
-    case kFwd:
-      if constexpr (kMma)
-        return launch_kernel(flash_fwd_mma<T, D>, mma_grid, kMmaThreads,
-                             mma_smem_bytes<T, D>(kFwd), p, stream);
-      else
-        return launch_kernel(flash_fwd<T, D>, simt_grid, kThreads,
-                             simt_smem_bytes<T, D>(kFwd), p, stream);
-    case kBwdDq:
-      if constexpr (kMma)
-        return launch_kernel(flash_bwd_dq_mma<T, D>, mma_grid, kMmaThreads,
-                             mma_smem_bytes<T, D>(kBwdDq), p, stream);
-      else
-        return launch_kernel(flash_bwd_dq<T, D>, simt_grid, kThreads,
-                             simt_smem_bytes<T, D>(kBwdDq), p, stream);
-    case kBwdDkv:
-      return launch_kernel(flash_bwd_dkv<T, D>,
-                           dim3(p.sk / kTile, p.hkv, batch), kThreads,
-                           simt_smem_bytes<T, D>(kBwdDkv), p, stream);
-    default:
-      return cudaErrorInvalidValue;
+  constexpr bool kHalf = !std::is_same<T, float>::value;
+  if constexpr (kHalf) {
+    if (p.d <= D) {
+      switch (which) {
+        case kFwd:  // grid (head, batch, q tile), heaviest q tile first
+          return launch_kernel(flash_fwd_mma<T, D>,
+                               dim3(p.hq, batch, p.sq / kTile), kMmaThreads,
+                               mma_smem_bytes<T, D>(kFwd), p, stream);
+        case kBwdDq:
+          return launch_kernel(flash_bwd_dq_mma<T, D>,
+                               dim3(p.hq, batch, p.sq / kTile), kMmaThreads,
+                               mma_smem_bytes<T, D>(kBwdDq), p, stream);
+        case kBwdDkv:
+          return launch_kernel(flash_bwd_dkv_mma<T, D>,
+                               dim3(p.hkv * (D / dkv_cols<D>()), batch,
+                                    p.sk / kTile),
+                               kMmaThreads, mma_smem_bytes<T, D>(kBwdDkv), p,
+                               stream);
+        default:
+          return cudaErrorInvalidValue;
+      }
+    }
   }
+  if constexpr (!kHalf || D == 64) {
+    const int slices = (p.d + D - 1) / D;
+    switch (which) {
+      case kFwd:
+        return launch_kernel(flash_fwd<T, D>,
+                             dim3(p.sq / kTile, p.hq * batch, slices),
+                             kThreads, simt_smem_bytes<D>(kFwd), p, stream);
+      case kBwdDq:
+        return launch_kernel(flash_bwd_dq<T, D>,
+                             dim3(p.sq / kTile, p.hq * batch, slices),
+                             kThreads, simt_smem_bytes<D>(kBwdDq), p, stream);
+      case kBwdDkv:
+        return launch_kernel(flash_bwd_dkv<T, D>,
+                             dim3(p.sk / kTile, p.hkv * batch, slices),
+                             kThreads, simt_smem_bytes<D>(kBwdDkv), p,
+                             stream);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
-cudaError_t launch_d(int padded_dim, int which, int batch, const Params& p,
-                     cudaStream_t stream) {
+cudaError_t launch_delta(int batch, const Params& p, cudaStream_t stream) {
+  const int rows = batch * p.hq * p.sq;
+  constexpr int kRowsPerBlock = kThreads / 32;
+  flash_bwd_delta<T><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, kThreads,
+                       0, stream>>>(p, rows);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(int padded_dim, int which, int batch, int delta_ready,
+                     const Params& p, cudaStream_t stream) {
+  if (which != kFwd && !delta_ready) {
+    const cudaError_t e = launch_delta<T>(batch, p, stream);
+    if (e != cudaSuccess) return e;
+  }
   switch (padded_dim) {
     case 64:
       return launch<T, 64>(which, batch, p, stream);
     case 128:
       return launch<T, 128>(which, batch, p, stream);
-    case 256:  // the half types only: float32 B2 / B3 tiles would not fit
+    case 256:  // the tensor-core kernels only
       if constexpr (!std::is_same<T, float>::value)
         return launch<T, 256>(which, batch, p, stream);
       else
@@ -1100,20 +1283,24 @@ cudaError_t launch_d(int padded_dim, int which, int batch, const Params& p,
 
 // Plain C entry point, loaded with ctypes. `which`: 0 = B1 (writes o and
 // lse), 1 = B2 (writes dq), 2 = B3 (writes dk and dv). `head_dim` is the
-// operands' d, `padded_dim` the instantiation D >= d (64, 128, or 256 in
-// bf16 / f16; d a multiple of 8). `ptrs` holds the device pointers q, k, v, o, do, lse, dq,
-// dk, dv (unused ones may be null); `strides` the (b, s, h) element strides
-// of q, k, v, o, do, dq, dk, dv, in that order (unit stride on the head dim
-// is the caller's check, as are rows that start on 16 bytes). Sequence
-// lengths are multiples of 64. Returns the launch's cudaError_t (0 on
-// success). Allocates nothing.
+// operands' d (a multiple of 8), `padded_dim` the instantiation D: the
+// tensor-core kernels (bf16 / f16, d <= 256) take D = 64, 128 or 256 >= d;
+// the SIMT kernels D = 64 or 128, summing over d in D-column slices where
+// d > D. `ptrs` holds the device pointers q, k, v, o, do, lse, delta, dq,
+// dk, dv (unused ones may be null); `strides` the (b, s, h) element
+// strides of q, k, v, o, do, dq, dk, dv, in that order (unit stride on
+// the head dim is the caller's check, as are rows that start on 16
+// bytes). B2 and B3 read delta = rowsum(O * dO) [b, hq, sq] from `delta`;
+// unless `delta_ready`, a first kernel writes it there. Sequence lengths
+// are multiples of 64. Returns the launches' cudaError_t (0 on success).
+// Allocates nothing.
 extern "C" int flash_attention_launch(int which, int dtype, int head_dim,
                                       int padded_dim, void* const* ptrs,
                                       const long long* strides, int batch,
                                       int sq, int sk, int hq, int hkv,
-                                      float scale, int causal, void* stream) {
-  if (head_dim <= 0 || head_dim > padded_dim || head_dim % 8)
-    return cudaErrorInvalidValue;
+                                      float scale, int causal,
+                                      int delta_ready, void* stream) {
+  if (head_dim <= 0 || head_dim % 8) return cudaErrorInvalidValue;
   Params p;
   p.q = ptrs[0];
   p.k = ptrs[1];
@@ -1121,9 +1308,10 @@ extern "C" int flash_attention_launch(int which, int dtype, int head_dim,
   p.o = ptrs[3];
   p.dout = ptrs[4];
   p.lse = static_cast<float*>(ptrs[5]);
-  p.dq = ptrs[6];
-  p.dk = ptrs[7];
-  p.dv = ptrs[8];
+  p.delta = static_cast<float*>(ptrs[6]);
+  p.dq = ptrs[7];
+  p.dk = ptrs[8];
+  p.dv = ptrs[9];
   for (int i = 0; i < kSlots; ++i)
     p.st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   p.sq = sq;
@@ -1136,11 +1324,12 @@ extern "C" int flash_attention_launch(int which, int dtype, int head_dim,
   auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return launch_d<float>(padded_dim, which, batch, p, st);
+      return launch_d<float>(padded_dim, which, batch, delta_ready, p, st);
     case kBF16:
-      return launch_d<__nv_bfloat16>(padded_dim, which, batch, p, st);
+      return launch_d<__nv_bfloat16>(padded_dim, which, batch, delta_ready, p,
+                                     st);
     case kF16:
-      return launch_d<__half>(padded_dim, which, batch, p, st);
+      return launch_d<__half>(padded_dim, which, batch, delta_ready, p, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -16,12 +16,15 @@ a run on the card can be compared with its kernels.
 
 The kernels read q/k/v through their (b, s, h) strides, so the strided
 views GPT's attention cuts from its fused qkv projection are not copied.
-Each kernel is built at a few padded head dims (:func:`padded_head_dim`
-picks one for the operands' head dim d and dtype): tiles are loaded
-with zeros in columns d..D-1, which change neither QK^T nor the written
-columns, and stored in columns < d only. In bfloat16 and float16, B1 and
-B2 run on the tensor cores (``mma.sync``); float32 runs the SIMT
-kernels, as does B3 in every dtype.
+Every head dim that is a multiple of 8 runs in a kernel
+(:func:`kernel_route` picks it): in bfloat16 and float16 up to 256, B1,
+B2 and B3 run on the tensor cores (``mma.sync``) at a padded head dim D
+(tiles loaded with zeros in columns d..D-1, which change neither QK^T
+nor the written columns, and stored in columns < d only); float32, and
+the half types above 256, run the SIMT kernels, which sum the score
+tiles over d in 64- or 128-column slices, so their shared memory does
+not grow with d. B2 and B3 read delta = rowsum(O dO) from a buffer that
+the backward computes once.
 """
 
 from __future__ import annotations
@@ -41,12 +44,8 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
             "flash_attention_bwd_dkv": 0}
 
-# dtype codes and padded head dims of csrc/flash_attention.cu
+# dtype codes of csrc/flash_attention.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-PADDED_HEAD_DIMS = (64, 128, 256)
-# float32 stops at 128: its SIMT B2 and B3 stage float32 tiles, which at
-# 256 would take 280 and 297 KB of shared memory (a block may use 227 KB)
-_MAX_HEAD_DIM = {torch.float32: 128, torch.bfloat16: 256, torch.float16: 256}
 _TILE = 64
 _FWD, _BWD_DQ, _BWD_DKV = 0, 1, 2
 _launcher = None
@@ -55,15 +54,22 @@ _launcher = None
 impl = "kernel"
 
 
-def padded_head_dim(d: int, dtype: torch.dtype) -> Optional[int]:
-    """The head dim D at which the kernels run head dim ``d`` in
-    ``dtype``: the smallest of :data:`PADDED_HEAD_DIMS` that is >= d, for
-    a multiple of 8 (rows of whole 16-byte chunks) up to 256 in bfloat16
-    and float16 and up to 128 in float32; None where no kernel takes it
-    (ROADMAP Queue C)."""
-    if d <= 0 or d % 8 or d > _MAX_HEAD_DIM[dtype]:
+def kernel_route(d: int, dtype: torch.dtype):
+    """``(design, D)``: the kernels that run head dim ``d`` in ``dtype``
+    and the head dim D they are built at. ``"mma"``: the tensor-core
+    kernels at the smallest of 64, 128, 256 that is >= d (bfloat16 and
+    float16 up to 256); ``"simt"``: the float32 SIMT kernels at D = 64
+    or 128 >= d; ``"split"``: the SIMT kernels at D = 64 summing over d
+    in 64-column slices (float32 above 128, the half types above 256).
+    None for a d that is not a positive multiple of 8 (rows of whole
+    16-byte chunks), which ``flash_attention_available`` never admits."""
+    if d <= 0 or d % 8:
         return None
-    return next(D for D in PADDED_HEAD_DIMS if d <= D)
+    if dtype != torch.float32 and d <= 256:
+        return "mma", next(D for D in (64, 128, 256) if d <= D)
+    if dtype == torch.float32 and d <= 128:
+        return "simt", 64 if d <= 64 else 128
+    return "split", 64
 
 
 def _pick_block(seq: int, target: int) -> int:
@@ -148,7 +154,7 @@ def _load_launcher():
         i = ctypes.c_int
         fn.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_void_p),
                        ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i,
-                       ctypes.c_float, i, ctypes.c_void_p]
+                       ctypes.c_float, i, i, ctypes.c_void_p]
         fn.restype = i
         _launcher = fn
     return _launcher
@@ -173,12 +179,10 @@ def _check_cuda_args(q, k, v, *more):
     if k.shape[0] != b or k.shape[3] != d or hq % k.shape[2]:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
                          f"{tuple(q.shape)}")
-    if padded_head_dim(d, q.dtype) is None:
+    if kernel_route(d, q.dtype) is None:
         raise NotImplementedError(
-            f"head_dim {d} in {q.dtype} has no instantiation of the flash "
-            f"kernels on the card (they take multiples of 8 up to "
-            f"{_MAX_HEAD_DIM[q.dtype]}; ROADMAP Queue C: float32 above 128, "
-            f"any dtype above 256)")
+            f"the flash kernels take head dims that are positive multiples "
+            f"of 8, got {d}")
     if sq % _TILE or k.shape[1] % _TILE:
         raise NotImplementedError(
             f"the flash kernels take sequence lengths that are multiples "
@@ -202,21 +206,22 @@ def _aligned(x):
     return x.clone(memory_format=torch.contiguous_format)
 
 
-def _launch(which, q, k, v, o, do, lse, dq, dk, dv, sm_scale, causal):
+def _launch(which, q, k, v, o, do, lse, delta, dq, dk, dv, sm_scale,
+            causal, delta_ready=False):
     fn = _load_launcher()
     q, k, v, do = (_aligned(x) for x in (q, k, v, do))
     if which != _FWD:   # B1 writes o, B2 and B3 read it
         o = _aligned(o)
-    ptrs = (ctypes.c_void_p * 9)(*[
+    ptrs = (ctypes.c_void_p * 10)(*[
         None if x is None else x.data_ptr()
-        for x in (q, k, v, o, do, lse, dq, dk, dv)])
+        for x in (q, k, v, o, do, lse, delta, dq, dk, dv)])
     st = sum((_strides(x) for x in (q, k, v, o, do, dq, dk, dv)), [])
     strides = (ctypes.c_longlong * 24)(*st)
     b, sq, hq, d = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(which, _DTYPE_CODES[q.dtype], d, padded_head_dim(d, q.dtype),
+    err = fn(which, _DTYPE_CODES[q.dtype], d, kernel_route(d, q.dtype)[1],
              ptrs, strides, b, sq, k.shape[1], hq, k.shape[2],
-             float(sm_scale), int(causal), stream)
+             float(sm_scale), int(causal), int(delta_ready), stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel {which} launch failed: "
                            f"cudaError {err}")
@@ -233,7 +238,7 @@ def flash_attention_fwd_kernel(q, k, v, sm_scale: float, causal: bool):
     b, sq, hq, d = q.shape
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-    _launch(_FWD, q, k, v, o, None, lse, None, None, None, sm_scale,
+    _launch(_FWD, q, k, v, o, None, lse, None, None, None, None, sm_scale,
             causal)
     launches["flash_attention_fwd"] += 1
     return o, lse
@@ -250,34 +255,52 @@ def _check_residuals(q, o, lse, do):
         raise ValueError(f"do must be {q.dtype}, got {do.dtype}")
 
 
+def _delta_buffer(q, lse, delta):
+    if delta is None:
+        return torch.empty_like(lse)
+    if delta.dtype != torch.float32 or delta.shape != lse.shape or \
+            delta.device != q.device or not delta.is_contiguous():
+        raise ValueError(f"delta must be a contiguous f32 "
+                         f"{list(lse.shape)} on {q.device}")
+    return delta
+
+
 def flash_attention_bwd_dq_kernel(q, k, v, o, lse, do, sm_scale: float,
-                                  causal: bool):
+                                  causal: bool, delta=None):
     """Kernel B2: dQ in q's dtype (the first output of
-    :func:`flash_attention_bwd_torch`, which a CPU tensor runs)."""
+    :func:`flash_attention_bwd_torch`, which a CPU tensor runs). On the
+    card a first kernel computes delta = rowsum(O dO) [b, hq, sq] in
+    float32; into ``delta`` if it is given, so that B3 can read it."""
     if not q.is_cuda:
         return flash_attention_bwd_torch(q, k, v, o, lse, do, sm_scale,
                                          causal)[0]
     _check_cuda_args(q, k, v, o, do, lse)
     _check_residuals(q, o, lse, do)
+    delta = _delta_buffer(q, lse, delta)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
-    _launch(_BWD_DQ, q, k, v, o, do, lse, dq, None, None, sm_scale, causal)
+    _launch(_BWD_DQ, q, k, v, o, do, lse, delta, dq, None, None, sm_scale,
+            causal)
     launches["flash_attention_bwd_dq"] += 1
     return dq
 
 
 def flash_attention_bwd_dkv_kernel(q, k, v, o, lse, do, sm_scale: float,
-                                   causal: bool):
+                                   causal: bool, delta=None):
     """Kernel B3: ``(dk, dv)`` in k's and v's dtype, summed over the GQA
     group (the last two outputs of :func:`flash_attention_bwd_torch`,
-    which a CPU tensor runs)."""
+    which a CPU tensor runs). ``delta``: rowsum(O dO) as B2 wrote it;
+    if None, a first kernel computes it."""
     if not q.is_cuda:
         return flash_attention_bwd_torch(q, k, v, o, lse, do, sm_scale,
                                          causal)[1:]
     _check_cuda_args(q, k, v, o, do, lse)
     _check_residuals(q, o, lse, do)
+    ready = delta is not None
+    delta = _delta_buffer(q, lse, delta)
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
-    _launch(_BWD_DKV, q, k, v, o, do, lse, None, dk, dv, sm_scale, causal)
+    _launch(_BWD_DKV, q, k, v, o, do, lse, delta, None, dk, dv, sm_scale,
+            causal, delta_ready=ready)
     launches["flash_attention_bwd_dkv"] += 1
     return dk, dv
 
@@ -306,8 +329,9 @@ class _FlashAttention(torch.autograd.Function):
         if ctx.plain or not q.is_cuda:
             dq, dk, dv = flash_attention_bwd_torch(*args)
         else:
-            dq = flash_attention_bwd_dq_kernel(*args)
-            dk, dv = flash_attention_bwd_dkv_kernel(*args)
+            delta = torch.empty_like(lse)   # B2 writes it, B3 reads it
+            dq = flash_attention_bwd_dq_kernel(*args, delta=delta)
+            dk, dv = flash_attention_bwd_dkv_kernel(*args, delta=delta)
         return dq, dk, dv, None, None, None
 
 

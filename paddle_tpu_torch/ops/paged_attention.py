@@ -155,32 +155,48 @@ def paged_attention_torch(q, k_pages, v_pages, token_tables, token_lens,
 # kernel B4 (csrc/paged_attention.cu)
 # ---------------------------------------------------------------------------
 
-# launches of kernel B4 since the last reset; the wrapper adds one per
-# launch and nothing else touches it but a caller's reset to 0
+# launches of kernel B4 since the last reset: one per wrapper call, which
+# runs the split kernel and, where a row spans more than one partition,
+# the merge kernel after it (so a run of the engine counts one per layer
+# per prefill chunk or decode step). The wrapper adds one per call and
+# nothing else touches it but a caller's reset to 0.
 launches = 0
 
 # dtype codes of csrc/paged_attention.cu
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
              torch.int8: 3}
-_HEAD_DIMS = (64, 128)
-_MAX_SMEM = 227 * 1024
+# limits of csrc/paged_attention.cu: a stage holds up to 64 page rows,
+# a block up to 32 q vectors and 16 x 128 accumulated output elements
+# (group x head dim)
+MAX_HEAD_DIM = 256
+MAX_PAGE_SIZE = 64
+MAX_GROUP = 32
+MAX_GROUP_ELEMS = 2048
 _launcher = None
+
+
+def partition_pages(t: int, kv_heads: int, pages_per_seq: int) -> int:
+    """Pages one block of the split kernel takes (its flash-decoding
+    partition): the largest of 16 and 8 that still gives the launch
+    512 (row, kv head, partition) blocks, about 4 for each of the
+    H100's 132 SMs, else 4. Fewer, longer partitions merge less; more,
+    shorter ones fill the card when there are few rows."""
+    for n in (16, 8):
+        if t * kv_heads * -(-pages_per_seq // n) >= 512:
+            return n
+    return 4
 
 
 def _load_launcher():
     global _launcher
     if _launcher is None:
-        lib = _kernels.library("paged_attention")
-        fn = lib.paged_attention_launch
+        fn = _kernels.library("paged_attention").paged_attention_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, p, i, p, p, p, p, p, i, i, i, i, i, i,
-                       ctypes.c_float, p]
+        fn.argtypes = [p, i, p, p, i, p, p, p, p, p, p, p, i, i, i, i, i,
+                       i, i, ctypes.c_float, p]
         fn.restype = i
-        smem = lib.paged_attention_smem_bytes
-        smem.argtypes = [i, i, i, i]
-        smem.restype = ctypes.c_longlong
-        _launcher = (fn, smem)
+        _launcher = fn
     return _launcher
 
 
@@ -208,10 +224,19 @@ def _check_cuda_args(q, k_pages, v_pages, tables, lens, k_scales,
             f"{k_pages.dtype} and {tuple(v_pages.shape)} {v_pages.dtype}")
     t, n_heads, d = q.shape
     n_pages, page_size, kv_heads, dk = k_pages.shape
-    if d != dk or d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} (pages {dk}) not in {_HEAD_DIMS}")
-    if n_heads % kv_heads or n_heads // kv_heads > 128:
-        raise ValueError(f"{n_heads} q heads over {kv_heads} kv heads")
+    if d != dk or d <= 0 or d % 8 or d > MAX_HEAD_DIM:
+        raise ValueError(f"kernel B4 takes head dims that are multiples of "
+                         f"8 up to {MAX_HEAD_DIM}, got q {d}, pages {dk} "
+                         f"(ROADMAP Queue C)")
+    group = n_heads // kv_heads if n_heads % kv_heads == 0 else 0
+    if not 0 < group <= MAX_GROUP or group * d > MAX_GROUP_ELEMS:
+        raise ValueError(f"{n_heads} q heads over {kv_heads} kv heads at "
+                         f"head_dim {d}: kernel B4 takes groups up to "
+                         f"{MAX_GROUP} q heads and group x head_dim up to "
+                         f"{MAX_GROUP_ELEMS} (ROADMAP Queue C)")
+    if page_size > MAX_PAGE_SIZE:
+        raise ValueError(f"kernel B4 takes page_size up to {MAX_PAGE_SIZE}, "
+                         f"got {page_size} (ROADMAP Queue C)")
     quant = k_pages.dtype == torch.int8
     if quant != (k_scales is not None) or quant != (v_scales is not None):
         raise ValueError("int8 pages need k_scales and v_scales; other "
@@ -246,26 +271,33 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables,
     global launches
     _check_cuda_args(q, k_pages, v_pages, block_tables, context_lens,
                      k_scales, v_scales)
-    fn, smem_bytes = _load_launcher()
+    fn = _load_launcher()
     t, n_heads, d = q.shape
     _, page_size, kv_heads, _ = k_pages.shape
-    kv_code = _KV_CODES[k_pages.dtype]
-    smem = smem_bytes(kv_code, d, page_size, n_heads // kv_heads)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"page_size {page_size} needs {smem} bytes of "
-                         f"shared memory, over {_MAX_SMEM}")
     out = torch.empty_like(q)
     if t == 0:
         return out
+    pages_per_seq = block_tables.shape[1]
+    part_pages = partition_pages(t, kv_heads, pages_per_seq)
+    n_parts = -(-pages_per_seq // part_pages)
+    part_ml = part_acc = None
+    if n_parts > 1:   # partials of rows that span several partitions
+        part_ml = torch.empty((t, n_heads, n_parts, 2), dtype=torch.float32,
+                              device=q.device)
+        part_acc = torch.empty((t, n_heads, n_parts, d),
+                               dtype=torch.float32, device=q.device)
     sm_scale = scale if scale is not None else 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), _Q_CODES[q.dtype], k_pages.data_ptr(),
-             v_pages.data_ptr(), kv_code,
+             v_pages.data_ptr(), _KV_CODES[k_pages.dtype],
              k_scales.data_ptr() if k_scales is not None else None,
              v_scales.data_ptr() if v_scales is not None else None,
              block_tables.data_ptr(), context_lens.data_ptr(),
-             out.data_ptr(), t, n_heads, kv_heads, d, page_size,
-             block_tables.shape[1], sm_scale, stream)
+             out.data_ptr(),
+             part_ml.data_ptr() if part_ml is not None else None,
+             part_acc.data_ptr() if part_acc is not None else None,
+             t, n_heads, kv_heads, d, page_size, pages_per_seq,
+             part_pages, sm_scale, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {err}")

@@ -28,6 +28,11 @@ TINY = {
         "gpt2-small", num_layers=2, hidden_size=64, num_heads=4,
         vocab_size=97, max_position_embeddings=96, hidden_dropout=0.0,
         attention_dropout=0.0),
+    # head dim 80 (hidden 160, 2 heads), which kernel B4 runs zero-filled
+    "gpt2-d80": lambda m: m.gpt_config(
+        "gpt2-small", num_layers=2, hidden_size=160, num_heads=2,
+        vocab_size=97, max_position_embeddings=96, hidden_dropout=0.0,
+        attention_dropout=0.0),
     "llama": lambda m: m.llama_config(
         hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
         vocab_size=97, max_position_embeddings=96, ffn_hidden_size=128),
@@ -69,7 +74,7 @@ def _torch_engine(tnet, **kw):
 
 
 @pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
-@pytest.mark.parametrize("name", ["gpt2", "llama"])
+@pytest.mark.parametrize("name", ["gpt2", "llama", "gpt2-d80"])
 def test_streams_token_identical_to_jax_engine(name, kv_dtype):
     jnet, tnet = pair(name)
     want = _run(_jax_engine(jnet, kv_dtype=kv_dtype))

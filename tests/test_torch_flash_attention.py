@@ -3,6 +3,9 @@ autograd Function, the dispatch rules) against the JAX package's Pallas
 kernels run in interpret mode, on the same numpy inputs, at the shapes
 of tests/test_flash_attention.py.
 
+Head dims 64-320 (64/80/96 and, in the split-d kernels' range, 256 in
+float32 and 320 in bfloat16).
+
 Tolerances: float32 2e-5 for the forward and 5e-5 for gradients, the
 JAX package's own kernel-vs-dense tolerances (the twins are dense, the
 Pallas kernels tile with an online softmax: the two differ in summation
@@ -51,6 +54,10 @@ FWD_CASES = {
     # head dims the kernels run padded to 128
     "d80-causal": ((1, 128, 2, 80), (1, 128, 2, 80), True, "float32"),
     "d96-gqa": ((1, 128, 4, 96), (1, 128, 2, 96), False, "float32"),
+    # head dims the card runs in the split-d SIMT kernels
+    "d256-causal": ((1, 128, 2, 256), (1, 128, 2, 256), True, "float32"),
+    "bf16-d320-causal": ((1, 128, 2, 320), (1, 128, 2, 320), True,
+                         "bfloat16"),
 }
 GRAD_CASES = {
     "mha": ((1, 128, 2, 64), (1, 128, 2, 64), False, "float32"),
@@ -60,6 +67,9 @@ GRAD_CASES = {
     "bf16-causal": ((1, 128, 2, 64), (1, 128, 2, 64), True, "bfloat16"),
     "d80-causal": ((1, 128, 2, 80), (1, 128, 2, 80), True, "float32"),
     "d96-gqa-causal": ((1, 128, 4, 96), (1, 128, 2, 96), True, "float32"),
+    "d256-causal": ((1, 128, 2, 256), (1, 128, 2, 256), True, "float32"),
+    "bf16-d320-causal": ((1, 128, 2, 320), (1, 128, 2, 320), True,
+                         "bfloat16"),
 }
 
 
@@ -206,20 +216,35 @@ def test_pick_block_matches_jax(n):
 
 
 @pytest.mark.parametrize("d,D,D_f32", [
-    (64, 64, 64), (8, 64, 64), (56, 64, 64), (72, 128, 128),
-    (80, 128, 128), (96, 128, 128), (128, 128, 128), (136, 256, None),
-    (192, 256, None), (256, 256, None), (264, None, None),
-    (68, None, None), (0, None, None)])
+    (64, ("mma", 64), ("simt", 64)), (8, ("mma", 64), ("simt", 64)),
+    (56, ("mma", 64), ("simt", 64)), (72, ("mma", 128), ("simt", 128)),
+    (80, ("mma", 128), ("simt", 128)), (96, ("mma", 128), ("simt", 128)),
+    (128, ("mma", 128), ("simt", 128)), (136, ("mma", 256), ("split", 64)),
+    (192, ("mma", 256), ("split", 64)), (256, ("mma", 256), ("split", 64)),
+    (264, ("split", 64), ("split", 64)), (68, None, None), (0, None, None)])
 def test_padded_head_dim(d, D, D_f32):
-    """Every head dim flash_attention_available admits up to 256 runs
-    at a built padded dim in the half types, and up to 128 in float32;
-    what stays out (ROADMAP Queue C) is float32 above 128, any dtype above
-    256, and what no 16-byte row holds."""
+    """The kernels and the head dim D they run head dim d at: the
+    tensor cores in the half types up to 256, the float32 SIMT kernels
+    up to 128, the split-d SIMT kernels above; nothing for what no
+    16-byte row holds."""
     for dtype in (torch.bfloat16, torch.float16):
-        assert tfa.padded_head_dim(d, dtype) == D
-    assert tfa.padded_head_dim(d, torch.float32) == D_f32
-    if D is not None:
-        assert d <= D and D in tfa.PADDED_HEAD_DIMS
+        assert tfa.kernel_route(d, dtype) == D
+    assert tfa.kernel_route(d, torch.float32) == D_f32
+    if D is not None and D[0] == "mma":
+        assert d <= D[1]
+
+
+@pytest.mark.parametrize("d", range(64, 513, 8))
+def test_every_admitted_head_dim_has_a_kernel(d):
+    """Every head dim flash_attention_available admits maps to a kernel
+    in every dtype, as the JAX package runs every one of them."""
+    shape = (1, 256, 2, d)
+    assert jfa.flash_attention_available(shape, shape, None, 0.0, True,
+                                         True)
+    assert tfa.flash_attention_available(shape, shape, None, 0.0, True,
+                                         True)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        assert tfa.kernel_route(d, dtype) is not None
 
 
 def test_mask_value_matches_jax():
@@ -323,6 +348,12 @@ CARD_CASES = {
     "bf16-d72": (1, 128, 128, 2, 2, 72, False, "bfloat16"),
     "bf16-d256-causal": (1, 192, 192, 2, 2, 256, True, "bfloat16"),
     "f16-gqa-d192": (1, 128, 256, 4, 2, 192, True, "float16"),
+    # split d: SIMT kernels summing the scores over 64-column slices
+    "f32-d256-causal": (1, 192, 192, 2, 2, 256, True, "float32"),
+    "f32-gqa-d136": (1, 128, 256, 4, 2, 136, True, "float32"),
+    "bf16-d320-causal": (1, 128, 128, 2, 2, 320, True, "bfloat16"),
+    "bf16-d264": (1, 128, 128, 2, 2, 264, False, "bfloat16"),
+    "f16-gqa-d264": (1, 128, 192, 2, 1, 264, True, "float16"),
 }
 
 
@@ -382,13 +413,37 @@ def test_kernels_match_twins_on_card(case):
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_unbuilt_head_dim_on_card():
+def test_kernel_refuses_head_dim_not_a_multiple_of_8_on_card():
+    """What flash_attention_available never admits and no kernel takes
+    raises on the card (the CPU runs the twins)."""
     if not torch.cuda.is_available():
         pytest.skip("kernels B1-B3 run only on a CUDA card")
-    for d, dtype in ((256, torch.float32), (264, torch.bfloat16)):
+    for d, dtype in ((68, torch.float32), (100, torch.bfloat16)):
         q = torch.zeros(1, 128, 2, d, device="cuda", dtype=dtype)
-        with pytest.raises(NotImplementedError, match="Queue C"):
+        with pytest.raises(NotImplementedError, match="multiples of 8"):
             tfa.flash_attention_fwd_kernel(q, q, q, 0.1, True)
+
+
+@pytest.mark.cuda
+def test_backward_shares_delta_on_card():
+    """B3 reading the delta B2 wrote gives what B3 alone computes."""
+    if not torch.cuda.is_available():
+        pytest.skip("kernels B1-B3 run only on a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, do = [torch.randn(1, 128, 2, 64, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4)]
+    o, lse = tfa.flash_attention_fwd_kernel(q, k, v, 0.125, True)
+    delta = torch.empty_like(lse)
+    tfa.flash_attention_bwd_dq_kernel(q, k, v, o, lse, do, 0.125, True,
+                                      delta=delta)
+    want = (o.float() * do.float()).sum(-1).permute(0, 2, 1)
+    torch.testing.assert_close(delta, want, rtol=1e-5, atol=1e-5)
+    shared = tfa.flash_attention_bwd_dkv_kernel(q, k, v, o, lse, do, 0.125,
+                                                True, delta=delta)
+    alone = tfa.flash_attention_bwd_dkv_kernel(q, k, v, o, lse, do, 0.125,
+                                               True)
+    for a, b in zip(shared, alone):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -37,11 +37,11 @@ CASES = [(4, 2, 8, "float32"), (4, 4, 16, "float32"),
 IDS = ["gqa-f32", "mha-f32", "gqa-bf16"]
 
 
-def _inputs(h, kvh, ps, dtype, tail=0, seed=1):
+def _inputs(h, kvh, ps, dtype, tail=0, seed=1, d=16):
     """Three rows: two pages + 3 tokens, one page + 1, and an empty row.
     ``tail`` fills unused table entries (0, or -1 for unallocated)."""
     rng = np.random.RandomState(seed)
-    d, n_pages = 16, 20
+    n_pages = 20
     q = rng.randn(3, h, d).astype(np.float32)
     kp = rng.randn(n_pages, ps, kvh, d).astype(np.float32)
     vp = rng.randn(n_pages, ps, kvh, d).astype(np.float32)
@@ -86,6 +86,17 @@ def test_plain_twin_matches_pallas_interpret(case):
     got = tpa.paged_attention_kernel(*_torch(*args))   # CPU: plain twin
     tol = 2e-2 if case[3] == "bfloat16" else 2e-5
     np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("d", [80, 96])
+def test_plain_twin_matches_pallas_interpret_head_dims(d):
+    """Head dims the kernel takes zero-filled to a padded width (GPT of
+    hidden 640 / 8 heads, and 96), GQA, f32 pages."""
+    args = _inputs(4, 2, 8, "float32", tail=-1, seed=2, d=d)
+    want = np.asarray(jpa.paged_attention_kernel(*_jax(*args),
+                                                 interpret=True))
+    got = tpa.paged_attention_kernel(*_torch(*args))   # CPU: plain twin
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
 
 
 def test_cpu_wrapper_takes_plain_twin_without_launching():
@@ -214,37 +225,58 @@ def test_reference_impl_is_f32_end_to_end():
         tpa.ragged_paged_attention(*args, impl="xla")
 
 
+def _card_case(g, kv_dtype, h, kvh, d, lens, tables):
+    kp = torch.randn(96, 16, kvh, d, generator=g, device="cuda")
+    vp = torch.randn(96, 16, kvh, d, generator=g, device="cuda")
+    ks = vs = None
+    if kv_dtype == "int8":
+        (kp, ks), (vp, vs) = tpa.quantize_kv(kp), tpa.quantize_kv(vp)
+    else:
+        kp, vp = kp.to(getattr(torch, kv_dtype)), \
+            vp.to(getattr(torch, kv_dtype))
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(len(lens), h, d, generator=g, device="cuda")
+    before = tpa.launches
+    got = tpa.paged_attention_kernel(q, kp, vp, tables, lens, k_scales=ks,
+                                     v_scales=vs)
+    want = tpa.paged_attention_torch(q, kp, vp, tables, lens, k_scales=ks,
+                                     v_scales=vs)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 1
+    tol = 2e-2 if kv_dtype == "bfloat16" else 1e-4
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    assert torch.count_nonzero(got[lens == 0]) == 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
 def test_kernel_matches_plain_on_card(kv_dtype):
-    """Kernel B4 against its plain twin on the card: GQA and MHA, a
-    partial last page, an empty row, -1 table tails."""
+    """Kernel B4 against its plain twin on the card: GQA and MHA, head
+    dims 64, 80, 128, 256, a partial last page, an empty row, -1 table
+    tails; a 1024-token decode row split over partitions; a prefill
+    chunk whose rows of one sequence share their pages, beside rows of
+    another sequence and padding."""
     if not torch.cuda.is_available():
         pytest.skip("kernel B4 runs only on a CUDA card")
     g = torch.Generator(device="cuda").manual_seed(0)
-    for h, kvh, d in [(12, 12, 64), (16, 4, 128)]:
-        kp = torch.randn(64, 16, kvh, d, generator=g, device="cuda")
-        vp = torch.randn(64, 16, kvh, d, generator=g, device="cuda")
-        ks = vs = None
-        if kv_dtype == "int8":
-            (kp, ks), (vp, vs) = tpa.quantize_kv(kp), tpa.quantize_kv(vp)
-        else:
-            kp, vp = kp.to(getattr(torch, kv_dtype)), \
-                vp.to(getattr(torch, kv_dtype))
+    for h, kvh, d in [(12, 12, 64), (16, 4, 128), (8, 8, 80), (8, 2, 256)]:
         tables = torch.full((4, 8), -1, dtype=torch.int32, device="cuda")
         tables[0, :3] = torch.tensor([5, 9, 2])
         tables[1, :1] = 7
         tables[3, :8] = torch.arange(10, 18)
-        lens = torch.tensor([35, 16, 0, 128], dtype=torch.int32,
-                            device="cuda")
-        q = torch.randn(4, h, d, generator=g, device="cuda")
-        before = tpa.launches
-        got = tpa.paged_attention_kernel(q, kp, vp, tables, lens,
-                                         k_scales=ks, v_scales=vs)
-        want = tpa.paged_attention_torch(q, kp, vp, tables, lens,
-                                         k_scales=ks, v_scales=vs)
-        torch.cuda.synchronize()
-        assert tpa.launches == before + 1
-        tol = 2e-2 if kv_dtype == "bfloat16" else 1e-4
-        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
-        assert torch.count_nonzero(got[2]) == 0
+        _card_case(g, kv_dtype, h, kvh, d, [35, 16, 0, 128], tables)
+    # one decode row over 64 pages (8 partitions of 8 pages)
+    long_table = torch.arange(20, 84, dtype=torch.int32,
+                              device="cuda")[None]
+    _card_case(g, kv_dtype, 12, 12, 64, [1024], long_table)
+    # a chunk: 20 rows of one sequence (lens 181..200, -1 tails past each
+    # row's own pages), 6 rows of another, 2 padding rows
+    seq = torch.randperm(90, generator=g, device="cuda")[:26].int() + 1
+    lens = list(range(181, 201)) + list(range(3, 9)) + [0, 0]
+    tables = torch.full((28, 16), -1, dtype=torch.int32, device="cuda")
+    for i, n in enumerate(lens):
+        if n:
+            src = seq[:13] if i < 20 else seq[13:]
+            used = -(-n // 16)
+            tables[i, :used] = src[:used]
+    _card_case(g, kv_dtype, 12, 12, 64, lens, tables)

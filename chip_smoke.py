@@ -15,20 +15,30 @@ the result line:
    instructions in its SASS);
 3. kernels: kernel B4 against its plain PyTorch twin at the serving
    path's shapes and dtypes (decode, a prefill chunk of two sequences
-   and padding, GQA, one 1024-token row, head dims 80 and 256), with its
-   device time (``torch.profiler``; CUDA events beside it) beside the
-   plain twin's, a one-call PyTorch yardstick's and the least time the
-   card could take;
+   and padding, GQA, one 1024-token row, head dims 80 and 256, a mixed
+   tick of 64 chunk rows and 8 decode rows sharing a 32-page prefix,
+   pages of 128 and 256 tokens, 40 and 64 q heads on one kv head, head
+   dim 320), with its device time (``torch.profiler``; CUDA events
+   beside it) beside the plain twin's, a one-call PyTorch yardstick's
+   and the least time the card could take;
 4. flash kernels: B1, B2 and B3 the same way at the training path's
    shapes (gpt2-small bf16 and f32, llama-style GQA, cross-length, head
    dim 80, and head dims 256 f32, 320 bf16 and 264 f16 in the split-d
    kernels), each kernel's device time (``torch.profiler``) taken in
    turns with its twin's and SDPA's (median of 3 windows of 20 calls);
 5. serve: GPT-2-small at full width (random weights from ``seed(0)``)
-   serving eight requests through ``LLMEngine`` on kernel B4, then on
-   the plain twin (token streams must be identical), then once more
-   under ``torch.profiler`` (device time by kernel), then 32 greedy
+   serving eight requests through ``LLMEngine`` with its defaults
+   (prefix cache, mixed tick) on kernel B4, then on the plain twin
+   (token streams must be identical), then once more under
+   ``torch.profiler`` (device time by kernel), then on the alternating
+   loop with the cache and the mixed tick off, and on that loop with
+   ``lookahead=2`` (streams identical to the main run's), then 32 greedy
    streams on an int8 KV pool against an f32 pool (agreement >= 0.9);
+   then shared-prefix chat traffic (a 512-token system prompt, one
+   request first, then 7 at once) on the default engine, on 4-tick
+   decode slabs and with the cache and the mixed tick off: identical
+   streams, 7 x 512 cached prompt tokens, B4 launched once a layer per
+   dispatched tick;
 6. train: GPT-2-small at full width as ``bench.py bench_gpt`` configures
    it (seq 1024, batch 8, fused loss, AdamW 1e-4 / wd 0.01, AMP O1)
    through ``Model.train_batch`` on kernels B1-B3: 3 warm-up and 10
@@ -45,6 +55,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import importlib
 import itertools
 import json
 import math
@@ -184,12 +195,16 @@ def phase_build() -> None:
 # ---------------------------------------------------------------------------
 
 def _case_inputs(g, t, heads, kv_heads, d, kv_dtype, q_dtype, lens_list,
-                 seqs):
+                 seqs, page_size=PAGE_SIZE, shared=0):
     """Layer-stacked pools and the rows of one launch. ``seqs[t]`` names
-    the sequence of row t: rows of one sequence share a table."""
+    the sequence of row t: rows of one sequence share a table, and every
+    sequence's first ``shared`` table entries are sequence 0's (a cached
+    prefix). The pool holds NUM_PAGES x PAGE_SIZE tokens at any page
+    size."""
     from paddle_tpu_torch.ops.paged_attention import quantize_kv
     dev = "cuda"
-    shape = (LAYERS, NUM_PAGES, PAGE_SIZE, kv_heads, d)
+    num_pages = NUM_PAGES * PAGE_SIZE // page_size
+    shape = (LAYERS, num_pages, page_size, kv_heads, d)
     k = torch.randn(shape, generator=g, device=dev)
     v = torch.randn(shape, generator=g, device=dev)
     if kv_dtype == torch.int8:
@@ -198,13 +213,14 @@ def _case_inputs(g, t, heads, kv_heads, d, kv_dtype, q_dtype, lens_list,
     else:
         pools = (k.to(kv_dtype), v.to(kv_dtype), None, None)
     del k, v
-    P = PAGES_PER_SEQ
-    perm = torch.randperm(NUM_PAGES - 1, generator=g, device=dev) + 1
+    P = PAGES_PER_SEQ * PAGE_SIZE // page_size
+    perm = torch.randperm(num_pages - 1, generator=g, device=dev) + 1
     n_seq = max(seqs) + 1
     seq_tables = perm[:n_seq * P].reshape(n_seq, P).to(torch.int32)
+    seq_tables[:, :shared] = seq_tables[0, :shared]
     lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
     tables = seq_tables[torch.tensor(seqs, device=dev)].clone()
-    used = (lens + PAGE_SIZE - 1) // PAGE_SIZE
+    used = (lens + page_size - 1) // page_size
     cols = torch.arange(P, device=dev)[None, :]
     tables[cols >= used[:, None]] = -1           # -1 tails
     q = torch.randn((t, heads, d), generator=g, device=dev).to(q_dtype)
@@ -239,24 +255,25 @@ def _time_ms(fn):
     return _device_ms(lambda: fn(next(layer)), REPS * LAYERS), events
 
 
-def _bound(lens, seqs, t, heads, kv_heads, d, pages_per_seq, kv_dtype,
+def _bound(tables, lens_list, t, heads, kv_heads, d, page_size, kv_dtype,
            q_dtype):
     """The least time the card could take for one launch: bytes moved
-    (each live page of K and V once, even when several rows of one
-    sequence attend it; int8 scales, q, out, tables, lens) over HBM
-    bandwidth, or operations (QK and PV, 2 each per head, attended
-    position and dim) over the peak rate of the pool's type."""
-    live = {}
-    for n, s in zip(lens, seqs):
-        live[s] = max(live.get(s, 0), -(-n // PAGE_SIZE))
-    pages = sum(live.values())
+    (each live page of K and V once, however many rows attend it; int8
+    scales, q, out, tables, lens) over HBM bandwidth, or operations (QK
+    and PV, 2 each per head, attended position and dim) over the peak
+    rate of the pool's type."""
+    host = tables.cpu()
+    live = set()
+    for row, n in zip(host, lens_list):
+        live.update(row[:-(-n // page_size)].tolist())
+    pages = len(live)
     kv_elt = torch.tensor([], dtype=kv_dtype).element_size()
     q_elt = torch.tensor([], dtype=q_dtype).element_size()
-    nbytes = pages * PAGE_SIZE * kv_heads * d * 2 * kv_elt
+    nbytes = pages * page_size * kv_heads * d * 2 * kv_elt
     if kv_dtype == torch.int8:
-        nbytes += pages * PAGE_SIZE * 4 * 2
-    nbytes += 2 * t * heads * d * q_elt + t * pages_per_seq * 4 + t * 4
-    ops = 4 * sum(lens) * heads * d
+        nbytes += pages * page_size * 4 * 2
+    nbytes += 2 * t * heads * d * q_elt + t * tables.shape[1] * 4 + t * 4
+    ops = 4 * sum(lens_list) * heads * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[kv_dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -268,7 +285,7 @@ def _library_fn(pools, tables, lens, q, heads, kv_heads):
     layer's pages pre-gathered contiguously (gathering not timed)."""
     import torch.nn.functional as TF
     t, _, d = q.shape
-    L = tables.shape[1] * PAGE_SIZE
+    L = tables.shape[1] * pools[0].shape[2]
     mask = (torch.arange(L, device=q.device)[None, :] <
             lens[:, None].long())[:, None, None, :]
     idx = tables.long().clamp(min=0)
@@ -293,7 +310,7 @@ def _library_fn(pools, tables, lens, q, heads, kv_heads):
 
 
 def phase_kernels() -> dict:
-    from paddle_tpu_torch.ops import paged_attention as pa
+    pa = importlib.import_module("paddle_tpu_torch.ops.paged_attention")
     g = torch.Generator(device="cuda").manual_seed(0)
     rng = np.random.RandomState(0)
     decode_lens = [0, 17, 143, 269, 400, 647, 773, 932]
@@ -318,13 +335,35 @@ def phase_kernels() -> dict:
          [(f32, f32)]),
         ("decode d256 gqa", 8, 8, 2, 256, decode_lens, list(range(8)),
          [(bf16, f32)]),
+        # a mixed tick of the shared-prefix traffic: 64 suffix chunk rows
+        # of one request and 8 decode rows of others, the first 32 pages
+        # (a 512-token prefix) shared by all rows
+        ("mixed chunk+decode shared", 72, 12, 12, 64,
+         list(range(513, 577)) + [530, 560, 600, 650, 690, 700, 720, 740],
+         [0] * 64 + list(range(1, 9)), [(f32, f32)], dict(shared=32)),
+        # shapes the Pallas kernel takes and a block does not hold whole:
+        # 128- and 256-token pages, 40 and 64 q heads on one kv head
+        # (gpt3-13b with num_kv_heads=1), d 320
+        ("decode ps128", 8, 12, 12, 64, decode_lens, list(range(8)),
+         [(f32, f32)], dict(page_size=128)),
+        ("decode ps256", 8, 12, 12, 64, decode_lens, list(range(8)),
+         [(f32, f32)], dict(page_size=256)),
+        ("decode mqa 40/1 d128", 8, 40, 1, 128, decode_lens,
+         list(range(8)), [(bf16, bf16)]),
+        ("decode 64/1", 8, 64, 1, 64, decode_lens, list(range(8)),
+         [(f32, f32)]),
+        ("decode d320", 8, 8, 8, 320, decode_lens, list(range(8)),
+         [(f32, f32)]),
     ]
     cases = []
-    for name, t, heads, kv_heads, d, lens_list, seqs, dtypes in shapes:
+    for name, t, heads, kv_heads, d, lens_list, seqs, dtypes, *extra in \
+            shapes:
+        extra = extra[0] if extra else {}
+        page_size = extra.get("page_size", PAGE_SIZE)
         for kv_dtype, q_dtype in dtypes:
             pools, tables, lens, q = _case_inputs(
                 g, t, heads, kv_heads, d, kv_dtype, q_dtype, lens_list,
-                seqs)
+                seqs, **extra)
             kp, vp, ks, vs = _layer_args(pools, 0)
             got = pa.paged_attention_kernel(q, kp, vp, tables, lens,
                                             k_scales=ks, v_scales=vs)
@@ -354,12 +393,13 @@ def phase_kernels() -> dict:
             library_ms, _ = _time_ms(_library_fn(pools, tables, lens, q,
                                                  heads, kv_heads))
             bound_ms, bound_by, nbytes, ops = _bound(
-                lens_list, seqs, t, heads, kv_heads, d, tables.shape[1],
+                tables, lens_list, t, heads, kv_heads, d, page_size,
                 kv_dtype, q_dtype)
             case = {"phase": "kernel_case", "kernel": "paged_attention",
                     "case": name, "T": t, "heads": heads,
                     "kv_heads": kv_heads, "head_dim": d,
-                    "page_size": PAGE_SIZE,
+                    "page_size": page_size,
+                    "shared_pages": extra.get("shared", 0),
                     "pages_per_seq": tables.shape[1],
                     "kv_dtype": str(kv_dtype), "q_dtype": str(q_dtype),
                     "lens": lens_list, "max_abs_err": err, "tol": tol,
@@ -384,34 +424,101 @@ def phase_kernels() -> dict:
 # GPT-2-small served through LLMEngine
 # ---------------------------------------------------------------------------
 
-def _serve(net, prompts, temps, nonces, impl, kv_dtype, label):
+def _serve(net, prompts, temps, nonces, impl, kv_dtype, label, first=0,
+           **knobs):
+    """Serve the requests through an ``LLMEngine`` with its default
+    knobs but ``knobs``: the first ``first`` one at a time, to
+    completion, then the rest submitted at once. Timing (wall, tokens/s,
+    TTFT) covers the burst; B4's launches and the engine's counters
+    cover the whole run."""
     from paddle_tpu_torch.inference.llm import LLMEngine
-    from paddle_tpu_torch.ops import paged_attention as pa
-    eng = LLMEngine(net, max_seqs=8, page_size=PAGE_SIZE,
-                    num_pages=NUM_PAGES, prefill_chunk=64,
-                    kv_dtype=kv_dtype, attention_impl=impl, device="cuda")
+    pa = importlib.import_module("paddle_tpu_torch.ops.paged_attention")
+    eng = LLMEngine(net, page_size=PAGE_SIZE, num_pages=NUM_PAGES,
+                    prefill_chunk=64, kv_dtype=kv_dtype,
+                    attention_impl=impl, device="cuda", **knobs)
+    reqs = list(zip(prompts, temps, nonces))
     with eng:
         torch.cuda.synchronize()
         pa.launches = 0
+        outs = [eng.submit(p, max_new_tokens=32, temperature=tp,
+                           nonce=n).result(timeout=600)
+                for p, tp, n in reqs[:first]]
         t0 = time.perf_counter()
         futs = [eng.submit(p, max_new_tokens=32, temperature=tp, nonce=n)
-                for p, tp, n in zip(prompts, temps, nonces)]
-        outs = [f.result(timeout=600) for f in futs]
+                for p, tp, n in reqs[first:]]
+        burst = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
         launches = pa.launches
-    n_tok = sum(len(o["output_ids"]) for o in outs)
-    ttft = sorted(o["ttft_s"] for o in outs)
+    outs += burst
+    n_tok = sum(len(o["output_ids"]) for o in burst)
+    ttft = sorted(o["ttft_s"] for o in burst)
     run = {"phase": "serve", "run": label, "attention_impl": impl,
-           "kv_dtype": kv_dtype,
-           "requests": len(outs), "output_tokens": n_tok,
-           "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "kv_dtype": kv_dtype, "knobs": knobs,
+           "requests": len(outs), "timed_requests": len(burst),
+           "output_tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall,
            "ttft_p50_s": float(np.median(ttft)),
+           "prefix_cache": eng._cache is not None,
+           "mixed_tick": eng.mixed_tick,
+           "decode_ticks_per_dispatch": eng.decode_ticks_per_dispatch,
+           "lookahead": eng.lookahead,
            "prefill_chunks": eng.n_prefill_ticks,
-           "decode_ticks": eng.n_decode_ticks,
+           "decode_ticks_realized": eng.n_decode_ticks,
+           "dispatched_ticks": eng.n_dispatched_ticks,
+           "mixed_slabs": eng.n_mixed_slabs,
+           "prompt_tokens": eng.n_prompt_tokens,
+           "cached_tokens": eng.n_cached_tokens,
            "kernel_launches": launches,
            "truncated": sum(o["truncated"] for o in outs)}
     emit(run)
     return outs, run
+
+
+def _streams(outs):
+    return [o["output_ids"] for o in outs]
+
+
+LEGACY = dict(prefix_cache=False, mixed_tick=False)
+
+
+def _shared_prefix_runs(net, cfg) -> dict:
+    """Chat traffic with a fixed system prompt: one request of a
+    512-token prefix plus 64 tokens of its own served first, then 7 of
+    the same prefix plus 17..200 tokens of their own at once, 32 new
+    tokens each, half greedy and half temperature 0.8, nonces pinned.
+    On the default engine, on 4-tick slabs, and with the cache and the
+    mixed tick off: streams identical, 7 x 512 prompt tokens served from
+    the cache where it is on, B4 launched once a layer per dispatched
+    tick."""
+    rng = np.random.RandomState(2)
+    prefix = rng.randint(0, cfg.vocab_size, 512).tolist()
+    own = [64] + np.linspace(17, 200, 7).astype(int).tolist()
+    prompts = [prefix + rng.randint(0, cfg.vocab_size, n).tolist()
+               for n in own]
+    temps = [0.0] + [0.0, 0.8] * 3 + [0.0]
+    nonces = [2000 + i for i in range(8)]
+    runs = {}
+    for label, knobs in (("default", {}),
+                         ("slab 4", dict(decode_ticks_per_dispatch=4)),
+                         ("cache off, mixed off", LEGACY)):
+        outs, run = _serve(net, prompts, temps, nonces, "kernel", "f32",
+                           f"shared prefix, {label}", first=1, **knobs)
+        runs[label] = (_streams(outs), run)
+    want = runs["default"][0]
+    checks = {
+        "streams_identical_across_runs":
+            all(s == want for s, _ in runs.values()),
+        "all_full_length": all(len(x) == 32 for x in want),
+        **{f"cached_tokens_{k}": r["cached_tokens"] ==
+           (0 if k == "cache off, mixed off" else 7 * 512)
+           for k, (_, r) in runs.items()},
+        **{f"launches_{k}": r["kernel_launches"] ==
+           cfg.num_layers * r["dispatched_ticks"]
+           for k, (_, r) in runs.items()},
+    }
+    emit({"phase": "shared_prefix_checks", "prefix_tokens": 512,
+          "own_tokens": own, "checks": checks})
+    return checks
 
 
 def _agreement(a, b):
@@ -445,6 +552,13 @@ def phase_serve() -> int:
                                  "f32", "profiled"),
                   1, "run", phase="serve", run="profile",
                   requests=len(prompts)))
+    # the alternating prefill-chunk / decode-step loop, and the same
+    # with decode steps issued two ahead of the fetch
+    outs_l, run_l = _serve(net, prompts, temps, nonces, "kernel", "f32",
+                           "legacy loop", **LEGACY)
+    outs_a, run_a = _serve(net, prompts, temps, nonces, "kernel", "f32",
+                           "legacy loop, lookahead 2", lookahead=2,
+                           **LEGACY)
     # int8 pool against the f32 pool: greedy streams of the 8 serve
     # prompts and 24 more (a flipped argmax derails the rest of its
     # stream, so the floor is held over 32 streams, not 4)
@@ -458,23 +572,24 @@ def phase_serve() -> int:
     outs_q, run_q = _serve(net, greedy_prompts, zeros, seq, "kernel",
                            "int8", "greedy int8 pool")
 
-    want = cfg.num_layers * (run_k["prefill_chunks"] +
-                             run_k["decode_ticks"])
-    want_q = cfg.num_layers * (run_q["prefill_chunks"] +
-                               run_q["decode_ticks"])
-    streams_k = [o["output_ids"] for o in outs_k]
-    per_request = _agreement([o["output_ids"] for o in outs_q],
-                             [o["output_ids"] for o in outs_g])
+    streams_k = _streams(outs_k)
+    per_request = _agreement(_streams(outs_q), _streams(outs_g))
     agree = float(np.mean(per_request))
     # the dense-cache path as reference for the first greedy request
     dense = net.generate(torch.tensor([prompts[0]], device="cuda"),
                          max_new_tokens=32)[0, lens[0]:].tolist()
     checks = {
-        "launches_kernel_run": run_k["kernel_launches"] == want,
-        "launches_int8_run": run_q["kernel_launches"] == want_q,
+        **{f"launches_{k}_run": r["kernel_launches"] ==
+           cfg.num_layers * r["dispatched_ticks"]
+           for k, r in (("kernel", run_k), ("int8", run_q),
+                        ("legacy", run_l), ("lookahead", run_a))},
         "launches_plain_run": run_p["kernel_launches"] == 0,
-        "streams_kernel_eq_plain": streams_k ==
-        [o["output_ids"] for o in outs_p],
+        "main_run_mixed_tick_and_cache": run_k["mixed_tick"] and
+        run_k["prefix_cache"] and run_k["mixed_slabs"] > 0,
+        "streams_kernel_eq_plain": streams_k == _streams(outs_p),
+        "streams_legacy_eq_main": _streams(outs_l) == streams_k,
+        "streams_lookahead_eq_legacy": _streams(outs_a) ==
+        _streams(outs_l),
         "all_full_length": all(len(s) == 32 for s in streams_k) and
         not run_k["truncated"],
         "tokens_in_vocab": all(0 <= x < cfg.vocab_size
@@ -485,8 +600,11 @@ def phase_serve() -> int:
     emit({"phase": "serve_checks", "model": "gpt2-small",
           "layers": cfg.num_layers, "hidden": cfg.hidden_size,
           "vocab": cfg.vocab_size, "prompt_lens": lens.tolist(),
-          "expected_launches": want, "int8_greedy_agreement": agree,
+          "expected_launches": cfg.num_layers * run_k["dispatched_ticks"],
+          "int8_greedy_agreement": agree,
           "int8_agreement_per_request": per_request, "checks": checks})
+    checks.update({f"shared_prefix_{k}": v
+                   for k, v in _shared_prefix_runs(net, cfg).items()})
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise SystemExit(f"serve checks failed: {failed}")

@@ -108,17 +108,15 @@ define_flag("flash_attention", True,
             "(B1 forward, B2 + B3 backward) when "
             "flash_attention_available says the configuration fits.")
 define_flag("decode_ticks_per_dispatch", 1,
-            "Default for LLMEngine(decode_ticks_per_dispatch=...). The "
-            "port runs one decode tick per dispatch; values above 1 (the "
-            "fused decode slab) raise NotImplementedError until that "
-            "feature is ported.",
+            "Default for LLMEngine(decode_ticks_per_dispatch=...): decode "
+            "ticks issued back to back as one slab (a DecodeCarry loop) "
+            "before the host reads the tokens. Token-identical to 1.",
             validator=lambda v: v >= 1)
-define_flag("mixed_tick", False,
-            "Default for LLMEngine(mixed_tick=...). OFF in the port: the "
-            "engine runs the alternating prefill-chunk/decode-tick loop, "
-            "which the JAX package pins token-identical to the mixed "
-            "tick. True raises NotImplementedError until the mixed tick "
-            "is ported.")
+define_flag("mixed_tick", True,
+            "Default for LLMEngine(mixed_tick=...): serve prefill chunk "
+            "rows and decode rows as one ragged batch per tick. "
+            "Token-identical to the alternating prefill-chunk/decode-tick "
+            "loop; the default yields to lookahead.")
 define_flag("kv_dtype", "",
             "Default storage dtype for LLMEngine's paged KV pool: "
             "'int8' (quantized pages + per-token f32 scales), "

@@ -10,7 +10,9 @@
 // kv head. int8 pools carry one float32 scale per page row ([num_pages,
 // page_size]) and are dequantized as value * scale. lens[t] == 0 gives a
 // zero row; -1 table entries are read as page 0. Scores and the softmax
-// are float32; the output has q's dtype. d is any multiple of 8 up to 256.
+// are float32; the output has q's dtype. d is any multiple of 8, any
+// page_size and any group H / KVH (as far as one K row, the q vectors and
+// one V column slice fit the block's shared memory: d up to ~12K at f32).
 //
 // Bound. Decode and chunked prefill read every K/V byte of every live
 // page once and do ~4 flops per element read (QK and PV, per q head of
@@ -51,6 +53,14 @@
 //   need many.
 // - int8 pages move as int8 with their scales staged beside them: the K
 //   scale folds into the score, the V scale into P.
+// - Any shape the TPU kernel takes (it tiles one whole page and one
+//   [group, d] q block per grid step). A page longer than a stage (64
+//   rows, fewer at a large d) is walked in sub-stages of one page, so a
+//   partition still counts whole pages. A group whose q vectors or
+//   group x d elements exceed one block is split over q-head tiles (grid
+//   axis z); each tile reads the page itself. Above d 256 the output
+//   columns split over blocks (grid axis z too): each block sums the
+//   score over all of d and stages only its slice of V.
 // f32 pools stay on float32 FMAs (TF32 would break the 2e-5 tolerance).
 
 #include <cuda_bf16.h>
@@ -66,11 +76,13 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRows = 64;    // page rows of K (and of V) in one stage
-constexpr int kMaxQ = 32;       // q vectors of a block: run rows x group
+constexpr int kMaxQ = 32;       // q vectors of a block: run rows x head tile
 constexpr int kMaxItems = 16;   // output elements a thread accumulates
-constexpr int kMaxElems = kMaxItems * kThreads;  // q vectors x d
+constexpr int kMaxElems = kMaxItems * kThreads;  // q vectors x columns
 constexpr int kMaxRun = 16;     // rows of one sequence in one block
 constexpr int kStageBudget = 72 * 1024;  // bytes of the two K/V stages
+constexpr int kQBudget = 8192;  // float32 q elements of a block (q x d)
+constexpr int kMaxCols = 256;   // output columns of a block
 constexpr float kLog2e = 1.4426950408889634f;
 
 // dtype codes shared with paddle_tpu_torch/ops/paged_attention.py
@@ -89,8 +101,13 @@ struct Args {
   float* part_acc;  // [T, H, n_parts, d]
   int q_dtype;
   int T, n_heads, kv_heads, d, page_size, pages_per_seq;
-  int part_pages, n_parts, stage_pages, run_rows;
-  int max_q;  // q vectors of a block at most: run_rows x group
+  int part_pages, n_parts, run_rows;
+  // a stage: stage_pages whole pages (n_sub 1), or one stage_rows slice of
+  // a page (n_sub sub-stages a page); stage_rows rows either way
+  int stage_pages, n_sub, stage_rows;
+  int head_tile, n_head_tiles;  // q heads of a block, tiles of a group
+  int cols, n_col_tiles;        // output columns of a block, their tiles
+  int max_q;  // q vectors of a block at most: run_rows x head_tile
   float scale;
 };
 
@@ -231,15 +248,18 @@ __device__ __forceinline__ int parts_of(const Args& a, int len) {
   return (pages + a.part_pages - 1) / a.part_pages;
 }
 
-__host__ __device__ inline int row_bytes(int kv_size, int d) {
-  return d * kv_size + 16;
+// bytes of a staged row of `cols` elements, padded by 16 (conflict-free
+// row-wise reads)
+__host__ __device__ inline int row_bytes(int kv_size, int cols) {
+  return (cols * kv_size + 15) / 16 * 16 + 16;
 }
 
-// Dynamic shared memory: two stages of (K, V) page rows, then float32 q
-// vectors, scores, int8 scales and softmax state.
-__host__ __device__ inline size_t smem_bytes(int kv_size, int d,
+// Dynamic shared memory: two stages of (K rows of all of d, V rows of the
+// block's columns), then float32 q vectors, scores, int8 scales and
+// softmax state.
+__host__ __device__ inline size_t smem_bytes(int kv_size, int d, int cols,
                                              int stage_rows, int max_q) {
-  return 4ull * stage_rows * row_bytes(kv_size, d) +
+  return 2ull * stage_rows * (row_bytes(kv_size, d) + row_bytes(kv_size, cols)) +
          4ull * (max_q * d + max_q * kMaxRows + 4 * kMaxRows + kThreads +
                  3 * max_q + kMaxRun);
 }
@@ -249,25 +269,33 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   const int pj = blockIdx.x;  // partition of the row's pages
   const int r = blockIdx.y;
-  const int kvh = blockIdx.z;
+  const int kvh = blockIdx.z / (a.n_head_tiles * a.n_col_tiles);
+  const int tile = blockIdx.z % (a.n_head_tiles * a.n_col_tiles);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int G = a.n_heads / a.kv_heads;
   const int d = a.d;
   const int ps = a.page_size;
+  // this block's q heads kvh G + g0 .. + gh and output columns c0 .. + dc
+  const int g0 = tile / a.n_col_tiles * a.head_tile;
+  const int gh = min(a.head_tile, G - g0);
+  const int c0 = tile % a.n_col_tiles * a.cols;
+  const int dc = min(a.cols, d - c0);
+  const int head0 = kvh * G + g0;
 
   // the run of rows this block owns: r .. r1 - 1
   if (r % a.run_rows != 0 && joins(a, r)) return;
   int r1 = r + 1;
   while (r1 < a.T && r1 % a.run_rows != 0 && joins(a, r1)) ++r1;
-  const int M = (r1 - r) * G;  // q vectors: row-major (row, head)
+  const int M = (r1 - r) * gh;  // q vectors: row-major (row, head)
   const int max_len = a.lens[r1 - 1];
   if (max_len <= 0) {  // a zero row, always a run of one
     if (pj == 0)
-      for (int i = tid; i < G * d; i += kThreads)
+      for (int i = tid; i < gh * dc; i += kThreads)
         store_f32(a.out,
-                  (static_cast<int64_t>(r) * a.n_heads + kvh * G) * d + i,
+                  (static_cast<int64_t>(r) * a.n_heads + head0 + i / dc) * d +
+                      c0 + i % dc,
                   0.f, a.q_dtype);
     return;
   }
@@ -276,11 +304,13 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
   if (p_begin >= live) return;
   const int p_end = min(live, p_begin + a.part_pages);
 
-  const int rb = row_bytes(sizeof(KV), d);
-  const int stage_rows = a.stage_pages * ps;
+  const int rbk = row_bytes(sizeof(KV), d);
+  const int rbv = row_bytes(sizeof(KV), a.cols);
+  const int stage_rows = a.stage_rows;
+  const size_t stage_bytes = static_cast<size_t>(stage_rows) * (rbk + rbv);
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* kv = smem;  // [stage][K | V][stage_rows][rb]
-  float* q_s = reinterpret_cast<float*>(smem + 4ull * stage_rows * rb);
+  unsigned char* kv = smem;  // [stage][K rows | V rows]
+  float* q_s = reinterpret_cast<float*>(smem + 2 * stage_bytes);
   float* s_s = q_s + a.max_q * d;  // [max_q][kMaxRows]: scores, then P
   float* sc_s = s_s + a.max_q * kMaxRows;  // [stage][K | V][kMaxRows]
   float* red_s = sc_s + 4 * kMaxRows;  // [kThreads]: PV partial sums
@@ -293,29 +323,54 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
                                         a.pages_per_seq;
   const int64_t row_stride = static_cast<int64_t>(a.kv_heads) * d *
                              sizeof(KV);  // bytes between page rows
-  const int chunk = (d * sizeof(KV)) % 16 == 0 ? 16 : 8;
-  const int chunks = d * static_cast<int>(sizeof(KV)) / chunk;
-  auto issue = [&](int p0, int st) {
-    const int rows = min(a.stage_pages, p_end - p0) * ps;
-    unsigned char* kd = kv + static_cast<size_t>(st) * 2 * stage_rows * rb;
-    unsigned char* vd = kd + static_cast<size_t>(stage_rows) * rb;
-    for (int i = tid; i < rows * chunks; i += kThreads) {
-      const int rr = i / chunks;
-      const int ch = i - rr * chunks;
-      const int page = max(table[p0 + rr / ps], 0);
-      const int64_t g = (static_cast<int64_t>(page) * ps + rr % ps) *
+  const int64_t head_off = static_cast<int64_t>(kvh) * d * sizeof(KV);
+  const int kchunk = (d * sizeof(KV)) % 16 == 0 ? 16 : 8;
+  const int kchunks = d * static_cast<int>(sizeof(KV)) / kchunk;
+  const int vchunk =
+      kchunk == 16 && (a.cols * sizeof(KV)) % 16 == 0 ? 16 : 8;
+  const int vchunks = dc * static_cast<int>(sizeof(KV)) / vchunk;
+  // stage si: first page p0, first row of that page sub, rows rows
+  auto stage_of = [&](int si, int& p0, int& sub, int& rows) {
+    if (a.n_sub == 1) {
+      p0 = p_begin + si * a.stage_pages;
+      sub = 0;
+      rows = min(a.stage_pages, p_end - p0) * ps;
+    } else {
+      p0 = p_begin + si / a.n_sub;
+      sub = si % a.n_sub * stage_rows;
+      rows = min(stage_rows, ps - sub);
+    }
+  };
+  auto issue = [&](int si, int st) {
+    int p0, sub, rows;
+    stage_of(si, p0, sub, rows);
+    unsigned char* kd = kv + st * stage_bytes;
+    unsigned char* vd = kd + static_cast<size_t>(stage_rows) * rbk;
+    // chunk ch of a row: K's, and V's (a V row of the block's columns
+    // never has more chunks than a K row of all of d)
+    for (int i = tid; i < rows * kchunks; i += kThreads) {
+      const int rr = i / kchunks;
+      const int ch = i - rr * kchunks;
+      const int pr = sub + rr;  // row counted from the stage's first page
+      const int page = max(table[p0 + pr / ps], 0);
+      const int64_t g = (static_cast<int64_t>(page) * ps + pr % ps) *
                             row_stride +
-                        static_cast<int64_t>(kvh) * d * sizeof(KV) +
-                        ch * chunk;
-      cp_async(kd + rr * rb + ch * chunk,
-               static_cast<const unsigned char*>(a.k_pages) + g, chunk);
-      cp_async(vd + rr * rb + ch * chunk,
-               static_cast<const unsigned char*>(a.v_pages) + g, chunk);
+                        head_off;
+      cp_async(kd + rr * rbk + ch * kchunk,
+               static_cast<const unsigned char*>(a.k_pages) + g +
+                   ch * kchunk,
+               kchunk);
+      if (ch < vchunks)
+        cp_async(vd + rr * rbv + ch * vchunk,
+                 static_cast<const unsigned char*>(a.v_pages) + g +
+                     c0 * sizeof(KV) + ch * vchunk,
+                 vchunk);
     }
     if (kQuant) {
       for (int i = tid; i < rows; i += kThreads) {
+        const int pr = sub + i;
         const int64_t row =
-            static_cast<int64_t>(max(table[p0 + i / ps], 0)) * ps + i % ps;
+            static_cast<int64_t>(max(table[p0 + pr / ps], 0)) * ps + pr % ps;
         cp_async(sc_s + (2 * st) * kMaxRows + i, a.k_scales + row, 4);
         cp_async(sc_s + (2 * st + 1) * kMaxRows + i, a.v_scales + row, 4);
       }
@@ -323,14 +378,14 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
     cp_async_commit();
   };
 
-  issue(p_begin, 0);
+  issue(0, 0);
   // q vectors in log2 units: exp(x) = exp2(x * log2 e)
   const float qscale = a.scale * kLog2e;
   for (int i = tid; i < M * d; i += kThreads) {
     const int m = i / d;
     const int c = i - m * d;
     const int64_t src =
-        (static_cast<int64_t>(r + m / G) * a.n_heads + kvh * G + m % G) * d +
+        (static_cast<int64_t>(r + m / gh) * a.n_heads + head0 + m % gh) * d +
         c;
     q_s[i] = load_f32(a.q, src, a.q_dtype) * qscale;
   }
@@ -343,7 +398,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
 #pragma unroll
   for (int k = 0; k < kMaxItems; ++k) acc[k] = 0.f;
 
-  // QK: thread (kr, grp) scores page row kr. With at least as many q
+  // QK: thread (kr, grp) scores stage row kr. With at least as many q
   // vectors as groups, group grp takes q vectors grp + ngrp * i over the
   // whole head dim; with fewer (decode), the groups split the head dim
   // into dparts interleaved 8-column parts and the softmax sums them.
@@ -355,35 +410,40 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
   const int m0 = dparts > 1 ? grp % M : grp;
   const int qstep = dparts > 1 ? M : ngrp;
   const int dpart = dparts > 1 ? grp / M : 0;
-  // PV: thread owns output element i = tid % (M d); with few elements
+  // PV: thread owns output element i = tid % (M dc); with few elements
   // (decode), jsplit threads share one, each over every jsplit-th row
-  const int items = M * d;
+  const int items = M * dc;
   const int jsplit = 2 * items <= kThreads ? min(4, kThreads / items) : 1;
-  const int n_stages = (p_end - p_begin + a.stage_pages - 1) / a.stage_pages;
+  // the last page's sub-stages stop at the longest row's end
+  const int n_stages =
+      a.n_sub == 1
+          ? (p_end - p_begin + a.stage_pages - 1) / a.stage_pages
+          : (p_end - p_begin - 1) * a.n_sub +
+                (min(ps, max_len - (p_end - 1) * ps) + stage_rows - 1) /
+                    stage_rows;
   for (int si = 0; si < n_stages; ++si) {
-    const int p0 = p_begin + si * a.stage_pages;
     const int st = si & 1;
     if (si + 1 < n_stages) {
-      issue(p0 + a.stage_pages, st ^ 1);
+      issue(si + 1, st ^ 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int rows = min(a.stage_pages, p_end - p0) * ps;
-    const int pos0 = p0 * ps;
-    const unsigned char* kd =
-        kv + static_cast<size_t>(st) * 2 * stage_rows * rb;
-    const unsigned char* vd = kd + static_cast<size_t>(stage_rows) * rb;
+    int p0, sub, rows;
+    stage_of(si, p0, sub, rows);
+    const int pos0 = p0 * ps + sub;
+    const unsigned char* kd = kv + st * stage_bytes;
+    const unsigned char* vd = kd + static_cast<size_t>(stage_rows) * rbk;
     const float* ksc = sc_s + (2 * st) * kMaxRows;
     const float* vsc = ksc + kMaxRows;
 
-    // raw scores of page row kr (partial over the head dim if dparts > 1)
+    // raw scores of stage row kr (partial over the head dim if dparts > 1)
     if (qk_active && kr < rows) {
       float s[kMaxQ / 2];
 #pragma unroll
       for (int i = 0; i < kMaxQ / 2; ++i) s[i] = 0.f;
-      const unsigned char* krow = kd + kr * rb;
+      const unsigned char* krow = kd + kr * rbk;
       for (int c = 8 * dpart; c < d; c += 8 * dparts) {
         float x[8];
         load8<KV>(x, krow + c * sizeof(KV));
@@ -411,7 +471,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
     // K's scale, the row's causal limit), then P (times V's scale) kept
     for (int m = warp; m < M; m += kWarps) {
       float* srow = s_s + m * kMaxRows;
-      const int len = len_s[m / G];
+      const int len = len_s[m / gh];
       float x0 = 0.f, x1 = 0.f;
       for (int dp = 0; dp < dparts; ++dp) {
         if (lane < rows) x0 += srow[dp * M * kMaxRows + lane];
@@ -439,12 +499,12 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
     __syncthreads();
 
     // acc = alpha acc + P V over this thread's output elements
-    if (jsplit == 1 && kThreads % d == 0) {
-      // d divides the block: the thread's elements share column c, so
+    if (jsplit == 1 && kThreads % dc == 0) {
+      // dc divides the block: the thread's elements share column c, so
       // a V element is read once for all of them, and P four rows at once
-      const int c = tid % d;
-      const int m0 = tid / d;
-      const int mstep = kThreads / d;
+      const int c = tid % dc;
+      const int m0 = tid / dc;
+      const int mstep = kThreads / dc;
       const unsigned char* vcol = vd + c * sizeof(KV);
 #pragma unroll
       for (int k = 0; k < kMaxItems; ++k) {
@@ -456,7 +516,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
         float v[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          v[e] = to_f32(*reinterpret_cast<const KV*>(vcol + (j + e) * rb));
+          v[e] = to_f32(*reinterpret_cast<const KV*>(vcol + (j + e) * rbv));
 #pragma unroll
         for (int k = 0; k < kMaxItems; ++k) {
           const int m = m0 + mstep * k;
@@ -467,7 +527,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
         }
       }
       for (; j < rows; ++j) {
-        const float v = to_f32(*reinterpret_cast<const KV*>(vcol + j * rb));
+        const float v = to_f32(*reinterpret_cast<const KV*>(vcol + j * rbv));
 #pragma unroll
         for (int k = 0; k < kMaxItems; ++k) {
           const int m = m0 + mstep * k;
@@ -480,26 +540,26 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
       for (int k = 0; k < kMaxItems; ++k) {
         const int i = tid + k * kThreads;
         if (i >= items) break;
-        const int m = i / d;
-        const int c = i - m * d;
+        const int m = i / dc;
+        const int c = i - m * dc;
         const float* prow = s_s + m * kMaxRows;
         const unsigned char* vcol = vd + c * sizeof(KV);
         float x = acc[k] * al_s[m];
         for (int j = 0; j < rows; ++j)
-          x += prow[j] * to_f32(*reinterpret_cast<const KV*>(vcol + j * rb));
+          x += prow[j] * to_f32(*reinterpret_cast<const KV*>(vcol + j * rbv));
         acc[k] = x;
       }
     } else {
       const int part = tid / items;
       const int i = tid - part * items;
       if (part < jsplit) {
-        const int m = i / d;
-        const int c = i - m * d;
+        const int m = i / dc;
+        const int c = i - m * dc;
         const float* prow = s_s + m * kMaxRows;
         const unsigned char* vcol = vd + c * sizeof(KV);
         float x = 0.f;
         for (int j = part; j < rows; j += jsplit)
-          x += prow[j] * to_f32(*reinterpret_cast<const KV*>(vcol + j * rb));
+          x += prow[j] * to_f32(*reinterpret_cast<const KV*>(vcol + j * rbv));
         if (part == 0)
           acc[0] = acc[0] * al_s[m] + x;
         else
@@ -513,26 +573,26 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
   }
 
   // a row that fits one partition writes its output; a longer one its
-  // partials for paged_attention_merge
+  // partials for paged_attention_merge (m and l once, by column tile 0)
 #pragma unroll
   for (int k = 0; k < kMaxItems; ++k) {
     const int i = tid + k * kThreads;
-    if (i >= M * d) break;
-    const int m = i / d;
-    const int c = i - m * d;
-    const int t = r + m / G;
-    const int64_t th = static_cast<int64_t>(t) * a.n_heads + kvh * G + m % G;
-    const int np = parts_of(a, len_s[m / G]);
+    if (i >= items) break;
+    const int m = i / dc;
+    const int c = i - m * dc;
+    const int t = r + m / gh;
+    const int64_t th = static_cast<int64_t>(t) * a.n_heads + head0 + m % gh;
+    const int np = parts_of(a, len_s[m / gh]);
     if (np <= 1) {
       if (pj == 0) {
         const float l = l_s[m];
-        store_f32(a.out, th * d + c, l == 0.f ? 0.f : acc[k] / l,
+        store_f32(a.out, th * d + c0 + c, l == 0.f ? 0.f : acc[k] / l,
                   a.q_dtype);
       }
     } else if (pj < np) {
       const int64_t slot = th * a.n_parts + pj;
-      a.part_acc[slot * d + c] = acc[k];
-      if (c == 0) {
+      a.part_acc[slot * d + c0 + c] = acc[k];
+      if (c0 + c == 0) {
         a.part_ml[2 * slot] = m_s[m];
         a.part_ml[2 * slot + 1] = l_s[m];
       }
@@ -541,35 +601,35 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
 }
 
 // Combines the partitions of every row that spans more than one, in
-// partition order; grid (row, kv head)
+// partition order; grid (row, kv head, slice of kThreads of the group's
+// G x d output elements)
 __global__ void __launch_bounds__(kThreads) paged_attention_merge(Args a) {
   const int t = blockIdx.x;
   const int kvh = blockIdx.y;
+  const int i = blockIdx.z * kThreads + threadIdx.x;
   const int G = a.n_heads / a.kv_heads;
   const int np = parts_of(a, a.lens[t]);
-  if (np <= 1) return;
-  for (int i = threadIdx.x; i < G * a.d; i += kThreads) {
-    const int g = i / a.d;
-    const int c = i - g * a.d;
-    const int64_t th = static_cast<int64_t>(t) * a.n_heads + kvh * G + g;
-    const float* ml = a.part_ml + 2 * th * a.n_parts;
-    const float* pacc = a.part_acc + th * a.n_parts * a.d + c;
-    float mx = -INFINITY;
-    for (int j = 0; j < np; ++j) mx = fmaxf(mx, ml[2 * j]);
-    float l = 0.f, o = 0.f;
-    for (int j = 0; j < np; ++j) {
-      const float w = exp2f(ml[2 * j] - mx);
-      l += ml[2 * j + 1] * w;
-      o += pacc[static_cast<int64_t>(j) * a.d] * w;
-    }
-    store_f32(a.out, th * a.d + c, l == 0.f ? 0.f : o / l, a.q_dtype);
+  if (np <= 1 || i >= G * a.d) return;
+  const int g = i / a.d;
+  const int c = i - g * a.d;
+  const int64_t th = static_cast<int64_t>(t) * a.n_heads + kvh * G + g;
+  const float* ml = a.part_ml + 2 * th * a.n_parts;
+  const float* pacc = a.part_acc + th * a.n_parts * a.d + c;
+  float mx = -INFINITY;
+  for (int j = 0; j < np; ++j) mx = fmaxf(mx, ml[2 * j]);
+  float l = 0.f, o = 0.f;
+  for (int j = 0; j < np; ++j) {
+    const float w = exp2f(ml[2 * j] - mx);
+    l += ml[2 * j + 1] * w;
+    o += pacc[static_cast<int64_t>(j) * a.d] * w;
   }
+  store_f32(a.out, th * a.d + c, l == 0.f ? 0.f : o / l, a.q_dtype);
 }
 
 template <typename KV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem =
-      smem_bytes(sizeof(KV), a.d, a.stage_pages * a.page_size, a.max_q);
+      smem_bytes(sizeof(KV), a.d, a.cols, a.stage_rows, a.max_q);
   auto kernel = paged_attention<KV>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -577,10 +637,15 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<dim3(a.n_parts, a.T, a.kv_heads), kThreads, smem, stream>>>(a);
+  kernel<<<dim3(a.n_parts, a.T,
+                a.kv_heads * a.n_head_tiles * a.n_col_tiles),
+           kThreads, smem, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.n_parts == 1) return e;
-  paged_attention_merge<<<dim3(a.T, a.kv_heads), kThreads, 0, stream>>>(a);
+  const int group_elems = a.n_heads / a.kv_heads * a.d;
+  paged_attention_merge<<<dim3(a.T, a.kv_heads,
+                               (group_elems + kThreads - 1) / kThreads),
+                          kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -591,9 +656,11 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // `part_pages` is the partition size in pages; `part_ml` [T, H, n_parts,
 // 2] and `part_acc` [T, H, n_parts, head_dim] float32 are the workspace
 // of rows that span more than one partition (n_parts = ceil(pages_per_seq
-// / part_pages); null where n_parts is 1). Takes head_dim a multiple of 8
-// up to 256, page_size up to 64, and group * head_dim up to 2048. Returns
-// the cudaError_t of the launches (0 on success). Allocates nothing.
+// / part_pages); null where n_parts is 1). Takes any head_dim that is a
+// multiple of 8, any page_size and any n_heads that kv_heads divides.
+// Returns the cudaError_t of the launches (0 on success; an invalid value
+// where the shared memory a block needs exceeds the card's). Allocates
+// nothing.
 extern "C" int paged_attention_launch(
     const void* q, int q_dtype, const void* k_pages, const void* v_pages,
     int kv_dtype, const void* k_scales, const void* v_scales,
@@ -601,11 +668,10 @@ extern "C" int paged_attention_launch(
     void* part_acc, int num_tokens, int n_heads, int kv_heads, int head_dim,
     int page_size, int pages_per_seq, int part_pages, float scale,
     void* stream) {
-  const int group = n_heads / kv_heads;
-  if (head_dim <= 0 || head_dim % 8 || head_dim > 256 || page_size <= 0 ||
-      page_size > kMaxRows || group * head_dim > kMaxElems ||
-      group > kMaxQ || part_pages <= 0)
+  if (head_dim <= 0 || head_dim % 8 || page_size <= 0 || kv_heads <= 0 ||
+      n_heads % kv_heads || part_pages <= 0)
     return cudaErrorInvalidValue;
+  const int group = n_heads / kv_heads;
   const int kv_size = kv_dtype == kF32 ? 4 : (kv_dtype == kI8 ? 1 : 2);
   Args a;
   a.q = q;
@@ -627,12 +693,34 @@ extern "C" int paged_attention_launch(
   a.pages_per_seq = pages_per_seq;
   a.part_pages = part_pages;
   a.n_parts = (pages_per_seq + part_pages - 1) / part_pages;
-  // pages a stage holds: up to 64 rows, two stages within the budget
-  const int fit = kStageBudget / (4 * page_size * row_bytes(kv_size, head_dim));
-  a.stage_pages = max(1, min(min(kMaxRows / page_size, fit), part_pages));
-  a.run_rows = max(1, min(kMaxRun, min(kMaxQ / group,
-                                       kMaxElems / (group * head_dim))));
-  a.max_q = a.run_rows * group;
+  // output columns of a block: all of d up to 256, else d split evenly
+  a.n_col_tiles = (head_dim + kMaxCols - 1) / kMaxCols;
+  a.cols = ((head_dim + a.n_col_tiles - 1) / a.n_col_tiles + 7) / 8 * 8;
+  // q heads of a block: within kMaxQ q vectors, kMaxElems accumulated
+  // output elements and kQBudget staged q elements, the group split evenly
+  const int fit_heads = max(1, min(min(kMaxQ, kMaxElems / a.cols),
+                                   kQBudget / head_dim));
+  a.n_head_tiles = (group + fit_heads - 1) / fit_heads;
+  a.head_tile = (group + a.n_head_tiles - 1) / a.n_head_tiles;
+  a.run_rows = max(1, min(min(kMaxRun, kMaxQ / a.head_tile),
+                          min(kMaxElems / (a.head_tile * a.cols),
+                              kQBudget / (a.head_tile * head_dim))));
+  a.max_q = a.run_rows * a.head_tile;
+  // rows a stage holds: up to 64, two stages of K rows (all of d) and V
+  // rows (the block's columns) within the budget; whole pages where one
+  // fits, else sub-stages of one page
+  const int fit = kStageBudget / (2 * (row_bytes(kv_size, head_dim) +
+                                       row_bytes(kv_size, a.cols)));
+  const int cap = max(1, min(kMaxRows, fit));
+  if (page_size <= cap) {
+    a.n_sub = 1;
+    a.stage_pages = min(cap / page_size, part_pages);
+    a.stage_rows = a.stage_pages * page_size;
+  } else {
+    a.n_sub = (page_size + cap - 1) / cap;
+    a.stage_pages = 1;
+    a.stage_rows = cap;
+  }
   a.scale = scale;
   auto st = static_cast<cudaStream_t>(stream);
   switch (kv_dtype) {

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
+from ..core.device import resolve_device
 from . import _kernels
 
 # LLMEngine(kv_dtype=...) values: the storage dtype of the paged pool.
@@ -115,6 +116,68 @@ def _split_kv(store: KVStore):
     return store, None
 
 
+class PagedKVCache:
+    """Page-pool KV storage plus per-request block tables.
+
+    k/v pages: [num_pages, page_size, kv_heads, head_dim]; block table
+    [max_seqs, pages_per_seq] of page ids (-1 = unallocated);
+    context_lens [max_seqs]. Allocation is host-side (the serving
+    control plane); the tensors live on ``device`` (the GPU unless
+    ``device="cpu"``) and are written in place."""
+
+    def __init__(self, num_pages: int, page_size: int, kv_heads: int,
+                 head_dim: int, max_seqs: int, pages_per_seq: int,
+                 dtype=torch.float32, device=None):
+        device = resolve_device(device)
+        self.page_size = page_size
+        self.k_pages = torch.zeros((num_pages, page_size, kv_heads,
+                                    head_dim), dtype=dtype, device=device)
+        self.v_pages = torch.zeros_like(self.k_pages)
+        self.block_tables = torch.full((max_seqs, pages_per_seq), -1,
+                                       dtype=torch.int32, device=device)
+        self.context_lens = torch.zeros((max_seqs,), dtype=torch.int32,
+                                        device=device)
+        self._free = list(range(num_pages - 1, -1, -1))
+
+    def allocate(self, seq: int, n_tokens: int) -> None:
+        """Reserve pages for n_tokens of sequence ``seq``."""
+        need = -(-n_tokens // self.page_size)
+        if need > self.block_tables.shape[1]:
+            raise ValueError(
+                f"sequence {seq} needs {need} pages but the block "
+                f"table holds {self.block_tables.shape[1]} "
+                f"(pages_per_seq); raise pages_per_seq or evict")
+        have = int((self.block_tables[seq] >= 0).sum())
+        for slot in range(have, need):
+            if not self._free:
+                raise RuntimeError("KV page pool exhausted")
+            self.block_tables[seq, slot] = self._free.pop()
+
+    def free(self, seq: int) -> None:
+        for pid in [int(p) for p in self.block_tables[seq] if p >= 0]:
+            self._free.append(pid)
+        self.block_tables[seq] = -1
+        self.context_lens[seq] = 0
+
+    def append(self, seq: int, k_new, v_new) -> None:
+        """Write [t, kv_heads, d] new tokens at the sequence's end, one
+        contiguous slice per page they touch."""
+        t = int(k_new.shape[0])
+        start = int(self.context_lens[seq])
+        self.allocate(seq, start + t)
+        ps = self.page_size
+        i = 0
+        while i < t:
+            pos = start + i
+            page = int(self.block_tables[seq, pos // ps])
+            off = pos % ps
+            span = min(ps - off, t - i)
+            self.k_pages[page, off:off + span] = k_new[i:i + span]
+            self.v_pages[page, off:off + span] = v_new[i:i + span]
+            i += span
+        self.context_lens[seq] = start + t
+
+
 def paged_attention_torch(q, k_pages, v_pages, token_tables, token_lens,
                           scale: Optional[float] = None, k_scales=None,
                           v_scales=None):
@@ -166,26 +229,23 @@ launches = 0
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
              torch.int8: 3}
-# limits of csrc/paged_attention.cu: a stage holds up to 64 page rows,
-# a block up to 32 q vectors and 16 x 128 accumulated output elements
-# (group x head dim)
-MAX_HEAD_DIM = 256
-MAX_PAGE_SIZE = 64
-MAX_GROUP = 32
-MAX_GROUP_ELEMS = 2048
 _launcher = None
 
 
-def partition_pages(t: int, kv_heads: int, pages_per_seq: int) -> int:
+def partition_pages(t: int, kv_heads: int, pages_per_seq: int,
+                    page_size: int = 16) -> int:
     """Pages one block of the split kernel takes (its flash-decoding
-    partition): the largest of 16 and 8 that still gives the launch
-    512 (row, kv head, partition) blocks, about 4 for each of the
-    H100's 132 SMs, else 4. Fewer, longer partitions merge less; more,
-    shorter ones fill the card when there are few rows."""
+    partition): at 16-token pages the largest of 16 and 8 that still
+    gives the launch 512 (row, kv head, partition) blocks, about 4 for
+    each of the H100's 132 SMs, else 4; larger pages take as many
+    fewer pages (at least one). Fewer, longer partitions merge less;
+    more, shorter ones fill the card when there are few rows."""
+    shrink = max(1, page_size // 16)
     for n in (16, 8):
+        n = max(1, n // shrink)
         if t * kv_heads * -(-pages_per_seq // n) >= 512:
             return n
-    return 4
+    return max(1, 4 // shrink)
 
 
 def _load_launcher():
@@ -224,19 +284,12 @@ def _check_cuda_args(q, k_pages, v_pages, tables, lens, k_scales,
             f"{k_pages.dtype} and {tuple(v_pages.shape)} {v_pages.dtype}")
     t, n_heads, d = q.shape
     n_pages, page_size, kv_heads, dk = k_pages.shape
-    if d != dk or d <= 0 or d % 8 or d > MAX_HEAD_DIM:
+    if d != dk or d <= 0 or d % 8:
         raise ValueError(f"kernel B4 takes head dims that are multiples of "
-                         f"8 up to {MAX_HEAD_DIM}, got q {d}, pages {dk} "
-                         f"(ROADMAP Queue C)")
-    group = n_heads // kv_heads if n_heads % kv_heads == 0 else 0
-    if not 0 < group <= MAX_GROUP or group * d > MAX_GROUP_ELEMS:
-        raise ValueError(f"{n_heads} q heads over {kv_heads} kv heads at "
-                         f"head_dim {d}: kernel B4 takes groups up to "
-                         f"{MAX_GROUP} q heads and group x head_dim up to "
-                         f"{MAX_GROUP_ELEMS} (ROADMAP Queue C)")
-    if page_size > MAX_PAGE_SIZE:
-        raise ValueError(f"kernel B4 takes page_size up to {MAX_PAGE_SIZE}, "
-                         f"got {page_size} (ROADMAP Queue C)")
+                         f"8, got q {d}, pages {dk} (ROADMAP Queue C)")
+    if n_heads % kv_heads:
+        raise ValueError(f"{n_heads} q heads are not a multiple of "
+                         f"{kv_heads} kv heads")
     quant = k_pages.dtype == torch.int8
     if quant != (k_scales is not None) or quant != (v_scales is not None):
         raise ValueError("int8 pages need k_scales and v_scales; other "
@@ -278,7 +331,7 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables,
     if t == 0:
         return out
     pages_per_seq = block_tables.shape[1]
-    part_pages = partition_pages(t, kv_heads, pages_per_seq)
+    part_pages = partition_pages(t, kv_heads, pages_per_seq, page_size)
     n_parts = -(-pages_per_seq // part_pages)
     part_ml = part_acc = None
     if n_parts > 1:   # partials of rows that span several partitions
@@ -341,3 +394,43 @@ def ragged_paged_attention_reference(q, kv_k: KVStore, kv_v: KVStore,
     vp, vs = _split_kv(kv_v)
     return paged_attention_torch(q.float(), kp, vp, token_tables,
                                  token_lens, scale, ks, vs)
+
+
+def paged_attention_chunk(q, k_pages, v_pages, block_tables, base_lens,
+                          scale: Optional[float] = None,
+                          impl: str = "kernel"):
+    """Multi-query attention over paged KV: ``q`` [B, K, heads, d]
+    carries K new tokens per sequence written at positions
+    ``base_lens[b] .. base_lens[b] + K - 1``; query j attends the first
+    ``base_lens[b] + j + 1`` positions (0 = inactive slot -> zero rows).
+    Returns [B, K, heads, d].
+
+    Deprecated alias: the rectangular case of
+    :func:`ragged_paged_attention`, rows flattened."""
+    b, kq, h, d = q.shape
+    limit = torch.where(
+        base_lens[:, None] > 0,
+        base_lens[:, None] + torch.arange(kq, device=q.device)[None, :] + 1,
+        torch.zeros((), dtype=base_lens.dtype, device=q.device))
+    out = ragged_paged_attention(
+        q.reshape(b * kq, h, d).contiguous(), k_pages, v_pages,
+        block_tables.repeat_interleave(kq, dim=0).contiguous(),
+        limit.reshape(-1).to(torch.int32), scale=scale, impl=impl)
+    return out.reshape(b, kq, h, d)
+
+
+def paged_attention_ragged(q, k_pages, v_pages, token_tables,
+                           token_lens, scale: Optional[float] = None,
+                           impl: str = "kernel"):
+    """Deprecated alias of :func:`ragged_paged_attention`."""
+    return ragged_paged_attention(q, k_pages, v_pages, token_tables,
+                                  token_lens, scale=scale, impl=impl)
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, context_lens,
+                    scale: Optional[float] = None, impl: str = "kernel"):
+    """Single-query attention over paged KV (the decode step): q [B,
+    heads, d], one table row and context length per query. Deprecated
+    alias: the T = B case of :func:`ragged_paged_attention`."""
+    return ragged_paged_attention(q, k_pages, v_pages, block_tables,
+                                  context_lens, scale=scale, impl=impl)

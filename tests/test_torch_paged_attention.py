@@ -6,9 +6,11 @@ Tolerances: the plain twin and the JAX ``xla`` path run the same f32
 gather + softmax math, so 1e-5. Against the Pallas kernel (online
 softmax across pages) 2e-5 for f32 pages and 2e-2 for bf16 pages, the
 JAX package's own kernel tolerances (tests/test_paged_attention.py).
-The kernel itself runs only on the card: ``test_kernel_matches_plain_
-on_card`` (marker ``cuda``) skips without one. On the card's machine,
-which has no JAX, run it alone:
+The kernel itself runs only on the card: the ``cuda``-marked tests (the
+kernel against its twin at the serving path's shapes, at long pages,
+large GQA groups and head dims above 256, and its refusal of d % 8 != 0)
+skip
+without one. On the card's machine, which has no JAX, run them alone:
 ``python -m pytest -m cuda --noconftest tests/test_torch_paged_attention.py``."""
 
 import importlib
@@ -18,7 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from paddle_tpu_torch.ops import paged_attention as tpa  # noqa: E402
+tpa = importlib.import_module("paddle_tpu_torch.ops.paged_attention")
 
 try:
     import jax.numpy as jnp
@@ -97,6 +99,76 @@ def test_plain_twin_matches_pallas_interpret_head_dims(d):
                                                  interpret=True))
     got = tpa.paged_attention_kernel(*_torch(*args))   # CPU: plain twin
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("h, kvh, ps, d", [
+    (4, 2, 128, 16), (40, 1, 8, 128), (8, 8, 8, 320)],
+    ids=["page128", "mqa40-d128", "d320"])
+def test_plain_twin_matches_pallas_interpret_new_shapes(h, kvh, ps, d):
+    """Shapes kernel B4 takes from this slice on: a page of 128 rows
+    (two 64-row sub-stages), 40 q heads on one kv head at d 128 (split
+    over q-head tiles), and d 320 (output columns split over blocks)."""
+    args = _inputs(h, kvh, ps, "float32", tail=-1, seed=7, d=d)
+    want = np.asarray(jpa.paged_attention_kernel(*_jax(*args),
+                                                 interpret=True))
+    got = tpa.paged_attention_kernel(*_torch(*args))   # CPU: plain twin
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)
+
+
+def test_deprecated_aliases_match_jax():
+    """``paged_attention``, ``paged_attention_ragged`` and
+    ``paged_attention_chunk`` against the JAX package's, exported from
+    the ops package as there."""
+    import paddle_tpu.ops as jops
+    import paddle_tpu_torch.ops as tops
+    args = _inputs(4, 2, 8, "float32", tail=-1, seed=8)
+    for name in ("paged_attention", "paged_attention_ragged"):
+        want = np.asarray(getattr(jops, name)(*_jax(*args)))
+        got = getattr(tops, name)(*_torch(*args), impl="plain")
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL_XLA,
+                                   rtol=TOL_XLA)
+    rng = np.random.RandomState(9)
+    q = rng.randn(2, 3, 4, 16).astype(np.float32)
+    kp = rng.randn(12, 4, 2, 16).astype(np.float32)
+    vp = rng.randn(12, 4, 2, 16).astype(np.float32)
+    tables = np.array([[1, 2, 3], [4, 5, 0]], np.int32)
+    base = np.array([5, 0], np.int32)
+    want = np.asarray(jpa.paged_attention_chunk(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(tables), jnp.asarray(base)))
+    got = tops.paged_attention_chunk(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(tables), torch.from_numpy(base))
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL_XLA,
+                               rtol=TOL_XLA)
+    assert tops.PagedKVCache is tpa.PagedKVCache
+
+
+def test_paged_kv_cache_matches_jax():
+    """Allocation, appends across page boundaries and free, against the
+    JAX package's ``PagedKVCache``: the same tables, lengths and pages."""
+    rng = np.random.RandomState(10)
+    jc = jpa.PagedKVCache(8, 4, 2, 8, max_seqs=2, pages_per_seq=3)
+    tc = tpa.PagedKVCache(8, 4, 2, 8, max_seqs=2, pages_per_seq=3,
+                          device="cpu")
+    for seq, n in ((0, 3), (1, 6), (0, 5), (1, 2)):
+        k = rng.randn(n, 2, 8).astype(np.float32)
+        v = rng.randn(n, 2, 8).astype(np.float32)
+        jc.append(seq, jnp.asarray(k), jnp.asarray(v))
+        tc.append(seq, torch.from_numpy(k), torch.from_numpy(v))
+    jc.free(1)
+    tc.free(1)
+    np.testing.assert_array_equal(tc.block_tables.numpy(),
+                                  np.asarray(jc.block_tables))
+    np.testing.assert_array_equal(tc.context_lens.numpy(),
+                                  np.asarray(jc.context_lens))
+    np.testing.assert_array_equal(tc.k_pages.numpy(),
+                                  np.asarray(jc.k_pages))
+    np.testing.assert_array_equal(tc.v_pages.numpy(),
+                                  np.asarray(jc.v_pages))
+    assert tc._free == jc._free
+    with pytest.raises(ValueError, match="pages_per_seq"):
+        tc.allocate(0, 13)
 
 
 def test_cpu_wrapper_takes_plain_twin_without_launching():
@@ -280,3 +352,77 @@ def test_kernel_matches_plain_on_card(kv_dtype):
             used = -(-n // 16)
             tables[i, :used] = src[:used]
     _card_case(g, kv_dtype, 12, 12, 64, lens, tables)
+
+
+def _new_shape_tables(g, lens, seqs, ps, P, shared, n_pages):
+    """Tables of ``seqs`` (first ``shared`` entries common to all) with
+    -1 past each row's own pages."""
+    n_seq = max(seqs) + 1
+    perm = torch.randperm(n_pages - 1, generator=g, device="cuda")[
+        :n_seq * P].int() + 1
+    st = perm.reshape(n_seq, P)
+    st[:, :shared] = st[0, :shared]
+    tables = st[torch.tensor(seqs, device="cuda")].clone()
+    used = (torch.tensor(lens, device="cuda") + ps - 1) // ps
+    tables[torch.arange(P, device="cuda")[None, :] >= used[:, None]] = -1
+    return tables.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    # name: (heads, kv heads, d, page size, kv dtype, q dtype, shared)
+    ("mixed-shared", 12, 12, 64, 16, "float32", "float32", 32),
+    ("page128", 12, 12, 64, 128, "float32", "float32", 0),
+    ("page256", 12, 12, 64, 256, "float32", "float32", 0),
+    ("mqa40-d128-bf16", 40, 1, 128, 16, "bfloat16", "bfloat16", 0),
+    ("mqa64-d64", 64, 1, 64, 16, "float32", "float32", 0),
+    ("d320", 8, 8, 320, 16, "float32", "float32", 0)],
+    ids=lambda c: c[0])
+def test_kernel_matches_plain_on_card_new_shapes(case):
+    """Kernel B4 against its plain twin at chip_smoke.py's new shapes: a
+    mixed tick (64 suffix chunk rows of one sequence and 8 decode rows of
+    others, the first 32 pages shared by all), pages of 128 and 256
+    rows, 40 and 64 q heads on one kv head, and d 320."""
+    if not torch.cuda.is_available():
+        pytest.skip("kernel B4 runs only on a CUDA card")
+    _, h, kvh, d, ps, kv_dtype, q_dtype, shared = case
+    g = torch.Generator(device="cuda").manual_seed(1)
+    decode = [0, 17, 143, 269, 400, 647, 773, 932]
+    if shared:
+        lens = list(range(513, 577)) + [530, 560, 600, 650, 690, 700, 720,
+                                         740]
+        seqs = [0] * 64 + list(range(1, 9))
+    else:
+        lens, seqs = decode, list(range(8))
+    n_pages = 16384 // ps
+    P = 1024 // ps
+    kp = torch.randn(n_pages, ps, kvh, d, generator=g, device="cuda")
+    vp = torch.randn(n_pages, ps, kvh, d, generator=g, device="cuda")
+    kp, vp = kp.to(getattr(torch, kv_dtype)), vp.to(getattr(torch, kv_dtype))
+    tables = _new_shape_tables(g, lens, seqs, ps, P, shared, n_pages)
+    lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(len(lens), h, d, generator=g,
+                    device="cuda").to(getattr(torch, q_dtype))
+    before = tpa.launches
+    got = tpa.paged_attention_kernel(q, kp, vp, tables, lt)
+    want = tpa.paged_attention_torch(q, kp, vp, tables, lt)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 1
+    tol = 2e-2 if q_dtype == "bfloat16" else 2e-5
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    assert torch.count_nonzero(got[lt == 0]) == 0
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_head_dims_not_a_multiple_of_8():
+    """The one shape kernel B4 refuses (the reference never admits it
+    either): d % 8 != 0. Page size, group and head dim otherwise take
+    any value."""
+    if not torch.cuda.is_available():
+        pytest.skip("kernel B4 runs only on a CUDA card")
+    kp = torch.zeros(4, 16, 1, 36, device="cuda")
+    q = torch.zeros(1, 4, 36, device="cuda")
+    tables = torch.ones(1, 2, dtype=torch.int32, device="cuda")
+    lens = torch.ones(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tpa.paged_attention_kernel(q, kp, kp, tables, lens)

@@ -18,13 +18,16 @@ the result line:
    and padding, GQA, one 1024-token row, head dims 80 and 256, a mixed
    tick of 64 chunk rows and 8 decode rows sharing a 32-page prefix,
    pages of 128 and 256 tokens, 40 and 64 q heads on one kv head, head
-   dim 320), with its device time (``torch.profiler``; CUDA events
+   dim 320, a speculative verify window of 8 slots x 4 rows with rising
+   limits, f32 and int8, and the same rows reversed within each slot),
+   with its device time (``torch.profiler``; CUDA events
    beside it) beside the plain twin's, a one-call PyTorch yardstick's
    and the least time the card could take;
 4. flash kernels: B1, B2 and B3 the same way at the training path's
    shapes (gpt2-small bf16 and f32, llama-style GQA, cross-length, head
-   dim 80, and head dims 256 f32, 320 bf16 and 264 f16 in the split-d
-   kernels), each kernel's device time (``torch.profiler``) taken in
+   dim 80, head dims 256 f32, 320 bf16 and 264 f16 in the split-d
+   kernels, and lengths 97 and 200 / 136 that end in a partial tile),
+   each kernel's device time (``torch.profiler``) taken in
    turns with its twin's and SDPA's (median of 3 windows of 20 calls);
 5. serve: GPT-2-small at full width (random weights from ``seed(0)``)
    serving eight requests through ``LLMEngine`` with its defaults
@@ -38,7 +41,14 @@ the result line:
    request first, then 7 at once) on the default engine, on 4-tick
    decode slabs and with the cache and the mixed tick off: identical
    streams, 7 x 512 cached prompt tokens, B4 launched once a layer per
-   dispatched tick;
+   dispatched tick; then speculative decoding (K 4) on the main traffic
+   with a distilgpt2-shaped draft (the target's first 6 layers): the
+   spec slab at N 1 and 4, on the plain twin, with the target as its
+   own draft, the legacy inline round, 32 greedy streams on an int8
+   pool, and a profiled run (greedy streams equal the main run's, the
+   kernel run's equal the twin's, a self-draft accepting >= 0.99 of
+   what the budgets allow, int8 agreement >= 0.9, B4 launched once a
+   layer per paged pass of the target and of the draft);
 6. train: GPT-2-small at full width as ``bench.py bench_gpt`` configures
    it (seq 1024, batch 8, fused loss, AdamW 1e-4 / wd 0.01, AMP O1)
    through ``Model.train_batch`` on kernels B1-B3: 3 warm-up and 10
@@ -90,6 +100,7 @@ TRAIN_LOSS_RTOL = 5e-4   # kernel run vs twin run, per step over 3 steps
 QKV_GRAD_RTOL = 1e-2
 PAGE_SIZE = 16
 NUM_PAGES = 1024
+SPEC_K = 4           # speculative tokens a round (K - 1 proposals)
 PAGES_PER_SEQ = 64   # max_len 1024 over 16-token pages
 LAYERS = 12          # one launch per layer, as in one engine step
 REPS = 5
@@ -318,6 +329,14 @@ def phase_kernels() -> dict:
     # first 20 of another, 4 padding rows
     chunk_lens = list(range(861, 901)) + list(range(1, 21)) + [0] * 4
     chunk_seqs = [0] * 40 + [1] * 20 + [2] * 4
+    # a speculative verify window: 8 slots x K 4 rows, each slot's rows
+    # on one table with limits rising by one (B4 reads each page once for
+    # the slot's run); the same rows reversed within each slot are runs
+    # of one row each (every row reads its pages)
+    bases = np.linspace(16, 928, 8).astype(int)
+    verify_lens = [int(b) + j + 1 for b in bases for j in range(SPEC_K)]
+    verify_seqs = [s for s in range(8) for _ in range(SPEC_K)]
+    verify_rev = [int(b) + SPEC_K - j for b in bases for j in range(SPEC_K)]
     f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
     all_dtypes = [(f32, f32), (bf16, f32), (bf16, bf16), (i8, f32)]
     shapes = [  # name, T, heads, kv heads, d, lens, seqs, (kv, q) dtypes
@@ -354,6 +373,10 @@ def phase_kernels() -> dict:
          [(f32, f32)]),
         ("decode d320", 8, 8, 8, 320, decode_lens, list(range(8)),
          [(f32, f32)]),
+        ("verify gpt2 (8 x K 4)", 8 * SPEC_K, 12, 12, 64, verify_lens,
+         verify_seqs, [(f32, f32), (i8, f32)]),
+        ("verify gpt2, rows reversed", 8 * SPEC_K, 12, 12, 64, verify_rev,
+         verify_seqs, [(f32, f32)]),
     ]
     cases = []
     for name, t, heads, kv_heads, d, lens_list, seqs, dtypes, *extra in \
@@ -425,17 +448,18 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 def _serve(net, prompts, temps, nonces, impl, kv_dtype, label, first=0,
-           **knobs):
+           draft=None, **knobs):
     """Serve the requests through an ``LLMEngine`` with its default
-    knobs but ``knobs``: the first ``first`` one at a time, to
-    completion, then the rest submitted at once. Timing (wall, tokens/s,
-    TTFT) covers the burst; B4's launches and the engine's counters
-    cover the whole run."""
+    knobs but ``knobs`` (and ``draft`` as its draft net): the first
+    ``first`` one at a time, to completion, then the rest submitted at
+    once. Timing (wall, tokens/s, TTFT) covers the burst; B4's launches
+    and the engine's counters cover the whole run."""
     from paddle_tpu_torch.inference.llm import LLMEngine
     pa = importlib.import_module("paddle_tpu_torch.ops.paged_attention")
     eng = LLMEngine(net, page_size=PAGE_SIZE, num_pages=NUM_PAGES,
                     prefill_chunk=64, kv_dtype=kv_dtype,
-                    attention_impl=impl, device="cuda", **knobs)
+                    attention_impl=impl, device="cuda", draft_net=draft,
+                    **knobs)
     reqs = list(zip(prompts, temps, nonces))
     with eng:
         torch.cuda.synchronize()
@@ -469,9 +493,29 @@ def _serve(net, prompts, temps, nonces, impl, kv_dtype, label, first=0,
            "prompt_tokens": eng.n_prompt_tokens,
            "cached_tokens": eng.n_cached_tokens,
            "kernel_launches": launches,
+           "draft_layers": draft.cfg.num_layers if draft else 0,
+           "draft_passes": eng.n_draft_passes,
            "truncated": sum(o["truncated"] for o in outs)}
+    if eng.spec_k:
+        # K - 1 proposals per slot and round: slot-rounds
+        slot_rounds = eng.n_spec_proposed / (eng.spec_k - 1)
+        run.update({
+            "spec_tokens": eng.spec_k, "spec_slab": eng.spec_slab,
+            "spec_rounds": eng.n_spec_rounds,
+            "spec_proposed": eng.n_spec_proposed,
+            "spec_accepted": eng.n_spec_accepted,
+            "acceptance_rate": eng.n_spec_accepted / eng.n_spec_proposed,
+            "tokens_per_slot_round":
+                1 + eng.n_spec_accepted / slot_rounds})
     emit(run)
     return outs, run
+
+
+def _launches_ok(run, cfg) -> bool:
+    """B4 launched once a layer per paged forward pass the engine issued:
+    the target's and the draft's."""
+    return run["kernel_launches"] == cfg.num_layers * \
+        run["dispatched_ticks"] + run["draft_layers"] * run["draft_passes"]
 
 
 def _streams(outs):
@@ -518,6 +562,101 @@ def _shared_prefix_runs(net, cfg) -> dict:
     }
     emit({"phase": "shared_prefix_checks", "prefix_tokens": 512,
           "own_tokens": own, "checks": checks})
+    return checks
+
+
+def _distil_draft(net):
+    """A draft of Hugging Face distilgpt2's shape (n_layer 6, n_embd 768,
+    n_head 12) that carries the target's embeddings, final norm and first
+    6 layers, so that it agrees with the target often but not always."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_config
+    draft = GPTForCausalLM(gpt_config("gpt2-small", num_layers=6),
+                           device="cuda")
+    own = draft.state_dict()
+    draft.load_state_dict({k: v for k, v in net.state_dict().items()
+                           if k in own})
+    return draft.eval()
+
+
+def _spec_runs(net, cfg, prompts, temps, nonces, streams_k, greedy_prompts,
+               outs_q) -> dict:
+    """Speculative decoding (K = SPEC_K) on the main serve traffic: the
+    spec slab at N 1 and 4 with the distilgpt2-shaped draft, on the plain
+    twin, with the target as its own draft (greedy rows), the legacy
+    inline round (greedy rows), then 32 greedy streams on an int8 pool
+    against the target-only int8 run; one run of the distil draft again
+    under torch.profiler. Greedy streams must equal the main run's, the
+    kernel run's equal the plain twin's, and B4 must launch once a layer
+    per paged forward pass of either model."""
+    draft = _distil_draft(net)
+    greedy = [i for i, t in enumerate(temps) if t == 0.0]
+    g_prompts = [prompts[i] for i in greedy]
+    g_nonces = [nonces[i] for i in greedy]
+    g_zeros = [0.0] * len(greedy)
+    spec = dict(spec_tokens=SPEC_K)
+    runs = {}
+    for label, kw in (("N 1", dict(decode_ticks_per_dispatch=1)),
+                      ("N 4", dict(decode_ticks_per_dispatch=4))):
+        runs[label] = _serve(net, prompts, temps, nonces, "kernel", "f32",
+                             f"spec slab {label}, distil draft",
+                             draft=draft, **spec, **kw)
+    runs["plain"] = _serve(net, prompts, temps, nonces, "plain", "f32",
+                           "spec slab N 1, distil draft, plain twin",
+                           draft=draft, **spec)
+    runs["self"] = _serve(net, g_prompts, g_zeros, g_nonces, "kernel", "f32",
+                          "spec slab N 1, self draft, greedy rows",
+                          draft=net, **spec)
+    runs["legacy"] = _serve(net, g_prompts, g_zeros, g_nonces, "kernel",
+                            "f32", "spec legacy, distil draft, greedy rows",
+                            draft=draft, spec_slab=False, **spec)
+    zeros, seq = [0.0] * len(greedy_prompts), list(range(len(greedy_prompts)))
+    runs["int8"] = _serve(net, greedy_prompts, zeros, seq, "kernel", "int8",
+                          "spec slab N 1, distil draft, greedy int8 pool",
+                          draft=draft, **spec)
+    emit(_profile(lambda: _serve(net, prompts, temps, nonces, "kernel",
+                                 "f32", "spec profiled", draft=draft,
+                                 **spec),
+                  1, "run", phase="spec", run="profile",
+                  requests=len(prompts)))
+    want_greedy = [streams_k[i] for i in greedy]
+    # with every proposal accepted a request of n tokens commits its
+    # first from the prompt and the rest in ceil((n - 1) / K) rounds,
+    # each round's last token the target's own: the most a draft can
+    # have committed, whatever the budgets cut
+    n_new = 32
+    best = len(greedy) * (n_new - 1 - math.ceil((n_new - 1) / SPEC_K))
+    self_rate = runs["self"][1]["spec_accepted"] / best
+    agree = _agreement(_streams(runs["int8"][0]), _streams(outs_q))
+    checks = {
+        **{f"spec_greedy_eq_main_{k}": [
+            _streams(o)[i] for i in greedy] == want_greedy
+           for k, (o, _) in runs.items() if k not in ("self", "legacy",
+                                                      "int8")},
+        "spec_greedy_eq_main_self": _streams(runs["self"][0]) ==
+        want_greedy,
+        "spec_greedy_eq_main_legacy": _streams(runs["legacy"][0]) ==
+        want_greedy,
+        "spec_kernel_eq_plain": _streams(runs["N 1"][0]) ==
+        _streams(runs["plain"][0]),
+        "spec_all_full_length": all(
+            len(x) == n_new for o, _ in runs.values() for x in _streams(o)),
+        "spec_self_draft_acceptance_ge_0.99": self_rate >= 0.99,
+        "spec_int8_greedy_agreement_ge_0.9": float(np.mean(agree)) >= 0.9,
+        "spec_plain_run_no_launches": runs["plain"][1]["kernel_launches"]
+        == 0,
+        **{f"spec_launches_{k}": _launches_ok(r, cfg)
+           for k, (_, r) in runs.items() if k != "plain"},
+        "spec_slab_rides_mixed_tick_and_cache": runs["N 1"][1][
+            "mixed_tick"] and runs["N 1"][1]["prefix_cache"],
+    }
+    emit({"phase": "spec_checks", "spec_tokens": SPEC_K,
+          "draft": "gpt2-small widths, 6 layers (distilgpt2's shape), the "
+                   "target's embeddings, ln_f and layers 0-5",
+          "self_draft_accepted": runs["self"][1]["spec_accepted"],
+          "self_draft_accepted_best": best,
+          "self_draft_acceptance_of_best": self_rate,
+          "int8_greedy_agreement": float(np.mean(agree)),
+          "int8_agreement_per_request": agree, "checks": checks})
     return checks
 
 
@@ -605,6 +744,8 @@ def phase_serve() -> int:
           "int8_agreement_per_request": per_request, "checks": checks})
     checks.update({f"shared_prefix_{k}": v
                    for k, v in _shared_prefix_runs(net, cfg).items()})
+    checks.update(_spec_runs(net, cfg, prompts, temps, nonces, streams_k,
+                             greedy_prompts, outs_q))
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise SystemExit(f"serve checks failed: {failed}")
@@ -713,7 +854,7 @@ def _sdpa_calls(q, k, v, do, causal):
 def phase_flash_kernels() -> dict:
     from paddle_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(1)
-    shapes = [  # name, b, sq, sk, hq, hkv, d, dtype
+    shapes = [  # name, b, sq, sk, hq, hkv, d, dtype[, causal]
         ("train gpt2 bf16", 8, 1024, 1024, 12, 12, 64, torch.bfloat16),
         ("train gpt2 f32", 8, 1024, 1024, 12, 12, 64, torch.float32),
         ("gqa llama bf16", 2, 2048, 2048, 16, 4, 128, torch.bfloat16),
@@ -724,10 +865,13 @@ def phase_flash_kernels() -> dict:
         ("d256 f32 split", 2, 1024, 1024, 8, 8, 256, torch.float32),
         ("d320 bf16 split", 2, 1024, 1024, 8, 8, 320, torch.bfloat16),
         ("gqa d264 f16 split", 1, 1024, 1024, 8, 2, 264, torch.float16),
+        # lengths that end in a partial 64-row tile
+        ("s97 gqa bf16", 8, 97, 97, 12, 4, 64, torch.bfloat16),
+        ("q200 k136 f32", 8, 200, 136, 12, 12, 64, torch.float32, False),
     ]
     cases, heads = [], {}
-    for name, b, sq, sk, hq, hkv, d, dt in shapes:
-        causal = True
+    for name, b, sq, sk, hq, hkv, d, dt, *causal in shapes:
+        causal = causal[0] if causal else True
         scale = 1.0 / math.sqrt(d)
         q = torch.randn(b, sq, hq, d, generator=g, device="cuda").to(dt)
         k = torch.randn(b, sk, hkv, d, generator=g, device="cuda").to(dt)

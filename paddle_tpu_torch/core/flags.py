@@ -122,3 +122,12 @@ define_flag("kv_dtype", "",
             "'int8' (quantized pages + per-token f32 scales), "
             "'bf16'/'f16'/'f32' (plain pools), or empty to keep the "
             "engine's cache_dtype argument (default f32).")
+define_flag("spec_slab", True,
+            "Default for LLMEngine(spec_slab=...): run speculative "
+            "draft-K/verify-1 rounds on the device as a DecodeCarry slab "
+            "(K chained draft probes, one ragged verify window and the "
+            "accept/rollback masking per round, N rounds back to back "
+            "before the host reads the tokens); greedy and "
+            "temperature > 0. False keeps the legacy host-orchestrated "
+            "greedy round (one round per host read, bucketed one-shot "
+            "prefill, no prefix cache).")

@@ -22,6 +22,13 @@
 // once per (b, q head, q row) by flash_bwd_delta into a float32 buffer
 // that B2 and B3 read (the TPU kernels recompute it per tile).
 //
+// Sequence lengths: any sq >= 1 and sk >= 1 (the TPU kernel tiles by the
+// largest power-of-two divisor, down to 1). The grids run ceil(s / 64)
+// tiles; a partial last tile is loaded with zeros in its rows past the
+// end, its score columns j >= sk take the mask value (P = 0), q rows past
+// sq take P = 0 in B3 (which sums over q rows), and no row past the end
+// is stored.
+//
 // Head dims: any multiple of 8. The tensor-core kernels are instantiated
 // at a padded head dim D (64, 128, 256) and take the operands' d <= D at
 // run time: loads fill columns d..D-1 with zeros, which change neither
@@ -168,9 +175,13 @@ __device__ __forceinline__ const T* row_ptr(const void* base,
   return static_cast<const T*>(base) + b * st.b + s * st.s + h * st.h;
 }
 
+__host__ __device__ __forceinline__ int tiles(int s) {
+  return (s + kTile - 1) / kTile;
+}
+
 // The last k tile a q tile starting at q0 sees (exclusive bound).
 __device__ __forceinline__ int k_tiles_seen(const Params& p, int q0) {
-  const int nk = p.sk / kTile;
+  const int nk = tiles(p.sk);
   if (!p.causal) return nk;
   const int last = q0 + kTile - 1 + (p.sk - p.sq);
   return min(nk, last / kTile + 1);
@@ -194,17 +205,18 @@ __device__ __forceinline__ int k_tiles_seen(const Params& p, int q0) {
 // does not grow with d. Only the block of slice 0 writes the lse.
 
 // Stage rows s0 .. s0+63 of (b, h), columns c0 .. c0+D-1, as float32
-// with zeros in columns >= d.
+// with zeros in columns >= d and in rows s0 + r >= s (the sequence's end).
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const void* base,
                                           const Strides& st, int b, int s0,
-                                          int h, int c0, int d) {
+                                          int s, int h, int c0, int d) {
   constexpr int LD = D + 1;
   const T* src = row_ptr<T>(base, st, b, s0, h) + c0;
   for (int idx = threadIdx.x; idx < kTile * D; idx += kThreads) {
     const int r = idx / D;
     const int c = idx - r * D;
-    dst[r * LD + c] = c0 + c < d ? to_f32(src[r * st.s + c]) : 0.f;
+    dst[r * LD + c] =
+        c0 + c < d && s0 + r < s ? to_f32(src[r * st.s + c]) : 0.f;
   }
 }
 
@@ -250,15 +262,17 @@ __device__ __forceinline__ void tile_product(float (&acc)[4][D / 16],
   }
 }
 
-// Rows of this thread's output block (rows s0 + tr*4+i, columns
+// Rows of this thread's output block (rows s0 + tr*4+i < s, columns
 // c0 + tc+16j < d) in T.
 template <typename T, int D>
 __device__ __forceinline__ void store_block(void* base, const Strides& st,
-                                            int b, int s0, int h, int c0,
-                                            int d, const float (&acc)[4][D / 16],
+                                            int b, int s0, int s, int h,
+                                            int c0, int d,
+                                            const float (&acc)[4][D / 16],
                                             int tr, int tc) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
+    if (s0 + tr * 4 + i >= s) break;
     T* row = static_cast<T*>(base) + b * st.b + (s0 + tr * 4 + i) * st.s +
              h * st.h + c0;
 #pragma unroll
@@ -309,7 +323,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Params p) {
   const int nsl = (p.d + D - 1) / D;  // slices of the score's sum over d
   const bool resident = nsl == 1;
 
-  if (resident) load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, h, 0, p.d);
+  if (resident) load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, p.sq, h, 0, p.d);
   float acc[4][NJ];
   float m[4], l[4];
 #pragma unroll
@@ -327,9 +341,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Params p) {
     for (int sl = 0; sl < nsl; ++sl) {
       __syncthreads();  // the previous products are done with the tiles
       if (!resident)
-        load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, h, sl * D, p.d);
-      load_tile<T, D>(ks, p.k, p.st[kK], b, k0, kvh, sl * D, p.d);
-      if (sl == 0) load_tile<T, D>(vs, p.v, p.st[kV], b, k0, kvh, c0, p.d);
+        load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, p.sq, h, sl * D, p.d);
+      load_tile<T, D>(ks, p.k, p.st[kK], b, k0, p.sk, kvh, sl * D, p.d);
+      if (sl == 0)
+        load_tile<T, D>(vs, p.v, p.st[kV], b, k0, p.sk, kvh, c0, p.d);
       __syncthreads();
       tile_dot<D>(s, qs, ks, tr, tc);
     }
@@ -339,8 +354,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Params p) {
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tc + 16 * j;
         float x = s[i][j] * p.scale;
-        if (p.causal && row < k0 + tc + 16 * j) x = kMaskValue;
+        if ((p.causal && row < col) || col >= p.sk) x = kMaskValue;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -367,11 +383,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Params p) {
     const float l_safe = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] /= l_safe;
-    if (tc == 0 && blockIdx.z == 0)
+    if (tc == 0 && blockIdx.z == 0 && q0 + tr * 4 + i < p.sq)
       p.lse[(static_cast<long long>(b) * p.hq + h) * p.sq + q0 + tr * 4 + i] =
           m[i] + logf(l_safe);
   }
-  store_block<T, D>(p.o, p.st[kO], b, q0, h, c0, p.d, acc, tr, tc);
+  store_block<T, D>(p.o, p.st[kO], b, q0, p.sq, h, c0, p.d, acc, tr, tc);
 }
 
 // B2, SIMT; grid as B1's
@@ -400,14 +416,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(Params p) {
   const bool resident = nsl == 1;
 
   if (resident) {
-    load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, h, 0, p.d);
-    load_tile<T, D>(dos, p.dout, p.st[kDO], b, q0, h, 0, p.d);
+    load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, p.sq, h, 0, p.d);
+    load_tile<T, D>(dos, p.dout, p.st[kDO], b, q0, p.sq, h, 0, p.d);
   }
   if (threadIdx.x < kTile) {
+    const bool in = q0 + static_cast<int>(threadIdx.x) < p.sq;
     const long long i =
         (static_cast<long long>(b) * p.hq + h) * p.sq + q0 + threadIdx.x;
-    lse_s[threadIdx.x] = p.lse[i];
-    delta_s[threadIdx.x] = p.delta[i];
+    lse_s[threadIdx.x] = in ? p.lse[i] : 0.f;
+    delta_s[threadIdx.x] = in ? p.delta[i] : 0.f;
   }
 
   float acc[4][NJ];
@@ -424,11 +441,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(Params p) {
     for (int sl = 0; sl < nsl; ++sl) {
       __syncthreads();
       if (!resident) {
-        load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, h, sl * D, p.d);
-        load_tile<T, D>(dos, p.dout, p.st[kDO], b, q0, h, sl * D, p.d);
+        load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, p.sq, h, sl * D, p.d);
+        load_tile<T, D>(dos, p.dout, p.st[kDO], b, q0, p.sq, h, sl * D, p.d);
       }
-      load_tile<T, D>(ks, p.k, p.st[kK], b, k0, kvh, sl * D, p.d);
-      load_tile<T, D>(vs, p.v, p.st[kV], b, k0, kvh, sl * D, p.d);
+      load_tile<T, D>(ks, p.k, p.st[kK], b, k0, p.sk, kvh, sl * D, p.d);
+      load_tile<T, D>(vs, p.v, p.st[kV], b, k0, p.sk, kvh, sl * D, p.d);
       __syncthreads();
       tile_dot<D>(s, qs, ks, tr, tc);
       tile_dot<D>(dp, dos, vs, tr, tc);
@@ -440,20 +457,22 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(Params p) {
       const float delta = delta_s[r];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tc + 16 * j;
         float x = s[i][j] * p.scale;
-        if (p.causal && q0 + r + offset < k0 + tc + 16 * j) x = kMaskValue;
+        if ((p.causal && q0 + r + offset < col) || col >= p.sk)
+          x = kMaskValue;
         const float pr = expf(x - lse);
         dss[r * kLP + tc + 16 * j] = pr * (dp[i][j] - delta) * p.scale;
       }
     }
     __syncthreads();
     if (!resident) {  // this block's slice of K for dS . K
-      load_tile<T, D>(ks, p.k, p.st[kK], b, k0, kvh, c0, p.d);
+      load_tile<T, D>(ks, p.k, p.st[kK], b, k0, p.sk, kvh, c0, p.d);
       __syncthreads();
     }
     tile_product<D, false>(acc, dss, ks, tr, tc);
   }
-  store_block<T, D>(p.dq, p.st[kDQ], b, q0, h, c0, p.d, acc, tr, tc);
+  store_block<T, D>(p.dq, p.st[kDQ], b, q0, p.sq, h, c0, p.d, acc, tr, tc);
 }
 
 // B3, SIMT: dK and dV, the GQA group summed in the block; grid (k tile,
@@ -480,13 +499,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Params p) {
   const int tr = threadIdx.x >> 4;
   const int tc = threadIdx.x & 15;
   const int offset = p.sk - p.sq;
-  const int nq = p.sq / kTile;
+  const int nq = tiles(p.sq);
   const int nsl = (p.d + D - 1) / D;
   const bool resident = nsl == 1;
 
   if (resident) {
-    load_tile<T, D>(ks, p.k, p.st[kK], b, k0, kvh, 0, p.d);
-    load_tile<T, D>(vs, p.v, p.st[kV], b, k0, kvh, 0, p.d);
+    load_tile<T, D>(ks, p.k, p.st[kK], b, k0, p.sk, kvh, 0, p.d);
+    load_tile<T, D>(vs, p.v, p.st[kV], b, k0, p.sk, kvh, 0, p.d);
   }
 
   // this thread's output block: k rows tr*4+i, columns tc+16j
@@ -507,17 +526,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Params p) {
       for (int sl = 0; sl < nsl; ++sl) {
         __syncthreads();  // the previous products are done with the tiles
         if (!resident) {
-          load_tile<T, D>(ks, p.k, p.st[kK], b, k0, kvh, sl * D, p.d);
-          load_tile<T, D>(vs, p.v, p.st[kV], b, k0, kvh, sl * D, p.d);
+          load_tile<T, D>(ks, p.k, p.st[kK], b, k0, p.sk, kvh, sl * D, p.d);
+          load_tile<T, D>(vs, p.v, p.st[kV], b, k0, p.sk, kvh, sl * D, p.d);
         }
-        load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, h, sl * D, p.d);
-        load_tile<T, D>(dos, p.dout, p.st[kDO], b, q0, h, sl * D, p.d);
+        load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, p.sq, h, sl * D, p.d);
+        load_tile<T, D>(dos, p.dout, p.st[kDO], b, q0, p.sq, h, sl * D, p.d);
         if (sl == 0 && threadIdx.x < kTile) {
+          const bool in = q0 + static_cast<int>(threadIdx.x) < p.sq;
           const long long i =
               (static_cast<long long>(b) * p.hq + h) * p.sq + q0 +
               threadIdx.x;
-          lse_s[threadIdx.x] = p.lse[i];
-          delta_s[threadIdx.x] = p.delta[i];
+          lse_s[threadIdx.x] = in ? p.lse[i] : 0.f;
+          delta_s[threadIdx.x] = in ? p.delta[i] : 0.f;
         }
         __syncthreads();
         tile_dot<D>(s, qs, ks, tr, tc);
@@ -533,15 +553,16 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Params p) {
           float x = s[i][j] * p.scale;
           if (p.causal && q0 + r + offset < k0 + tc + 16 * j)
             x = kMaskValue;
-          const float pr = expf(x - lse);
+          // a q row past the end adds nothing to dK or dV
+          const float pr = q0 + r < p.sq ? expf(x - lse) : 0.f;
           ps[r * kLP + tc + 16 * j] = pr;
           dss[r * kLP + tc + 16 * j] = pr * (dp[i][j] - delta) * p.scale;
         }
       }
       __syncthreads();
       if (!resident) {  // this block's slices of Q and dO
-        load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, h, c0, p.d);
-        load_tile<T, D>(dos, p.dout, p.st[kDO], b, q0, h, c0, p.d);
+        load_tile<T, D>(qs, p.q, p.st[kQ], b, q0, p.sq, h, c0, p.d);
+        load_tile<T, D>(dos, p.dout, p.st[kDO], b, q0, p.sq, h, c0, p.d);
         __syncthreads();
       }
       // dV += P^T dO, dK += dS^T Q over the tile's 64 q rows
@@ -549,8 +570,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Params p) {
       tile_product<D, true>(dk, dss, qs, tr, tc);
     }
   }
-  store_block<T, D>(p.dk, p.st[kDK], b, k0, kvh, c0, p.d, dk, tr, tc);
-  store_block<T, D>(p.dv, p.st[kDV], b, k0, kvh, c0, p.d, dv, tr, tc);
+  store_block<T, D>(p.dk, p.st[kDK], b, k0, p.sk, kvh, c0, p.d, dk, tr, tc);
+  store_block<T, D>(p.dv, p.st[kDV], b, k0, p.sk, kvh, c0, p.d, dv, tr, tc);
 }
 
 // ---------------------------------------------------------------------------
@@ -574,6 +595,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(full ? 16 : 0));
+}
+// 4 bytes from global to shared memory, or 4 zero bytes if !full
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -655,11 +683,11 @@ __device__ __forceinline__ void split2(float x, float y, unsigned& hi,
 }
 
 // Rows s0 .. s0+63 of (b, h) into a swizzled [64][D] tile by cp.async,
-// zeros in columns d .. D-1.
+// zeros in columns d .. D-1 and in rows s0 + r >= s (the sequence's end).
 template <typename T, int D>
 __device__ __forceinline__ void load_tile_async(T* dst, const void* base,
                                                 const Strides& st, int b,
-                                                int s0, int h, int d) {
+                                                int s0, int s, int h, int d) {
   constexpr int C = D / 8;
   const T* src = row_ptr<T>(base, st, b, s0, h);
 #pragma unroll
@@ -667,8 +695,8 @@ __device__ __forceinline__ void load_tile_async(T* dst, const void* base,
     const int i = threadIdx.x + it * kMmaThreads;
     const int r = i / C;
     const int ch = i - r * C;
-    const bool full = ch * 8 < d;
-    cp_async16(dst + swz<D>(r, ch * 8), src + r * st.s + (full ? ch * 8 : 0),
+    const bool full = ch * 8 < d && s0 + r < s;
+    cp_async16(dst + swz<D>(r, ch * 8), full ? src + r * st.s + ch * 8 : src,
                full);
   }
 }
@@ -700,10 +728,11 @@ __device__ __forceinline__ void load_b_trans(unsigned (&b)[4], const T* tile,
 
 // The warp's 16 output rows, held in the accumulator layout (rows g and
 // g+8, columns 8j + 2t, +1 of an NC-column slice), through its rows of a
-// swizzled [64][D] smem tile into 16-byte stores of columns c0 + c < d.
+// swizzled [64][D] smem tile into 16-byte stores of columns c0 + c < d of
+// rows s0 + r < s.
 template <typename T, int D, int NC = D>
 __device__ __forceinline__ void store_rows(void* base, const Strides& st,
-                                          int b, int s0, int h, T* tile,
+                                          int b, int s0, int s, int h, T* tile,
                                           int r0, const float (&acc)[NC / 8][4],
                                           float scale0, float scale1, int c0,
                                           int d, int lane) {
@@ -724,10 +753,26 @@ __device__ __forceinline__ void store_rows(void* base, const Strides& st,
     const int i = lane + it * 32;
     const int r = i / C;
     const int ch = i - r * C;
-    if (c0 + ch * 8 < d)
+    if (c0 + ch * 8 < d && s0 + r < s)
       *reinterpret_cast<uint4*>(dst + r * st.s + ch * 8) =
           *reinterpret_cast<const uint4*>(tile + swz<D>(r0 + r, ch * 8));
   }
+}
+
+// Entries of a warp's score tile in the accumulator layout (rows g and
+// g+8, columns 8j + 2t, +1) that the causal mask or the sequence's end
+// hides, set to `value`: `row` is the absolute row g plus the causal
+// offset sk - sq, `col0` the absolute column 2t of the tile.
+__device__ __forceinline__ void mask_scores(float (&s)[8][4], int row,
+                                            int col0, bool causal, int sk,
+                                            float value) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = col0 + j * 8 + (e & 1);
+      if ((causal && row + (e >> 1) * 8 < col) || col >= sk) s[j][e] = value;
+    }
 }
 
 // B1 on the tensor cores
@@ -751,9 +796,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(Params p) {
   const int nk = k_tiles_seen(p, q0);
   const float scale2 = p.scale * kLog2e;  // scores in log2 units
 
-  load_tile_async<T, D>(qs, p.q, p.st[kQ], b, q0, h, p.d);
-  load_tile_async<T, D>(ks, p.k, p.st[kK], b, 0, kvh, p.d);
-  load_tile_async<T, D>(vs, p.v, p.st[kV], b, 0, kvh, p.d);
+  load_tile_async<T, D>(qs, p.q, p.st[kQ], b, q0, p.sq, h, p.d);
+  load_tile_async<T, D>(ks, p.k, p.st[kK], b, 0, p.sk, kvh, p.d);
+  load_tile_async<T, D>(vs, p.v, p.st[kV], b, 0, p.sk, kvh, p.d);
   cp_async_commit();
 
   // Q fragments stay in registers up to D = 128; at 256 they would take
@@ -777,9 +822,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(Params p) {
     if (kt + 1 < nk) {
       const int next = ((kt + 1) & 1) * kTile * D;
       load_tile_async<T, D>(ks + next, p.k, p.st[kK], b, (kt + 1) * kTile,
-                            kvh, p.d);
+                            p.sk, kvh, p.d);
       load_tile_async<T, D>(vs + next, p.v, p.st[kV], b, (kt + 1) * kTile,
-                            kvh, p.d);
+                            p.sk, kvh, p.d);
       cp_async_commit();
     }
     const T* kb = ks + (kt & 1) * kTile * D;
@@ -808,20 +853,21 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(Params p) {
       }
     }
 
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= scale2;
+    // only the diagonal tile, and a last tile that runs past sk, are
+    // masked (a warp-uniform branch: whole tiles skip it)
     const bool diag = p.causal && k0 + kTile - 1 > q0 + offset;
+    if (diag || k0 + kTile > p.sk)
+      mask_scores(s, q0 + r0 + g + offset, k0 + 2 * t, diag, p.sk,
+                  kMaskValue);
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale2;
-        if (diag && q0 + r0 + g + (e >> 1) * 8 + offset <
-                        k0 + j * 8 + 2 * t + (e & 1))
-          x = kMaskValue;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
@@ -873,13 +919,13 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(Params p) {
     inv[r] = 1.f / l[r];
   }
   // the warp's rows of the q tile are its own since its Q fragments
-  store_rows<T, D>(p.o, p.st[kO], b, q0 + r0, h, qs, r0, o, inv[0], inv[1],
-                   0, p.d, lane);
+  store_rows<T, D>(p.o, p.st[kO], b, q0 + r0, p.sq, h, qs, r0, o, inv[0],
+                   inv[1], 0, p.d, lane);
   if (t == 0) {
-    float* lse = p.lse + (static_cast<long long>(b) * p.hq + h) * p.sq +
-                 q0 + r0 + g;
-    lse[0] = m[0] * kLn2 + logf(l[0]);
-    lse[8] = m[1] * kLn2 + logf(l[1]);
+    const int row = q0 + r0 + g;
+    float* lse = p.lse + (static_cast<long long>(b) * p.hq + h) * p.sq + row;
+    if (row < p.sq) lse[0] = m[0] * kLn2 + logf(l[0]);
+    if (row + 8 < p.sq) lse[8] = m[1] * kLn2 + logf(l[1]);
   }
 }
 
@@ -905,17 +951,21 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(Params p) {
   const int nk = k_tiles_seen(p, q0);
   const float scale2 = p.scale * kLog2e;
 
-  load_tile_async<T, D>(qs, p.q, p.st[kQ], b, q0, h, p.d);
-  load_tile_async<T, D>(dos, p.dout, p.st[kDO], b, q0, h, p.d);
-  load_tile_async<T, D>(ks, p.k, p.st[kK], b, 0, kvh, p.d);
-  load_tile_async<T, D>(vs, p.v, p.st[kV], b, 0, kvh, p.d);
+  load_tile_async<T, D>(qs, p.q, p.st[kQ], b, q0, p.sq, h, p.d);
+  load_tile_async<T, D>(dos, p.dout, p.st[kDO], b, q0, p.sq, h, p.d);
+  load_tile_async<T, D>(ks, p.k, p.st[kK], b, 0, p.sk, kvh, p.d);
+  load_tile_async<T, D>(vs, p.v, p.st[kV], b, 0, p.sk, kvh, p.d);
   cp_async_commit();
 
-  // lse (log2 units) and delta of rows g and g+8
+  // lse (log2 units) and delta of rows g and g+8 (0 past the end: those
+  // rows are not stored)
   const long long row = (static_cast<long long>(b) * p.hq + h) * p.sq + q0 +
                         r0 + g;
-  const float lse2[2] = {p.lse[row] * kLog2e, p.lse[row + 8] * kLog2e};
-  const float delta[2] = {p.delta[row], p.delta[row + 8]};
+  const bool in0 = q0 + r0 + g < p.sq, in1 = q0 + r0 + g + 8 < p.sq;
+  const float lse2[2] = {in0 ? p.lse[row] * kLog2e : 0.f,
+                         in1 ? p.lse[row + 8] * kLog2e : 0.f};
+  const float delta[2] = {in0 ? p.delta[row] : 0.f,
+                          in1 ? p.delta[row + 8] : 0.f};
   float dq[ND][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
@@ -926,9 +976,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(Params p) {
     if (kt + 1 < nk) {
       const int next = ((kt + 1) & 1) * kTile * D;
       load_tile_async<T, D>(ks + next, p.k, p.st[kK], b, (kt + 1) * kTile,
-                            kvh, p.d);
+                            p.sk, kvh, p.d);
       load_tile_async<T, D>(vs + next, p.v, p.st[kV], b, (kt + 1) * kTile,
-                            kvh, p.d);
+                            p.sk, kvh, p.d);
       cp_async_commit();
     }
     const T* kb = ks + (kt & 1) * kTile * D;
@@ -959,18 +1009,19 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(Params p) {
     }
 
     // dS = P (dP - delta) scale, P = exp(S - lse); masked entries 0
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = exp2f(s[j][e] * scale2 - lse2[e >> 1]);
     const bool diag = p.causal && k0 + kTile - 1 > q0 + offset;
+    if (diag || k0 + kTile > p.sk)
+      mask_scores(s, q0 + r0 + g + offset, k0 + 2 * t, diag, p.sk, 0.f);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool masked = diag && q0 + r0 + g + (e >> 1) * 8 + offset <
-                                        k0 + j * 8 + 2 * t + (e & 1);
-        const float pe =
-            masked ? 0.f : exp2f(s[j][e] * scale2 - lse2[e >> 1]);
-        s[j][e] = pe * (dp[j][e] - delta[e >> 1]) * p.scale;
-      }
-    }
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = s[j][e] * (dp[j][e] - delta[e >> 1]) * p.scale;
 
     // dQ += dS K, with dS = hi + lo in two products
 #pragma unroll
@@ -992,8 +1043,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dq_mma(Params p) {
     }
   }
 
-  store_rows<T, D>(p.dq, p.st[kDQ], b, q0 + r0, h, qs, r0, dq, 1.f, 1.f, 0,
-                   p.d, lane);
+  store_rows<T, D>(p.dq, p.st[kDQ], b, q0 + r0, p.sq, h, qs, r0, dq, 1.f, 1.f,
+                   0, p.d, lane);
 }
 
 // Output columns of one B3 tensor-core block: the whole head dim up to
@@ -1033,7 +1084,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkv_mma(Params p) {
   const float scale2 = p.scale * kLog2e;  // scores in log2 units
   // q tiles that see this k tile: from the first one that reaches it
   const int qt0 = p.causal ? max(0, k0 - offset) / kTile : 0;
-  const int nqt = p.sq / kTile - qt0;
+  const int nqt = tiles(p.sq) - qt0;
   const int n_it = group * nqt;  // (q head, q tile) pairs
 
   // Q, dO, lse and delta of pair `it` into stage it & 1
@@ -1041,20 +1092,23 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkv_mma(Params p) {
     const int h = kvh * group + it / nqt;
     const int q0 = (qt0 + it % nqt) * kTile;
     const int st = it & 1;
-    load_tile_async<T, D>(qs + st * kTile * D, p.q, p.st[kQ], b, q0, h, p.d);
-    load_tile_async<T, D>(dos + st * kTile * D, p.dout, p.st[kDO], b, q0, h,
+    load_tile_async<T, D>(qs + st * kTile * D, p.q, p.st[kQ], b, q0, p.sq, h,
                           p.d);
-    if (threadIdx.x < 32) {  // 64 floats each, 16 bytes a lane
+    load_tile_async<T, D>(dos + st * kTile * D, p.dout, p.st[kDO], b, q0,
+                          p.sq, h, p.d);
+    {  // lse (threads 0-63) and delta (64-127), one float a thread, 0 past
+       // the end (a row of any length starts on 4 bytes only)
+      const int r = threadIdx.x & (kTile - 1);
       const long long row = (static_cast<long long>(b) * p.hq + h) * p.sq + q0;
-      const int c = (threadIdx.x & 15) * 4;
-      const float* src = threadIdx.x < 16 ? p.lse : p.delta;
-      float* dst = (threadIdx.x < 16 ? lse_s : delta_s) + st * kTile;
-      cp_async16(dst + c, src + row + c, true);
+      const float* src = (threadIdx.x < kTile ? p.lse : p.delta) + row;
+      float* dst = (threadIdx.x < kTile ? lse_s : delta_s) + st * kTile + r;
+      const bool in = q0 + r < p.sq;
+      cp_async4(dst, in ? src + r : src, in);
     }
   };
 
-  load_tile_async<T, D>(ks, p.k, p.st[kK], b, k0, kvh, p.d);
-  load_tile_async<T, D>(vs, p.v, p.st[kV], b, k0, kvh, p.d);
+  load_tile_async<T, D>(ks, p.k, p.st[kK], b, k0, p.sk, kvh, p.d);
+  load_tile_async<T, D>(vs, p.v, p.st[kV], b, k0, p.sk, kvh, p.d);
   if (n_it > 0) issue(0);
   cp_async_commit();
 
@@ -1102,21 +1156,32 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkv_mma(Params p) {
       }
     }
 
-    // P^T = exp(S^T - lse), dS^T = P^T (dP^T - delta) scale; masked 0
+    // P^T = exp(S^T - lse), dS^T = P^T (dP^T - delta) scale; masked 0,
+    // and 0 in the q columns past sq (they add nothing to dK or dV)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = exp2f(s[j][e] * scale2 -
+                        lse[j * 8 + 2 * t + (e & 1)] * kLog2e);
     const bool diag = p.causal && q0 + offset < k0 + kTile - 1;
+    if (diag || q0 + kTile > p.sq) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = j * 8 + 2 * t + (e & 1);
-        const bool masked =
-            diag && q0 + qc + offset < k0 + r0 + g + (e >> 1) * 8;
-        const float pe =
-            masked ? 0.f : exp2f(s[j][e] * scale2 - lse[qc] * kLog2e);
-        s[j][e] = pe;
-        dp[j][e] = pe * (dp[j][e] - delta[qc]) * p.scale;
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int q = q0 + j * 8 + 2 * t + (e & 1);
+          if ((diag && q + offset < k0 + r0 + g + (e >> 1) * 8) ||
+              q >= p.sq)
+            s[j][e] = 0.f;
+        }
     }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[j][e] = s[j][e] * (dp[j][e] - delta[j * 8 + 2 * t + (e & 1)]) *
+                   p.scale;
 
     // dV += P^T dO and dK += dS^T Q, P^T and dS^T as hi + lo (the
     // reference's products are float32), straight from the accumulator
@@ -1154,10 +1219,10 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkv_mma(Params p) {
 
   // the warp's rows of the K and V tiles are its own: they stage the
   // warp's dK and dV rows on their way out
-  store_rows<T, D, NC>(p.dk, p.st[kDK], b, k0 + r0, kvh, ks, r0, dk, 1.f,
-                       1.f, c0, p.d, lane);
-  store_rows<T, D, NC>(p.dv, p.st[kDV], b, k0 + r0, kvh, vs, r0, dv, 1.f,
-                       1.f, c0, p.d, lane);
+  store_rows<T, D, NC>(p.dk, p.st[kDK], b, k0 + r0, p.sk, kvh, ks, r0, dk,
+                       1.f, 1.f, c0, p.d, lane);
+  store_rows<T, D, NC>(p.dv, p.st[kDV], b, k0 + r0, p.sk, kvh, vs, r0, dv,
+                       1.f, 1.f, c0, p.d, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -1208,16 +1273,16 @@ cudaError_t launch(int which, int batch, const Params& p,
       switch (which) {
         case kFwd:  // grid (head, batch, q tile), heaviest q tile first
           return launch_kernel(flash_fwd_mma<T, D>,
-                               dim3(p.hq, batch, p.sq / kTile), kMmaThreads,
+                               dim3(p.hq, batch, tiles(p.sq)), kMmaThreads,
                                mma_smem_bytes<T, D>(kFwd), p, stream);
         case kBwdDq:
           return launch_kernel(flash_bwd_dq_mma<T, D>,
-                               dim3(p.hq, batch, p.sq / kTile), kMmaThreads,
+                               dim3(p.hq, batch, tiles(p.sq)), kMmaThreads,
                                mma_smem_bytes<T, D>(kBwdDq), p, stream);
         case kBwdDkv:
           return launch_kernel(flash_bwd_dkv_mma<T, D>,
                                dim3(p.hkv * (D / dkv_cols<D>()), batch,
-                                    p.sk / kTile),
+                                    tiles(p.sk)),
                                kMmaThreads, mma_smem_bytes<T, D>(kBwdDkv), p,
                                stream);
         default:
@@ -1230,15 +1295,15 @@ cudaError_t launch(int which, int batch, const Params& p,
     switch (which) {
       case kFwd:
         return launch_kernel(flash_fwd<T, D>,
-                             dim3(p.sq / kTile, p.hq * batch, slices),
+                             dim3(tiles(p.sq), p.hq * batch, slices),
                              kThreads, simt_smem_bytes<D>(kFwd), p, stream);
       case kBwdDq:
         return launch_kernel(flash_bwd_dq<T, D>,
-                             dim3(p.sq / kTile, p.hq * batch, slices),
+                             dim3(tiles(p.sq), p.hq * batch, slices),
                              kThreads, simt_smem_bytes<D>(kBwdDq), p, stream);
       case kBwdDkv:
         return launch_kernel(flash_bwd_dkv<T, D>,
-                             dim3(p.sk / kTile, p.hkv * batch, slices),
+                             dim3(tiles(p.sk), p.hkv * batch, slices),
                              kThreads, simt_smem_bytes<D>(kBwdDkv), p,
                              stream);
       default:
@@ -1292,7 +1357,7 @@ cudaError_t launch_d(int padded_dim, int which, int batch, int delta_ready,
 // the head dim is the caller's check, as are rows that start on 16
 // bytes). B2 and B3 read delta = rowsum(O * dO) [b, hq, sq] from `delta`;
 // unless `delta_ready`, a first kernel writes it there. Sequence lengths
-// are multiples of 64. Returns the launches' cudaError_t (0 on success).
+// are any sq, sk >= 1. Returns the launches' cudaError_t (0 on success).
 // Allocates nothing.
 extern "C" int flash_attention_launch(int which, int dtype, int head_dim,
                                       int padded_dim, void* const* ptrs,

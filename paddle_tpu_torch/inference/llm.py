@@ -8,8 +8,11 @@ served as ONE ragged mixed tick of prefill chunk rows and decode rows
 ``decode_ticks_per_dispatch`` ticks, with pure decode steps
 (:class:`_PagedDecode`) or decode slabs once the prefill queue is empty.
 ``mixed_tick=False`` keeps the alternating prefill-chunk / decode-step
-loop (:class:`_ChunkedPrefill`), which ``lookahead > 0`` needs. Every
-attention goes through
+loop (:class:`_ChunkedPrefill`), which ``lookahead > 0`` needs. With a
+``draft_net`` the engine decodes speculatively: rounds of K chained
+draft probes, one ragged verify window (:class:`_PagedVerify`) and the
+accept rule (:func:`_spec_accept`), N rounds to a slab, or the legacy
+host-paced greedy round. Every paged attention goes through
 :func:`~paddle_tpu_torch.ops.paged_attention.ragged_paged_attention`,
 kernel B4 on the GPU.
 
@@ -73,11 +76,14 @@ def _sample(logits, temperature, key, nonces, positions,
 
 def _write_slots(tables, positions, active, page_size):
     """(page, offset) in the pool where each row's K/V lands; inactive
-    rows go to scratch page 0. A row past its table's end (a masked
-    slab tick) reads the last entry, then goes to scratch too."""
-    idx = (positions // page_size).clamp(max=tables.shape[1] - 1)
-    page_idx = tables.clamp(min=0).gather(1, idx[:, None])[:, 0]
-    page_idx = torch.where(active, page_idx, torch.zeros_like(page_idx))
+    rows, and rows past their table's end (a verify window or draft
+    probe running past ``max_len``), go to scratch page 0."""
+    idx = positions // page_size
+    inside = idx < tables.shape[1]
+    page_idx = tables.clamp(min=0).gather(
+        1, idx.clamp(max=tables.shape[1] - 1)[:, None])[:, 0]
+    page_idx = torch.where(active & inside, page_idx,
+                           torch.zeros_like(page_idx))
     return page_idx.long(), (positions % page_size).long()
 
 
@@ -144,6 +150,89 @@ def _lm_rows(net, rows):
                       getattr(net, "lm_head", None))[:, 0]
 
 
+# speculative-sampling key salts, folded into the engine key before the
+# (nonce, position) folds: every random decision of a round depends only
+# on what is sampled and never collides with the plain _sample keys.
+# DRAFT salts the draft's proposals, ACCEPT the rejection test, RESID the
+# residual sample at the first rejection.
+_SPEC_DRAFT_SALT = 0x5D
+_SPEC_ACCEPT_SALT = 0x5A
+_SPEC_RESID_SALT = 0x5B
+
+
+def _salted_keys(key, salt, nonces, positions):
+    return threefry.fold_in(threefry.fold_in(threefry.fold_in(key, salt),
+                                             nonces), positions)
+
+
+def _softmax(x):
+    """``jax.nn.softmax`` over the last axis, written as it is."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _spec_accept(tokens_mat, draft_logits, verify_logits, temps, nonces,
+                 positions, key, any_sampled: bool = True):
+    """The speculative accept/commit rule (B slots, K = spec_tokens).
+
+    ``tokens_mat`` [B, K]: the verify window, the committed last token t0
+    and the K-1 proposals; ``draft_logits`` [B, K-1, V]: the draft
+    distribution each proposal was sampled from; ``verify_logits`` [B, K,
+    V]: the target's logits after each window token; ``temps``,
+    ``nonces``, ``positions`` [B]: temperature, key salt and t0's feed
+    position (decision i keys on ``positions + i``).
+
+    Returns ``(out, n_acc)``: ``out`` [B, K] holds the accepted proposals
+    in columns ``0..n_acc-1`` and the committed correction or bonus in
+    column ``n_acc``; a round commits ``n_acc + 1`` tokens before
+    clamping. Greedy rows accept the prefix of proposals equal to
+    argmax(p_i), so their tokens are the plain greedy chain whatever the
+    draft. T > 0 rows accept proposal t ~ q_i when u * q_i(t) <= p_i(t)
+    and at the first rejection commit a sample of normalize(max(p_i -
+    q_i, 0)) (p_i where that is all zero); when all K-1 are accepted the
+    bonus is a plain :func:`_sample` of p_{K-1}. ``any_sampled=False``
+    (no row has T > 0) skips the random draws."""
+    kq = tokens_mat.shape[1]
+    greedy_v = torch.argmax(verify_logits, dim=-1)            # [B, K]
+    props = tokens_mat[:, 1:]                                 # [B, K-1]
+    accept = props == greedy_v[:, :kq - 1]
+    sampled = temps > 0.0
+    if any_sampled:
+        t_inv = (1.0 / torch.clamp(temps, min=1e-6))[:, None, None]
+        p_all = _softmax(verify_logits * t_inv)
+        q_all = _softmax(draft_logits * t_inv)
+        p_at = p_all[:, :kq - 1].gather(2, props[..., None])[..., 0]
+        q_at = q_all.gather(2, props[..., None])[..., 0]
+        u = torch.stack([
+            threefry.uniform(_salted_keys(key, _SPEC_ACCEPT_SALT, nonces,
+                                          positions + i), ())
+            for i in range(kq - 1)], dim=1)
+        accept = torch.where(sampled[:, None], u * q_at <= p_at, accept)
+    n_acc = torch.cumprod(accept.long(), dim=1).sum(dim=1)    # [B]
+    # the correction at the break index a < K-1: argmax(p_a) for greedy
+    # rows, a residual sample for T > 0 rows
+    ia = n_acc.clamp(0, kq - 2)
+    corr = greedy_v.gather(1, ia[:, None])[:, 0]
+    if any_sampled:
+        at = ia[:, None, None].expand(-1, 1, p_all.shape[-1])
+        p_a = p_all.gather(1, at)[:, 0]
+        q_a = q_all.gather(1, at)[:, 0]
+        resid = torch.clamp(p_a - q_a, min=0.0)
+        resid = torch.where(resid.sum(dim=-1, keepdim=True) > 0.0, resid,
+                            p_a)
+        rtok = threefry.categorical(
+            _salted_keys(key, _SPEC_RESID_SALT, nonces, positions + ia),
+            torch.log(resid))
+        corr = torch.where(sampled, rtok, corr)
+    bonus = _sample(verify_logits[:, kq - 1], temps, key, nonces,
+                    positions + kq - 1, any_sampled)
+    corr = torch.where(n_acc == kq - 1, bonus, corr)
+    idx = torch.arange(kq, device=tokens_mat.device)[None, :]
+    shifted = torch.cat([props, props[:, -1:]], dim=1)
+    out = torch.where(idx < n_acc[:, None], shifted, corr[:, None])
+    return out, n_acc
+
+
 class DecodeCarry(NamedTuple):
     """Per-slot decode state carried through one slab of ticks (B =
     max_seqs), all on the device:
@@ -160,7 +249,14 @@ class DecodeCarry(NamedTuple):
     Block tables, temperatures, nonces and the key stay outside: the
     slab reserves its pages at entry. A mixed slab installs a prompt's
     first token, start position and budget at the tick its prompt
-    completes. The draft fields (speculative decoding) stay ``None``."""
+    completes.
+
+    ``draft_k_pages`` / ``draft_v_pages`` (spec slab engines only, else
+    ``None``): the draft model's paged pool, with its own layer and head
+    dims and the same page allocator and block tables. A spec round's K
+    draft probes write there and its verify window writes the target
+    pool; ``positions`` then advances by the committed run, and rejected
+    KV stays beyond it, overwritten before any later round reads it."""
 
     tokens: torch.Tensor
     positions: torch.Tensor
@@ -174,12 +270,18 @@ class DecodeCarry(NamedTuple):
 class _PagedDecode(Layer):
     """One batched decode step: feed each active slot's last token,
     write its K/V into the pages, attend over the paged context, sample
-    the next token on the device. The pool is updated in place."""
+    the next token on the device. The pool is updated in place.
 
-    def __init__(self, net, attention_impl: str = "kernel"):
+    ``return_logits``: also return the [B, V] logits the token was
+    sampled from (the spec slab's draft probe, whose distribution q_i is
+    the rejection test's denominator)."""
+
+    def __init__(self, net, attention_impl: str = "kernel",
+                 return_logits: bool = False):
         super().__init__()
         self.net = net
         self.attention_impl = attention_impl
+        self.return_logits = return_logits
 
     def forward(self, tokens, positions, block_tables, context_lens,
                 k_pages, v_pages, temperature, nonces, key,
@@ -197,8 +299,68 @@ class _PagedDecode(Layer):
                             offs, k_pages, v_pages, block_tables,
                             context_lens, self.attention_impl)
         logits = _lm_rows(net, gpt.ln_f(x)[:, 0])
-        return _sample(logits, temperature, key, nonces, positions,
-                       any_sampled)
+        nxt = _sample(logits, temperature, key, nonces, positions,
+                      any_sampled)
+        return (nxt, logits) if self.return_logits else nxt
+
+
+class _PagedVerify(Layer):
+    """The speculative verify pass: K tokens per slot (the committed last
+    token and K-1 draft proposals) through the target in one ragged
+    forward of B x K rows. Row j of slot b sits at ``base_lens[b] + j``
+    and attends up to ``base_lens[b] + j + 1`` over the slot's table,
+    repeated K times (inactive slots, ``base_lens`` 0, write scratch page
+    0), so it sees exactly the context the j-th sequential decode step
+    would. A limit past the table's span is cut to it (such a row sees
+    the whole table, as in the plain twin), so B4 never reads past a
+    table row. Returns the target's logits [B, K, V]."""
+
+    def __init__(self, net, attention_impl: str = "kernel"):
+        super().__init__()
+        self.net = net
+        self.attention_impl = attention_impl
+
+    def forward(self, tokens, base_lens, block_tables, k_pages, v_pages):
+        b, kq = tokens.shape
+        pos = base_lens[:, None] + torch.arange(kq, device=tokens.device)
+        span = block_tables.shape[1] * kv_page_size(k_pages)
+        lim = torch.where(base_lens[:, None] > 0, pos + 1,
+                          torch.zeros_like(pos)).clamp(max=span).int()
+        x = _ragged_forward(self.net, tokens.reshape(-1), pos.reshape(-1),
+                            lim.reshape(-1),
+                            block_tables.repeat_interleave(kq, dim=0),
+                            k_pages, v_pages, self.attention_impl)
+        return _lm_rows(self.net, x).reshape(b, kq, -1)
+
+
+class _PagedPrefill(Layer):
+    """The legacy speculative path's one-shot prompt prefill of ONE
+    sequence: a dense causal forward over the prompt padded to a bucket
+    (``net.init_caches`` / ``forward(caches=...)``), its per-layer K/V
+    scattered into the sequence's pages (padding positions to scratch
+    page 0), and the first token sampled from the last prompt row."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, ids, true_len: int, block_row, k_pages, v_pages,
+                temperature, nonce, key, any_sampled: bool = True):
+        s = ids.shape[1]
+        ps = kv_page_size(k_pages)
+        caches = self.net.init_caches(1, s, dtype=k_pages.dtype)
+        logits, caches = self.net(ids, caches=caches)
+        pos = torch.arange(s, device=ids.device)
+        page_idx = torch.where(pos < true_len, block_row.long()[pos // ps],
+                               torch.zeros_like(pos))
+        offs = pos % ps
+        for i, (k_c, v_c, _) in enumerate(caches):
+            kv_write(k_pages, i, page_idx, offs, k_c[0])
+            kv_write(v_pages, i, page_idx, offs, v_c[0])
+        last = torch.full((1,), true_len - 1, dtype=torch.int64,
+                          device=ids.device)
+        return _sample(logits[0, true_len - 1][None], temperature[None],
+                       key, nonce[None], last, any_sampled)[0]
 
 
 class _ChunkedPrefill(Layer):
@@ -291,11 +453,6 @@ class _Request:
         self.n_reg_pages = 0    # prompt pages registered as shared
 
 
-def _not_ported(arg: str, item: str):
-    return NotImplementedError(
-        f"LLMEngine({arg}) is not ported yet (ROADMAP Queue A: {item})")
-
-
 class LLMEngine:
     """Continuous-batching engine over one model, on the device
     ``device`` (the GPU unless ``device="cpu"``).
@@ -323,8 +480,24 @@ class LLMEngine:
     the fetch; it conflicts with a slab (``ValueError``) and with an
     explicit ``mixed_tick=True`` (``ValueError``), while the flag's
     default yields to it. Streams are token-identical across all of
-    these. ``draft_net`` (speculative decoding) raises
-    ``NotImplementedError`` naming its ROADMAP item.
+    these.
+
+    ``draft_net`` / ``spec_tokens`` (K, default 4): speculative decoding.
+    A draft model with the target's vocabulary proposes K - 1 tokens a
+    round through its own paged pool (same page allocator and block
+    tables, int8 included), and one target pass verifies them
+    (:class:`_PagedVerify`). ``spec_slab`` (default ``FLAGS.spec_slab``,
+    on): ``decode_ticks_per_dispatch`` whole rounds run back to back on
+    the device with no host read (:meth:`_issue_spec_slab`); greedy rows
+    are token-identical to plain decoding whatever the draft, and
+    ``temperature > 0`` rows are served by rejection sampling, keyed on
+    (nonce, position) only. Every prompt chunk also runs through the
+    draft into its pool, so the prefix cache and the mixed tick stay on;
+    a mixed slab gives a spec engine each prompt's first token only.
+    ``spec_slab=False``: the legacy host-paced round (greedy only, the
+    prompt prefilled densely in one bucket, no prefix cache, no int8,
+    one round per host read; ``decode_ticks_per_dispatch`` clamps to 1
+    and ``mixed_tick`` off). Neither mode composes with ``lookahead``.
 
     ``kv_dtype``: pool storage dtype, ``"f32"``/``"bf16"``/``"f16"`` or
     ``"int8"`` (quantized pages with per-row f32 scales; default
@@ -333,9 +506,15 @@ class LLMEngine:
 
     Counters: ``n_prefill_ticks`` (chunks of prefill work),
     ``n_decode_ticks`` (decode ticks that emitted a token),
-    ``n_dispatched_ticks`` (forward passes issued, masked slab ticks
-    included: one attention launch per layer each), ``n_mixed_slabs``,
-    ``n_prompt_tokens`` and ``n_cached_tokens``."""
+    ``n_dispatched_ticks`` (paged forward passes of the target issued,
+    masked slab ticks and verify passes included: one attention launch
+    per layer each; the legacy dense prefill is not one),
+    ``n_draft_passes`` (the same for the draft: prompt chunks and
+    probes), ``n_mixed_slabs``, ``n_prompt_tokens`` and
+    ``n_cached_tokens``; for speculative engines ``n_spec_rounds``
+    (rounds that emitted), ``n_draft_steps`` (K per such round),
+    ``n_spec_proposed`` and ``n_spec_accepted`` (draft tokens offered to
+    and committed by the verifier)."""
 
     def __init__(self, net, max_seqs: int = 8, page_size: int = 16,
                  num_pages: int = 512, max_len: Optional[int] = None,
@@ -343,19 +522,25 @@ class LLMEngine:
                  eos_token_id: Optional[int] = None,
                  cache_dtype=torch.float32, seed: int = 0,
                  lookahead: int = 0, attention_impl: str = "kernel",
-                 draft_net=None, prefix_cache: bool = True,
+                 draft_net=None, spec_tokens: int = 4,
+                 prefix_cache: bool = True,
                  prefill_chunk: Optional[int] = None,
                  decode_ticks_per_dispatch: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
-                 mixed_tick: Optional[bool] = None, device=None):
-        if draft_net is not None:
-            raise _not_ported("draft_net=...", "speculative decoding")
+                 mixed_tick: Optional[bool] = None,
+                 spec_slab: Optional[bool] = None, device=None):
+        if spec_slab is None:
+            spec_slab = _flags.get_flag("spec_slab")
+        self.spec_slab = bool(spec_slab) and draft_net is not None
+        legacy_spec = draft_net is not None and not self.spec_slab
         self.lookahead = int(lookahead)
         if decode_ticks_per_dispatch is None:
             decode_ticks_per_dispatch = _flags.get_flag(
                 "decode_ticks_per_dispatch")
         self.decode_ticks_per_dispatch = max(
             1, int(decode_ticks_per_dispatch))
+        if legacy_spec:
+            self.decode_ticks_per_dispatch = 1
         if self.decode_ticks_per_dispatch > 1 and self.lookahead:
             raise ValueError(
                 "decode_ticks_per_dispatch > 1 does not compose with "
@@ -368,7 +553,7 @@ class LLMEngine:
         mixed_explicit = mixed_tick is not None
         if mixed_tick is None:
             mixed_tick = _flags.get_flag("mixed_tick")
-        self.mixed_tick = bool(mixed_tick)
+        self.mixed_tick = bool(mixed_tick) and not legacy_spec
         if self.mixed_tick and self.lookahead:
             if mixed_explicit:
                 raise ValueError(
@@ -402,6 +587,13 @@ class LLMEngine:
         if kv_dtype not in KV_DTYPES:
             raise ValueError(f"unknown kv_dtype {kv_dtype!r}; expected "
                              f"one of {sorted(KV_DTYPES)}")
+        if kv_dtype == "int8" and legacy_spec:
+            raise ValueError(
+                "kv_dtype='int8' does not compose with the legacy inline "
+                "speculative path (spec_slab=False): its dense prefill "
+                "writes plain pages. The spec slab (spec_slab=True, the "
+                "default) runs a quantized draft pool; use it, or drop "
+                "int8")
         self.kv_dtype = kv_dtype
         shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
                  cfg.head_dim)
@@ -414,7 +606,9 @@ class LLMEngine:
         self.temperatures = np.zeros((max_seqs,), np.float32)
         self._nonces = np.zeros((max_seqs,), np.int32)
         self._free_pages = list(range(num_pages - 1, 0, -1))  # 0=scratch
-        self._cache = PrefixCache(page_size) if prefix_cache else None
+        # the legacy speculative path prefills inline and keeps no cache
+        self._cache = PrefixCache(page_size) \
+            if prefix_cache and not legacy_spec else None
         self._slots: List[Optional[_Request]] = [None] * max_seqs
         # device-chained last tokens (authoritative between fetches)
         self._tokens_dev = torch.zeros((max_seqs,), dtype=torch.int64,
@@ -424,6 +618,34 @@ class LLMEngine:
         self._decode = _PagedDecode(self.net, attention_impl)
         self._chunk = _ChunkedPrefill(self.net, attention_impl)
         self._mixed = _MixedTick(self.net, attention_impl)
+        self.spec_k = 0
+        self.draft_k_pages = self.draft_v_pages = None
+        if draft_net is not None:
+            if self.lookahead:
+                raise ValueError(
+                    "speculative decoding does not compose with "
+                    "lookahead (the verify fetch is the round barrier)")
+            if spec_tokens < 2:
+                raise ValueError("spec_tokens must be >= 2")
+            if draft_net.cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    "draft and target models must share a vocabulary")
+            self.spec_k = int(spec_tokens)
+            self.draft_net = draft_net.to(self.device).eval()
+            dcfg = draft_net.cfg
+            # the draft's own pool: its dims, the target's pages and
+            # tables (a page id holds both models' KV of the same tokens)
+            dshape = (dcfg.num_layers, num_pages, page_size,
+                      dcfg.num_kv_heads, dcfg.head_dim)
+            self.draft_k_pages = kv_zeros(dshape, kv_dtype, self.device)
+            self.draft_v_pages = kv_zeros(dshape, kv_dtype, self.device)
+            self._draft_decode = _PagedDecode(self.draft_net,
+                                              attention_impl,
+                                              return_logits=True)
+            self._verify = _PagedVerify(self.net, attention_impl)
+            if legacy_spec:
+                self._prefill = _PagedPrefill(self.net)
+                self._draft_prefill = _PagedPrefill(self.draft_net)
         # (issue_seq, slots, device tokens, kind, meta) of each issued
         # step: "p" a prefill chunk that completes prompts, "d" a decode
         # step, "D" a decode slab and "M" a mixed slab ([n_ticks,
@@ -444,6 +666,11 @@ class LLMEngine:
         self.n_mixed_slabs = 0
         self.n_prompt_tokens = 0
         self.n_cached_tokens = 0
+        self.n_draft_passes = 0
+        self.n_spec_rounds = 0
+        self.n_draft_steps = 0
+        self.n_spec_proposed = 0
+        self.n_spec_accepted = 0
         self._worker = threading.Thread(target=self._loop, daemon=True)
         self._worker.start()
 
@@ -459,8 +686,20 @@ class LLMEngine:
             raise ValueError(
                 f"prompt {len(prompt_ids)} + max_new_tokens "
                 f"{max_new_tokens} exceeds engine max_len {self.max_len}")
+        legacy_spec = self.spec_k and not self.spec_slab
+        if legacy_spec and len(prompt_ids) > self.prefill_buckets[-1]:
+            # only the legacy inline prefill is bucket-shaped
+            raise ValueError(
+                f"prompt {len(prompt_ids)} exceeds the largest prefill "
+                f"bucket {self.prefill_buckets[-1]}; raise "
+                f"prefill_buckets")
         if not prompt_ids:
             raise ValueError("empty prompt")
+        if legacy_spec and temperature > 0.0:
+            raise ValueError(
+                "the legacy speculative path (spec_slab=False) is "
+                "greedy-only; spec slab engines (spec_slab=True, the "
+                "default) serve temperature > 0 by rejection sampling")
         if nonce is not None and not 0 <= int(nonce) < 2 ** 31:
             raise ValueError(f"nonce {nonce} out of int32 range")
         req = _Request(prompt_ids, max_new_tokens, temperature)
@@ -575,7 +814,7 @@ class LLMEngine:
         naming it, its entry budget for a slab."""
         n = 0
         for _, slots, _, kind, meta in self._inflight:
-            if kind in ("D", "M"):
+            if kind in ("D", "M", "S"):
                 n += meta["budgets"].get(slot, 0)
             elif slot in slots:
                 n += 1
@@ -585,7 +824,10 @@ class LLMEngine:
         """"ok" (admitted), "retry" (out of slots/pages for now) or
         "never" (the prompt cannot fit this pool). Admission maps the
         cached prefix's pages read-only, reserves the suffix's pages and
-        queues its prefill; no device work."""
+        queues its prefill; no device work. A legacy speculative engine
+        prefills inline instead (:meth:`_admit_inline`)."""
+        if self.spec_k and not self.spec_slab:
+            return self._admit_inline(req)
         n = len(req.prompt)
         ps = self.page_size
         need = -(-n // ps)
@@ -625,6 +867,69 @@ class LLMEngine:
         self.n_prompt_tokens += n
         self.n_cached_tokens += req.n_cached
         return "ok"
+
+    def _bucket(self, n: int) -> int:
+        return next((b for b in self.prefill_buckets if n <= b),
+                    self.prefill_buckets[-1])
+
+    def _admit_inline(self, req: _Request) -> str:
+        """The legacy speculative path's admission: the whole prompt
+        through :class:`_PagedPrefill` at its bucket, into the target's
+        pages and the draft's (whose sampled token is discarded); the
+        first token chains into ``_tokens_dev`` and is fetched like a
+        decode token."""
+        n = len(req.prompt)
+        need = -(-n // self.page_size)
+        if need > min(self.num_pages - 1, self.pages_per_seq):
+            return "never"
+        slot = next((i for i, s in enumerate(self._slots) if s is None),
+                    None)
+        if slot is None:
+            return "retry"
+        if need > len(self._free_pages):
+            active = any(s is not None for s in self._slots)
+            return "retry" if active else "never"
+        # the slot owns the request before any page or device call, so a
+        # failing prefill returns its pages through _fail_all
+        req.slot = slot
+        self._slots[slot] = req
+        for idx in range(need):
+            self.block_tables[slot, idx] = self._alloc_page()
+        ids = np.zeros((1, self._bucket(n)), np.int64)
+        ids[0, :n] = req.prompt
+        ids, row = self._dev(ids), self._dev(self.block_tables[slot])
+        nonce = torch.tensor(req.nonce, device=self.device)
+        nxt = self._prefill(
+            ids, n, row, self.k_pages, self.v_pages,
+            torch.tensor(req.temperature, device=self.device), nonce,
+            self._key, any_sampled=req.temperature > 0.0)
+        self._draft_prefill(ids, n, row, self.draft_k_pages,
+                            self.draft_v_pages,
+                            torch.zeros((), device=self.device), nonce,
+                            self._key, any_sampled=False)
+        tokens = self._tokens_dev.clone()
+        tokens[slot] = nxt
+        self._tokens_dev = tokens
+        self._issue_seq += 1
+        self._inflight.append((self._issue_seq, [slot], tokens, "p", None))
+        req.prefill_done = True
+        self.context_lens[slot] = n
+        self.temperatures[slot] = req.temperature
+        self._nonces[slot] = req.nonce
+        self.n_prompt_tokens += n
+        return "ok"
+
+    def _draft_fill(self, tok, pos, lim, tbl):
+        """The draft's ride-along over a packed chunk schedule (device
+        tensors [T] / [T, P]): the same rows through the draft net into
+        its pool, so every prompt position a verify window reads has
+        draft KV. Prefill and quantize-on-write are deterministic, so a
+        shared prefix page holds the same draft KV for every request
+        that maps it."""
+        _ragged_forward(self.draft_net, tok, pos, lim, tbl,
+                        self.draft_k_pages, self.draft_v_pages,
+                        self._draft_decode.attention_impl)
+        self.n_draft_passes += 1
 
     def _register_pages(self, touched: List[_Request]):
         """Promote the full prompt pages a dispatch just wrote to shared
@@ -705,12 +1010,15 @@ class LLMEngine:
         for req, row in finishing:
             sample_idx[req.slot] = row
             sample_pos[req.slot] = len(req.prompt) - 1
+        tok, pos, lim, tbl = map(self._dev, (tok, pos, lim, tbl))
         nxt = self._chunk(
-            self._dev(tok), self._dev(pos), self._dev(lim),
-            self._dev(tbl), self._dev(sample_idx), self._dev(sample_pos),
-            self.k_pages, self.v_pages, self._dev(self.temperatures),
-            self._dev(self._nonces), self._key,
+            tok, pos, lim, tbl, self._dev(sample_idx),
+            self._dev(sample_pos), self.k_pages, self.v_pages,
+            self._dev(self.temperatures), self._dev(self._nonces),
+            self._key,
             any_sampled=self._any_sampled(r.slot for r, _ in finishing))
+        if self.spec_slab:
+            self._draft_fill(tok, pos, lim, tbl)
         if finishing:
             mask = np.zeros((self.max_seqs,), bool)
             for req, _ in finishing:
@@ -869,16 +1177,20 @@ class LLMEngine:
         self.n_dispatched_ticks += n_ticks
         return torch.stack(toks), c
 
-    def _carry(self, plan, budgets) -> DecodeCarry:
+    def _carry(self, pos0, budgets) -> DecodeCarry:
+        """The carry at slab entry: ``pos0[slot]`` and ``budgets[slot]``
+        for the slots given, budget 0 (masked) for the rest."""
         pos = np.zeros((self.max_seqs,), np.int64)
         bud = np.zeros((self.max_seqs,), np.int64)
         for slot, b in budgets.items():
-            pos[slot] = plan[slot][0]
+            pos[slot] = pos0[slot]
             bud[slot] = b
         return DecodeCarry(tokens=self._tokens_dev,
                            positions=self._dev(pos),
                            budgets=self._dev(bud), k_pages=self.k_pages,
-                           v_pages=self.v_pages)
+                           v_pages=self.v_pages,
+                           draft_k_pages=self.draft_k_pages,
+                           draft_v_pages=self.draft_v_pages)
 
     def _issue_slab(self, live: List[int]):
         """Up to ``decode_ticks_per_dispatch`` decode ticks for the live
@@ -890,15 +1202,15 @@ class LLMEngine:
             live, self.decode_ticks_per_dispatch)
         if not live:
             return
-        toks, carry = self._run_slab(self._carry(plan, budgets), n_eff,
+        pos0 = {s: plan[s][0] for s in live}
+        toks, carry = self._run_slab(self._carry(pos0, budgets), n_eff,
                                      self._any_sampled(live))
         self._tokens_dev = carry.tokens
         self._issue_seq += 1
         # context_lens advances at the DRAIN (mid-slab EOS decides how
         # far each slot went)
         self._inflight.append((self._issue_seq, list(live), toks, "D",
-                               {"budgets": budgets,
-                                "pos0": {s: plan[s][0] for s in live}}))
+                               {"budgets": budgets, "pos0": pos0}))
 
     def _issue_mixed(self, live: List[int]):
         """One MIXED slab: up to ``decode_ticks_per_dispatch`` ragged
@@ -909,7 +1221,11 @@ class LLMEngine:
         chunk schedule, and a request whose prompt completes at tick j
         gets pages for and a grant of ``min(max_new_tokens, n_eff - j,
         coverable)`` tokens, installed into the carry at tick j so that
-        it decodes from tick j + 1 on without the host."""
+        it decodes from tick j + 1 on without the host. A speculative
+        engine calls it with no live slots and takes each prompt's first
+        token only (its decode belongs to :meth:`_issue_spec_slab`,
+        whose rounds keep the draft pool complete), and the draft rides
+        along over the slab's whole chunk schedule."""
         N = self.decode_ticks_per_dispatch
         ps = self.page_size
         C = self.prefill_chunk
@@ -946,8 +1262,10 @@ class LLMEngine:
                 # the first token plus as many decode ticks as the slab
                 # has left and pages can cover (a clamped grant is no
                 # truncation: the next slab entry re-plans)
+                g_want = 1 if self.spec_k else \
+                    min(req.max_new_tokens, n_eff - j)
                 g = 1
-                for tt in range(1, min(req.max_new_tokens, n_eff - j)):
+                for tt in range(1, g_want):
                     pos = n + tt - 1
                     if pos >= self.max_len:
                         break
@@ -983,9 +1301,14 @@ class LLMEngine:
         xs = {k: self._dev(np.ascontiguousarray(v[:n_run]))
               for k, v in xs.items()}
         toks, carry = self._run_slab(
-            self._carry(plan, {s: min(entry_bud[s], n_run)
-                               for s in plan}),
+            self._carry({s: plan[s][0] for s in plan},
+                        {s: min(entry_bud[s], n_run) for s in plan}),
             n_run, self._any_sampled(slots), xs)
+        if self.spec_slab:
+            # padding rows carry limit 0 and write scratch page 0
+            self._draft_fill(xs["tok"].reshape(-1), xs["pos"].reshape(-1),
+                             xs["lim"].reshape(-1),
+                             xs["tbl"].reshape(-1, self.pages_per_seq))
         self._tokens_dev = carry.tokens
         self._issue_seq += 1
         self._inflight.append(
@@ -994,6 +1317,207 @@ class LLMEngine:
         self._register_pages(touched)
         self.n_mixed_slabs += 1
         self.n_prefill_ticks += pticks
+
+    def _issue_spec_slab(self, live: List[int]):
+        """Up to ``decode_ticks_per_dispatch`` speculative rounds for the
+        live slots as one slab (:meth:`_run_spec_slab`). In-flight
+        records drain first: a prompt's first token must land before the
+        budgets are planned. At entry the host plans each slot's budget
+        and reserves pages for every position the slab could commit (up
+        to N x K); ``cov`` carries the covered frontier to the device,
+        which clamps each round's acceptance to ``cov - position``. Pages
+        reserved past what the rounds commit stay with their slot."""
+        while self._inflight:
+            self._drain_one()
+        live = [s for s in live if self._slots[s] is not None
+                and not self._slots[s].closing]
+        N, K = self.decode_ticks_per_dispatch, self.spec_k
+        budgets: Dict[int, int] = {}
+        pos0s: Dict[int, int] = {}
+        cov = np.zeros((self.max_seqs,), np.int64)
+        for slot in list(live):
+            req = self._slots[slot]
+            want = req.max_new_tokens - len(req.tokens)
+            if want <= 0:
+                self._begin_close(slot, accept_inflight=True)
+                live.remove(slot)
+                continue
+            pos0 = int(self.context_lens[slot])
+            covered = 0
+            for j in range(min(N * K, want)):
+                pos = pos0 + j
+                if pos >= self.max_len or not self._ensure_page(slot, pos):
+                    break
+                covered += 1
+            if covered == 0:
+                # the next token cannot be cached: plain decode's
+                # truncation
+                req.truncated = len(req.tokens) < req.max_new_tokens
+                self._begin_close(slot)
+                live.remove(slot)
+                continue
+            budgets[slot] = min(want, covered)
+            pos0s[slot] = pos0
+            cov[slot] = pos0 + covered
+        if not live:
+            self._maybe_finalize()
+            return
+        # every active round commits >= 1 token a slot, so rounds past
+        # the largest budget would all be idle
+        n_run = min(N, max(budgets.values()))
+        ys, carry = self._run_spec_slab(self._carry(pos0s, budgets),
+                                        self._dev(cov), n_run,
+                                        self._any_sampled(live))
+        self._tokens_dev = carry.tokens
+        self._issue_seq += 1
+        # context_lens advances at the drain, from the realized counts
+        self._inflight.append((self._issue_seq, list(live), ys, "S",
+                               {"budgets": budgets, "pos0": pos0s}))
+
+    def _run_spec_slab(self, carry: DecodeCarry, cov, n_rounds: int,
+                       any_sampled: bool):
+        """``n_rounds`` speculative rounds back to back with no host read.
+        A round: K chained draft probes at positions p .. p+K-1 (the K-th
+        only writes draft KV, so a fully accepted round leaves no gap;
+        probes past ``cap = cov - p`` write scratch), one verify window,
+        :func:`_spec_accept`, the clamp ``n_emit = min(n_acc + 1, budget,
+        cap)``, EOS on the device, and the carry advanced by the
+        committed run. A slot with budget 0 is masked; a round with no
+        active slot still runs (skipping it would need a host read), so
+        B4's launches follow the rounds dispatched. Returns ((tokens [n,
+        B, K], n_emit [n, B]), carry)."""
+        tables = self._dev(self.block_tables)
+        temps = self._dev(self.temperatures)
+        nonces = self._dev(self._nonces)
+        dkey = threefry.fold_in(self._key, _SPEC_DRAFT_SALT)
+        K = self.spec_k
+        cols = torch.arange(K, device=self.device)[None, :]
+        c = carry
+        outs, emits = [], []
+        for _ in range(n_rounds):
+            active = c.budgets > 0
+            zero = torch.zeros_like(c.positions)
+            cap = torch.where(active, cov - c.positions, zero).clamp(0, K)
+            cur, tok_cols, dlog_cols = c.tokens, [c.tokens], []
+            for j in range(K):
+                lens = torch.where(active & (j < cap), c.positions + j + 1,
+                                   zero).int()
+                cur, dlg = self._draft_decode(
+                    cur, c.positions + j, tables, lens, c.draft_k_pages,
+                    c.draft_v_pages, temps, nonces, dkey,
+                    any_sampled=any_sampled)
+                if j < K - 1:
+                    tok_cols.append(cur)
+                    dlog_cols.append(dlg)
+            tokens_mat = torch.stack(tok_cols, dim=1)
+            vlg = self._verify(tokens_mat, torch.where(active, c.positions,
+                                                       zero),
+                               tables, c.k_pages, c.v_pages)
+            out, n_acc = _spec_accept(tokens_mat,
+                                      torch.stack(dlog_cols, dim=1), vlg,
+                                      temps, nonces, c.positions,
+                                      self._key, any_sampled)
+            n_emit = torch.minimum(n_acc + 1, torch.minimum(c.budgets, cap))
+            n_emit = torch.where(active, n_emit, zero)
+            is_eos = (cols < n_emit[:, None]) & (out == self._eos)
+            any_eos = is_eos.any(dim=1)
+            n_emit = torch.where(any_eos, is_eos.int().argmax(dim=1) + 1,
+                                 n_emit)
+            last = out.gather(1, (n_emit - 1).clamp(min=0)[:, None])[:, 0]
+            budgets = torch.where(active, c.budgets - n_emit, c.budgets)
+            c = c._replace(
+                tokens=torch.where(n_emit > 0, last, c.tokens),
+                positions=c.positions + n_emit,
+                budgets=torch.where(any_eos, zero, budgets))
+            outs.append(out)
+            emits.append(n_emit)
+        self.n_dispatched_ticks += n_rounds
+        self.n_draft_passes += n_rounds * K
+        return (torch.stack(outs), torch.stack(emits)), c
+
+    def _spec_round(self, live: List[int]):
+        """One legacy speculative round, paced by the host: K greedy draft
+        steps propose, one verify pass checks, the host commits the
+        accepted prefix and the target's own next token. A slot whose
+        next K positions cannot all be cached (``max_len`` or the pool)
+        clamps its acceptance to the ``cap`` it has; only ``cap == 0``
+        truncates. The K-th draft step writes the last proposal's draft
+        KV; its token is discarded."""
+        # a just-admitted request's first token lands before this round's
+        while self._inflight:
+            self._drain_one()
+        live = [s for s in live if self._slots[s] is not None
+                and not self._slots[s].closing]
+        K = self.spec_k
+        caps = {}
+        for slot in list(live):
+            req = self._slots[slot]
+            base = int(self.context_lens[slot])
+            cap = 0
+            for pos in range(base, base + K):
+                if pos >= self.max_len or not self._ensure_page(slot, pos):
+                    break
+                cap += 1
+            if cap == 0:
+                req.truncated = len(req.tokens) < req.max_new_tokens
+                self._begin_close(slot)
+                live.remove(slot)
+            else:
+                caps[slot] = cap
+        if not live:
+            self._maybe_finalize()
+            return
+        base_arr = np.zeros((self.max_seqs,), np.int64)
+        for slot in live:
+            base_arr[slot] = self.context_lens[slot]
+        tables = self._dev(self.block_tables)
+        zeros_temp = torch.zeros((self.max_seqs,), device=self.device)
+        nonces = self._dev(self._nonces)
+        cur = self._tokens_dev
+        tok_cols = [cur]
+        for j in range(K):
+            pos = np.where(base_arr > 0, base_arr + j, 0)
+            lens = np.where(base_arr > 0, np.minimum(
+                base_arr + j + 1, self.pages_per_seq * self.page_size),
+                0).astype(np.int32)
+            cur, _ = self._draft_decode(
+                cur, self._dev(pos), tables, self._dev(lens),
+                self.draft_k_pages, self.draft_v_pages, zeros_temp, nonces,
+                self._key, any_sampled=False)
+            if j < K - 1:
+                tok_cols.append(cur)
+        tokens_mat = torch.stack(tok_cols, dim=1)
+        greedy = torch.argmax(
+            self._verify(tokens_mat, self._dev(base_arr), tables,
+                         self.k_pages, self.v_pages), dim=-1)
+        self.n_draft_steps += K
+        self.n_draft_passes += K
+        self.n_dispatched_ticks += 1
+        self.n_spec_rounds += 1
+        host_g = greedy.cpu().numpy()          # the round's host read
+        host_d = tokens_mat.cpu().numpy()
+        new_last = self._tokens_dev.cpu().numpy().copy()
+        for slot in live:
+            g, d = host_g[slot], host_d[slot]
+            # accept within the cache capacity: positions >= base + cap
+            # went to scratch, so the queries after them are not backed
+            i = 0
+            while i < min(K - 1, caps[slot] - 1) and d[i + 1] == g[i]:
+                i += 1
+            self.n_spec_proposed += K - 1
+            self.n_spec_accepted += i
+            req = self._slots[slot]
+            for tok in list(d[1:i + 1]) + [int(g[i])]:
+                req.tokens.append(int(tok))
+                if self._harvest(slot):
+                    break
+            # the cache is valid over t0 .. d_i; g_i is the next input
+            self.context_lens[slot] = int(base_arr[slot]) + i + 1
+            new_last[slot] = int(g[i])
+            if self._harvest(slot):
+                self._begin_close(slot)
+        self._tokens_dev = self._dev(new_last)
+        self._maybe_finalize()
 
     def _deliver_token(self, slot: int, req: _Request, tok: int):
         req.tokens.append(tok)
@@ -1014,9 +1538,16 @@ class LLMEngine:
     def _drain_one(self):
         """Fetch the oldest in-flight step's tokens and deliver them."""
         seq, slots, tokens, kind, meta = self._inflight.popleft()
-        host = tokens.cpu().numpy()      # the only blocking fetch
+        if kind == "S":
+            # (committed tokens [N, B, K], realized counts [N, B])
+            host = tokens[0].cpu().numpy()
+            host_emit = tokens[1].cpu().numpy()
+        else:
+            host = tokens.cpu().numpy()      # the only blocking fetch
         self._fetch_seq = seq
-        if kind in ("D", "M"):
+        if kind == "S":
+            self._drain_spec_slab(slots, host, host_emit, meta)
+        elif kind in ("D", "M"):
             self._drain_slab(slots, host, meta)
         else:
             for slot in slots:
@@ -1054,6 +1585,53 @@ class LLMEngine:
                 self.context_lens[slot] = meta["pos0"][slot] + \
                     emitted[slot]
         self.n_decode_ticks += max(emitted.values(), default=0)
+
+    def _drain_spec_slab(self, slots: List[int], host_t, host_emit,
+                         meta: dict):
+        """Deliver a spec slab's tokens by replaying the device's
+        decisions: round j commits ``host_emit[j, slot]`` of its K token
+        lanes, clamped by the host copy of the entry budgets; tokens
+        after EOS or a close are never surfaced. Advances each slot's
+        context length by its committed count and counts rounds,
+        proposals and acceptances (a round proposes K - 1 tokens, and
+        all but the last committed token came from the draft)."""
+        remaining = dict(meta["budgets"])
+        K = self.spec_k
+        emitted = {s: 0 for s in slots}
+        for j in range(host_t.shape[0]):
+            row_live = False
+            for slot in slots:
+                if remaining.get(slot, 0) <= 0:
+                    continue
+                req = self._slots[slot]
+                if not self._wants(req):
+                    remaining[slot] = 0
+                    continue
+                e = min(int(host_emit[j, slot]), remaining[slot])
+                if e <= 0:
+                    continue
+                row_live = True
+                self.n_spec_proposed += K - 1
+                self.n_spec_accepted += e - 1
+                for t in range(e):
+                    tok = int(host_t[j, slot, t])
+                    remaining[slot] -= 1
+                    if tok == self._eos:
+                        remaining[slot] = 0  # the device zeroed it too
+                    self._deliver_token(slot, req, tok)
+                    emitted[slot] += 1
+                    if remaining[slot] <= 0:
+                        break
+                    if req.closing and not req.accepts_inflight:
+                        remaining[slot] = 0
+                        break
+            if row_live:
+                self.n_spec_rounds += 1
+                self.n_draft_steps += K
+        for slot in slots:
+            if self._slots[slot] is not None:
+                self.context_lens[slot] = meta["pos0"][slot] + \
+                    emitted[slot]
 
     def _admit_pending(self, pending: List[_Request]):
         for req in sorted(pending, key=lambda r: r.seq):
@@ -1099,16 +1677,24 @@ class LLMEngine:
                 if mixed:
                     # ONE mixed slab: the prefill queue's chunk rows and
                     # the live slots' decode ticks ride one forward per
-                    # tick
-                    self._issue_mixed(self._live_slots())
+                    # tick (a spec engine's decode is its rounds, below)
+                    self._issue_mixed(
+                        [] if self.spec_k else self._live_slots())
                     busy = True
                 elif self._prefill_q:
                     # the alternating loop: ONE chunk of prefill, then
                     # ONE decode step (or slab) below
                     self._prefill_tick()
                     busy = True
-                live = [] if mixed else self._live_slots()
-                if live and self.decode_ticks_per_dispatch > 1:
+                live = self._live_slots() if self.spec_k or not mixed \
+                    else []
+                if live and self.spec_slab:
+                    self._issue_spec_slab(live)
+                    busy = True
+                elif live and self.spec_k:
+                    self._spec_round(live)
+                    busy = True
+                elif live and self.decode_ticks_per_dispatch > 1:
                     self._issue_slab(live)
                     busy = True
                 elif live:

@@ -24,7 +24,9 @@ nor the written columns, and stored in columns < d only); float32, and
 the half types above 256, run the SIMT kernels, which sum the score
 tiles over d in 64- or 128-column slices, so their shared memory does
 not grow with d. B2 and B3 read delta = rowsum(O dO) from a buffer that
-the backward computes once.
+the backward computes once. The kernels take any sequence lengths, as
+the TPU kernel does (it tiles down to blocks of 1): they tile by 64 rows
+and mask a partial last tile.
 """
 
 from __future__ import annotations
@@ -46,7 +48,6 @@ launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
 
 # dtype codes of csrc/flash_attention.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_TILE = 64
 _FWD, _BWD_DQ, _BWD_DKV = 0, 1, 2
 _launcher = None
 
@@ -183,10 +184,6 @@ def _check_cuda_args(q, k, v, *more):
         raise NotImplementedError(
             f"the flash kernels take head dims that are positive multiples "
             f"of 8, got {d}")
-    if sq % _TILE or k.shape[1] % _TILE:
-        raise NotImplementedError(
-            f"the flash kernels take sequence lengths that are multiples "
-            f"of {_TILE}, got s_q={sq}, s_k={k.shape[1]}")
     for x in (q, k, v, *more):
         if x.stride(-1) != 1:
             raise ValueError("flash attention operands need unit stride "
@@ -343,8 +340,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
     Differentiable (B1 forward, B2 + B3 backward). ``block_q`` and
     ``block_k`` are the TPU kernel's block targets, kept for the JAX
-    package's signature: the CUDA kernels tile by 64 rows, and the result
-    does not depend on the tiling."""
+    package's signature: the CUDA kernels tile by 64 rows (any ``s_q``,
+    ``s_k``), and the result does not depend on the tiling."""
     b, sq, hq, d = q.shape
     _, sk, hkv, _ = k.shape
     if hq % hkv != 0:

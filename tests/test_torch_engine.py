@@ -129,12 +129,20 @@ def test_eos_ends_the_stream():
         :first["output_ids"].index(eos) + 1]
 
 
-@pytest.mark.parametrize("kw", [dict(draft_net=object())],
-                         ids=["draft_net"])
-def test_unported_knobs_raise(kw):
+@pytest.mark.parametrize("knob", ["draft_net"])
+def test_unported_knobs_raise(knob):
+    """No knob of the reference engine raises NotImplementedError any
+    more: ``draft_net`` (speculative decoding, the streams pinned in
+    tests/test_torch_speculative.py) takes a model and raises only what
+    the reference raises, here for a draft with another vocabulary."""
     _, tnet = pair("gpt2")
-    with pytest.raises(NotImplementedError, match="speculative decoding"):
-        tllm.LLMEngine(tnet, device="cpu", **kw)
+    other = tgpt.GPTForCausalLM(tgpt.gpt_config(
+        "gpt2-small", num_layers=1, hidden_size=32, num_heads=2,
+        vocab_size=50, max_position_embeddings=96), device="cpu")
+    with pytest.raises(ValueError, match="vocabulary"):
+        tllm.LLMEngine(tnet, device="cpu", **{knob: other})
+    with tllm.LLMEngine(tnet, device="cpu", **{knob: tnet}) as eng:
+        assert eng.spec_k == 4 and eng.spec_slab
 
 
 def test_bad_arguments_raise():

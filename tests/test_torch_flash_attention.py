@@ -4,7 +4,9 @@ kernels run in interpret mode, on the same numpy inputs, at the shapes
 of tests/test_flash_attention.py.
 
 Head dims 64-320 (64/80/96 and, in the split-d kernels' range, 256 in
-float32 and 320 in bfloat16).
+float32 and 320 in bfloat16). Sequence lengths that are no multiple of
+the kernels' 64-row tile (96, 97, 1, 200 against 136), which the TPU
+kernel runs in blocks of 32, 8 or 1.
 
 Tolerances: float32 2e-5 for the forward and 5e-5 for gradients, the
 JAX package's own kernel-vs-dense tolerances (the twins are dense, the
@@ -58,6 +60,14 @@ FWD_CASES = {
     "d256-causal": ((1, 128, 2, 256), (1, 128, 2, 256), True, "float32"),
     "bf16-d320-causal": ((1, 128, 2, 320), (1, 128, 2, 320), True,
                          "bfloat16"),
+    # lengths that end in a partial 64-row tile on the card
+    "s96": ((1, 96, 2, 64), (1, 96, 2, 64), False, "float32"),
+    "s96-causal": ((1, 96, 2, 64), (1, 96, 2, 64), True, "float32"),
+    "q200-k136": ((1, 200, 2, 64), (1, 136, 2, 64), False, "float32"),
+    "q136-k200-causal": ((1, 136, 2, 64), (1, 200, 2, 64), True,
+                         "float32"),
+    "s1-causal": ((1, 1, 2, 64), (1, 1, 2, 64), True, "float32"),
+    "s97-gqa-causal": ((1, 97, 4, 64), (1, 97, 2, 64), True, "float32"),
 }
 GRAD_CASES = {
     "mha": ((1, 128, 2, 64), (1, 128, 2, 64), False, "float32"),
@@ -70,6 +80,13 @@ GRAD_CASES = {
     "d256-causal": ((1, 128, 2, 256), (1, 128, 2, 256), True, "float32"),
     "bf16-d320-causal": ((1, 128, 2, 320), (1, 128, 2, 320), True,
                          "bfloat16"),
+    "s96": ((1, 96, 2, 64), (1, 96, 2, 64), False, "float32"),
+    "s96-causal": ((1, 96, 2, 64), (1, 96, 2, 64), True, "float32"),
+    "q200-k136": ((1, 200, 2, 64), (1, 136, 2, 64), False, "float32"),
+    "q136-k200-causal": ((1, 136, 2, 64), (1, 200, 2, 64), True,
+                         "float32"),
+    "s1-causal": ((1, 1, 2, 64), (1, 1, 2, 64), True, "float32"),
+    "s97-gqa-causal": ((1, 97, 4, 64), (1, 97, 2, 64), True, "float32"),
 }
 
 
@@ -354,6 +371,20 @@ CARD_CASES = {
     "bf16-d320-causal": (1, 128, 128, 2, 2, 320, True, "bfloat16"),
     "bf16-d264": (1, 128, 128, 2, 2, 264, False, "bfloat16"),
     "f16-gqa-d264": (1, 128, 192, 2, 1, 264, True, "float16"),
+    # lengths with a partial last tile (the mask, zero-filled rows, the
+    # stores that stop at the end)
+    "f32-s96-causal": (1, 96, 96, 2, 2, 64, True, "float32"),
+    "bf16-s96": (1, 96, 96, 2, 2, 64, False, "bfloat16"),
+    "f32-q200-k136": (1, 200, 136, 2, 2, 64, False, "float32"),
+    "bf16-q136-k200-causal": (1, 136, 200, 2, 2, 64, True, "bfloat16"),
+    "f16-gqa-s97-causal": (2, 97, 97, 4, 2, 64, True, "float16"),
+    "f32-gqa-s97-d80": (1, 97, 97, 4, 2, 80, False, "float32"),
+    "bf16-s1-causal": (1, 1, 1, 2, 2, 64, True, "bfloat16"),
+    "f32-s1-k97": (1, 1, 97, 2, 2, 64, False, "float32"),
+    "bf16-gqa-s200-d80-causal": (1, 200, 200, 4, 2, 80, True, "bfloat16"),
+    "bf16-gqa-q97-k136-d64": (1, 97, 136, 8, 2, 64, True, "bfloat16"),
+    "f32-d256-s97-causal": (1, 97, 97, 2, 2, 256, True, "float32"),
+    "bf16-d320-q136-k200": (1, 136, 200, 2, 2, 320, False, "bfloat16"),
 }
 
 

@@ -414,6 +414,40 @@ def test_kernel_matches_plain_on_card_new_shapes(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_kernel_matches_plain_on_card_verify_window(kv_dtype):
+    """A speculative verify window as ``_PagedVerify`` lays it out: 8
+    slots x K 4 rows, each slot's table repeated for its 4 rows, limits
+    base + 1 .. base + 4 (the kernel runs a slot's rows as one run), one
+    inactive slot (limits 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("kernel B4 runs only on a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    K, P = 4, 64
+    bases = [0, 16, 143, 269, 400, 647, 773, 928]
+    lens = [b + j + 1 if b else 0 for b in bases for j in range(K)]
+    slot_tables = torch.randperm(1023, generator=g, device="cuda")[
+        :8 * P].int().reshape(8, P) + 1
+    tables = slot_tables.repeat_interleave(K, dim=0).contiguous()
+    kp = torch.randn(1024, 16, 12, 64, generator=g, device="cuda")
+    vp = torch.randn(1024, 16, 12, 64, generator=g, device="cuda")
+    ks = vs = None
+    if kv_dtype == "int8":
+        (kp, ks), (vp, vs) = tpa.quantize_kv(kp), tpa.quantize_kv(vp)
+    lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(len(lens), 12, 64, generator=g, device="cuda")
+    before = tpa.launches
+    got = tpa.paged_attention_kernel(q, kp, vp, tables, lt, k_scales=ks,
+                                     v_scales=vs)
+    want = tpa.paged_attention_torch(q, kp, vp, tables, lt, k_scales=ks,
+                                     v_scales=vs)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 1
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    assert torch.count_nonzero(got[lt == 0]) == 0
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_head_dims_not_a_multiple_of_8():
     """The one shape kernel B4 refuses (the reference never admits it
     either): d % 8 != 0. Page size, group and head dim otherwise take

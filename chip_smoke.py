@@ -49,7 +49,23 @@ the result line:
    kernel run's equal the twin's, a self-draft accepting >= 0.99 of
    what the budgets allow, int8 agreement >= 0.9, B4 launched once a
    layer per paged pass of the target and of the draft);
-6. train: GPT-2-small at full width as ``bench.py bench_gpt`` configures
+6. serve_http: the main serve cell's engine behind ``serve_llm`` with
+   the debug server up: the main traffic as 8 concurrent POSTs, in
+   turns with direct ``submit`` (streams equal to the direct run's,
+   ``X-Stream-Digest`` equal to the stream's audit chain,
+   ``X-Engine-Knobs`` equal to the body's knobs, B4 launched once a
+   layer per dispatched tick, ``/metrics`` counting the tokens
+   delivered), the error map (429, 503, 504, 499, 400 and their
+   counters; healthy and serving afterwards; ``/memz``, ``/perfz``,
+   ``/healthz`` and ``/statusz`` scraped), a seeded device fault in
+   the middle of the main traffic with ``device_retry_budget=1``
+   (streams equal to the fault-free run's, retries counted, clean
+   failover verdicts), a 32-page KV migration of the 512-token system
+   prompt between two engines (7 x 512 cached tokens, identical
+   streams), the control plane's cost (the audit, goodput, memory and
+   perf ledgers on against off, in turns A B B A), a profiled HTTP run
+   and a cProfile of the engine's worker thread;
+7. train: GPT-2-small at full width as ``bench.py bench_gpt`` configures
    it (seq 1024, batch 8, fused loss, AdamW 1e-4 / wd 0.01, AMP O1)
    through ``Model.train_batch`` on kernels B1-B3: 3 warm-up and 10
    timed steps, a 2-step ``torch.profiler`` window (device time by
@@ -57,7 +73,7 @@ the result line:
    from the same weights (losses) and one fwd+bwd each (the qkv
    projections' gradient), the fused loss's peak memory against the
    dense head's, and the flash dispatch's eager path for a short input;
-7. a ``{"kernels": [...]}`` summary line, then the result line
+8. a ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -525,15 +541,12 @@ def _streams(outs):
 LEGACY = dict(prefix_cache=False, mixed_tick=False)
 
 
-def _shared_prefix_runs(net, cfg) -> dict:
+def _shared_prefix_traffic(cfg):
     """Chat traffic with a fixed system prompt: one request of a
-    512-token prefix plus 64 tokens of its own served first, then 7 of
-    the same prefix plus 17..200 tokens of their own at once, 32 new
-    tokens each, half greedy and half temperature 0.8, nonces pinned.
-    On the default engine, on 4-tick slabs, and with the cache and the
-    mixed tick off: streams identical, 7 x 512 prompt tokens served from
-    the cache where it is on, B4 launched once a layer per dispatched
-    tick."""
+    512-token prefix plus 64 tokens of its own, then 7 of the same
+    prefix plus 17..200 tokens of their own, half greedy and half
+    temperature 0.8, nonces pinned. Returns (prompts, temps, nonces,
+    own lengths)."""
     rng = np.random.RandomState(2)
     prefix = rng.randint(0, cfg.vocab_size, 512).tolist()
     own = [64] + np.linspace(17, 200, 7).astype(int).tolist()
@@ -541,6 +554,17 @@ def _shared_prefix_runs(net, cfg) -> dict:
                for n in own]
     temps = [0.0] + [0.0, 0.8] * 3 + [0.0]
     nonces = [2000 + i for i in range(8)]
+    return prompts, temps, nonces, own
+
+
+def _shared_prefix_runs(net, cfg) -> dict:
+    """The shared-prefix traffic (:func:`_shared_prefix_traffic`), the
+    first request served alone, then the 7 at once, 32 new tokens each.
+    On the default engine, on 4-tick slabs, and with the cache and the
+    mixed tick off: streams identical, 7 x 512 prompt tokens served from
+    the cache where it is on, B4 launched once a layer per dispatched
+    tick."""
+    prompts, temps, nonces, own = _shared_prefix_traffic(cfg)
     runs = {}
     for label, knobs in (("default", {}),
                          ("slab 4", dict(decode_ticks_per_dispatch=4)),
@@ -749,7 +773,465 @@ def phase_serve() -> int:
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise SystemExit(f"serve checks failed: {failed}")
-    return run_k["kernel_launches"]
+    return run_k["kernel_launches"], {
+        "net": net, "cfg": cfg, "prompts": prompts, "temps": temps,
+        "nonces": nonces, "streams": streams_k, "main_run": run_k}
+
+
+# ---------------------------------------------------------------------------
+# the same engine behind serve_llm: HTTP, the error map, the device
+# retry, KV-page migration, the debug server's scrapes
+# ---------------------------------------------------------------------------
+
+def _post(base, path, body, timeout=900):
+    """(status, headers, JSON body) of one POST."""
+    from urllib.error import HTTPError
+    from urllib.request import Request, urlopen
+    req = Request(base + path, data=json.dumps(body).encode(),
+                  headers={"Content-Type": "application/json"})
+    try:
+        with urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), json.loads(r.read())
+    except HTTPError as e:
+        return e.code, dict(e.headers), json.loads(e.read())
+
+
+def _get(base, path):
+    from urllib.request import urlopen
+    with urlopen(base + path, timeout=120) as r:
+        return r.read().decode()
+
+
+def _scrape(base) -> dict:
+    """``/metrics`` parsed into {series with labels: value}; a line
+    that does not parse raises."""
+    vals = {}
+    for line in _get(base, "/metrics").splitlines():
+        if line and not line.startswith("#"):
+            key, v = line.rsplit(" ", 1)
+            vals[key] = float(v)
+    return vals
+
+
+def _delta(after, before, key):
+    return after.get(key, 0.0) - before.get(key, 0.0)
+
+
+def _engine(net, **knobs):
+    from paddle_tpu_torch.inference.llm import LLMEngine
+    return LLMEngine(net, page_size=PAGE_SIZE, num_pages=NUM_PAGES,
+                     prefill_chunk=64, device="cuda", **knobs)
+
+
+def _http_engine(net, **knobs):
+    """A default engine behind ``serve_llm`` on 127.0.0.1: (engine,
+    server, base URL)."""
+    from paddle_tpu_torch.inference.llm import serve_llm
+    eng = _engine(net, **knobs)
+    srv = serve_llm(eng, host="127.0.0.1", port=0)
+    return eng, srv, "http://127.0.0.1:%d" % srv.server_address[1]
+
+
+def _close_http(eng, srv):
+    srv.shutdown()
+    srv.server_close()
+    eng.close()
+
+
+def _http_traffic(base, prompts, temps, nonces, n_new=32):
+    """The requests as concurrent ``POST /generate``, one client thread
+    each; returns (responses in request order, wall seconds)."""
+    import threading
+    res = [None] * len(prompts)
+
+    def client(i):
+        res[i] = _post(base, "/generate", {
+            "prompt_ids": prompts[i], "max_new_tokens": n_new,
+            "temperature": temps[i], "nonce": nonces[i]})
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return res, time.perf_counter() - t0
+
+
+def _serve_http_run(net, ctx, label, dbase=None):
+    """The main traffic as 8 concurrent POSTs to a fresh default engine
+    behind ``serve_llm``: streams, digests, knobs, B4's launches against
+    the engine's dispatched ticks, and (given the debug server's base)
+    the ``/metrics`` token count against the tokens delivered."""
+    from paddle_tpu_torch.observability import audit
+    pa = importlib.import_module("paddle_tpu_torch.ops.paged_attention")
+    eng, srv, base = _http_engine(net)
+    try:
+        before = _scrape(dbase) if dbase else None
+        torch.cuda.synchronize()
+        pa.launches = 0
+        res, wall = _http_traffic(base, ctx["prompts"], ctx["temps"],
+                                  ctx["nonces"])
+        launches, ticks = pa.launches, eng.n_dispatched_ticks
+        after = _scrape(dbase) if dbase else None
+    finally:
+        _close_http(eng, srv)
+    ok = all(r is not None and r[0] == 200 for r in res)
+    outs = [r[2] for r in res] if ok else []
+    n_tok = sum(len(o["output_ids"]) for o in outs)
+    run = {"phase": "serve_http", "run": label,
+           "requests": len(res), "all_200": ok,
+           "output_tokens": n_tok, "wall_s": wall,
+           "tokens_per_s": n_tok / wall if ok else None,
+           "ttft_p50_s": float(np.median([o["ttft_s"] for o in outs]))
+           if ok else None,
+           "latency_p50_s": float(np.median([o["latency_s"]
+                                             for o in outs]))
+           if ok else None,
+           "dispatched_ticks": ticks, "kernel_launches": launches}
+    run["checks"] = {
+        "all_200": ok,
+        "streams_eq_direct": ok and [o["output_ids"] for o in outs] ==
+        ctx["streams"],
+        "digest_header_eq_chain": ok and all(
+            r[1].get("X-Stream-Digest") == o["stream_digest"] ==
+            audit.chain_of(n, o["output_ids"]).hex()
+            for r, o, n in zip(res, outs, ctx["nonces"])),
+        "knobs_header_eq_body": ok and all(
+            json.loads(r[1]["X-Engine-Knobs"]) == o["knobs"]
+            for r, o in zip(res, outs)),
+        "launches": launches == ctx["cfg"].num_layers * ticks,
+    }
+    if before is not None:
+        run["metrics_tokens_generated"] = _delta(
+            after, before, "llm_tokens_generated")
+        run["checks"]["metrics_tokens_eq_delivered"] = \
+            run["metrics_tokens_generated"] == n_tok
+    emit(run)
+    return run
+
+
+def _error_map(net, ctx, dbase) -> dict:
+    """429 / 503 / 504 / 499 / 400 on the card, the matching
+    ``/metrics`` counters, the engine healthy and serving afterwards,
+    then ``/memz``, ``/perfz``, ``/healthz`` and ``/statusz`` with the
+    engine alive."""
+    import threading
+    eng, srv, base = _http_engine(net)
+    got, checks = {}, {}
+    try:
+        # warm: the engine has served, so /perfz has its programs
+        assert _post(base, "/generate", {"prompt_ids": ctx["prompts"][1],
+                                         "max_new_tokens": 8})[0] == 200
+        before = _scrape(dbase)
+        saved, eng.max_pending = eng.max_pending, 0
+        try:
+            got[429] = _post(base, "/generate", {"prompt_ids": [1, 2]})
+        finally:
+            eng.max_pending = saved
+        eng._health = "draining"
+        try:
+            got[503] = _post(base, "/generate", {"prompt_ids": [1, 2]})
+        finally:
+            eng.reset_health()
+        got[504] = _post(base, "/generate", {"prompt_ids": [1, 2, 3],
+                                             "deadline_s": -1.0})
+        res = {}
+        n0 = eng.n_tokens
+
+        def client():
+            res["r"] = _post(base, "/generate", {
+                "prompt_ids": ctx["prompts"][0], "max_new_tokens": 512})
+
+        t = threading.Thread(target=client)
+        t.start()
+        t_end = time.monotonic() + 300
+        while eng.n_tokens < n0 + 16 and time.monotonic() < t_end:
+            time.sleep(0.005)   # cancel in the middle of the decode
+        rid = max(eng._by_id) if eng._by_id else -1
+        cancel = _post(base, "/cancel", {"request_id": rid})
+        t.join(timeout=600)
+        got[499] = res.get("r", (None, {}, {}))
+        got[400] = _post(base, "/generate", {"prompt_ids": []})
+        after = _scrape(dbase)
+        ok_after = _post(base, "/generate", {"prompt_ids": [5, 6, 7],
+                                             "max_new_tokens": 4})
+        memz = json.loads(_get(dbase, "/memz"))
+        perfz = json.loads(_get(dbase, "/perfz"))
+        healthz = json.loads(_get(dbase, "/healthz"))
+        statusz = json.loads(_get(dbase, "/statusz"))
+        name, mem_scope, perf_scope = eng._status_name, eng._mem_scope, \
+            eng._perf_scope
+        pbk, n_pages = eng._tgt_page_bytes, eng.num_pages
+        health = eng.health
+    finally:
+        _close_http(eng, srv)
+    for code, (c, hdrs, out) in got.items():
+        checks[f"status_{code}"] = c == code
+        if code in (429, 503):
+            checks[f"retry_after_{code}"] = hdrs.get("Retry-After") == \
+                "1.0"
+    checks["cancel_accepted"] = cancel[0] == 200 and \
+        cancel[2].get("cancelled") is True
+    checks["outcomes"] = [got[c][2].get("outcome") for c in
+                          (429, 503, 504, 499)] == \
+        ["shed", "shed", "deadline", "cancelled"]
+    checks["metrics_shed"] = _delta(after, before, "llm_shed_total") == 2
+    checks["metrics_deadline"] = _delta(
+        after, before, "llm_deadline_exceeded_total") == 1
+    checks["metrics_cancelled"] = _delta(
+        after, before, "llm_cancelled_total") == 1
+    checks["healthy_after"] = health == "healthy"
+    checks["serves_after"] = ok_after[0] == 200 and \
+        len(ok_after[2]["output_ids"]) == 4
+    rows = [r for r in memz["owners"]
+            if r["owner"] == "kv_pool" and r.get("scope") == mem_scope]
+    checks["memz_pool_rows_tile_the_pool"] = \
+        sum(r["bytes"] for r in rows) == n_pages * pbk
+    checks["memz_unattributed_is_a_number"] = isinstance(
+        memz["unattributed_bytes"], (int, float))
+    progs = [p for p in perfz["programs"] if p["scope"] == perf_scope]
+    checks["perfz_programs_resolved"] = bool(progs) and all(
+        p["cost_resolved"] and p["cost_source"] == "analytic" and
+        p["flops"] > 0 for p in progs)
+    checks["perfz_mfu_positive_vs_h100"] = perfz["mfu"] > 0 and \
+        perfz["peaks"]["source"] == "table" and \
+        "H100" in perfz["peaks"]["device_kind"]
+    checks["healthz_names_engine"] = \
+        healthz["components"].get(name) == "healthy"
+    checks["statusz_names_engine"] = name in statusz["providers"]
+    emit({"phase": "serve_http", "run": "error map and scrapes",
+          "status": {str(c): got[c][0] for c in got},
+          "outcomes": {str(c): got[c][2].get("outcome") for c in got},
+          "cancel_error": got[499][2].get("error"),
+          "metrics_deltas": {k: _delta(after, before, k) for k in (
+              "llm_shed_total", "llm_deadline_exceeded_total",
+              "llm_cancelled_total")},
+          "memz_unattributed_bytes": memz["unattributed_bytes"],
+          "memz_device": memz.get("device"),
+          "perfz": {"mfu": perfz["mfu"], "peaks": perfz["peaks"],
+                    "programs": [{k: p[k] for k in (
+                        "kind", "sig", "dispatches", "seconds", "flops",
+                        "bytes_accessed", "flops_per_second")}
+                        for p in progs]},
+          "checks": checks})
+    return checks
+
+
+def _device_retry_run(net, ctx) -> dict:
+    """The main traffic, all 8 at once, on an engine with
+    ``device_retry_budget=1`` and one seeded fault at ``device.dispatch``
+    in the middle of the run: the streams equal the fault-free run's,
+    ``llm_device_retries_total`` grows by the requests re-admitted, and
+    every failover verdict of the stream auditor is clean."""
+    from paddle_tpu_torch.observability import audit, default_registry
+    from paddle_tpu_torch.reliability import faults
+    nth = max(2, ctx["main_run"]["dispatched_ticks"] // 2)
+    eng = _engine(net, device_retry_budget=1)
+    slotted = []
+
+    def fault():
+        slotted.extend(s.req_id for s in eng._slots
+                       if s is not None and not s.closing)
+        return RuntimeError("injected device error")
+
+    retries = default_registry().counter("llm_device_retries_total")
+    r0, v0 = retries.value, audit.instance().counts()
+    faults.reset()
+    faults.inject("device.dispatch", nth=nth, times=1, exc=fault)
+    faults.enable(seed=0)
+    try:
+        with eng:
+            futs = [eng.submit(p, max_new_tokens=32, temperature=t,
+                               nonce=n)
+                    for p, t, n in zip(ctx["prompts"], ctx["temps"],
+                                       ctx["nonces"])]
+            outs = [f.result(timeout=600) for f in futs]
+        log = faults.injected_log()
+    finally:
+        faults.reset()
+    v1 = audit.instance().counts()
+    run = {"phase": "serve_http", "run": "device retry", "fault_nth": nth,
+           "injected": log, "readmitted": len(slotted),
+           "device_retries": retries.value - r0,
+           "failover_verified": v1["verified"] - v0["verified"],
+           "failover_diverged": v1["diverged"] - v0["diverged"]}
+    run["checks"] = {
+        "fault_fired_once": log == [("device.dispatch", nth)],
+        "streams_eq_fault_free": _streams(outs) == ctx["streams"],
+        "retries_eq_readmitted": run["device_retries"] == len(slotted) > 0,
+        "failover_verdicts_clean": run["failover_diverged"] == 0,
+        "not_truncated": not any(o["truncated"] for o in outs),
+    }
+    emit(run)
+    return run["checks"]
+
+
+def _migration_run(net, cfg) -> dict:
+    """Engine A serves the shared-prefix seed request; its 32 prefix
+    pages go to a fresh engine B through ``export_pages`` /
+    ``import_pages``; B serves the 7-request burst from them (7 x 512
+    cached prompt tokens) with A's own streams."""
+    from paddle_tpu_torch.inference.prefix_cache import page_digests
+    prompts, temps, nonces, _ = _shared_prefix_traffic(cfg)
+    digests = page_digests(prompts[0], PAGE_SIZE)[:512 // PAGE_SIZE]
+    a, b = _engine(net), _engine(net)
+    with a, b:
+        a.submit(prompts[0], max_new_tokens=32, temperature=temps[0],
+                 nonce=nonces[0]).result(timeout=600)
+        t0 = time.perf_counter()
+        payload = a.export_pages(digests)
+        t1 = time.perf_counter()
+        res = b.import_pages(payload)
+        t2 = time.perf_counter()
+
+        def burst(eng):
+            futs = [eng.submit(p, max_new_tokens=32, temperature=t,
+                               nonce=n)
+                    for p, t, n in zip(prompts[1:], temps[1:], nonces[1:])]
+            return _streams([f.result(timeout=600) for f in futs])
+
+        got, want = burst(b), burst(a)
+        cached_b = b.n_cached_tokens
+    n_bytes = sum(len(p["k"]) + len(p["v"]) for p in payload["pages"])
+    run = {"phase": "serve_http", "run": "kv migration",
+           "pages": len(payload["pages"]), "imported": res["imported"],
+           "rejected": res["rejected"], "payload_b64_bytes": n_bytes,
+           "export_s": t1 - t0, "import_s": t2 - t1,
+           "importer_cached_tokens": cached_b}
+    run["checks"] = {
+        "all_pages_imported": res["imported"] == len(digests) and
+        not res["rejected"],
+        "importer_cached_7x512": cached_b == 7 * 512,
+        "importer_streams_eq_exporter": got == want,
+    }
+    emit(run)
+    return run["checks"]
+
+
+def _control_plane_cost(net, ctx) -> dict:
+    """Main-run tokens/s (direct submit) with the observability flags
+    at their defaults (A) against the stream audit, goodput, memory and
+    perf ledgers all disabled (B), in turns A, B, B, A twice (a run is
+    host-bound, and its rate moves by ~10% from run to run)."""
+    from paddle_tpu_torch.observability import audit, goodput, memory, perf
+    mods = (audit, goodput, memory, perf)
+    saved = [m.enabled() for m in mods]
+    runs = []
+    try:
+        for turn in "ABBAABBA":
+            for m, on in zip(mods, saved):
+                (m.enable if turn == "A" and on else m.disable)()
+            outs, run = _serve(net, ctx["prompts"], ctx["temps"],
+                               ctx["nonces"], "kernel", "f32",
+                               f"control plane {turn}")
+            runs.append((turn, run["tokens_per_s"], run["ttft_p50_s"],
+                         _streams(outs) == ctx["streams"]))
+    finally:
+        for m, on in zip(mods, saved):
+            (m.enable if on else m.disable)()
+    a = [r[1] for r in runs if r[0] == "A"]
+    b = [r[1] for r in runs if r[0] == "B"]
+    out = {"phase": "serve_http", "run": "control plane cost",
+           "turns": [{"turn": t, "tokens_per_s": s, "ttft_p50_s": f}
+                     for t, s, f, _ in runs],
+           "tokens_per_s_on": float(np.mean(a)),
+           "tokens_per_s_off": float(np.mean(b)),
+           "fall": 1 - float(np.mean(a)) / float(np.mean(b)),
+           "checks": {"streams_eq_main": all(r[3] for r in runs)}}
+    emit(out)
+    return out["checks"]
+
+
+def _worker_profile(net, ctx):
+    """cProfile of the engine's worker thread over one main run: the
+    host functions that pace a host-bound run."""
+    import cProfile
+    import io
+    import pstats
+    from paddle_tpu_torch.inference.llm import LLMEngine
+    loop, profs = LLMEngine._loop, []
+
+    def profiled(self):
+        pr = cProfile.Profile()
+        pr.enable()
+        try:
+            loop(self)
+        finally:
+            pr.disable()
+            profs.append(pr)
+
+    LLMEngine._loop = profiled
+    try:
+        _serve(net, ctx["prompts"], ctx["temps"], ctx["nonces"], "kernel",
+               "f32", "worker cProfile")
+    finally:
+        LLMEngine._loop = loop
+    buf = io.StringIO()
+    st = pstats.Stats(profs[0], stream=buf)
+    top = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:15]
+    emit({"phase": "serve_http", "run": "worker cProfile",
+          "total_s": st.total_tt,
+          "top_tottime": [{"function": f"{k[0].split('/')[-1]}:{k[1]}"
+                                       f"({k[2]})",
+                           "calls": v[1], "tottime_s": v[2],
+                           "cumtime_s": v[3]} for k, v in top]})
+
+
+def phase_serve_http(ctx) -> None:
+    """GPT-2-small's main serve cell behind ``serve_llm`` with the debug
+    server up: the main traffic over HTTP in turns with direct submit
+    (direct, HTTP, HTTP, direct, twice),
+    the error map, the scrapes, the device retry, KV-page migration,
+    the control plane's cost and a profiled HTTP run."""
+    from paddle_tpu_torch.observability import start_debug_server
+    net, cfg = ctx["net"], ctx["cfg"]
+    dbg = start_debug_server(port=0)
+    dbase = f"http://127.0.0.1:{dbg.port}"
+    checks = {}
+    try:
+        direct, http = [], []
+        for turn in ("direct", "http", "http", "direct") * 2:
+            if turn == "direct":
+                outs, run = _serve(net, ctx["prompts"], ctx["temps"],
+                                   ctx["nonces"], "kernel", "f32",
+                                   "direct (paired with http)")
+                direct.append(run)
+                checks[f"direct_{len(direct)}_streams_eq_main"] = \
+                    _streams(outs) == ctx["streams"]
+            else:
+                run = _serve_http_run(net, ctx, f"http {len(http) + 1}",
+                                      dbase)
+                http.append(run)
+                checks.update({f"http_{len(http)}_{k}": v
+                               for k, v in run["checks"].items()})
+        pair = {f"{k}_{w}": [r[k] for r in runs]
+                for w, runs in (("http", http), ("direct", direct))
+                for k in ("tokens_per_s", "ttft_p50_s")}
+        emit({"phase": "serve_http", "run": "http vs direct", **pair,
+              **{f"mean_{k}": float(np.mean(v)) for k, v in pair.items()},
+              "http_over_direct_tokens_per_s": float(
+                  np.mean(pair["tokens_per_s_http"]) /
+                  np.mean(pair["tokens_per_s_direct"]))})
+        checks.update({f"errors_{k}": v
+                       for k, v in _error_map(net, ctx, dbase).items()})
+        checks.update({f"retry_{k}": v
+                       for k, v in _device_retry_run(net, ctx).items()})
+        checks.update({f"migration_{k}": v
+                       for k, v in _migration_run(net, cfg).items()})
+        checks.update({f"control_plane_{k}": v for k, v in
+                       _control_plane_cost(net, ctx).items()})
+        emit(_profile(lambda: _serve_http_run(net, ctx, "profiled"), 1,
+                      "run", phase="serve_http", run="profile",
+                      requests=len(ctx["prompts"])))
+        _worker_profile(net, ctx)
+    finally:
+        dbg.stop()
+    emit({"phase": "serve_http_checks", "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"serve_http checks failed: {failed}")
 
 
 # ---------------------------------------------------------------------------
@@ -1231,7 +1713,9 @@ def main() -> None:
     phase_build()
     head = phase_kernels()
     flash_heads = phase_flash_kernels()
-    launches = phase_serve()
+    launches, serve_ctx = phase_serve()
+    phase_serve_http(serve_ctx)
+    del serve_ctx
     train_launches = phase_train()
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     emit({"kernels": [

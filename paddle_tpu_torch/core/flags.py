@@ -131,3 +131,86 @@ define_flag("spec_slab", True,
             "temperature > 0. False keeps the legacy host-orchestrated "
             "greedy round (one round per host read, bucketed one-shot "
             "prefill, no prefix cache).")
+define_flag("perf_observability", True,
+            "Arm the continuous perf observability registry "
+            "(observability/perf.py): the analytic cost of each "
+            "engine program signature + measured dispatch wall "
+            "time -> live perf_mfu / perf_hbm_bw_util / "
+            "perf_flops_per_second gauges and the GET /perfz "
+            "breakdown. Off: the train/serving hot paths pay one "
+            "module-flag check and record nothing (pinned like "
+            "tracing; read at import — flip at runtime with "
+            "observability.perf.enable()/disable()).")
+define_flag("perf_peak_flops", 0.0,
+            "Override the per-backend peak FLOP/s table used as the "
+            "MFU denominator (observability/perf.py PEAK_TABLE) — the "
+            "knob for cards the table does not know, or for "
+            "power-capped cards. 0 keeps the table (CPU falls back to "
+            "a nominal placeholder).")
+define_flag("perf_peak_hbm_gbps", 0.0,
+            "Override peak HBM bandwidth in GB/s for the "
+            "perf_hbm_bw_util denominator. 0 keeps the table/fallback.")
+define_flag("mem_observability", True,
+            "Arm the HBM attribution ledger (observability/memory.py): "
+            "owners (Model device trees, the engine's paged KV pool, "
+            "DecodeCarry scratch, checkpoint staging buffers) register "
+            "attributed reservations at allocation boundaries, "
+            "reconciled each read against device.memory_stats() with "
+            "an explicit unattributed residual -> GET /memz, "
+            "mem_bytes{owner,kind} / mem_watermark_bytes / "
+            "mem_headroom_pages gauges, and OOM flight-dump "
+            "forensics. Off: every call site pays one module-flag "
+            "check and records nothing (pinned like tracing/perf; "
+            "read at import — flip at runtime with "
+            "observability.memory.enable()/disable()).")
+define_flag("mem_near_oom_fraction", 0.92,
+            "Near-OOM threshold for the memory ledger's one-shot "
+            "forensic snapshot: when device bytes_in_use crosses this "
+            "fraction of bytes_limit at any ledger read, the "
+            "attribution table is dumped through the flight recorder "
+            "ONCE (reason near_oom) — the pre-crash baseline an "
+            "actual RESOURCE_EXHAUSTED dump diffs against. 0 "
+            "disables.", flag_type=float)
+define_flag("goodput_observability", True,
+            "Arm the wall-clock time ledger (observability/goodput.py):"
+            " hot paths attribute every second since arming to one "
+            "bucket (productive / compile / input_wait / ckpt_stall / "
+            "recovery / migration / audit / shed / queue_wait, plus "
+            "derived "
+            "host_gap and an "
+            "explicit unattributed residual) -> GET /goodputz, "
+            "goodput_fraction / badput_seconds_total{cause} gauges, "
+            "SLO-trip watermark forensics, fleet_goodput_fraction "
+            "federation. Off: every call site pays one module-flag "
+            "check and records nothing (pinned like tracing/perf/mem; "
+            "read at import — flip at runtime with "
+            "observability.goodput.enable()/disable()).")
+define_flag("stream_audit", True,
+            "Arm the stream-integrity auditor (observability/audit.py):"
+            " every request carries a rolling blake2b chain over "
+            "(nonce, position, token_id) extended at the engine's "
+            "drain boundary and returned as stream_digest; the fleet "
+            "router verifies chains wherever token identity is "
+            "claimed (nonce-pinned failover/device-retry, migrated-"
+            "page decodes, sampled shadow re-executions) -> GET "
+            "/driftz, drift_verified_total / "
+            "drift_divergence_total{kind} counters (never-armed "
+            "process exports neither — federation reads the absence "
+            "as a HOLE), one-shot stream_divergence flight dumps. "
+            "Off: the drain path pays one module-flag check per "
+            "token and nothing else (pinned like tracing/perf/mem/"
+            "goodput; flip at runtime with "
+            "observability.audit.enable()/disable()).")
+define_flag("audit_shadow_rate", 0.0,
+            "Sampled SHADOW RE-EXECUTION rate for the stream auditor "
+            "(0.0-1.0): the fraction of verified router requests "
+            "re-executed off-path on the SAME replica under the SAME "
+            "nonce, chain diffed against the served stream "
+            "(drift_divergence_total{kind=shadow} on mismatch, with "
+            "the first divergent position). Sampling is a "
+            "deterministic hash of the request nonce, so a replayed "
+            "seed shadows the same requests. The shadow re-spends "
+            "the request's device time — its seconds land in the "
+            "'audit' badput bucket; see docs/OBSERVABILITY.md "
+            "('Stream integrity') for costing guidance. 0 disables "
+            "shadows (chain checks still run).", flag_type=float)

@@ -1,3 +1,5 @@
-"""Serving: the continuous-batching LLM engine."""
+"""Serving: the continuous-batching LLM engine, its HTTP front and the
+KV-page wire format."""
 
-from .llm import EngineClosed, LLMEngine  # noqa: F401
+from .llm import (AdmissionShed, AdmissionTimeout, EngineClosed,  # noqa: F401
+                  LLMEngine, OverloadShed, RequestCancelled, serve_llm)

@@ -51,5 +51,21 @@ def test_scan_covers_the_package():
                  "paddle_tpu_torch/optimizer/lr.py",
                  "paddle_tpu_torch/optimizer/optimizer.py",
                  "paddle_tpu_torch/hapi/model.py",
-                 "paddle_tpu_torch/models/gpt.py", "chip_smoke.py"):
+                 "paddle_tpu_torch/models/gpt.py",
+                 "paddle_tpu_torch/inference/kv_transfer.py",
+                 "paddle_tpu_torch/reliability/__init__.py",
+                 "paddle_tpu_torch/reliability/faults.py",
+                 "paddle_tpu_torch/reliability/retry.py",
+                 "paddle_tpu_torch/observability/__init__.py",
+                 "paddle_tpu_torch/observability/audit.py",
+                 "paddle_tpu_torch/observability/exporters.py",
+                 "paddle_tpu_torch/observability/flight.py",
+                 "paddle_tpu_torch/observability/goodput.py",
+                 "paddle_tpu_torch/observability/memory.py",
+                 "paddle_tpu_torch/observability/metrics.py",
+                 "paddle_tpu_torch/observability/perf.py",
+                 "paddle_tpu_torch/observability/propagation.py",
+                 "paddle_tpu_torch/observability/server.py",
+                 "paddle_tpu_torch/observability/tracing.py",
+                 "chip_smoke.py"):
         assert must in names

@@ -65,7 +65,20 @@ the result line:
    streams), the control plane's cost (the audit, goodput, memory and
    perf ledgers on against off, in turns A B B A), a profiled HTTP run
    and a cProfile of the engine's worker thread;
-7. train: GPT-2-small at full width as ``bench.py bench_gpt`` configures
+7. fleet: the serve traffic through ``paddle_tpu_torch.serving``'s
+   ``Router`` over replica processes on the card (``spawn_replica``,
+   TCPStore membership), each an engine on kernel B4: two replicas in
+   turns with one in-process engine (D F F D) and the shared-prefix
+   burst on its affinity replica (7 x 512 cached tokens there); a
+   SIGKILL with requests in flight (none lost, failed over under their
+   nonces, the breaker open, then half-open and closed after a
+   respawn); the router's federated ``/metrics`` (replicas scraped,
+   tokens generated, MFU); a prefill replica whose KV pages cross
+   ``/kv_pages`` into the in-process engine, one page corrupted in
+   flight and rejected, no page leaked. Every stream equals the
+   in-process engine's under the request's pinned nonce, and each
+   process launched B4 once a layer per paged pass;
+8. train: GPT-2-small at full width as ``bench.py bench_gpt`` configures
    it (seq 1024, batch 8, fused loss, AdamW 1e-4 / wd 0.01, AMP O1)
    through ``Model.train_batch`` on kernels B1-B3: 3 warm-up and 10
    timed steps, a 2-step ``torch.profiler`` window (device time by
@@ -73,7 +86,7 @@ the result line:
    from the same weights (losses) and one fwd+bwd each (the qkv
    projections' gradient), the fused loss's peak memory against the
    dense head's, and the flash dispatch's eager path for a short input;
-8. a ``{"kernels": [...]}`` summary line, then the result line
+9. a ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -1235,6 +1248,540 @@ def phase_serve_http(ctx) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the serving fleet: a Router over replica processes on the card
+# ---------------------------------------------------------------------------
+
+# gpt2-small at full width as a replica spec, with the serve cell's engine
+# knobs; every process draws the same random weights from model_seed 0
+FLEET_SPEC = {"vocab": 50304, "layers": 12, "hidden": 768, "heads": 12,
+              "max_pos": 1024, "model_seed": 0,
+              "engine": {"page_size": PAGE_SIZE, "num_pages": NUM_PAGES,
+                         "prefill_chunk": 64, "max_seqs": 8, "seed": 0,
+                         "kv_dtype": "f32", "device_retry_budget": 2,
+                         "prefill_buckets": [64, 256, 1024]}}
+FLEET_SPAWN_TIMEOUT_S = 300
+
+
+def _wait(cond, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise SystemExit(f"fleet: {what} not within {timeout} s")
+        time.sleep(0.02)
+
+
+def _debug_base(info) -> str:
+    """The base URL of a replica process's debug server."""
+    return info["healthz"].rsplit("/healthz", 1)[0]
+
+
+def _kernel_status(info) -> dict:
+    """A replica process's ``kernels`` status provider (its device, B4's
+    launches there and its engine's paged passes), from its
+    ``/statusz``."""
+    return json.loads(_get(_debug_base(info), "/statusz"))[
+        "providers"]["kernels"]
+
+
+def _launches_match(k) -> bool:
+    return k["paged_attention_launches"] > 0 and \
+        k["paged_attention_launches"] == k["layers"] * \
+        k["dispatched_ticks"] + k["draft_layers"] * k["draft_passes"]
+
+
+def _spawn(specs, procs) -> dict:
+    """Spawn the replica processes of ``specs`` at once, one thread each;
+    each process that starts joins ``procs`` (the caller kills them).
+    Returns {name: (process, READY info, spawn-to-READY seconds)}."""
+    from concurrent.futures import ThreadPoolExecutor
+    from paddle_tpu_torch.serving import spawn_replica
+
+    def one(spec):
+        t0 = time.perf_counter()
+        proc, info = spawn_replica(spec, timeout=FLEET_SPAWN_TIMEOUT_S)
+        procs.append(proc)
+        return proc, info, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(specs)) as ex:
+        futs = {s["name"]: ex.submit(one, s) for s in specs}
+    return {n: f.result() for n, f in futs.items()}
+
+
+def _fleet_run(submit, prompts, temps, label, during=None):
+    """``submit(prompt, temperature, i)`` for every request at once (then
+    ``during()``, if given), and wait for all: the outputs, each with
+    its latency from the first submission, and the run's numbers
+    (tokens/s, the engine's TTFT p50, latency p50)."""
+    from concurrent.futures import as_completed
+    t0 = time.perf_counter()
+    futs = {submit(p, t, i): i
+            for i, (p, t) in enumerate(zip(prompts, temps))}
+    if during is not None:
+        during()
+    lat = {}
+    for f in as_completed(futs, timeout=900):
+        lat[futs[f]] = time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    outs = [None] * len(futs)
+    for f, i in futs.items():
+        outs[i] = dict(f.result(), client_latency_s=lat[i])
+    n_tok = sum(len(o["output_ids"]) for o in outs)
+    return outs, {"run": label, "requests": len(outs),
+                  "output_tokens": n_tok, "wall_s": wall,
+                  "tokens_per_s": n_tok / wall,
+                  "ttft_p50_s": float(np.median([o["ttft_s"]
+                                                 for o in outs])),
+                  "latency_p50_s": float(np.median(list(lat.values())))}
+
+
+def _direct(eng, prompts, temps, nonces, label):
+    """The requests straight into an in-process engine under pinned
+    nonces."""
+    return _fleet_run(lambda p, t, i: eng.submit(
+        p, max_new_tokens=32, temperature=t, nonce=nonces[i]),
+        prompts, temps, label)
+
+
+def _routed(router, prompts, temps, label, during=None):
+    return _fleet_run(lambda p, t, i: router.submit(
+        p, max_new_tokens=32, temperature=t), prompts, temps, label,
+        during)
+
+
+def _first_divergence(net, prompt, got, want):
+    """Where a fleet stream leaves the reference's: the index, both
+    tokens and the reference row's top-2 logit gap there."""
+    i = next(k for k, (a, b) in enumerate(zip(got, want)) if a != b)
+    with torch.no_grad():
+        ids = torch.tensor([prompt + want[:i]],
+                           device=net.gpt.ln_f.weight.device)
+        top = torch.topk(net(ids)[0, -1].float(), 2).values
+    return {"index": i, "got": got[i], "want": want[i],
+            "top2_gap": float(top[0] - top[1])}
+
+
+def _same_streams(outs, want, prompts, net, label, diverged):
+    """True when every fleet stream equals the reference's; else the
+    first divergence of each differing stream joins ``diverged``."""
+    ok = True
+    for o, w, p in zip(outs, want, prompts):
+        if o["output_ids"] != w["output_ids"]:
+            ok = False
+            diverged.append(dict(_first_divergence(
+                net, p, o["output_ids"], w["output_ids"]), run=label,
+                request_id=o["request_id"]))
+    return ok
+
+
+def _thread_cpu_s(prefixes) -> float:
+    """CPU seconds (user + system) spent so far by this process's live
+    threads whose names start with one of ``prefixes``."""
+    import threading
+    tick = os.sysconf("SC_CLK_TCK")
+    total = 0.0
+    for t in threading.enumerate():
+        if not t.name.startswith(prefixes) or not t.native_id:
+            continue
+        try:
+            with open(f"/proc/self/task/{t.native_id}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        total += (int(fields[11]) + int(fields[12])) / tick
+    return total
+
+
+class _TamperedPrefill:
+    """A prefill replica's client that records each KV-page export (pages,
+    base64 bytes, seconds) and, in mode ``corrupt``, flips one byte of
+    page 1's K in flight."""
+
+    def __init__(self, inner):
+        self.inner, self.mode, self.exports = inner, None, []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def export_pages(self, digests, trace_context=None):
+        from paddle_tpu_torch.inference import kv_transfer as kvt
+        t0 = time.perf_counter()
+        payload = self.inner.export_pages(digests,
+                                          trace_context=trace_context)
+        self.exports.append({
+            "pages": len(payload["pages"]),
+            "b64_bytes": sum(len(p["k"]) + len(p["v"])
+                             for p in payload["pages"]),
+            "export_s": time.perf_counter() - t0})
+        if self.mode == "corrupt" and len(payload["pages"]) > 1:
+            rec = payload["pages"][1]
+            k = bytearray(kvt._unb64(rec["k"]))
+            k[0] ^= 0x40
+            rec["k"] = kvt._b64(bytes(k))
+        return payload
+
+
+def phase_fleet(dev, ctx) -> None:
+    """The serve traffic through ``paddle_tpu_torch.serving``: a
+    ``Router`` over replica processes on the card, each an
+    ``LLMEngine`` on kernel B4 behind ``serve_llm``. Streams are held to
+    an in-process engine of the same spec under each request's pinned
+    nonce, and each replica's ``kernels`` status to B4's launch count.
+
+    1. r0 and r1 join through TCPStore membership; the main traffic in
+       turns with that in-process engine (D F F D), then the
+       shared-prefix burst, all on its affinity replica with 7 x 512
+       cached tokens there;
+    2. the main traffic again, SIGKILLing the replica that holds most of
+       it with requests in flight: none lost, failed over under their
+       nonces, its breaker open; respawned from the same spec, it goes
+       half-open, closed and up on ``/fleetz``, and serves again;
+    3. the router's federated ``/metrics``: replicas scraped, tokens
+       generated (== the tokens those processes delivered), MFU;
+    4. a prefill replica fills KV pages that cross ``/kv_pages`` into
+       the in-process engine as the decode replica; one page corrupted
+       in flight is rejected by its digest and recomputed, and the
+       decode pool leaks no page."""
+    import shutil
+    import signal
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from paddle_tpu_torch.distributed import TCPStoreServer
+    from paddle_tpu_torch.observability import DebugServer
+    from paddle_tpu_torch.serving import (HTTPReplica, LocalReplica,
+                                          Router, make_engine_from_spec)
+    from paddle_tpu_torch.serving.replica import state_digest
+    from paddle_tpu_torch.serving.router import (affinity_key,
+                                                 rendezvous_pick)
+    pa = importlib.import_module("paddle_tpu_torch.ops.paged_attention")
+    spec = FLEET_SPEC
+    ps, layers, vocab = spec["engine"]["page_size"], spec["layers"], \
+        spec["vocab"]
+    prompts, temps = ctx["prompts"], ctx["temps"]
+    sp_prompts, sp_temps, _, _ = _shared_prefix_traffic(ctx["cfg"])
+    t_phase = time.perf_counter()
+    checks, nums, diverged, procs, refs, routers = {}, {}, [], [], [], []
+    obs_dir = tempfile.mkdtemp(prefix="fleet_obs_")
+    store = TCPStoreServer("127.0.0.1", 0)
+    endpoint = f"127.0.0.1:{store.port}"
+    # the phase's own debug server (the process-wide one may have been
+    # stopped by an earlier phase): /fleetz and the federated /metrics
+    dbg = DebugServer(host="127.0.0.1", port=0).start()
+    dbase = f"http://127.0.0.1:{dbg.port}"
+
+    def child(name, **kw):
+        return dict(spec, name=name, tracing=True, obs_dir=obs_dir, **kw)
+
+    def pick(p, names=("r0", "r1")):
+        return rendezvous_pick(affinity_key(p, ps, 2), list(names))
+
+    try:
+        torch.cuda.synchronize()
+        pa.launches = 0
+        ref = make_engine_from_spec(spec)
+        refs.append(ref)
+        digest = state_digest(ref.net)
+        spawned = _spawn([child("r0", store=endpoint),
+                          child("r1", store=endpoint)], procs)
+        nums["spawn_to_ready_s"] = {n: s for n, (_, _, s) in
+                                    spawned.items()}
+        infos = {n: i for n, (_, i, _) in spawned.items()}
+        checks["replica_weights_eq_parent"] = all(
+            i["state_digest"] == digest for i in infos.values())
+        checks["replicas_ready_on_h100"] = all(
+            "H100" in i["device"] for i in infos.values())
+        router = Router(store_endpoint=endpoint, page_size=ps)
+        routers.append(router)
+        _wait(lambda: router.fleet_load()["ready"] == 2, 120,
+              "r0 and r1 ready at the router")
+        # warm-up: the main traffic's lengths with other tokens, straight
+        # into every process at once (cuBLAS handles, the kernel
+        # library, the engine's tick shapes); not timed
+        wrng = np.random.RandomState(4)
+        warm = [wrng.randint(0, vocab, len(p)).tolist() for p in prompts]
+        with ThreadPoolExecutor(len(infos) * len(warm)) as ex:
+            futs = {n: [ex.submit(HTTPReplica(
+                i["generate"], i["healthz"]).submit, p, 32, t)
+                for p, t in zip(warm, temps)] for n, i in infos.items()}
+            _direct(ref, warm, temps, list(range(len(warm))), "warm-up")
+            delivered = {n: sum(len(f.result()["output_ids"]) for f in fs)
+                         for n, fs in futs.items()}
+
+        # 1. the main traffic, D F F D, then the shared-prefix burst.
+        # The router pins nonces 0, 1, ... in submission order; each D
+        # turn runs the in-process engine under the nonces of the F turn
+        # beside it, idle while the fleet is timed
+        # The router threads' CPU, the process's CPU and the wall clock
+        # are summed over the two F turns only
+        n, base = len(prompts), router.n_submitted
+        turns = []
+        cpu = {"router_cpu_s": 0.0, "process_cpu_s": 0.0, "wall_s": 0.0}
+        for kind, b in (("D", base), ("F", base), ("F", base + n),
+                        ("D", base + n)):
+            label = f"{'fleet' if kind == 'F' else 'direct'}_" \
+                f"{len(turns) + 1}"
+            if kind == "D":
+                outs, run = _direct(ref, prompts, temps,
+                                    list(range(b, b + n)), label)
+            else:
+                c0 = (_thread_cpu_s(("router-",)), time.process_time(),
+                      time.perf_counter())
+                outs, run = _routed(router, prompts, temps, label)
+                c1 = (_thread_cpu_s(("router-",)), time.process_time(),
+                      time.perf_counter())
+                for k, a, z in zip(cpu, c0, c1):
+                    cpu[k] += z - a
+                run["replicas"] = [o["replica"] for o in outs]
+                checks[f"{label}_nonces_pinned"] = [
+                    o["request_id"] for o in outs] == list(range(b, b + n))
+                for o in outs:
+                    delivered[o["replica"]] += len(o["output_ids"])
+            turns.append((outs, run))
+        for (f, fr), (d, _) in ((turns[1], turns[0]),
+                                (turns[2], turns[3])):
+            checks[f"{fr['run']}_streams_eq_reference"] = _same_streams(
+                f, d, prompts, ref.net, fr["run"], diverged)
+        main_picks = [pick(p) for p in prompts]
+        checks["main_traffic_on_affinity_replicas"] = all(
+            t[1]["replicas"] == main_picks for t in turns[1:3])
+        nums["main_traffic"] = [t[1] for t in turns]
+        rate = {k: float(np.mean([turns[i][1]["tokens_per_s"]
+                                  for i in idx]))
+                for k, idx in (("fleet", (1, 2)), ("direct", (0, 3)))}
+        nums["fleet_over_direct_tokens_per_s"] = \
+            rate["fleet"] / rate["direct"]
+        # turns 1-2 find the prompts uncached, turns 3-4 cached
+        nums["fleet_over_direct_by_pair"] = [
+            turns[f][1]["tokens_per_s"] / turns[d][1]["tokens_per_s"]
+            for f, d in ((1, 0), (2, 3))]
+        nums["router_threads"] = dict(
+            cpu, share_of_process_cpu=cpu["router_cpu_s"] /
+            cpu["process_cpu_s"],
+            share_of_wall=cpu["router_cpu_s"] / cpu["wall_s"])
+
+        sp_pick = pick(sp_prompts[0])
+        hit_key = "llm_prefix_cache_hit_tokens"
+        hits0 = _scrape(_debug_base(infos[sp_pick])).get(hit_key, 0.0)
+        first, _ = _routed(router, sp_prompts[:1], sp_temps[:1],
+                           "prefix seed")
+        burst, run7 = _routed(router, sp_prompts[1:], sp_temps[1:],
+                              "prefix burst")
+        hits = _scrape(_debug_base(infos[sp_pick]))[hit_key] - hits0
+        sp_outs = first + burst
+        for o in sp_outs:
+            delivered[o["replica"]] += len(o["output_ids"])
+        want, _ = _direct(ref, sp_prompts, sp_temps,
+                          [o["request_id"] for o in sp_outs],
+                          "prefix reference")
+        checks["prefix_streams_eq_reference"] = _same_streams(
+            sp_outs, want, sp_prompts, ref.net, "prefix", diverged)
+        checks["prefix_on_affinity_replica"] = all(
+            o["replica"] == sp_pick for o in sp_outs)
+        checks["prefix_cache_hit_tokens_7x512"] = hits == 7 * 512
+        nums["prefix_burst"] = dict(run7, replica=sp_pick,
+                                    cache_hit_tokens=hits)
+        status = {n: _kernel_status(i) for n, i in infos.items()}
+        for n, k in status.items():
+            checks[f"{n}_launches_eq_layers_x_passes"] = _launches_match(k)
+            checks[f"{n}_device_h100"] = "H100" in k["device"]
+        nums["kernels_step1"] = status
+
+        # 2. failover: SIGKILL the replica holding most of the traffic
+        victim = max(("r0", "r1"), key=main_picks.count)
+        vproc = spawned[victim][0]
+        killed = {}
+
+        def kill():
+            _wait(lambda: (router.inflight_of(victim) or 0) >= 2, 120,
+                  f"two requests in flight on {victim}")
+            time.sleep(0.2)
+            killed["inflight"] = router.inflight_of(victim)
+            os.kill(vproc.pid, signal.SIGKILL)
+            killed["rc"] = vproc.wait(timeout=60)
+
+        outs, run = _routed(router, prompts, temps, "failover", kill)
+        rerouted = [i for i, o in enumerate(outs)
+                    if main_picks[i] == victim and o["replica"] != victim]
+        want, _ = _direct(ref, prompts, temps,
+                          [o["request_id"] for o in outs],
+                          "failover reference")
+        checks["failover_no_request_lost"] = all(
+            len(o["output_ids"]) == 32 for o in outs)
+        checks["failover_killed_with_2_in_flight"] = \
+            killed["inflight"] >= 2 and killed["rc"] == -signal.SIGKILL
+        checks["failover_rerouted_ge_2_with_failovers"] = \
+            len(rerouted) >= 2 and all(outs[i]["failovers"] >= 1
+                                       for i in rerouted)
+        checks["failover_streams_eq_reference"] = _same_streams(
+            outs, want, prompts, ref.net, "failover", diverged)
+        vstate = router._replicas[victim]
+        checks["failover_breaker_opened"] = vstate.breaker.n_opens >= 1
+        for o in outs:
+            if o["replica"] != victim:
+                delivered[o["replica"]] += len(o["output_ids"])
+        delivered[victim] = 0           # its process is gone
+        f1 = turns[1][0]
+        nums["failover"] = dict(
+            run, victim=victim, inflight_at_kill=killed["inflight"],
+            rerouted=rerouted, router_failovers=router.n_failovers,
+            added_latency_s=[outs[i]["client_latency_s"] -
+                             f1[i]["client_latency_s"] for i in rerouted])
+
+        # respawn the victim from the same spec (and the prefill replica
+        # of step 4 beside it); its breaker must go half-open, closed
+        br = vstate.breaker
+        seen = []
+        record_success = br.record_success
+
+        def logged_success():
+            before = br.state
+            record_success()
+            seen.append((before, br.state))
+
+        br.record_success = logged_success
+        again = _spawn([child(victim, store=endpoint),
+                        child("pre0", role="prefill")], procs)
+        nums["spawn_to_ready_s"].update(
+            {f"{victim} respawn": again[victim][2],
+             "pre0": again["pre0"][2]})
+        infos[victim] = again[victim][1]
+        pinfo = again["pre0"][1]
+
+        def up_again():
+            fz = json.loads(_get(dbase, "/fleetz"))["fleets"][
+                router._status_name]["replicas"][victim]
+            return fz["breaker"] == "closed" and \
+                fz["health"] == "healthy" and \
+                (fz["metrics"] or {}).get("up") is True
+
+        _wait(up_again, 120, f"{victim} up again on /fleetz")
+        checks["respawn_breaker_half_open_then_closed"] = \
+            ("half_open", "closed") in seen
+        checks["respawn_up_on_fleetz"] = True
+        mine = [i for i, p in enumerate(main_picks) if p == victim][:2]
+        outs, _ = _routed(router, [prompts[i] for i in mine],
+                          [temps[i] for i in mine], "after respawn")
+        want, _ = _direct(ref, [prompts[i] for i in mine],
+                          [temps[i] for i in mine],
+                          [o["request_id"] for o in outs],
+                          "after respawn reference")
+        checks["respawned_serves_eq_reference"] = all(
+            o["replica"] == victim for o in outs) and _same_streams(
+            outs, want, [prompts[i] for i in mine], ref.net,
+            "after respawn", diverged)
+        for o in outs:
+            delivered[o["replica"]] += len(o["output_ids"])
+
+        # 3. the router's federated metrics over the live replicas
+        time.sleep(4 * router.health_poll_interval)   # a fresh scrape
+        fz = json.loads(_get(dbase, "/fleetz"))["fleets"][
+            router._status_name]
+        series = _scrape(dbase)
+        fleet_m = {k: series.get(k) for k in (
+            "fleet_replicas_scraped", "fleet_tokens_generated",
+            "fleet_mfu", "fleet_requests_completed")}
+        checks["fleet_replicas_scraped_eq_live"] = \
+            fleet_m["fleet_replicas_scraped"] == len(infos) == \
+            fz["aggregates"]["replicas_scraped"]
+        checks["fleet_tokens_eq_delivered"] = \
+            fleet_m["fleet_tokens_generated"] == sum(delivered.values())
+        checks["fleet_mfu_positive"] = (fleet_m["fleet_mfu"] or 0) > 0
+        checks["federated_replica_series"] = all(
+            any(k.startswith("fleet_llm_") and f'replica="{n}"' in k
+                for k in series) for n in infos)
+        nums["fleet_metrics"] = dict(fleet_m, delivered=delivered,
+                                     failovers=fz["failovers"])
+
+        # 4. disaggregated prefill/decode: pre0 fills, the in-process
+        # engine decodes from pages migrated over HTTP
+        ref2 = make_engine_from_spec(spec)
+        refs.append(ref2)
+        tampered = _TamperedPrefill(HTTPReplica(
+            pinfo["generate"], pinfo["healthz"],
+            metrics_url=pinfo["metrics"]))
+        router2 = Router(page_size=ps, disagg_threshold_tokens=64,
+                         name="disagg")
+        routers.append(router2)
+        router2.attach("pre0", tampered, role="prefill")
+        router2.attach("dec0", LocalReplica(ref), role="decode")
+        rng = np.random.RandomState(3)
+        dprompts = [rng.randint(0, vocab, n).tolist()
+                    for n in np.linspace(256, 900, 4).astype(int)]
+        dtemps = [0.0, 0.8, 0.0, 0.8]
+        outs, run = _routed(router2, dprompts, dtemps, "disaggregated")
+        want, _ = _direct(ref2, dprompts, dtemps,
+                          [o["request_id"] for o in outs],
+                          "unified reference")
+        checks["disagg_decoded_on_dec0_from_pre0"] = all(
+            o["replica"] == "dec0" and o.get("prefill_replica") == "pre0"
+            for o in outs)
+        checks["disagg_all_prefix_pages_migrated"] = [
+            o.get("migrated_pages") for o in outs] == [
+            (len(p) - 1) // ps for p in dprompts]
+        checks["disagg_pages_migrated_gt_0"] = router2.n_pages_migrated > 0
+        checks["disagg_streams_eq_unified"] = _same_streams(
+            outs, want, dprompts, ref.net, "disaggregated", diverged)
+        exports = list(tampered.exports)
+        tampered.mode = "corrupt"
+        bad = rng.randint(0, vocab, 300).tolist()
+        rejected0 = router2.n_pages_rejected
+        o, _ = _routed(router2, [bad], [0.8], "corrupted page")
+        tampered.mode = None
+        w, _ = _direct(ref2, [bad], [0.8], [o[0]["request_id"]],
+                       "corrupted page reference")
+        checks["corrupt_page_rejected"] = \
+            router2.n_pages_rejected - rejected0 == (len(bad) - 1) // ps - 1
+        checks["corrupt_only_page_0_installed"] = \
+            o[0].get("migrated_pages") == 1
+        checks["corrupt_stream_eq_unified"] = _same_streams(
+            o, w, [bad], ref.net, "corrupted page", diverged)
+
+        def no_leak():
+            return len(ref._free_pages) + ref._cache.shared_page_count \
+                + 1 == ref.num_pages
+
+        _wait(no_leak, 30, "dec0's pool back to free + shared")
+        checks["dec0_pool_leaks_no_page"] = True
+        nums["migration"] = dict(
+            run, migrate_s=[x.get("migrate_s") for x in outs],
+            migrated_pages=[x.get("migrated_pages") for x in outs],
+            page_bytes=ref._tgt_page_bytes, exports=exports,
+            corrupted={"rejected": router2.n_pages_rejected - rejected0,
+                       "migrated_pages": o[0].get("migrated_pages")})
+
+        status = {n: _kernel_status(i) for n, i in
+                  dict(infos, pre0=pinfo).items()}
+        for n, k in status.items():
+            checks[f"{n}_end_launches_eq_layers_x_passes"] = \
+                _launches_match(k)
+            checks[f"{n}_end_device_h100"] = "H100" in k["device"]
+        torch.cuda.synchronize()
+        parent = pa.launches
+        checks["parent_launches_eq_layers_x_passes"] = parent > 0 and \
+            parent == layers * sum(e.n_dispatched_ticks for e in refs)
+        nums["kernels_end"] = dict(status, parent={
+            "paged_attention_launches": parent,
+            "dispatched_ticks": [e.n_dispatched_ticks for e in refs]})
+    finally:
+        for r in routers:
+            r.close()
+        for e in refs:
+            e.close()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=60)
+        store.close()
+        dbg.stop()
+        shutil.rmtree(obs_dir, ignore_errors=True)
+    emit({"phase": "fleet", "card": dev["nvidia_smi"], **nums,
+          "diverged": diverged, "phase_s": time.perf_counter() - t_phase})
+    emit({"phase": "fleet_checks", "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"fleet checks failed: {failed}")
+
+
+# ---------------------------------------------------------------------------
 # kernels B1, B2, B3 against their plain twins
 # ---------------------------------------------------------------------------
 
@@ -1715,6 +2262,7 @@ def main() -> None:
     flash_heads = phase_flash_kernels()
     launches, serve_ctx = phase_serve()
     phase_serve_http(serve_ctx)
+    phase_fleet(info, serve_ctx)
     del serve_ctx
     train_launches = phase_train()
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"

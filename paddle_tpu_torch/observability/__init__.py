@@ -19,9 +19,11 @@ in place of XLA's cost analysis).
 - server + flight: a live HTTP debug surface (``/metrics /healthz
   /statusz /tracez /perfz /memz``) and a crash flight recorder.
 
+- slo: ``SLOTracker``, error-budget burn rates over the fleet router's
+  request outcomes (``/sloz``).
+
 Not here yet: ``export_chrome_tracing`` and ``POST /profilez`` wait for
-the profiler (ROADMAP Queue A7); ``SLOTracker`` goes with the serving
-fleet (Queue A5).
+the profiler (ROADMAP Queue A7).
 """
 
 from .metrics import (BYTE_BUCKETS, DEFAULT_BUCKETS,  # noqa: F401
@@ -45,6 +47,7 @@ from .server import (DebugServer, get_debug_server,  # noqa: F401
                      stop_debug_server, unregister_status_provider)
 from .flight import (FlightRecorder, dump_flight_record,  # noqa: F401
                      get_flight_recorder, install_flight_recorder)
+from .slo import SLOTracker  # noqa: F401
 
 enable_tracing = tracing.enable
 disable_tracing = tracing.disable
@@ -60,7 +63,7 @@ __all__ = [
     "tracing", "Span", "SpanContext", "start_span", "trace_span",
     "enable_tracing", "disable_tracing", "tracing_enabled",
     "propagation", "TRACEPARENT_HEADER", "format_traceparent",
-    "parse_traceparent",
+    "parse_traceparent", "SLOTracker",
     "DebugServer", "start_debug_server", "get_debug_server",
     "stop_debug_server", "register_status_provider",
     "unregister_status_provider",

@@ -67,5 +67,13 @@ def test_scan_covers_the_package():
                  "paddle_tpu_torch/observability/propagation.py",
                  "paddle_tpu_torch/observability/server.py",
                  "paddle_tpu_torch/observability/tracing.py",
+                 "paddle_tpu_torch/observability/slo.py",
+                 "paddle_tpu_torch/distributed/tcp_store.py",
+                 "paddle_tpu_torch/serving/autoscaler.py",
+                 "paddle_tpu_torch/serving/breaker.py",
+                 "paddle_tpu_torch/serving/fleet.py",
+                 "paddle_tpu_torch/serving/overload.py",
+                 "paddle_tpu_torch/serving/replica.py",
+                 "paddle_tpu_torch/serving/router.py",
                  "chip_smoke.py"):
         assert must in names

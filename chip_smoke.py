@@ -18,7 +18,8 @@ the result line:
    and padding, GQA, one 1024-token row, head dims 80 and 256, a mixed
    tick of 64 chunk rows and 8 decode rows sharing a 32-page prefix,
    pages of 128 and 256 tokens, 40 and 64 q heads on one kv head, head
-   dim 320, a speculative verify window of 8 slots x 4 rows with rising
+   dim 320, head dims 20 and 100 (not a multiple of 8), a speculative
+   verify window of 8 slots x 4 rows with rising
    limits, f32 and int8, and the same rows reversed within each slot),
    with its device time (``torch.profiler``; CUDA events
    beside it) beside the plain twin's, a one-call PyTorch yardstick's
@@ -86,7 +87,20 @@ the result line:
    from the same weights (losses) and one fwd+bwd each (the qkv
    projections' gradient), the fused loss's peak memory against the
    dense head's, and the flash dispatch's eager path for a short input;
-9. a ``{"kernels": [...]}`` summary line, then the result line
+9. fit: the same model and trainer (under CosineAnnealingDecay) through
+   ``Model.fit`` over ``io.DataLoader``: 64 sequences of 1024 tokens, 2
+   shuffled epochs of 8 steps with an eval pass each, the callbacks
+   (LRScheduler, EarlyStopping, CSVLogger, ModelCheckpoint, a recorder),
+   then ``evaluate`` and ``predict`` with the kernel counts read just
+   after (B1 once a layer per forward, B2 and B3 once a layer per train
+   step); the losses equal to a manual ``train_batch`` loop's over the
+   same batches, the checkpoint reloaded into a fresh Model, the
+   learning rate, the CSV, the event order, fork workers' batches, a
+   fit on the twins launching nothing; fit against the manual loop in
+   turns (M F F M) and the synchronizing calls a step makes; a dense
+   head run with ``Accuracy(topk=(1, 5))`` against a host recount over
+   ``predict``'s logits;
+10. a ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -159,10 +173,10 @@ def phase_device() -> dict:
 
 
 def _kernel_name(mangled: str) -> str:
-    """``flash_fwd_mma<__nv_bfloat16,64>`` or ``paged_attention<int8>``
+    """``flash_fwd_mma<__nv_bfloat16,64>`` or ``paged_attention<int8,1>``
     from a mangled kernel name."""
     m = re.search(r"\d+((?:flash|paged)_[a-z_]+?)I(?:\d+(__nv_bfloat16|"
-                  r"__half)|([fa]))(?:Li(\d+)E)?E", mangled)
+                  r"__half)|([fa]))(?:L[ib](\d+)E)?E", mangled)
     if m:
         dtype = m.group(2) or {"f": "float", "a": "int8"}[m.group(3)]
         d = f",{m.group(4)}" if m.group(4) else ""
@@ -402,6 +416,14 @@ def phase_kernels() -> dict:
          [(f32, f32)]),
         ("decode d320", 8, 8, 8, 320, decode_lens, list(range(8)),
          [(f32, f32)]),
+        # head dims that are not a multiple of 8: the last d % 8 columns
+        # read one at a time, rows staged in 16-, 8-, 4- or 2-byte copies
+        ("decode d20", 8, 8, 8, 20, decode_lens, list(range(8)),
+         [(f32, f32), (bf16, f32), (i8, f32)]),
+        ("chunk d20", 64, 8, 8, 20, chunk_lens, chunk_seqs,
+         [(f32, f32), (i8, f32)]),
+        ("decode d100 gqa", 8, 8, 2, 100, decode_lens, list(range(8)),
+         [(f32, f32), (bf16, bf16), (i8, f32)]),
         ("verify gpt2 (8 x K 4)", 8 * SPEC_K, 12, 12, 64, verify_lens,
          verify_seqs, [(f32, f32), (i8, f32)]),
         ("verify gpt2, rows reversed", 8 * SPEC_K, 12, 12, 64, verify_rev,
@@ -2240,6 +2262,437 @@ def phase_train() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# GPT-2-small trained through Model.fit over io.DataLoader
+# ---------------------------------------------------------------------------
+
+FIT_TRAIN, FIT_EVAL, FIT_BATCH, FIT_EPOCHS, FIT_SEED = 64, 16, 8, 2, 5
+FIT_T_MAX = 32        # CosineAnnealingDecay horizon: lr 5e-5 at step 16
+METRIC_BATCH, METRIC_STEPS = 4, 4
+
+
+def _fit_model(net, loss=None, metrics=None, amp_configs="O1"):
+    """The train phase's trainer (AdamW lr 1e-4, wd 0.01, AMP O1, fused
+    loss) with its rate under CosineAnnealingDecay."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.gpt import GPTFusedPretrainingCriterion
+    sched = pt.optimizer.lr.CosineAnnealingDecay(1e-4, T_max=FIT_T_MAX)
+    model = pt.Model(net)
+    model.prepare(pt.optimizer.AdamW(learning_rate=sched, parameters=net,
+                                     weight_decay=0.01),
+                  loss or GPTFusedPretrainingCriterion(), metrics=metrics,
+                  amp_configs=amp_configs)
+    return model
+
+
+def _fit_order(n, epochs):
+    """The sample order of ``epochs`` shuffled passes, drawn as the JAX
+    package's RandomSampler draws it: RandomState(seed + epoch), where
+    the seed is the thread-local one of the loader's prefetch thread,
+    which no ``seed()`` call reaches (0)."""
+    return [np.random.RandomState(e).permutation(n) for e in range(epochs)]
+
+
+def _manual_losses(net, init, x, y):
+    """The manual loop: train_batch over the fit's batches in the fit's
+    order, from ``init``; the loss tensors and the wall seconds."""
+    net.load_state_dict(init)
+    model = _fit_model(net)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for perm in _fit_order(len(x), FIT_EPOCHS):
+        for i in range(0, len(perm), FIT_BATCH):
+            idx = perm[i:i + FIT_BATCH]
+            losses.append(model.train_batch([x[idx]], [y[idx]])["loss"])
+    torch.cuda.synchronize()
+    return losses, time.perf_counter() - t0
+
+
+def _timed_fit(net, init, ds, sync_debug=False, epochs=FIT_EPOCHS):
+    """fit from ``init`` with the default callbacks (verbose 0, no
+    eval): wall seconds, and with ``sync_debug`` the synchronizing CUDA
+    calls ``torch.cuda.set_sync_debug_mode("warn")`` reported."""
+    import paddle_tpu_torch as pt
+    import warnings
+    net.load_state_dict(init)
+    model = _fit_model(net)
+    pt.seed(FIT_SEED)
+    torch.cuda.synchronize()
+    syncs = None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if sync_debug:
+            torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            model.fit(ds, batch_size=FIT_BATCH, epochs=epochs,
+                      shuffle=True, verbose=0)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        wall = time.perf_counter() - t0
+    if sync_debug:
+        syncs = [str(w.message)[:160] for w in caught
+                 if "synchroniz" in str(w.message)]
+    return wall, syncs
+
+
+def _fit_recorder():
+    """A callback keeping each step's loss tensor (no host read) and the
+    order of the events fit issues."""
+    from paddle_tpu_torch.callbacks import Callback
+
+    class Recorder(Callback):
+        def __init__(self):
+            super().__init__()
+            self.events, self.losses = [], []
+
+        def on_train_begin(self, logs=None):
+            self.events.append("train_begin")
+
+        def on_train_end(self, logs=None):
+            self.events.append("train_end")
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self.events.append(f"epoch_begin {epoch}")
+
+        def on_epoch_end(self, epoch, logs=None):
+            self.events.append(f"epoch_end {epoch}")
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.events.append(f"batch_begin {step}")
+
+        def on_train_batch_end(self, step, logs=None):
+            self.events.append(f"batch_end {step}")
+            self.losses.append(logs["loss"])
+
+        def on_eval_begin(self, logs=None):
+            self.events.append("eval_begin")
+
+        def on_eval_end(self, logs=None):
+            self.events.append("eval_end")
+
+        def on_eval_batch_begin(self, step, logs=None):
+            self.events.append(f"eval_batch_begin {step}")
+
+        def on_eval_batch_end(self, step, logs=None):
+            self.events.append(f"eval_batch_end {step}")
+    return Recorder()
+
+
+def _expected_fit_events(steps, eval_steps, epochs):
+    """The events the JAX package's fit issues, in order."""
+    ev = ["train_begin"]
+    for e in range(epochs):
+        ev.append(f"epoch_begin {e}")
+        for i in range(steps):
+            ev += [f"batch_begin {i}", f"batch_end {i}"]
+        ev.append("eval_begin")
+        for j in range(eval_steps):
+            ev += [f"eval_batch_begin {j}", f"eval_batch_end {j}"]
+        ev += ["eval_end", f"epoch_end {e}"]
+    return ev + ["train_end"]
+
+
+def _timed_checkpoint(save_dir, save_freq, seconds):
+    """ModelCheckpoint timing each save into ``seconds``."""
+    from paddle_tpu_torch.callbacks import ModelCheckpoint
+
+    class Timed(ModelCheckpoint):
+        def _timed(self, fn, *a):
+            t0 = time.perf_counter()
+            fn(*a)
+            seconds.append(time.perf_counter() - t0)
+
+        def on_epoch_end(self, epoch, logs=None):
+            if epoch % self.save_freq == 0:
+                self._timed(super().on_epoch_end, epoch, logs)
+
+        def on_train_end(self, logs=None):
+            self._timed(super().on_train_end, logs)
+    return Timed(save_freq=save_freq, save_dir=save_dir)
+
+
+def _drain_count():
+    from paddle_tpu_torch.observability import metrics as obs
+    fam = obs.default_registry().get("train_loop_drain_seconds")
+    return (fam.count, fam.sum) if fam is not None else (0, 0.0)
+
+
+def _numpy_topk_counts(logits, labels, topk):
+    """Top-k hits recounted on the host: the label's position in a
+    stable descending sort of its row (greater scores, then equal ones
+    at a lower index, go first)."""
+    hits = np.zeros(len(topk), np.int64)
+    flat = logits.reshape(-1, logits.shape[-1])
+    lab = labels.reshape(-1)
+    cols = np.arange(flat.shape[1])
+    for i in range(0, len(flat), 1024):
+        x, lb = flat[i:i + 1024], lab[i:i + 1024]
+        v = x[np.arange(len(x)), lb][:, None]
+        rank = (x > v).sum(1) + ((x == v) & (cols[None, :] < lb[:, None])
+                                 ).sum(1)
+        hits += np.array([(rank < k).sum() for k in topk])
+    return hits, len(flat)
+
+
+def _metric_run(net_init, x, y, ex, ey):
+    """The dense head with Accuracy(topk=(1, 5)): METRIC_STEPS steps of
+    METRIC_BATCH, then evaluate; its accuracies against a host recount
+    over predict's logits of the same eval batches. Both forwards run
+    in float32 (amp O0), so evaluate and predict see the same logits."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM,
+                                             GPTPretrainingCriterion,
+                                             gpt_config)
+    cfg = gpt_config("gpt2-small", max_position_embeddings=TRAIN_SEQ,
+                     hidden_dropout=0.0, attention_dropout=0.0,
+                     fused_loss=False)
+    dense = GPTForCausalLM(cfg, device="cuda")
+    dense.load_state_dict(net_init)
+    acc = pt.metric.Accuracy(topk=(1, 5))
+    model = _fit_model(dense, loss=GPTPretrainingCriterion(),
+                       metrics=[acc], amp_configs=None)
+    n = METRIC_BATCH * METRIC_STEPS
+    drains0 = _drain_count()
+    pt.seed(FIT_SEED)
+    model.fit(pt.io.TensorDataset([x[:n], y[:n]]), batch_size=METRIC_BATCH,
+              epochs=1, shuffle=True, verbose=0)
+    eval_ds = pt.io.TensorDataset([ex, ey])
+    ev = model.evaluate(eval_ds, batch_size=METRIC_BATCH, verbose=0)
+    drains1 = _drain_count()
+    logits = model.predict(pt.io.TensorDataset([ex]),
+                           batch_size=METRIC_BATCH, stack_outputs=True)
+    hits, count = _numpy_topk_counts(logits, ey, (1, 5))
+    recount = {"acc_top1": float(hits[0] / count),
+               "acc_top5": float(hits[1] / count)}
+    # Accuracy.compute's device time on one eval batch's logits
+    lg = torch.as_tensor(logits[:METRIC_BATCH], device="cuda")
+    lb = torch.as_tensor(ey[:METRIC_BATCH], device="cuda")
+    for _ in range(3):
+        acc.compute(lg, lb)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        acc.compute(lg, lb)
+    end.record()
+    torch.cuda.synchronize()
+    compute_ms = start.elapsed_time(end) / 10
+    del lg, lb, logits, dense, model
+    torch.cuda.empty_cache()
+    return {"phase": "fit", "run": "metric", "amp": "O0",
+            "head": "dense", "batch": METRIC_BATCH, "steps": METRIC_STEPS,
+            "evaluate": ev, "recount": recount, "eval_tokens": count,
+            "drains": drains1[0] - drains0[0],
+            "train_loop_drain_seconds": drains1[1] - drains0[1],
+            "accuracy_compute_ms": compute_ms,
+            "accuracy_compute_shape": [METRIC_BATCH, TRAIN_SEQ,
+                                       cfg.vocab_size],
+            "timing": "CUDA events, mean of 10 calls"}
+
+
+def phase_fit() -> dict:
+    """GPT-2-small at full width (the train phase's configuration under
+    CosineAnnealingDecay) through ``Model.fit`` over ``io.DataLoader``
+    with callbacks, then ``evaluate`` and ``predict``, on kernels B1-B3;
+    its losses against a manual ``train_batch`` loop's, the launches,
+    a checkpoint reloaded, the metric run and the timings."""
+    import shutil
+    import tempfile
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.callbacks import (CSVLogger, EarlyStopping,
+                                            LRScheduler)
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_config
+    from paddle_tpu_torch.observability import tracing
+    from paddle_tpu_torch.ops import flash_attention as fa
+    cfg = gpt_config("gpt2-small", max_position_embeddings=TRAIN_SEQ,
+                     hidden_dropout=0.0, attention_dropout=0.0,
+                     fused_loss=True)
+    pt.seed(0)
+    net = GPTForCausalLM(cfg, device="cuda")
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, cfg.vocab_size, (FIT_TRAIN, TRAIN_SEQ + 1))
+    eids = rs.randint(0, cfg.vocab_size, (FIT_EVAL, TRAIN_SEQ + 1))
+    x, y = ids[:, :-1], ids[:, 1:]
+    ex, ey = eids[:, :-1], eids[:, 1:]
+    train_ds = pt.io.TensorDataset([x, y])
+    eval_ds = pt.io.TensorDataset([ex, ey])
+    steps = FIT_TRAIN // FIT_BATCH
+    eval_steps = FIT_EVAL // FIT_BATCH
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="fit_", dir=out_dir)
+    try:
+        # workers: fork after CUDA is initialised, NumPy only
+        loaders = [pt.io.DataLoader(train_ds, batch_size=FIT_BATCH,
+                                    shuffle=True, num_workers=w,
+                                    device="cuda") for w in (0, 2)]
+        pt.seed(FIT_SEED)
+        serial = [b for b in loaders[0]]
+        pt.seed(FIT_SEED)
+        forked = [b for b in loaders[1]]
+        workers_equal = len(serial) == len(forked) == steps and all(
+            torch.equal(a, b) for s, f in zip(serial, forked)
+            for a, b in zip(s, f))
+        del serial, forked, loaders
+
+        # the main run: counts from 0, fit + evaluate + predict
+        model = _fit_model(net)
+        rec = _fit_recorder()
+        save_s = []
+        csv_path = os.path.join(tmp, "fit.csv")
+        cbks = [rec, LRScheduler(by_step=True),
+                EarlyStopping(monitor="eval_loss", patience=5),
+                CSVLogger(csv_path),
+                _timed_checkpoint(tmp, 2, save_s)]
+        tracing.clear()
+        tracing.enable()
+        pt.seed(FIT_SEED)
+        _reset_flash_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(train_ds, eval_data=eval_ds, batch_size=FIT_BATCH,
+                  epochs=FIT_EPOCHS, eval_freq=1, shuffle=True, verbose=0,
+                  callbacks=cbks)
+        torch.cuda.synchronize()
+        fit_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ev = model.evaluate(eval_ds, batch_size=FIT_BATCH, verbose=0)
+        eval_wall = time.perf_counter() - t0
+        pred = model.predict(pt.io.TensorDataset([ex[:2]]),
+                             batch_size=FIT_BATCH)
+        torch.cuda.synchronize()
+        launches = _flash_counts()
+        spans = {**tracing.rollup("train."), **tracing.rollup("io.")}
+        tracing.disable()
+        fit_losses = [float(v) for v in rec.losses]
+        lr_after = model._optimizer.get_lr()
+        with open(csv_path) as f:
+            csv_rows = f.read().strip().splitlines()
+
+        # a fresh Model of another init loads final.pdparams (and .pdopt)
+        pt.seed(1)
+        other = GPTForCausalLM(cfg, device="cuda")
+        fresh = _fit_model(other)
+        t0 = time.perf_counter()
+        fresh.load(os.path.join(tmp, "final"))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ev_loaded = fresh.evaluate(eval_ds, batch_size=FIT_BATCH, verbose=0)
+        loaded_step = fresh._step_count
+        del other, fresh
+        torch.cuda.empty_cache()
+
+        # the same batches by hand (M), and timed fits (F): M F F M
+        manual, m_wall1 = _manual_losses(net, init, x, y)
+        manual = [float(v) for v in manual]
+        f_wall1, _ = _timed_fit(net, init, train_ds)
+        f_wall2, _ = _timed_fit(net, init, train_ds)
+        _, m_wall2 = _manual_losses(net, init, x, y)
+        _, syncs = _timed_fit(net, init, train_ds, sync_debug=True,
+                              epochs=1)
+
+        # the twins: a shortened fit launches nothing
+        net.load_state_dict(init)
+        fa.impl = "plain"
+        try:
+            _reset_flash_counts()
+            twin = _fit_model(net)
+            rec_twin = _fit_recorder()
+            pt.seed(FIT_SEED)
+            twin.fit(pt.io.TensorDataset([x[:FIT_BATCH], y[:FIT_BATCH]]),
+                     eval_data=pt.io.TensorDataset(
+                         [ex[:FIT_BATCH], ey[:FIT_BATCH]]),
+                     batch_size=FIT_BATCH, epochs=1, verbose=0,
+                     callbacks=[rec_twin])
+            torch.cuda.synchronize()
+            twin_counts = _flash_counts()
+            twin_losses = [float(v) for v in rec_twin.losses]
+        finally:
+            fa.impl = "kernel"
+        del twin
+
+        metric = _metric_run(init, x, y, ex, ey)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    tokens = FIT_TRAIN * TRAIN_SEQ * FIT_EPOCHS
+    want_cos = 0.5 * 1e-4 * (1 + math.cos(math.pi * steps * FIT_EPOCHS /
+                                          FIT_T_MAX))
+    n_fwd = steps * FIT_EPOCHS + eval_steps * FIT_EPOCHS + eval_steps + 1
+    want = {"flash_attention_fwd": cfg.num_layers * n_fwd,
+            "flash_attention_bwd_dq": cfg.num_layers * steps * FIT_EPOCHS,
+            "flash_attention_bwd_dkv": cfg.num_layers * steps * FIT_EPOCHS}
+    epoch_mean = [float(np.mean(fit_losses[e * steps:(e + 1) * steps]))
+                  for e in range(FIT_EPOCHS)]
+    emit({"phase": "fit", "run": "main", "model": "gpt2-small",
+          "train_sequences": FIT_TRAIN, "eval_sequences": FIT_EVAL,
+          "batch": FIT_BATCH, "seq": TRAIN_SEQ, "epochs": FIT_EPOCHS,
+          "amp": "O1", "fused_loss": True,
+          "optimizer": f"AdamW(CosineAnnealingDecay(1e-4, T_max="
+                       f"{FIT_T_MAX}), wd 0.01)",
+          "fit_wall_s": fit_wall, "losses": fit_losses,
+          "manual_losses": manual,
+          "max_rel_diff_vs_manual": max(
+              abs(a - b) / abs(b) for a, b in zip(fit_losses, manual)),
+          "epoch_mean_loss": epoch_mean, "evaluate": ev,
+          "eval_tokens_per_s": FIT_EVAL * TRAIN_SEQ / eval_wall,
+          "evaluate_after_load": ev_loaded, "loaded_step": loaded_step,
+          "lr_after": lr_after, "lr_schedule_at_16": want_cos,
+          "csv_lines": len(csv_rows), "launches": launches,
+          "expected_launches": want, "spans": spans,
+          "save_s": save_s, "load_s": load_s,
+          "workers_equal": workers_equal,
+          "predict_shape": list(pred[0].shape)})
+    tps = {"M1": tokens / m_wall1, "F1": tokens / f_wall1,
+           "F2": tokens / f_wall2, "M2": tokens / m_wall2}
+    emit({"phase": "fit", "run": "fit vs manual loop (M F F M)",
+          "tokens_per_s": tps,
+          "fit_over_manual": (tps["F1"] + tps["F2"]) /
+          (tps["M1"] + tps["M2"]),
+          "sync_debug_steps": steps, "syncs": len(syncs),
+          "syncs_per_step": len(syncs) / steps, "sync_calls": syncs[:8]})
+    emit(metric)
+    checks = {
+        "launches_fit_evaluate_predict": launches == want,
+        "twin_fit_launches_nothing": all(v == 0
+                                         for v in twin_counts.values()),
+        "twin_losses_finite": all(math.isfinite(v) for v in twin_losses),
+        "losses_equal_manual_loop": fit_losses == manual,
+        "losses_finite": all(math.isfinite(v) for v in fit_losses),
+        "epoch2_mean_below_epoch1": epoch_mean[1] < epoch_mean[0],
+        "loaded_final_evaluates_same": ev_loaded == ev,
+        "loaded_step": loaded_step == steps * FIT_EPOCHS,
+        "lr_is_schedule_at_16": lr_after == want_cos,
+        "csv_two_rows": len(csv_rows) == 1 + FIT_EPOCHS,
+        "callback_order": rec.events == _expected_fit_events(
+            steps, eval_steps, FIT_EPOCHS),
+        "checkpoints_written": len(save_s) == 2,
+        "evaluate_finite": math.isfinite(ev["loss"]),
+        "predict_finite": bool(np.isfinite(pred[0]).all()) and
+        list(pred[0].shape) == [2, TRAIN_SEQ, cfg.vocab_size],
+        "workers_equal_serial": workers_equal,
+        "metric_top1_equals_recount": metric["evaluate"]["acc_top1"] ==
+        metric["recount"]["acc_top1"],
+        "metric_top5_equals_recount": metric["evaluate"]["acc_top5"] ==
+        metric["recount"]["acc_top5"],
+        "metric_drained": metric["drains"] > 0,
+        "io_next_wait_spans": spans.get("io.next_wait", {}).get(
+            "count", 0) > 0,
+    }
+    checks = {k: bool(v) for k, v in checks.items()}
+    emit({"phase": "fit_checks", "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"fit checks failed: {failed}")
+    return launches
+
+
 def _summary(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2265,6 +2718,7 @@ def main() -> None:
     phase_fleet(info, serve_ctx)
     del serve_ctx
     train_launches = phase_train()
+    phase_fit()
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     emit({"kernels": [
         _summary("paged_attention",

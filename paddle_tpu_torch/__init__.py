@@ -9,6 +9,11 @@ package imports torch, numpy and the standard library only.
 """
 
 from . import amp, inference, models, nn, ops, optimizer  # noqa: F401
+from . import io  # noqa: F401
+from . import metric  # noqa: F401
 from .core.rng import seed  # noqa: F401
 from .hapi.model import Model  # noqa: F401
+from .hapi.summary import flops, summary  # noqa: F401
+from . import hapi  # noqa: F401
+from . import callbacks  # noqa: F401
 from .inference import LLMEngine  # noqa: F401

@@ -99,10 +99,19 @@ def set_flags(flags: Mapping[str, Any]) -> None:
             f.value = value
 
 
+define_flag("check_nan_inf", False,
+            "Test every train step's loss for NaN/Inf and raise "
+            "FloatingPointError; the device loss is buffered and tested at "
+            "the next metric drain (a log boundary), not per step.")
 define_flag("default_dtype", "float32",
             "Default floating dtype for new parameters.")
 define_flag("amp_dtype", "bfloat16",
             "Compute dtype used by amp.auto_cast.")
+define_flag("recompile_warn_threshold", 8,
+            "Warn when Model train/eval steps have seen more than this "
+            "many distinct input (shape, dtype) signatures (pad or bucket "
+            "variable-length data -- see io.sequence). 0 disables the "
+            "guard.")
 define_flag("flash_attention", True,
             "Dispatch scaled_dot_product_attention to the flash kernels "
             "(B1 forward, B2 + B3 backward) when "

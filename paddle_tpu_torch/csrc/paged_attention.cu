@@ -10,9 +10,9 @@
 // kv head. int8 pools carry one float32 scale per page row ([num_pages,
 // page_size]) and are dequantized as value * scale. lens[t] == 0 gives a
 // zero row; -1 table entries are read as page 0. Scores and the softmax
-// are float32; the output has q's dtype. d is any multiple of 8, any
-// page_size and any group H / KVH (as far as one K row, the q vectors and
-// one V column slice fit the block's shared memory: d up to ~12K at f32).
+// are float32; the output has q's dtype. Any d, any page_size and any
+// group H / KVH (as far as one K row, the q vectors and one V column slice
+// fit the block's shared memory: d up to ~12K at f32).
 //
 // Bound. Decode and chunked prefill read every K/V byte of every live
 // page once and do ~4 flops per element read (QK and PV, per q head of
@@ -37,11 +37,14 @@
 //   GQA group) against each page once, each row with its own causal
 //   limit. Any other row is a run of one.
 // - Several pages per barrier. A stage holds up to 64 page rows of K and
-//   V, copied by 16-byte (or 8-byte) cp.async into rows padded by 16 bytes
-//   (conflict-free row-wise reads), two stages in flight. For QK each
-//   thread owns one page row and walks its head dim against the staged
-//   q vectors (broadcast reads); the online softmax runs a warp per q
-//   vector; for PV each thread owns fixed output elements and reads V
+//   V, copied by 16-, 8- or 4-byte cp.async (the widest that divides a
+//   row's bytes; 2- or 1-byte plain copies where none does) into rows
+//   padded by 16 bytes (conflict-free row-wise reads), two stages in
+//   flight. For QK each thread owns one page row and walks its head dim
+//   against the staged q vectors (broadcast reads), eight elements at a
+//   time (and, where d is not a multiple of 8, in an instantiation of its
+//   own, the last d % 8 one at a time); the online softmax runs a warp
+//   per q vector; for PV each thread owns fixed output elements and reads V
 //   rows with neighbouring lanes on neighbouring columns (where d divides
 //   the block, a thread's elements share one column, so a V element is
 //   read once for all of a chunk tile's q vectors). A decode block
@@ -146,7 +149,10 @@ __device__ __forceinline__ void store_f32(void* p, int64_t i, float v,
   }
 }
 
-// `bytes` (16, 8 or 4) from global to shared memory
+// `bytes` (16, 8 or 4) from global to shared memory; with kNarrow, 2 or 1
+// bytes are copied at once (the next barrier publishes them, like a
+// landed cp.async)
+template <bool kNarrow = false>
 __device__ __forceinline__ void cp_async(void* smem, const void* gmem,
                                          int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -156,10 +162,26 @@ __device__ __forceinline__ void cp_async(void* smem, const void* gmem,
   else if (bytes == 8)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
                  "l"(gmem));
-  else
+  else if (!kNarrow || bytes == 4)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                  "l"(gmem));
+  else if (bytes == 2)
+    *static_cast<uint16_t*>(smem) = *static_cast<const uint16_t*>(gmem);
+  else
+    *static_cast<uint8_t*>(smem) = *static_cast<const uint8_t*>(gmem);
 }
+
+// the widest copy (16, 8, 4, 2 or 1 bytes) that divides `bytes`
+__host__ __device__ inline int chunk_bytes(int bytes) {
+  return bytes % 16 == 0 ? 16
+         : bytes % 8 == 0 ? 8
+         : bytes % 4 == 0 ? 4
+         : bytes % 2 == 0 ? 2 : 1;
+}
+
+// float32 q elements a staged q vector takes: d rounded up to 8, so each
+// vector starts 16-byte aligned for the float4 reads
+__host__ __device__ inline int q_stride(int d) { return (d + 7) / 8 * 8; }
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -260,11 +282,13 @@ __host__ __device__ inline int row_bytes(int kv_size, int cols) {
 __host__ __device__ inline size_t smem_bytes(int kv_size, int d, int cols,
                                              int stage_rows, int max_q) {
   return 2ull * stage_rows * (row_bytes(kv_size, d) + row_bytes(kv_size, cols)) +
-         4ull * (max_q * d + max_q * kMaxRows + 4 * kMaxRows + kThreads +
+         4ull * (max_q * q_stride(d) + max_q * kMaxRows + 4 * kMaxRows + kThreads +
                  3 * max_q + kMaxRun);
 }
 
-template <typename KV>
+// kAnyD: a head dim that is not a multiple of 8 (narrow copies, a q
+// stride rounded up, QK's tail columns); a multiple of 8 runs without them
+template <typename KV, bool kAnyD>
 __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
   constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   const int pj = blockIdx.x;  // partition of the row's pages
@@ -311,7 +335,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* kv = smem;  // [stage][K rows | V rows]
   float* q_s = reinterpret_cast<float*>(smem + 2 * stage_bytes);
-  float* s_s = q_s + a.max_q * d;  // [max_q][kMaxRows]: scores, then P
+  const int qd = kAnyD ? q_stride(d) : d;
+  float* s_s = q_s + a.max_q * qd;  // [max_q][kMaxRows]: scores, then P
   float* sc_s = s_s + a.max_q * kMaxRows;  // [stage][K | V][kMaxRows]
   float* red_s = sc_s + 4 * kMaxRows;  // [kThreads]: PV partial sums
   float* m_s = red_s + kThreads;
@@ -324,11 +349,19 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
   const int64_t row_stride = static_cast<int64_t>(a.kv_heads) * d *
                              sizeof(KV);  // bytes between page rows
   const int64_t head_off = static_cast<int64_t>(kvh) * d * sizeof(KV);
-  const int kchunk = (d * sizeof(KV)) % 16 == 0 ? 16 : 8;
-  const int kchunks = d * static_cast<int>(sizeof(KV)) / kchunk;
+  // copies of a K row (all of d) and of a V row (columns c0 .. + dc),
+  // each as wide as the row's bytes and its offset allow
+  // (a multiple of 8: a V row of the block's columns never has more
+  // chunks than a K row of all of d)
+  const int kv_size = static_cast<int>(sizeof(KV));
+  const int kchunk = kAnyD ? chunk_bytes(d * kv_size)
+                           : (d * kv_size % 16 == 0 ? 16 : 8);
+  const int kchunks = d * kv_size / kchunk;
   const int vchunk =
-      kchunk == 16 && (a.cols * sizeof(KV)) % 16 == 0 ? 16 : 8;
-  const int vchunks = dc * static_cast<int>(sizeof(KV)) / vchunk;
+      kAnyD ? min(kchunk, chunk_bytes(dc * kv_size | c0 * kv_size))
+            : (kchunk == 16 && a.cols * kv_size % 16 == 0 ? 16 : 8);
+  const int vchunks = dc * kv_size / vchunk;
+  const int nchunks = kAnyD ? max(kchunks, vchunks) : kchunks;
   // stage si: first page p0, first row of that page sub, rows rows
   auto stage_of = [&](int si, int& p0, int& sub, int& rows) {
     if (a.n_sub == 1) {
@@ -346,25 +379,25 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
     stage_of(si, p0, sub, rows);
     unsigned char* kd = kv + st * stage_bytes;
     unsigned char* vd = kd + static_cast<size_t>(stage_rows) * rbk;
-    // chunk ch of a row: K's, and V's (a V row of the block's columns
-    // never has more chunks than a K row of all of d)
-    for (int i = tid; i < rows * kchunks; i += kThreads) {
-      const int rr = i / kchunks;
-      const int ch = i - rr * kchunks;
+    // chunk ch of a row: K's, and V's
+    for (int i = tid; i < rows * nchunks; i += kThreads) {
+      const int rr = i / nchunks;
+      const int ch = i - rr * nchunks;
       const int pr = sub + rr;  // row counted from the stage's first page
       const int page = max(table[p0 + pr / ps], 0);
       const int64_t g = (static_cast<int64_t>(page) * ps + pr % ps) *
                             row_stride +
                         head_off;
-      cp_async(kd + rr * rbk + ch * kchunk,
-               static_cast<const unsigned char*>(a.k_pages) + g +
-                   ch * kchunk,
-               kchunk);
+      if (!kAnyD || ch < kchunks)
+        cp_async<kAnyD>(kd + rr * rbk + ch * kchunk,
+                        static_cast<const unsigned char*>(a.k_pages) + g +
+                            ch * kchunk,
+                        kchunk);
       if (ch < vchunks)
-        cp_async(vd + rr * rbv + ch * vchunk,
-                 static_cast<const unsigned char*>(a.v_pages) + g +
-                     c0 * sizeof(KV) + ch * vchunk,
-                 vchunk);
+        cp_async<kAnyD>(vd + rr * rbv + ch * vchunk,
+                        static_cast<const unsigned char*>(a.v_pages) + g +
+                            c0 * sizeof(KV) + ch * vchunk,
+                        vchunk);
     }
     if (kQuant) {
       for (int i = tid; i < rows; i += kThreads) {
@@ -387,7 +420,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
     const int64_t src =
         (static_cast<int64_t>(r + m / gh) * a.n_heads + head0 + m % gh) * d +
         c;
-    q_s[i] = load_f32(a.q, src, a.q_dtype) * qscale;
+    q_s[m * qd + c] = load_f32(a.q, src, a.q_dtype) * qscale;
   }
   if (tid < M) {
     m_s[tid] = -INFINITY;
@@ -401,7 +434,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
   // QK: thread (kr, grp) scores stage row kr. With at least as many q
   // vectors as groups, group grp takes q vectors grp + ngrp * i over the
   // whole head dim; with fewer (decode), the groups split the head dim
-  // into dparts interleaved 8-column parts and the softmax sums them.
+  // into dparts interleaved 8-column parts and the softmax sums them;
+  // part 0 also takes the last d % 8 columns.
   const int ngrp = kThreads / stage_rows;
   const int kr = tid % stage_rows;
   const int grp = tid / stage_rows;
@@ -444,20 +478,33 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
 #pragma unroll
       for (int i = 0; i < kMaxQ / 2; ++i) s[i] = 0.f;
       const unsigned char* krow = kd + kr * rbk;
-      for (int c = 8 * dpart; c < d; c += 8 * dparts) {
+      const int d8 = kAnyD ? d & ~7 : d;
+      for (int c = 8 * dpart; c < d8; c += 8 * dparts) {
         float x[8];
         load8<KV>(x, krow + c * sizeof(KV));
 #pragma unroll
         for (int i = 0; i < kMaxQ / 2; ++i) {
           const int m = m0 + qstep * i;
           if (m >= M) break;
-          const float4 qa = *reinterpret_cast<const float4*>(q_s + m * d + c);
+          const float4 qa =
+              *reinterpret_cast<const float4*>(q_s + m * qd + c);
           const float4 qb =
-              *reinterpret_cast<const float4*>(q_s + m * d + c + 4);
+              *reinterpret_cast<const float4*>(q_s + m * qd + c + 4);
           s[i] += qa.x * x[0] + qa.y * x[1] + qa.z * x[2] + qa.w * x[3] +
                   qb.x * x[4] + qb.y * x[5] + qb.z * x[6] + qb.w * x[7];
         }
       }
+      if (kAnyD && dpart == 0)
+        for (int c = d8; c < d; ++c) {
+          const float x =
+              to_f32(*reinterpret_cast<const KV*>(krow + c * sizeof(KV)));
+#pragma unroll
+          for (int i = 0; i < kMaxQ / 2; ++i) {
+            const int m = m0 + qstep * i;
+            if (m >= M) break;
+            s[i] += q_s[m * qd + c] * x;
+          }
+        }
 #pragma unroll
       for (int i = 0; i < kMaxQ / 2; ++i) {
         const int m = m0 + qstep * i;
@@ -630,7 +677,8 @@ template <typename KV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem =
       smem_bytes(sizeof(KV), a.d, a.cols, a.stage_rows, a.max_q);
-  auto kernel = paged_attention<KV>;
+  auto kernel = a.d % 8 ? paged_attention<KV, true>
+                        : paged_attention<KV, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -656,11 +704,15 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // `part_pages` is the partition size in pages; `part_ml` [T, H, n_parts,
 // 2] and `part_acc` [T, H, n_parts, head_dim] float32 are the workspace
 // of rows that span more than one partition (n_parts = ceil(pages_per_seq
-// / part_pages); null where n_parts is 1). Takes any head_dim that is a
-// multiple of 8, any page_size and any n_heads that kv_heads divides.
-// Returns the cudaError_t of the launches (0 on success; an invalid value
-// where the shared memory a block needs exceeds the card's). Allocates
-// nothing.
+// / part_pages); null where n_parts is 1). Takes any head_dim, any
+// page_size and any n_heads that kv_heads divides; the pools must be
+// aligned to chunk_bytes(head_dim * element size), the width the rows are
+// staged in.
+// Returns kMisaligned where they are not, else the cudaError_t of the
+// launches (0 on success; an invalid value where the shared memory a
+// block needs exceeds the card's). Allocates nothing.
+constexpr int kMisaligned = -1;
+
 extern "C" int paged_attention_launch(
     const void* q, int q_dtype, const void* k_pages, const void* v_pages,
     int kv_dtype, const void* k_scales, const void* v_scales,
@@ -668,11 +720,15 @@ extern "C" int paged_attention_launch(
     void* part_acc, int num_tokens, int n_heads, int kv_heads, int head_dim,
     int page_size, int pages_per_seq, int part_pages, float scale,
     void* stream) {
-  if (head_dim <= 0 || head_dim % 8 || page_size <= 0 || kv_heads <= 0 ||
+  if (head_dim <= 0 || page_size <= 0 || kv_heads <= 0 ||
       n_heads % kv_heads || part_pages <= 0)
     return cudaErrorInvalidValue;
   const int group = n_heads / kv_heads;
   const int kv_size = kv_dtype == kF32 ? 4 : (kv_dtype == kI8 ? 1 : 2);
+  const uintptr_t align = chunk_bytes(head_dim * kv_size);
+  if (reinterpret_cast<uintptr_t>(k_pages) % align ||
+      reinterpret_cast<uintptr_t>(v_pages) % align)
+    return kMisaligned;
   Args a;
   a.q = q;
   a.k_pages = k_pages;
@@ -699,12 +755,13 @@ extern "C" int paged_attention_launch(
   // q heads of a block: within kMaxQ q vectors, kMaxElems accumulated
   // output elements and kQBudget staged q elements, the group split evenly
   const int fit_heads = max(1, min(min(kMaxQ, kMaxElems / a.cols),
-                                   kQBudget / head_dim));
+                                   kQBudget / q_stride(head_dim)));
   a.n_head_tiles = (group + fit_heads - 1) / fit_heads;
   a.head_tile = (group + a.n_head_tiles - 1) / a.n_head_tiles;
   a.run_rows = max(1, min(min(kMaxRun, kMaxQ / a.head_tile),
                           min(kMaxElems / (a.head_tile * a.cols),
-                              kQBudget / (a.head_tile * head_dim))));
+                              kQBudget / (a.head_tile *
+                                          q_stride(head_dim)))));
   a.max_q = a.run_rows * a.head_tile;
   // rows a stage holds: up to 64, two stages of K rows (all of d) and V
   // rows (the block's columns) within the budget; whole pages where one

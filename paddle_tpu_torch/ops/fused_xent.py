@@ -112,7 +112,6 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
         bias_c = None if bias is None else _chunk_rows(bias.float(), c)
         # d(loss)/d(logits) = (softmax - onehot) * g / n, 0 on ignored rows
         scale = (valid.float() * g / n).float()
-        rows = torch.arange(t, device=hidden.device)
         h_w = hidden.to(w.dtype)
         dh = torch.zeros((t, h), dtype=torch.float32, device=hidden.device)
         dw_chunks, db_chunks = [], []
@@ -122,7 +121,11 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
                                    else bias_c[i], off, v)
             p = torch.exp(logits - lse[:, None])
             col, inside = _local_labels(labels, off, c)
-            p[rows[inside], col[inside]] -= 1.0
+            # the one-hot, by a gather and scatter over every row (rows
+            # whose label lies in another chunk subtract 0): indexing by
+            # ``inside`` would sync the host on its nonzero count
+            col = col[:, None]
+            p.scatter_(1, col, p.gather(1, col) - inside[:, None].float())
             dlog_f = p * scale[:, None]                         # [T, C]
             if bias is not None:
                 db_chunks.append(dlog_f.sum(dim=0))

@@ -229,6 +229,8 @@ launches = 0
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
              torch.int8: 3}
+# paged_attention_launch's code for pools not aligned to the rows' copies
+_MISALIGNED = -1
 _launcher = None
 
 
@@ -284,9 +286,9 @@ def _check_cuda_args(q, k_pages, v_pages, tables, lens, k_scales,
             f"{k_pages.dtype} and {tuple(v_pages.shape)} {v_pages.dtype}")
     t, n_heads, d = q.shape
     n_pages, page_size, kv_heads, dk = k_pages.shape
-    if d != dk or d <= 0 or d % 8:
-        raise ValueError(f"kernel B4 takes head dims that are multiples of "
-                         f"8, got q {d}, pages {dk} (ROADMAP Queue C)")
+    if d != dk or d <= 0:
+        raise ValueError(f"q and the pages differ in head dim: q {d}, "
+                         f"pages {dk}")
     if n_heads % kv_heads:
         raise ValueError(f"{n_heads} q heads are not a multiple of "
                          f"{kv_heads} kv heads")
@@ -305,9 +307,6 @@ def _check_cuda_args(q, k_pages, v_pages, tables, lens, k_scales,
         raise ValueError(f"block_tables must be int32 [{t}, P]")
     if lens.dtype != torch.int32 or tuple(lens.shape) != (t,):
         raise ValueError(f"context_lens must be int32 [{t}]")
-    for n in ("k_pages", "v_pages"):
-        if named[n].data_ptr() % 16:
-            raise ValueError(f"{n} must be 16-byte aligned")
 
 
 def paged_attention_kernel(q, k_pages, v_pages, block_tables,
@@ -351,6 +350,10 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables,
              part_acc.data_ptr() if part_acc is not None else None,
              t, n_heads, kv_heads, d, page_size, pages_per_seq,
              part_pages, sm_scale, stream)
+    if err == _MISALIGNED:
+        raise ValueError("k_pages and v_pages must be aligned to the "
+                         "widest copy (16, 8, 4, 2 or 1 bytes) that "
+                         "divides a row")
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {err}")

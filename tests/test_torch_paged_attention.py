@@ -8,12 +8,13 @@ softmax across pages) 2e-5 for f32 pages and 2e-2 for bf16 pages, the
 JAX package's own kernel tolerances (tests/test_paged_attention.py).
 The kernel itself runs only on the card: the ``cuda``-marked tests (the
 kernel against its twin at the serving path's shapes, at long pages,
-large GQA groups and head dims above 256, and its refusal of d % 8 != 0)
-skip
-without one. On the card's machine, which has no JAX, run them alone:
+large GQA groups and head dims above 256, head dims that are not a
+multiple of 8, and pools that break the alignment of the row copies)
+skip without one. On the card's machine, which has no JAX, run them alone:
 ``python -m pytest -m cuda --noconftest tests/test_torch_paged_attention.py``."""
 
 import importlib
+import math
 
 import numpy as np
 import pytest
@@ -90,10 +91,11 @@ def test_plain_twin_matches_pallas_interpret(case):
     np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("d", [20, 80, 96])
 def test_plain_twin_matches_pallas_interpret_head_dims(d):
     """Head dims the kernel takes zero-filled to a padded width (GPT of
-    hidden 640 / 8 heads, and 96), GQA, f32 pages."""
+    hidden 640 / 8 heads, and 96), and d 20, whose last d % 8 columns the
+    kernel reads one at a time; GQA, f32 pages."""
     args = _inputs(4, 2, 8, "float32", tail=-1, seed=2, d=d)
     want = np.asarray(jpa.paged_attention_kernel(*_jax(*args),
                                                  interpret=True))
@@ -448,15 +450,89 @@ def test_kernel_matches_plain_on_card_verify_window(kv_dtype):
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_head_dims_not_a_multiple_of_8():
-    """The one shape kernel B4 refuses (the reference never admits it
-    either): d % 8 != 0. Page size, group and head dim otherwise take
-    any value."""
+@pytest.mark.parametrize("d, kv_dtype", [
+    (20, "float32"), (20, "bfloat16"), (20, "int8"), (100, "float32"),
+    (100, "int8"), (36, "float32"), (17, "bfloat16"), (13, "int8"),
+    (300, "float32")], ids=lambda v: str(v))
+def test_kernel_takes_head_dims_not_a_multiple_of_8(d, kv_dtype):
+    """Head dims that are not a multiple of 8, as the Pallas kernel
+    takes them: K/V rows staged in 4-, 2- or 1-byte copies where 16 or 8
+    do not divide a row, the last d % 8 columns of QK one at a time, and
+    above 256 output-column tiles that are not a multiple of 8. A mixed
+    run of 8 chunk rows of one sequence and 4 decode rows, 2 q heads a
+    kv head, pages of 16 (rows spanning several partitions)."""
     if not torch.cuda.is_available():
         pytest.skip("kernel B4 runs only on a CUDA card")
-    kp = torch.zeros(4, 16, 1, 36, device="cuda")
-    q = torch.zeros(1, 4, 36, device="cuda")
-    tables = torch.ones(1, 2, dtype=torch.int32, device="cuda")
-    lens = torch.ones(1, dtype=torch.int32, device="cuda")
-    with pytest.raises(ValueError, match="multiples of 8"):
-        tpa.paged_attention_kernel(q, kp, kp, tables, lens)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ps, P, n_pages = 16, 64, 1024
+    lens = list(range(300, 308)) + [1, 15, 16, 1000]
+    seqs = [0] * 8 + [1, 2, 3, 4]
+    kp = torch.randn(n_pages, ps, 2, d, generator=g, device="cuda")
+    vp = torch.randn(n_pages, ps, 2, d, generator=g, device="cuda")
+    ks = vs = None
+    if kv_dtype == "int8":
+        (kp, ks), (vp, vs) = tpa.quantize_kv(kp), tpa.quantize_kv(vp)
+    else:
+        kp, vp = kp.to(getattr(torch, kv_dtype)), vp.to(
+            getattr(torch, kv_dtype))
+    tables = _new_shape_tables(g, lens, seqs, ps, P, 0, n_pages)
+    lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(len(lens), 4, d, generator=g, device="cuda")
+    before = tpa.launches
+    got = tpa.paged_attention_kernel(q, kp, vp, tables, lt, k_scales=ks,
+                                     v_scales=vs)
+    want = tpa.paged_attention_torch(q, kp, vp, tables, lt, k_scales=ks,
+                                     v_scales=vs)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 1
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, kv_dtype, shift, ok", [
+    (64, "float32", 1, False), (64, "float32", 4, True),
+    (20, "bfloat16", 1, False), (20, "bfloat16", 4, True),
+    (13, "int8", 1, True)], ids=lambda v: str(v))
+def test_kernel_checks_pool_alignment_against_its_copies(d, kv_dtype,
+                                                         shift, ok):
+    """The launch checks the pools against the width it stages their
+    rows in (16 bytes for a 256-byte row, 8 for a 40-byte one, 1 for a
+    13-byte one): pools that start ``shift`` elements into a buffer are
+    refused with a ValueError and no launch where they break it, and
+    match the twin where they keep it."""
+    if not torch.cuda.is_available():
+        pytest.skip("kernel B4 runs only on a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dt = getattr(torch, kv_dtype)
+    shape = (64, 16, 2, d)
+    n = math.prod(shape)
+
+    def pool():
+        x = torch.randn(n + shift, generator=g, device="cuda")
+        if kv_dtype == "int8":
+            return (x * 50).to(dt)[shift:].view(shape)
+        return x.to(dt)[shift:].view(shape)
+    kp, vp = pool(), pool()
+    ks = vs = None
+    if kv_dtype == "int8":
+        ks = torch.rand(64, 16, generator=g, device="cuda") * 0.02
+        vs = torch.rand(64, 16, generator=g, device="cuda") * 0.02
+    lens = [40, 0, 17]
+    tables = _new_shape_tables(g, lens, [0, 1, 2], 16, 4, 0, 64)
+    lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(len(lens), 4, d, generator=g, device="cuda").to(
+        torch.bfloat16 if kv_dtype == "bfloat16" else torch.float32)
+    before = tpa.launches
+    if not ok:
+        with pytest.raises(ValueError, match="aligned"):
+            tpa.paged_attention_kernel(q, kp, vp, tables, lt)
+        assert tpa.launches == before
+        return
+    got = tpa.paged_attention_kernel(q, kp, vp, tables, lt, k_scales=ks,
+                                     v_scales=vs)
+    want = tpa.paged_attention_torch(q, kp, vp, tables, lt, k_scales=ks,
+                                     v_scales=vs)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 1
+    tol = 2e-2 if kv_dtype == "bfloat16" else 1e-4
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)

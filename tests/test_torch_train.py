@@ -419,9 +419,9 @@ def test_untied_fused_head_returns_transposed_lm_head():
 def test_model_refuses_what_is_not_ported():
     _, tnet = _pair()
     m = tpt.Model(tnet)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.prepare(loss=tgpt.GPTFusedPretrainingCriterion(),
-                  metrics=[object()])
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        m.fit(tpt.io.TensorDataset([np.zeros((2, 8), np.int64)] * 2),
+              checkpoint_dir="unused")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.prepare(loss=tgpt.GPTFusedPretrainingCriterion(),
                   numeric_guard=True)

@@ -27,7 +27,8 @@ the result line:
 4. flash kernels: B1, B2 and B3 the same way at the training path's
    shapes (gpt2-small bf16 and f32, llama-style GQA, cross-length, head
    dim 80, head dims 256 f32, 320 bf16 and 264 f16 in the split-d
-   kernels, and lengths 97 and 200 / 136 that end in a partial tile),
+   kernels, the train shape in f16 (GradScaler's training), and
+   lengths 97 and 200 / 136 that end in a partial tile),
    each kernel's device time (``torch.profiler``) taken in
    turns with its twin's and SDPA's (median of 3 windows of 20 calls);
 5. serve: GPT-2-small at full width (random weights from ``seed(0)``)
@@ -100,7 +101,20 @@ the result line:
    turns (M F F M) and the synchronizing calls a step makes; a dense
    head run with ``Accuracy(topk=(1, 5))`` against a host recount over
    ``predict``'s logits;
-10. a ``{"kernels": [...]}`` summary line, then the result line
+10. train_loop: the rest of the training path at the same width on
+   B1-B3: two K-4 ``train_loop_batch`` slabs against 8 ``train_batch``
+   calls (residual dropout 0.1; losses and parameters bit-identical, no
+   synchronizing call in the slab) and ``fit(steps_per_loop=4)`` with a
+   ragged tail against K 1; the numeric guard (a ``grad.nonfinite``
+   step skipped inside a slab equals the stream minus that batch, bit
+   for bit; abort; rollback escalating with no checkpoint directory;
+   step time armed and not); ``amp.GradScaler`` under float16 on B1-B3
+   against the twins, two NaN steps skipped and the scale halved;
+   ``remat``, ``scan_layers`` and both against the plain model (B1 twice
+   a layer a step under remat, its fwd+bwd peak 1 GiB lower, step time
+   in turns); ``GPTGreedyDecoder`` against ``generate``; the eight
+   other optimizers on the card against the CPU;
+11. a ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -1908,6 +1922,8 @@ def phase_flash_kernels() -> dict:
     shapes = [  # name, b, sq, sk, hq, hkv, d, dtype[, causal]
         ("train gpt2 bf16", 8, 1024, 1024, 12, 12, 64, torch.bfloat16),
         ("train gpt2 f32", 8, 1024, 1024, 12, 12, 64, torch.float32),
+        # GradScaler's float16 training (train_loop phase)
+        ("train gpt2 f16", 8, 1024, 1024, 12, 12, 64, torch.float16),
         ("gqa llama bf16", 2, 2048, 2048, 16, 4, 128, torch.bfloat16),
         ("cross 512x1024 bf16", 8, 512, 1024, 12, 12, 64, torch.bfloat16),
         # head dim 80 (hidden 640, 8 heads), run padded to 128
@@ -2309,6 +2325,12 @@ def _manual_losses(net, init, x, y):
     return losses, time.perf_counter() - t0
 
 
+def _is_sync_warning(w) -> bool:
+    """A warning of ``set_sync_debug_mode("warn")`` for one synchronizing
+    call (not its one-time notice that the mode is a prototype)."""
+    return "called a synchronizing" in str(w.message)
+
+
 def _timed_fit(net, init, ds, sync_debug=False, epochs=FIT_EPOCHS):
     """fit from ``init`` with the default callbacks (verbose 0, no
     eval): wall seconds, and with ``sync_debug`` the synchronizing CUDA
@@ -2334,7 +2356,7 @@ def _timed_fit(net, init, ds, sync_debug=False, epochs=FIT_EPOCHS):
         wall = time.perf_counter() - t0
     if sync_debug:
         syncs = [str(w.message)[:160] for w in caught
-                 if "synchroniz" in str(w.message)]
+                 if _is_sync_warning(w)]
     return wall, syncs
 
 
@@ -2693,6 +2715,580 @@ def phase_fit() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the rest of the training path: the K-step loop, the numeric guard,
+# GradScaler in float16, remat and scan_layers, the greedy decoder and
+# the other optimizers
+# ---------------------------------------------------------------------------
+
+LOOP_K, LOOP_STEPS, LOOP_FIT_TRAIN = 4, 8, 80   # fit: slabs 4, 4, 2
+GUARD_STEPS, SCALER_STEPS, REMAT_STEPS = 4, 3, 3
+DECODE_NEW, DECODE_PROMPTS = 64, (17, 60, 128, 200)
+# the 8 optimizers, card against CPU from the same float32 parameters
+# and gradients: each parameter after OPT_STEPS updates,
+# ||p_card - p_cpu|| / ||p_cpu|| within OPT_RTOL; and the updates,
+# ||delta_card - delta_cpu|| / ||delta_cpu|| over all parameters, within
+# OPT_DELTA_RTOL: a delta is read through the updated float32 parameter,
+# so it carries the rounding of p + update (1 ulp of p, ~2e-9 at |p|
+# 0.02), and where the update is that small (LarsMomentum's), an
+# update that differs in its last bit (Lamb's and LARS's per-tensor
+# norms sum up to 38.6M squares in another order on each device) flips
+# that rounding now and then
+OPT_STEPS, OPT_RTOL, OPT_DELTA_RTOL = 2, 1e-5, 1e-4
+NEW_OPTIMIZERS = ("Momentum", "Adagrad", "RMSProp", "Adadelta", "Adamax",
+                  "Lamb", "Adafactor", "LarsMomentum")
+
+
+def _syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result and the synchronizing calls it made."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message)[:160] for w in caught
+                 if _is_sync_warning(w)]
+
+
+def _loop_net(init, dev, **cfg_kw):
+    """gpt2-small at the train cell's shape on ``init``'s weights."""
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_config
+    kw = dict(max_position_embeddings=TRAIN_SEQ, hidden_dropout=0.0,
+              attention_dropout=0.0, fused_loss=True)
+    kw.update(cfg_kw)
+    net = GPTForCausalLM(gpt_config("gpt2-small", **kw), device=dev)
+    net.load_state_dict(init)
+    return net
+
+
+def _loop_model(net, guard=None, lr=1e-4):
+    """The train cell's trainer (AdamW, wd 0.01, O1) at a constant
+    rate, with the numeric guard ``guard``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.gpt import GPTFusedPretrainingCriterion
+    model = pt.Model(net)
+    model.prepare(pt.optimizer.AdamW(learning_rate=lr, parameters=net,
+                                     weight_decay=0.01),
+                  GPTFusedPretrainingCriterion(), amp_configs="O1",
+                  numeric_guard=guard)
+    return model
+
+
+def _state_equal(a, b) -> bool:
+    """Nested dicts of tensors (and ints) equal, bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_state_equal(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    return a == b
+
+
+def _params_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in
+               zip(a.network.parameters(), b.network.parameters()))
+
+
+def _timed_steps(fn, steps, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps
+
+
+def _k_loop_runs(init, ids, dev, vocab):
+    """LOOP_STEPS train_batch calls against LOOP_STEPS // LOOP_K slabs
+    from the same weights (dropout 0.1 in the residual paths, attention
+    dropout 0 so that B1-B3 run), fit at K 4 against K 1, and the
+    tokens/s of both in turns (1 4 4 1)."""
+    import paddle_tpu_torch as pt
+    xs, ys = ids[:, :, :-1], ids[:, :, 1:]
+    net = _loop_net(init, dev, hidden_dropout=0.1)
+    one = _loop_model(net)
+    pt.seed(0)
+    want = [one.train_batch([xs[i]], [ys[i]])["loss"]
+            for i in range(LOOP_STEPS)]
+    want_params = [p.detach().clone() for p in net.parameters()]
+    del one
+    net.load_state_dict(init)
+    loop = _loop_model(net)
+    pt.seed(0)
+    _reset_flash_counts()
+
+    def slabs():
+        return [lg["loss"] for s in range(0, LOOP_STEPS, LOOP_K)
+                for lg in loop.train_loop_batch([xs[s:s + LOOP_K]],
+                                                [ys[s:s + LOOP_K]])]
+    got, syncs = _syncs(slabs)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    launches = _flash_counts()
+    got = [float(v) for v in got]
+    want = [float(v) for v in want]
+    params_equal = all(torch.equal(a, b) for a, b in
+                       zip(want_params, net.parameters()))
+    del want_params
+
+    # fit(steps_per_loop=4) against fit(steps_per_loop=1): 10 steps, the
+    # last slab ragged (4, 4, 2)
+    rs = np.random.RandomState(0)
+    data = rs.randint(0, vocab, (LOOP_FIT_TRAIN, TRAIN_SEQ + 1))
+    ds = pt.io.TensorDataset([data[:, :-1], data[:, 1:]])
+    fits = {}
+    for k in (LOOP_K, 1):
+        net.load_state_dict(init)
+        model = _loop_model(net)
+        rec = _fit_recorder()
+        pt.seed(FIT_SEED)
+        model.fit(ds, batch_size=FIT_BATCH, epochs=1, shuffle=True,
+                  verbose=0, callbacks=[rec], steps_per_loop=k)
+        fits[k] = ([float(v) for v in rec.losses], rec.events)
+    # tokens/s of K 1 (train_batch) against K 4 (slabs), in turns
+    net.load_state_dict(init)
+    model = _loop_model(net)
+    runs = {1: lambda: [model.train_batch([xs[i]], [ys[i]])
+                        for i in range(LOOP_K)],
+            LOOP_K: lambda: model.train_loop_batch([xs[:LOOP_K]],
+                                                   [ys[:LOOP_K]])}
+    runs[1]()  # warm-up
+    step_s = {f"K{k}_{i}": _timed_steps(runs[k], LOOP_K, dev)
+              for i, k in enumerate((1, LOOP_K, LOOP_K, 1))}
+    # device time by kernel of a 2-step slab (dropout 0.1: the threefry
+    # masks); a short window, since the profiler's cost grows with the
+    # thousands of small kernels a step launches
+    profile = _profile(lambda: model.train_loop_batch([xs[:2]], [ys[:2]]),
+                       2, "step", phase="train_loop", run="profile",
+                       steps=2) if dev == "cuda" else None
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tps = {name: tokens / s for name, s in step_s.items()}
+    del model, loop, net
+    return {"losses": got, "train_batch_losses": want,
+            "params_equal": params_equal, "launches": launches,
+            "syncs": len(syncs), "sync_calls": syncs[:8],
+            "fit_k4_losses": fits[LOOP_K][0], "fit_k1_losses": fits[1][0],
+            "fit_events_equal": fits[LOOP_K][1] == fits[1][1],
+            "fit_steps": len(fits[LOOP_K][0]),
+            "tokens_per_s": tps,
+            "k4_over_k1": (tps["K4_1"] + tps["K4_2"]) /
+            (tps["K1_0"] + tps["K1_3"]), "profile": profile}
+
+
+def _guard_runs(init, ids, dev):
+    """The numeric guard on a K-4 slab with a grad.nonfinite fault on
+    its step 2 (0-based), against a clean guarded run with that batch
+    removed; abort and rollback escalation; step time and peak memory
+    armed against not armed."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.reliability import faults, guard
+    xs, ys = ids[:GUARD_STEPS, :, :-1], ids[:GUARD_STEPS, :, 1:]
+    net = _loop_net(init, dev)
+    out = {}
+    try:
+        faults.reset()
+        faults.enable(seed=1)
+        faults.inject("grad.nonfinite", nth=(3,))
+        model = _loop_model(net, guard.GuardPolicy(on_nonfinite="skip"))
+        _, syncs = _syncs(lambda: model.train_loop_batch([xs], [ys]))
+        verdicts = model._guard_pending[-1][0].tolist()
+        model.drain_metrics()
+        faults.reset()
+        poisoned = ([p.detach().clone() for p in net.parameters()],
+                    model._opt_state)
+        out.update(verdicts=verdicts, skipped=model._guard.n_skipped,
+                   syncs=len(syncs), sync_calls=syncs[:8])
+        del model
+        net.load_state_dict(init)
+        clean = _loop_model(net, guard.GuardPolicy(on_nonfinite="skip"))
+        for i in (0, 1, 3):
+            clean.train_batch([xs[i]], [ys[i]])
+        clean.drain_metrics()
+        out["params_equal_minus_batch"] = all(
+            torch.equal(a, b) for a, b in zip(poisoned[0],
+                                              net.parameters()))
+        out["opt_state_equal_minus_batch"] = _state_equal(
+            poisoned[1], clean._opt_state)
+        del clean, poisoned
+
+        # abort: GuardAbort with the per-tensor report
+        net.load_state_dict(init)
+        model = _loop_model(net, guard.GuardPolicy(on_nonfinite="abort"))
+        faults.enable(seed=1)
+        faults.inject("grad.nonfinite", nth=(1,))
+        try:
+            model.train_batch([xs[0]], [ys[0]])
+            model.drain_metrics()
+            out["abort"] = None
+        except guard.GuardAbort as e:
+            out["abort"] = str(e)[:240]
+        faults.reset()
+        # rollback with no checkpoint_dir escalates
+        net.load_state_dict(init)
+        model = _loop_model(net, guard.GuardPolicy(on_nonfinite="rollback"))
+        faults.enable(seed=1)
+        faults.inject("grad.nonfinite", nth=(1,))
+        try:
+            model.fit(pt.io.TensorDataset(
+                [np.asarray(xs[:2].reshape(-1, TRAIN_SEQ).cpu()),
+                 np.asarray(ys[:2].reshape(-1, TRAIN_SEQ).cpu())]),
+                      batch_size=TRAIN_BATCH, epochs=1, verbose=0,
+                      shuffle=False)
+            out["rollback"] = None
+        except guard.GuardAbort as e:
+            out["rollback"] = str(e)[:240]
+        faults.reset()
+        del model
+    finally:
+        faults.reset()
+
+    # step wall time and peak memory, guard off (U) and armed (G): U G G U
+    steps = {}
+    for i, armed in enumerate((False, True, True, False)):
+        net.load_state_dict(init)
+        model = _loop_model(net, guard.GuardPolicy() if armed else None)
+        model.train_batch([xs[0]], [ys[0]])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        steps[f"{'G' if armed else 'U'}{i}"] = _timed_steps(
+            lambda: [model.train_batch([xs[j]], [ys[j]])
+                     for j in range(GUARD_STEPS)], GUARD_STEPS, dev)
+        if dev == "cuda":
+            steps[f"peak_{'G' if armed else 'U'}{i}"] = \
+                torch.cuda.max_memory_allocated()
+        model.drain_metrics()
+        del model
+    out["step_s"] = steps
+    out["guard_over_plain"] = (steps["G1"] + steps["G2"]) / \
+        (steps["U0"] + steps["U3"])
+    del net
+    return out
+
+
+def _scaler_runs(init, ids, dev):
+    """The eager GradScaler loop under auto_cast float16: SCALER_STEPS
+    steps on B1-B3 and on their twins from the same weights, then two
+    steps whose loss is NaN (a poisoned record): parameters untouched,
+    the scale halved after the second."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.models.gpt import GPTFusedPretrainingCriterion
+    from paddle_tpu_torch.observability import metrics as obs
+    from paddle_tpu_torch.ops import flash_attention as fa
+    crit = GPTFusedPretrainingCriterion()
+    xs, ys = ids[:, :, :-1], ids[:, :, 1:]
+    seen = set()
+    real_flash = fa.flash_attention
+
+    def spy(q, k, v, **kw):
+        seen.add(str(q.dtype))
+        return real_flash(q, k, v, **kw)
+
+    def run(impl, poison_steps=0):
+        net = _loop_net(init, dev)
+        opt = pt.optimizer.AdamW(1e-4, parameters=net, weight_decay=0.01)
+        scaler = amp.GradScaler(decr_every_n_nan_or_inf=2)
+        losses, scales, unchanged = [], [], []
+        fa.impl = impl
+        fa.flash_attention = spy
+        try:
+            _reset_flash_counts()
+            for step in range(SCALER_STEPS + poison_steps):
+                before = [p.detach().clone() for p in net.parameters()] \
+                    if step >= SCALER_STEPS else None
+                with rng.key_guard(rng.split_for_step(step)), \
+                        amp.auto_cast(dtype="float16"):
+                    hidden, w = net(xs[step])
+                loss = crit(hidden, w, ys[step]).float()
+                if before is not None:
+                    loss = loss * float("nan")
+                scaler.scale(loss).backward()
+                scaler.step(opt, {k: p.grad for k, p in
+                                  net.named_parameters()})
+                opt.clear_grad()
+                losses.append(loss.detach())
+                scales.append(scaler.state_dict()["scale"])
+                if before is not None:
+                    unchanged.append(all(torch.equal(a, b) for a, b in
+                                         zip(before, net.parameters())))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            counts = _flash_counts()
+        finally:
+            fa.impl = "kernel"
+            fa.flash_attention = real_flash
+        gauge = obs.default_registry().get("amp_loss_scale").value
+        return ([float(v) for v in losses], scales, unchanged, counts,
+                gauge == scaler.state_dict()["scale"])
+
+    k_losses, scales, unchanged, k_counts, gauge_ok = run("kernel", 2)
+    p_losses, _, _, p_counts, _ = run("plain")
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(k_losses[:SCALER_STEPS], p_losses)]
+    return {"kernel_losses": k_losses[:SCALER_STEPS],
+            "plain_losses": p_losses, "rel_diff": rel,
+            "poisoned_losses": k_losses[SCALER_STEPS:], "scales": scales,
+            "poisoned_steps_left_params": unchanged,
+            "kernel_launches": k_counts, "plain_launches": p_counts,
+            "attention_dtypes": sorted(seen), "gauge_equals_scale": gauge_ok}
+
+
+def _remat_runs(init, ids, dev):
+    """REMAT_STEPS train steps of remat, scan_layers and both against
+    the plain model from the same weights (dropout 0), with B1-B3's
+    launches; the peak of one fwd+bwd with remat against without."""
+    from paddle_tpu_torch.models.gpt import GPTFusedPretrainingCriterion
+    xs, ys = ids[:, :, :-1], ids[:, :, 1:]
+    runs = {}
+    for name, kw in (("plain", {}), ("remat", {"remat": True}),
+                     ("scan", {"scan_layers": True}),
+                     ("scan+remat", {"scan_layers": True, "remat": True})):
+        net = _loop_net(init, dev, **kw)
+        model = _loop_model(net)
+        _reset_flash_counts()
+        losses = [model.train_batch([xs[i]], [ys[i]])["loss"]
+                  for i in range(REMAT_STEPS)]
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        counts = _flash_counts()
+        del model
+        peak = None
+        if dev == "cuda" and name in ("plain", "remat"):
+            net.load_state_dict(init)
+            net.train()
+            peak, _ = _peak_fwd_bwd(net, GPTFusedPretrainingCriterion(),
+                                    xs[0])
+        runs[name] = {"losses": [float(v) for v in losses],
+                      "launches": counts, "peak_fwd_bwd": peak}
+        del net
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+    # step wall time, plain (P) and remat (R) in turns: P R R P
+    nets = {"P": _loop_net(init, dev), "R": _loop_net(init, dev, remat=True)}
+    models = {k: _loop_model(n) for k, n in nets.items()}
+    for m in models.values():
+        m.train_batch([xs[0]], [ys[0]])
+    step_s = {f"{k}{i}": _timed_steps(
+        lambda: [models[k].train_batch([xs[j]], [ys[j]])
+                 for j in range(REMAT_STEPS)], REMAT_STEPS, dev)
+        for i, k in enumerate("PRRP")}
+    del models, nets
+    runs["step_s"] = step_s
+    runs["remat_over_plain"] = (step_s["R1"] + step_s["R2"]) / \
+        (step_s["P0"] + step_s["P3"])
+    base = runs["plain"]["losses"]
+    for name, r in runs.items():
+        if name in ("step_s", "remat_over_plain"):
+            continue
+        r["rel_diff"] = max(abs(a - b) / abs(b)
+                            for a, b in zip(r["losses"], base))
+        r["bit_identical"] = r["losses"] == base
+    return runs
+
+
+def _decoder_runs(init, ids, dev):
+    """GPTGreedyDecoder against generate's greedy stream, one prompt at
+    a time (DECODE_PROMPTS tokens, DECODE_NEW new tokens each)."""
+    from paddle_tpu_torch.models.gpt import GPTGreedyDecoder
+    net = _loop_net(init, dev, fused_loss=False).eval()
+    dec = GPTGreedyDecoder(net, DECODE_NEW)
+    flat = ids.reshape(-1)
+    out = []
+    _reset_flash_counts()
+    t0 = time.perf_counter()
+    for i, n in enumerate(DECODE_PROMPTS):
+        prompt = flat[i * 300:i * 300 + n][None]
+        got = dec(prompt)
+        want = net.generate(prompt, max_new_tokens=DECODE_NEW)
+        out.append(torch.equal(got.long(), want.long()))
+    wall = time.perf_counter() - t0
+    counts = _flash_counts()
+    del dec, net
+    return {"prompts": list(DECODE_PROMPTS), "new_tokens": DECODE_NEW,
+            "equal_to_generate": out, "launches": counts,
+            "wall_s_decoder_and_generate": wall}
+
+
+def _optimizer_runs(init, ids, dev):
+    """The gradients of one O1 fwd+bwd on B1-B3; each new optimizer's
+    OPT_STEPS updates on ``dev`` and on the CPU from the same
+    parameters and gradients (float32): ||delta_dev - delta_cpu|| /
+    ||delta_cpu|| over every parameter, and the state bytes."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.gpt import GPTFusedPretrainingCriterion
+    net = _loop_net(init, dev)
+    net.train()
+    with amp.auto_cast(level="O1"):
+        hidden, w = net(ids[0, :, :-1])
+    GPTFusedPretrainingCriterion()(hidden, w, ids[0, :, 1:]).float(
+    ).backward()
+    grads = {k: p.grad.detach() for k, p in net.named_parameters()}
+    params = {k: p.detach() for k, p in net.named_parameters()}
+    cpu_p = {k: v.cpu() for k, v in params.items()}
+    cpu_g = {k: v.cpu() for k, v in grads.items()}
+    out = {}
+    for name in NEW_OPTIMIZERS:
+        res, final = {}, {}
+        for where, p0, g in (("dev", params, grads),
+                             ("cpu", cpu_p, cpu_g)):
+            opt = getattr(pt.optimizer, name)()
+            p, st = dict(p0), opt.init_state(p0)
+            for step in range(OPT_STEPS):
+                p, st = opt.apply_gradients(p, g, st, step)
+            res[where] = ({k: (p[k] - p0[k]).cpu() for k in p0}, st)
+            final[where] = {k: v.cpu() for k, v in p.items()}
+        params_close = all(
+            float((final["dev"][k] - final["cpu"][k]).norm()) <=
+            OPT_RTOL * float(final["cpu"][k].norm()) for k in cpu_p)
+        del final
+        dd, dc = res["dev"][0], res["cpu"][0]
+        num = math.sqrt(sum(float((dd[k] - dc[k]).double().square().sum())
+                            for k in dc))
+        den = math.sqrt(sum(float(dc[k].double().square().sum())
+                            for k in dc))
+        state_bytes = sum(t.numel() * t.element_size() for t in
+                          _tensors(res["dev"][1]))
+        out[name] = {"params_within_rtol": params_close,
+                     "delta_rel_err": num / den if den else None,
+                     "max_abs_delta_diff": max(
+                         float((dd[k] - dc[k]).abs().max()) for k in dc),
+                     "state_bytes": state_bytes}
+        del res, dd, dc
+    del net, grads, params, cpu_p, cpu_g
+    return out
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def phase_train_loop(dev="cuda") -> dict:
+    """The rest of the training path at gpt2-small's full width on
+    B1-B3: the K-step loop, the numeric guard, GradScaler in float16,
+    remat and scan_layers, GPTGreedyDecoder and the other optimizers,
+    each against its reference on the same weights."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_config
+    cfg = gpt_config("gpt2-small", max_position_embeddings=TRAIN_SEQ,
+                     hidden_dropout=0.0, attention_dropout=0.0,
+                     fused_loss=True)
+    pt.seed(0)
+    net = GPTForCausalLM(cfg, device=dev)
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    del net
+    rs = np.random.RandomState(7)
+    ids = torch.as_tensor(rs.randint(0, cfg.vocab_size,
+                                     (LOOP_STEPS, TRAIN_BATCH,
+                                      TRAIN_SEQ + 1)), device=dev)
+    t0 = time.perf_counter()
+    loop = _k_loop_runs(init, ids, dev, cfg.vocab_size)
+    t_loop = time.perf_counter() - t0
+    profile = loop.pop("profile")
+    emit({"phase": "train_loop", "run": "K-step loop", "k": LOOP_K,
+          "steps": LOOP_STEPS, "dropout": "hidden 0.1, attention 0",
+          "seconds": t_loop, **loop})
+    if profile is not None:
+        emit(profile)
+    t0 = time.perf_counter()
+    grd = _guard_runs(init, ids, dev)
+    emit({"phase": "train_loop", "run": "numeric guard",
+          "seconds": time.perf_counter() - t0, **grd})
+    t0 = time.perf_counter()
+    scl = _scaler_runs(init, ids, dev)
+    emit({"phase": "train_loop", "run": "GradScaler float16",
+          "seconds": time.perf_counter() - t0, **scl})
+    t0 = time.perf_counter()
+    rem = _remat_runs(init, ids, dev)
+    emit({"phase": "train_loop", "run": "remat and scan_layers",
+          "seconds": time.perf_counter() - t0, **rem})
+    t0 = time.perf_counter()
+    dec = _decoder_runs(init, ids, dev)
+    emit({"phase": "train_loop", "run": "GPTGreedyDecoder",
+          "seconds": time.perf_counter() - t0, **dec})
+    t0 = time.perf_counter()
+    opt = _optimizer_runs(init, ids, dev)
+    emit({"phase": "train_loop", "run": "optimizers", "steps": OPT_STEPS,
+          "seconds": time.perf_counter() - t0, "rtol": OPT_RTOL,
+          "delta_rtol": OPT_DELTA_RTOL, "optimizers": opt})
+
+    layers = cfg.num_layers
+    per_step = {k: layers for k in ("flash_attention_fwd",
+                                    "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv")}
+    remat_want = {k: v * REMAT_STEPS for k, v in per_step.items()}
+    remat_want["flash_attention_fwd"] *= 2
+    one_gib = 1 << 30
+    checks = {
+        "k_loop_losses_equal_train_batch": loop["losses"] ==
+        loop["train_batch_losses"],
+        "k_loop_params_equal_train_batch": loop["params_equal"],
+        "k_loop_launches": loop["launches"] ==
+        {k: v * LOOP_STEPS for k, v in per_step.items()},
+        "k_loop_no_syncs": loop["syncs"] == 0,
+        "fit_k4_losses_equal_k1": loop["fit_k4_losses"] ==
+        loop["fit_k1_losses"] and loop["fit_steps"] == 10,
+        "fit_k4_events_equal_k1": loop["fit_events_equal"],
+        "losses_finite": all(math.isfinite(v) for v in loop["losses"]),
+        "guard_verdicts": grd["verdicts"] == [0, 0, 1, 0],
+        "guard_skipped_one": grd["skipped"] == 1,
+        "guard_no_syncs": grd["syncs"] == 0,
+        "guard_params_equal_minus_batch": grd["params_equal_minus_batch"],
+        "guard_opt_state_equal_minus_batch":
+            grd["opt_state_equal_minus_batch"],
+        "guard_abort_report": grd["abort"] is not None and
+        "non-finite tensors" in grd["abort"],
+        "guard_rollback_escalates": grd["rollback"] is not None and
+        "no checkpoint_dir" in grd["rollback"],
+        "scaler_losses_match_twins": max(scl["rel_diff"]) <=
+        TRAIN_LOSS_RTOL,
+        "scaler_launches": scl["kernel_launches"] ==
+        {k: v * (SCALER_STEPS + 2) for k, v in per_step.items()} and
+        all(v == 0 for v in scl["plain_launches"].values()),
+        "scaler_attention_f16": scl["attention_dtypes"] ==
+        ["torch.float16"],
+        "scaler_poison_leaves_params": scl["poisoned_steps_left_params"]
+        == [True, True],
+        "scaler_halved_after_two_bad_steps":
+            scl["scales"][SCALER_STEPS] == scl["scales"][0] and
+            scl["scales"][-1] == scl["scales"][0] / 2,
+        "scaler_gauge_equals_scale": scl["gauge_equals_scale"],
+        "remat_scan_losses_match_plain": all(
+            rem[n]["rel_diff"] <= TRAIN_LOSS_RTOL
+            for n in ("remat", "scan", "scan+remat")),
+        "remat_launches": rem["remat"]["launches"] == remat_want and
+        rem["scan+remat"]["launches"] == remat_want,
+        "scan_launches": rem["scan"]["launches"] ==
+        {k: v * REMAT_STEPS for k, v in per_step.items()},
+        "remat_peak_1GiB_lower": dev != "cuda" or
+        rem["plain"]["peak_fwd_bwd"] - rem["remat"]["peak_fwd_bwd"] >=
+        one_gib,
+        "decoder_equals_generate": all(dec["equal_to_generate"]),
+        "decoder_launches_nothing": all(
+            v == 0 for v in dec["launches"].values()),
+        "optimizers_params_match_cpu": all(
+            o["params_within_rtol"] for o in opt.values()),
+        "optimizers_updates_match_cpu": all(
+            o["delta_rel_err"] is not None and
+            o["delta_rel_err"] <= OPT_DELTA_RTOL for o in opt.values()),
+    }
+    checks = {k: bool(v) for k, v in checks.items()}
+    emit({"phase": "train_loop_checks", "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"train_loop checks failed: {failed}")
+    return loop["launches"]
+
+
 def _summary(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -2719,6 +3315,7 @@ def main() -> None:
     del serve_ctx
     train_launches = phase_train()
     phase_fit()
+    phase_train_loop()
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     emit({"kernels": [
         _summary("paged_attention",

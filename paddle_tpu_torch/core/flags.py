@@ -116,6 +116,24 @@ define_flag("flash_attention", True,
             "Dispatch scaled_dot_product_attention to the flash kernels "
             "(B1 forward, B2 + B3 backward) when "
             "flash_attention_available says the configuration fits.")
+define_flag("steps_per_loop", 1,
+            "Default number of optimizer steps Model.fit runs as ONE "
+            "train_loop_batch call over a [K, batch, ...] superbatch "
+            "(io.DataLoader.superbatches): K steps back to back with "
+            "losses and metric outputs stacked on the device and no host "
+            "sync inside the slab. K=1 keeps the per-batch path. Losses "
+            "are bit-identical to K=1 (step i of the slab runs under "
+            "rng.split_for_step(step0 + i)). fit(steps_per_loop=...) "
+            "overrides per call.",
+            validator=lambda v: v >= 1)
+define_flag("numeric_guard", False,
+            "Arm the numeric guard (reliability/guard.py) with a default "
+            "GuardPolicy() in Model.prepare when no explicit "
+            "numeric_guard= policy is passed: a finite mask over the "
+            "loss and the gradients, the global grad norm and a loss-"
+            "spike EMA computed on the device every step, tripped steps "
+            "masked to exact no-op updates. Off: the train path runs no "
+            "guard op and pays one attribute check.")
 define_flag("decode_ticks_per_dispatch", 1,
             "Default for LLMEngine(decode_ticks_per_dispatch=...): decode "
             "ticks issued back to back as one slab (a DecodeCarry loop) "

@@ -102,15 +102,19 @@ def next_key(name: str = "global") -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def key_guard(key: torch.Tensor) -> Iterator[KeyStream]:
-    """Route every :func:`next_key` in scope to a stream rooted at
-    ``key``, so that layer code (dropout) stays key-free."""
-    stream = KeyStream(key)
+def use_stream(stream: KeyStream) -> Iterator[KeyStream]:
+    """Route every :func:`next_key` in scope to ``stream``."""
     _tls.stack.append(stream)
     try:
         yield stream
     finally:
         _tls.stack.pop()
+
+
+def key_guard(key: torch.Tensor):
+    """Route every :func:`next_key` in scope to a stream rooted at
+    ``key``, so that layer code (dropout) stays key-free."""
+    return use_stream(KeyStream(key))
 
 
 def split_for_step(step: int) -> torch.Tensor:

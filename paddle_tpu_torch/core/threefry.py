@@ -72,30 +72,41 @@ def split(key, num: int = 2):
     return torch.stack([y1, y2], dim=-1)
 
 
-def random_bits(key, shape):
+def random_bits(key, shape, device=None):
     """32-bit random bits of ``shape`` for each key of the batch
-    ``key.shape[:-1]``: the result is ``key.shape[:-1] + shape``."""
+    ``key.shape[:-1]``: the result is ``key.shape[:-1] + shape``, on
+    ``device`` (the key's by default). One host key drawing bits on
+    another device enters the hash as two host ints, so no copy of it
+    reaches the device (a blocking copy would sync the host)."""
     shape = tuple(shape)
     n = math.prod(shape)
     if n >= 2 ** 32:
         raise NotImplementedError("random bits past 2**32 elements")
+    device = key.device if device is None else torch.device(device)
     counts = torch.arange(n, dtype=torch.int64,
-                          device=key.device).reshape(shape)
-    lead = key.shape[:-1]
-    k1 = key[..., 0].reshape(lead + (1,) * len(shape))
-    k2 = key[..., 1].reshape(lead + (1,) * len(shape))
+                          device=device).reshape(shape)
+    if key.device != device:
+        if key.dim() != 1:
+            raise ValueError("a batch of keys draws on the keys' device")
+        k1, k2 = key.tolist()
+    else:
+        lead = key.shape[:-1]
+        k1 = key[..., 0].reshape(lead + (1,) * len(shape))
+        k2 = key[..., 1].reshape(lead + (1,) * len(shape))
     y1, y2 = threefry_2x32(k1, k2, torch.zeros_like(counts), counts)
     return y1 ^ y2
 
 
-def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0):
+def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
+            device=None):
     """``jax.random.uniform`` in float32: 23 random mantissa bits under
-    the exponent of 1.0, shifted and scaled into [minval, maxval)."""
-    bits = random_bits(key, shape)
+    the exponent of 1.0, shifted and scaled into [minval, maxval); on
+    ``device`` as in :func:`random_bits`."""
+    bits = random_bits(key, shape, device)
     float_bits = (bits >> 9) | 0x3F800000
     floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=bits.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=bits.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

@@ -1,18 +1,32 @@
 """``Model``, the Keras-style trainer (the port's counterpart of
 ``paddle_tpu/hapi/model.py``).
 
-``prepare`` takes the optimizer, the loss, the metrics and the AMP
-configuration. ``train_batch`` runs one eager step on the network's
-device: the forward under the AMP context and under ``rng.key_guard`` of
-the step's key (``rng.split_for_step(step)``, so that dropout draws the
-JAX package's masks), the loss outside it (as in the JAX package's
-step), each metric's ``compute`` on the forward's output,
-``loss.float().backward()``, then the optimizer's ``apply_in_place`` at
-``step_idx = self._step_count``. The loss comes back as a 0-dim device
-tensor; metric outputs and the ``check_nan_inf`` loss test are buffered
-on the device and drained at log boundaries (a read of a lazy metric
-log, an epoch or eval boundary, or ``_PENDING_DRAIN_CAP`` buffered
-steps), so a step never syncs the host.
+``prepare`` takes the optimizer, the loss, the metrics, the AMP
+configuration and the numeric guard. ``train_batch`` runs one eager step
+on the network's device: the forward under the AMP context and under
+``rng.key_guard`` of the step's key (``rng.split_for_step(step)``, so
+that dropout draws the JAX package's masks), the loss outside it (as in
+the JAX package's step), each metric's ``compute`` on the forward's
+output, ``loss.float().backward()``, then the optimizer's
+``apply_in_place`` at ``step_idx = self._step_count``.
+``train_loop_batch`` runs K such steps from a ``[K, batch, ...]``
+superbatch in one call (``fit(steps_per_loop=K)``), with losses and
+metric outputs stacked on the device: its loss stream equals K
+``train_batch`` calls bit for bit. The loss comes back as a 0-dim device
+tensor; metric outputs, the ``check_nan_inf`` loss test and the guard's
+verdicts are buffered on the device and drained at log boundaries (a
+read of a lazy metric log, an epoch or eval boundary, or
+``_PENDING_DRAIN_CAP`` buffered steps), so a step never syncs the host.
+
+With the numeric guard armed (``reliability/guard.py``), each step's
+update is computed out of place and masked by the step's verdict into
+the parameters, the optimizer state (whose step counter then lives on
+the device) and the buffers: a tripped step is an exact no-op, inside a
+slab too. The policy acts on the drained verdicts; a rollback escalates
+to ``GuardAbort``, since ``fit`` has no checkpoint manager yet (A6), as
+the JAX package does without a ``checkpoint_dir``. The fault sites
+``data.poison`` and ``grad.nonfinite`` sit where the JAX package has
+them.
 
 ``fit``/``evaluate``/``predict`` drive those batches from an
 ``io.DataLoader`` (built on the network's device when given a
@@ -25,12 +39,13 @@ read the JAX package's ``.pdparams`` (a pickled NumPy state dict under
 the same names and layouts) and ``.pdopt`` (``{"state", "step"}``), so a
 file crosses between the packages in both directions.
 
-Not ported yet, each raising ``NotImplementedError`` naming its ROADMAP
+Not ported yet, raising ``NotImplementedError`` naming its ROADMAP
 item: ``fit(checkpoint_dir=, resume=, preemption_guard=)`` (A6: the
-JAX package's ``io/checkpoint.py`` is built on orbax), the fused K-step
-loop (``steps_per_loop > 1``, ``train_loop_batch``; A3.2) and the
-numeric guard (A3.4). The profiler's model-perspective buckets record
-nothing: the port has no profiler yet (A7).
+JAX package's ``io/checkpoint.py`` is built on orbax), and with it the
+guard's restore from a checkpoint. The K-step slab runs eagerly; as a
+CUDA graph it waits for a benchmark cell (A1 (a)). The profiler's
+model-perspective buckets record nothing: the port has no profiler yet
+(A7).
 """
 
 from __future__ import annotations
@@ -58,6 +73,9 @@ from ..observability import metrics as _obs
 from ..observability import perf as _perf
 from ..observability import tracing as _trace
 from ..optimizer.optimizer import Optimizer
+from ..reliability import faults as _faults
+from ..reliability import guard as _nguard
+from ..reliability.faults import FaultInjected
 from .callbacks import config_callbacks
 
 
@@ -89,8 +107,8 @@ def _train_metrics():
 
 
 def _loop_metrics():
-    """Train-loop instruments; the port fills only the drain histogram
-    (the fused K-step slab is ROADMAP A3.2)."""
+    """Fused K-step loop instruments: one slab = one ``train_loop_batch``
+    call covering K optimizer steps."""
     reg = _obs.default_registry()
     return {
         "dispatch": reg.histogram(
@@ -122,16 +140,26 @@ def _shape_signature(inputs, labels) -> Tuple:
         for a in (*inputs, *labels))
 
 
-def _nan_report_names(named: Dict[str, Dict[str, torch.Tensor]]
-                      ) -> List[str]:
-    """Names (``param.<name>``, ``buffer.<name>``) of floating tensors
-    holding a NaN or an Inf."""
-    out = []
-    for group, tensors in named.items():
-        for k, v in tensors.items():
-            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
-                out.append(f"{group}.{k}")
-    return sorted(out)
+def _device_counters(state, device):
+    """The optimizer state with its host int counters (``t``) as 0-dim
+    int32 tensors on ``device`` (filled there, no copy), so a masked
+    step can leave them unchanged without a host read."""
+    if isinstance(state, dict):
+        return {k: _device_counters(v, device) for k, v in state.items()}
+    if isinstance(state, int):
+        return torch.full((), state, dtype=torch.int32, device=device)
+    return state
+
+
+def _stack_steps(per_step):
+    """Per-step metric outputs (a tuple per metric, each a tensor or a
+    tuple of tensors) stacked along a new leading step dimension."""
+    if not per_step or not per_step[0]:
+        return ()
+    return tuple(
+        tuple(torch.stack([_as_tuple(step[m])[j] for step in per_step])
+              for j in range(len(_as_tuple(per_step[0][m]))))
+        for m in range(len(per_step[0])))
 
 
 class _FloatView:
@@ -280,6 +308,14 @@ class Model:
         # the check_nan_inf flag buffers its losses the same way
         self._metric_pending: List[Tuple] = []
         self._nan_pending: List[Tuple] = []
+        self._loop_built = False
+        # numeric guard: the policy armed at prepare(); verdicts, grad
+        # norms and losses buffered per call and drained with the
+        # metrics
+        self._guard: Optional[_nguard.GuardPolicy] = None
+        self._guard_state = None
+        self._guard_pending: List[Tuple] = []
+        self._last_batch_shapes = None
         # observability handles, created lazily on the first step
         self._obs = None
         self._obs_loop = None
@@ -291,12 +327,17 @@ class Model:
                 amp_configs=None, numeric_guard=None) -> None:
         """``amp_configs``: a level string (``"O1"``/``"O2"``, ``"O0"`` or
         None for none) or a dict {level, dtype, custom_white_list,
-        custom_black_list}. ``metrics``: a Metric or a list of them. The
-        numeric guard is not ported yet and raises."""
-        if numeric_guard:
-            raise NotImplementedError(
-                "Model.prepare(numeric_guard=...) is not ported yet "
-                "(ROADMAP A3.4: the numeric guard as torch ops)")
+        custom_black_list}. ``metrics``: a Metric or a list of them.
+        ``numeric_guard``: a ``reliability.guard.GuardPolicy`` (or True
+        for the defaults) arms the numeric guard; None falls back to the
+        ``numeric_guard`` flag."""
+        if numeric_guard is None and flags.get_flag("numeric_guard"):
+            numeric_guard = True
+        if numeric_guard is True:
+            numeric_guard = _nguard.GuardPolicy()
+        self._guard = numeric_guard or None
+        self._guard_state = None
+        self._guard_pending.clear()
         self._optimizer = optimizer
         self._loss = loss
         if metrics is None:
@@ -307,6 +348,7 @@ class Model:
         self._amp_configs = amp_configs
         self._opt_state = None
         self._train_step_built = False
+        self._loop_built = False
         self._metric_pending.clear()
         self._nan_pending.clear()
         # fresh ledger rows: the optimizer state this prepare implies
@@ -329,14 +371,17 @@ class Model:
             m = ref()
             if m is None:
                 return None
-            return {
+            out = {
                 "step_count": m._step_count,
                 "compiled_shapes": m.compiled_shape_count,
                 "pending_metric_buffers": len(m._metric_pending),
-                "loop_compiled": False,
+                "loop_compiled": m._loop_built,
                 "step_compiled": m._train_step_built,
                 "stop_training": m.stop_training,
             }
+            if m._guard is not None:
+                out["numeric_guard"] = m._guard.status()
+            return out
 
         _dbgsrv.register_status_provider(
             f"train_model_{id(self):x}", _status)
@@ -402,6 +447,11 @@ class Model:
         return {k: p for k, p in self.network.named_parameters()
                 if p.requires_grad}
 
+    def _named_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The network's tensors by group, for the non-finite reports."""
+        return {"param": dict(self.network.named_parameters()),
+                "buffer": dict(self.network.named_buffers())}
+
     def sync_weights(self):
         """The network's tensors are the trained weights (updated in
         place), so there is nothing to rebind; kept for the JAX
@@ -414,18 +464,23 @@ class Model:
         have seen (a separate XLA program each in the JAX package)."""
         return len(self._shape_signatures)
 
-    def _guard_recompiles(self, inputs, labels, kind: str = "step") -> bool:
+    def _guard_recompiles(self, inputs, labels, kind: str = "step",
+                          sig_items: Optional[Tuple] = None) -> bool:
         """Track the distinct input signatures and warn once past
         FLAGS.recompile_warn_threshold. Returns True when this batch
-        brings a new one (counted in ``train_compile_count``). Threshold
-        0 turns the guard off; the set is capped at 4096."""
+        brings a new one (counted in ``train_compile_count``). ``kind``
+        separates the per-batch step from the K-step loop (``"loop"``:
+        one signature per superbatch shape). Threshold 0 turns the guard
+        off; the set is capped at 4096."""
         thresh = flags.get_flag("recompile_warn_threshold")
         if not thresh:
             return False
         seen = self._shape_signatures
         if len(seen) >= 4096:
             return False
-        sig = (kind,) + _shape_signature(inputs, labels)
+        if sig_items is None:
+            sig_items = _shape_signature(inputs, labels)
+        sig = (kind,) + sig_items
         if sig in seen:
             return False
         seen.add(sig)
@@ -439,37 +494,86 @@ class Model:
                 f"intentional.", stacklevel=3)
         return True
 
+    # -- numeric-guard plumbing ---------------------------------------------
+    def _maybe_poison_batch(self, inputs, k: int):
+        """Fault site ``data.poison``: one check per optimizer step about
+        to run. A hit NaN-poisons that step's floating input leaves (a
+        copy; on the device, filled there) instead of raising: a corrupt
+        record riding the data stream. Reached only while faults are
+        armed."""
+        bad = []
+        for i in range(k):
+            try:
+                _faults.check("data.poison")
+            except FaultInjected:
+                bad.append(i)
+        if not bad:
+            return inputs
+
+        def poison(x):
+            if isinstance(x, torch.Tensor):
+                if not x.is_floating_point():
+                    return x
+                a = x.clone()
+                for i in ([...] if k == 1 else bad):
+                    a[i] = float("nan")
+                return a
+            a = np.array(np.asarray(x), copy=True)
+            if np.issubdtype(a.dtype, np.floating):
+                if k == 1:
+                    a[...] = np.nan
+                else:
+                    a[bad] = np.nan
+            return a
+
+        return tuple(poison(x) for x in inputs)
+
+    def _grad_poison(self, k: int) -> np.ndarray:
+        """Fault site ``grad.nonfinite``: each step's loss multiplier, 1.0
+        (an exact identity) or NaN on schedule, so the loss and every
+        gradient go non-finite inside the step."""
+        vec = np.ones((k,), np.float32)
+        if _faults.enabled():
+            for i in range(k):
+                try:
+                    _faults.check("grad.nonfinite")
+                except FaultInjected:
+                    vec[i] = np.nan
+        return vec
+
+    def _buffer_guard_outs(self, verdicts, gnorms, losses,
+                           step0: int, k: int) -> None:
+        self._guard_pending.append((verdicts, gnorms, losses, step0, k))
+        if len(self._guard_pending) >= self._PENDING_DRAIN_CAP:
+            self._drain_metric_updates()
+
+    def _guard_rollback(self, rb: "_nguard.GuardRollback"):
+        """A ``GuardRollback`` inside ``fit``: the JAX package restores
+        the newest verified checkpoint; the port's ``fit`` has no
+        checkpoint manager yet (ROADMAP A6), so the rollback escalates to
+        ``GuardAbort``, as the JAX package's does with no
+        ``checkpoint_dir``."""
+        raise self._guard.escalate(
+            rb.step, rb.kind,
+            "rollback requested but fit() has no checkpoint_dir",
+            model=self) from rb
+
     # -- batch-level API ----------------------------------------------------
-    def train_batch(self, inputs, labels=None) -> Dict[str, Any]:
-        """One optimizer step on one batch; returns ``{"loss": <0-dim
-        device tensor>}`` and the metrics' lazy values, without a host
-        sync."""
+    def _check_prepared(self) -> None:
         if self._optimizer is None or self._loss is None:
             raise RuntimeError("call prepare(optimizer, loss) before "
                                "train_batch")
-        inputs = _as_tuple(inputs)
-        labels = _as_tuple(labels) if labels is not None else ()
-        fresh_shape = self._guard_recompiles(inputs, labels)
-        if self._obs is None:
-            self._obs = _train_metrics()
-        batch_n = np.shape(inputs[0])[0] if inputs and len(
-            np.shape(inputs[0])) else 0
-        sp = _trace.start_span(
-            "train.step", attrs={"batch": batch_n,
-                                 "step": self._step_count}) \
-            if _trace.enabled() else None
-        t0 = time.perf_counter()
-        try:
-            loss, metric_outs = self._train_step(inputs, labels)
-        except BaseException as e:
-            if sp is not None:
-                sp.set_status("error")
-                sp.end()
-            _memobs.maybe_dump_oom(e, component="train")
-            raise
-        self._step_count += 1
-        dt = time.perf_counter() - t0
-        self._obs["step"].observe(dt)
+
+    def _sig_items(self, inputs, labels):
+        """The input signature, built once for the recompile guard and
+        the guard's abort fingerprint (None when neither is on)."""
+        if self._guard is None and \
+                not flags.get_flag("recompile_warn_threshold"):
+            return None
+        return _shape_signature(inputs, labels)
+
+    def _note_dispatch(self, dt: float, fresh_shape: bool, sp) -> None:
+        """The instruments every train call feeds with its wall ``dt``."""
         if _perf.enabled():
             _perf.record_phase(
                 "train", "compile" if fresh_shape else "dispatch", dt)
@@ -483,45 +587,202 @@ class Model:
                 sp.add_event("recompile", {"signature_count": len(
                     self._shape_signatures)})
             sp.end()
+        self._obs["steps"].set(self._step_count)
+
+    def train_batch(self, inputs, labels=None) -> Dict[str, Any]:
+        """One optimizer step on one batch; returns ``{"loss": <0-dim
+        device tensor>}`` and the metrics' lazy values, without a host
+        sync."""
+        self._check_prepared()
+        inputs = _as_tuple(inputs)
+        labels = _as_tuple(labels) if labels is not None else ()
+        if _faults.enabled():
+            inputs = self._maybe_poison_batch(inputs, 1)
+        sig_items = self._sig_items(inputs, labels)
+        fresh_shape = self._guard_recompiles(inputs, labels,
+                                             sig_items=sig_items)
+        if self._obs is None:
+            self._obs = _train_metrics()
+        batch_n = np.shape(inputs[0])[0] if inputs and len(
+            np.shape(inputs[0])) else 0
+        if self._guard is not None:
+            self._last_batch_shapes = list(sig_items)
+        sp = _trace.start_span(
+            "train.step", attrs={"batch": batch_n,
+                                 "step": self._step_count}) \
+            if _trace.enabled() else None
+        t0 = time.perf_counter()
+        try:
+            poison = float(self._grad_poison(1)[0]) \
+                if self._guard is not None else None
+            loss, metric_outs, verdict, gnorm = self._train_step(
+                self._to_device(inputs), self._to_device(labels),
+                self._step_count, poison)
+        except BaseException as e:
+            if sp is not None:
+                sp.set_status("error")
+                sp.end()
+            _memobs.maybe_dump_oom(e, component="train")
+            raise
+        self._step_count += 1
+        dt = time.perf_counter() - t0
+        self._obs["step"].observe(dt)
         if batch_n and dt > 0:
             self._obs["eps"].observe(batch_n / dt)
-        self._obs["steps"].set(self._step_count)
+        self._note_dispatch(dt, fresh_shape, sp)
         # the loss and metric outputs stay on the device; the metric
-        # outputs and the check_nan_inf loss test drain at a boundary
+        # outputs, the guard's verdict and the check_nan_inf loss test
+        # drain at a boundary
         logs = {"loss": loss}
-        if flags.get_flag("check_nan_inf"):
-            self._buffer_nan_check(loss, self._step_count - 1, 1)
-        self._buffer_metric_outs(metric_outs, 1)
+        if self._guard is not None:
+            self._buffer_guard_outs(verdict, gnorm, loss,
+                                    self._step_count - 1, 1)
+            self._buffer_metric_outs(metric_outs, 1, verdicts=verdict)
+        else:
+            if flags.get_flag("check_nan_inf"):
+                self._buffer_nan_check(loss, self._step_count - 1, 1)
+            self._buffer_metric_outs(metric_outs, 1)
         self._attach_metric_logs(logs)
         return logs
 
-    def _train_step(self, inputs, labels):
+    def _train_step(self, inputs, labels, step_idx: int, poison=None):
+        """One optimizer step at ``step_idx`` on device tensors: (loss,
+        metric outputs, verdict, grad norm); the last two are None unless
+        the guard is armed, when ``poison`` multiplies the loss."""
         self.network.train()
-        inputs = self._to_device(inputs)
-        labels = self._to_device(labels)
         params = self._trainable()
-        with rng.key_guard(rng.split_for_step(self._step_count)), \
+        guard = self._guard
+        # buffers the forward may write, restored on a tripped step
+        saved_bufs = [(b, b.clone()) for b in self.network.buffers()] \
+            if guard is not None else ()
+        with rng.key_guard(rng.split_for_step(step_idx)), \
                 self._amp_context():
             out = self.network(*inputs)
         loss = self._compute_loss(out, labels).float()
+        if poison is not None:
+            loss = loss * poison
         metric_outs = self._metric_outputs(out, labels)
         loss.backward()
+        loss = loss.detach()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
         built = self._opt_state is None
-        self._opt_state = self._optimizer.apply_in_place(
-            params, grads, self._opt_state, self._step_count)
+        verdict = gnorm = None
+        if guard is None:
+            self._opt_state = self._optimizer.apply_in_place(
+                params, grads, self._opt_state, step_idx)
+        else:
+            verdict, gnorm = self._guarded_update(params, grads, loss,
+                                                  step_idx, saved_bufs)
         for p in params.values():
             p.grad = None
         self._train_step_built = True
         if built and _memobs.enabled():
             self._register_memory()
-        return loss.detach(), metric_outs
+        return loss, metric_outs, verdict, gnorm
 
-    def train_loop_batch(self, inputs, labels=None):
-        raise NotImplementedError(
-            "Model.train_loop_batch (the fused K-step loop) is not ported "
-            "yet (ROADMAP A3.2: train_loop_batch as a CUDA graph)")
+    @torch.no_grad()
+    def _guarded_update(self, params, grads, loss, step_idx, saved_bufs):
+        """The guard's step: the verdict and grad norm of ``loss`` and
+        ``grads``, the update computed out of place and selected by the
+        verdict into the parameters, the optimizer state and the
+        buffers (an exact no-op when tripped), and the EMA moved."""
+        guard = self._guard
+        dev = loss.device
+        values = {k: p.detach() for k, p in params.items()}
+        if self._opt_state is None:
+            self._opt_state = self._optimizer.init_state(values)
+        self._opt_state = _device_counters(self._opt_state, dev)
+        if self._guard_state is None:
+            self._guard_state = guard.device_state(dev)
+        verdict, gnorm = guard.inspect(loss, grads, self._guard_state)
+        ok = _nguard.apply_mask(verdict, guard.mask_spikes)
+        new, new_opt = self._optimizer.apply_gradients(
+            values, grads, self._opt_state, step_idx)
+        for k, v in new.items():
+            torch.where(ok, v, values[k], out=values[k])
+        for b, old in saved_bufs:
+            torch.where(ok, b, old, out=b)
+        self._opt_state = _nguard.mask_pytree(ok, new_opt, self._opt_state)
+        self._guard_state = guard.update_state(self._guard_state, loss, ok)
+        return verdict, gnorm
+
+    def train_loop_batch(self, inputs, labels=None) -> List[Dict[str, Any]]:
+        """Run one slab of K optimizer steps from a superbatch (every
+        input and label leaf stacked ``[K, batch, ...]``, as
+        ``io.DataLoader.superbatches`` yields). Step ``i`` runs under
+        ``rng.split_for_step(step0 + i)``, so the loss stream equals K
+        ``train_batch`` calls bit for bit; losses and metric outputs
+        are stacked on the device, with no host sync in the slab. Returns
+        K log dicts of lazy values."""
+        self._check_prepared()
+        inputs = _as_tuple(inputs)
+        labels = _as_tuple(labels) if labels is not None else ()
+        k = int(np.shape(inputs[0])[0])
+        if _faults.enabled():
+            inputs = self._maybe_poison_batch(inputs, k)
+        sig_items = self._sig_items(inputs, labels)
+        fresh_shape = self._guard_recompiles(inputs, labels, kind="loop",
+                                             sig_items=sig_items)
+        if self._obs is None:
+            self._obs = _train_metrics()
+        if self._obs_loop is None:
+            self._obs_loop = _loop_metrics()
+        batch_n = np.shape(inputs[0])[1] if np.ndim(inputs[0]) > 1 else 0
+        if self._guard is not None:
+            self._last_batch_shapes = list(sig_items)
+        step0 = self._step_count
+        sp = _trace.start_span(
+            "train.dispatch", attrs={"k": k, "batch": batch_n,
+                                     "step0": step0}) \
+            if _trace.enabled() else None
+        t0 = time.perf_counter()
+        losses, outs, verdicts, gnorms = [], [], [], []
+        try:
+            poison = self._grad_poison(k) if self._guard is not None \
+                else None
+            inputs = self._to_device(inputs)
+            labels = self._to_device(labels)
+            for i in range(k):
+                loss, mo, verdict, gnorm = self._train_step(
+                    [x[i] for x in inputs], [y[i] for y in labels],
+                    step0 + i, None if poison is None else float(poison[i]))
+                self._step_count += 1
+                losses.append(loss)
+                outs.append(mo)
+                verdicts.append(verdict)
+                gnorms.append(gnorm)
+        except BaseException as e:
+            if sp is not None:
+                sp.set_status("error")
+                sp.end()
+            _memobs.maybe_dump_oom(e, component="train")
+            raise
+        self._loop_built = True
+        losses = torch.stack(losses)
+        metric_outs = _stack_steps(outs)
+        dt = time.perf_counter() - t0
+        self._obs_loop["dispatch"].observe(dt)
+        self._obs_loop["slab"].observe(k)
+        self._obs["step"].observe(dt / k)
+        if batch_n and dt > 0:
+            self._obs["eps"].observe(batch_n * k / dt)
+        self._note_dispatch(dt, fresh_shape, sp)
+        if self._guard is not None:
+            verdicts = torch.stack(verdicts)
+            self._buffer_guard_outs(verdicts, torch.stack(gnorms), losses,
+                                    step0, k)
+            self._buffer_metric_outs(metric_outs, k, verdicts=verdicts)
+        else:
+            if flags.get_flag("check_nan_inf"):
+                self._buffer_nan_check(losses, step0, k)
+            self._buffer_metric_outs(metric_outs, k)
+        out = []
+        for i in range(k):
+            logs: Dict[str, Any] = {"loss": _SlabScalar(losses, i)}
+            self._attach_metric_logs(logs)
+            out.append(logs)
+        return out
 
     # buffered outputs after which a drain runs even if nothing reads a
     # value (verbose=0 fit, long evaluate loops): bounds the device
@@ -530,34 +791,57 @@ class Model:
 
     def _buffer_nan_check(self, losses, step0: int, k: int) -> None:
         """The ``check_nan_inf`` flag, deferred: buffer the device loss
-        and test it at the next drain."""
+        and test it at the next drain; a K-step slab's report names the
+        step inside it."""
         self._nan_pending.append((losses, step0, k))
         if len(self._nan_pending) >= self._PENDING_DRAIN_CAP:
             self._drain_metric_updates()
 
-    def _drain_nan_checks(self) -> None:
-        pending, self._nan_pending = self._nan_pending, []
-        if not pending:
-            return
-        arrs = _host(torch.stack([p[0].reshape(-1) for p in pending]))
-        for arr, (_, step0, k) in zip(arrs, pending):
-            finite = np.isfinite(arr)
-            if not finite.all():
-                idx = int(np.argmin(finite))
-                bad = _nan_report_names({
-                    "param": dict(self.network.named_parameters()),
-                    "buffer": dict(self.network.named_buffers())})
-                raise FloatingPointError(
-                    f"NaN/Inf loss at step {step0 + idx}"
-                    + (f" (step {idx} of a {k}-step slab)" if k > 1
-                       else "")
-                    + f"; non-finite tensors: {bad or ['(loss only)']}")
+    def _drain_guard_checks(self) -> None:
+        """Test the buffered ``check_nan_inf`` losses (FloatingPointError)
+        and apply the guard's policy to the buffered verdicts
+        (GuardRollback / GuardAbort), each list in one host read."""
+        if self._nan_pending:
+            pending, self._nan_pending = self._nan_pending, []
+            arrs = _host(torch.cat([p[0].reshape(-1).float()
+                                    for p in pending]))
+            off = 0
+            for _, step0, k in pending:
+                finite = np.isfinite(arrs[off:off + k])
+                off += k
+                if not finite.all():
+                    from ..amp.debugging import find_nonfinite
+                    idx = int(np.argmin(finite))
+                    bad = find_nonfinite(self._named_state())
+                    raise FloatingPointError(
+                        f"NaN/Inf loss at step {step0 + idx}"
+                        + (f" (step {idx} of a {k}-step slab)" if k > 1
+                           else "")
+                        + f"; non-finite tensors: "
+                          f"{bad or ['(loss only)']}")
+        if self._guard_pending:
+            pending, self._guard_pending = self._guard_pending, []
+            arrs = _host(torch.cat([torch.stack(
+                [v.reshape(-1).float(), g.reshape(-1).float(),
+                 lo.reshape(-1).float()]) for v, g, lo, _, _ in pending],
+                dim=1))
+            off = 0
+            for _, _, _, step0, k in pending:
+                blk = arrs[:, off:off + k]
+                off += k
+                self._guard.process(blk[0].astype(np.int32), blk[1],
+                                    blk[2], step0, model=self)
 
-    def _buffer_metric_outs(self, metric_outs, nsteps: int) -> None:
+    def _buffer_metric_outs(self, metric_outs, nsteps: int,
+                            verdicts=None) -> None:
+        """``verdicts`` (guard-armed train calls) rides along so that the
+        drain drops the rows of masked steps: their forward ran on the
+        poisoned batch, and the metrics must match the clean run minus
+        that batch, as the parameters do."""
         if self._metrics:
             if len(self._metric_pending) >= self._PENDING_DRAIN_CAP:
                 self._drain_metric_updates()
-            self._metric_pending.append((metric_outs, nsteps))
+            self._metric_pending.append((metric_outs, nsteps, verdicts))
 
     def _attach_metric_logs(self, logs: Dict[str, Any]) -> None:
         for m in self._metrics:
@@ -569,8 +853,8 @@ class Model:
         """Fold every buffered device metric output into the host
         accumulators — one sync for all steps since the last drain (the
         deferral ``train_loop_drain_seconds`` measures); the buffered
-        ``check_nan_inf`` losses are tested here too and raise
-        FloatingPointError."""
+        ``check_nan_inf`` losses and guard verdicts are tested here too,
+        and raise (FloatingPointError, GuardRollback, GuardAbort)."""
         if self._metric_pending:
             sp = _trace.start_span(
                 "train.metric_drain",
@@ -579,9 +863,30 @@ class Model:
             t0 = time.perf_counter()
             try:
                 pending, self._metric_pending = self._metric_pending, []
-                for outs, nsteps in pending:
+                for outs, nsteps, verdicts in pending:
+                    keep = None
+                    if verdicts is not None:
+                        v = _host(verdicts).reshape(-1)
+                        masked = v == 1
+                        if self._guard is not None \
+                                and self._guard.mask_spikes:
+                            masked = masked | (v == 2)
+                        if masked.any():
+                            keep = ~masked
                     for m, mo in zip(self._metrics, outs):
-                        m.update_stacked(_as_tuple(mo), nsteps)
+                        mo = _as_tuple(mo)
+                        if keep is None:
+                            m.update_stacked(mo, nsteps)
+                        elif nsteps == 1:
+                            if keep[0]:
+                                m.update_stacked(mo, 1)
+                        else:
+                            # drop the masked rows; the rest keep the
+                            # per-step update
+                            mos = tuple(_host(o) for o in mo)
+                            for i in range(nsteps):
+                                if keep[i]:
+                                    m.update(*(o[i] for o in mos))
             finally:
                 if sp is not None:
                     sp.end()
@@ -593,8 +898,8 @@ class Model:
                 _perf.record_phase("train", "drain", drain_dt)
             if _goodput.enabled():
                 _goodput.note("host_gap", drain_dt)
-        if self._nan_pending:
-            self._drain_nan_checks()
+        if self._guard_pending or self._nan_pending:
+            self._drain_guard_checks()
 
     def drain_metrics(self) -> None:
         """Fold all deferred device metric outputs into the Metric
@@ -651,7 +956,7 @@ class Model:
             save_dir: Optional[str] = None, save_freq: int = 1,
             verbose: int = 2, drop_last: bool = False, shuffle: bool = True,
             num_workers: int = 0, callbacks=None,
-            steps_per_loop: int = 1,
+            steps_per_loop: Optional[int] = None,
             checkpoint_dir: Optional[str] = None,
             checkpoint_freq: Optional[int] = None,
             resume=None, keep_checkpoints: int = 5,
@@ -660,23 +965,24 @@ class Model:
             preemption_flush_budget: float = 30.0) -> None:
         """Train for ``epochs`` passes over ``train_data`` (a Dataset or
         a DataLoader), evaluating ``eval_data`` every ``eval_freq``
-        epochs, with the JAX package's callbacks and logs. Full-state
-        checkpoints (``checkpoint_dir``, ``resume``,
-        ``preemption_guard``) and ``steps_per_loop > 1`` are not ported
-        yet and raise."""
+        epochs, with the JAX package's callbacks and logs.
+        ``steps_per_loop`` (default ``FLAGS.steps_per_loop``) runs K
+        steps a ``train_loop_batch`` call over ``[K, ...]`` superbatches,
+        losses equal to K=1; a short last slab runs step by step, and the
+        callbacks see every step. Full-state checkpoints
+        (``checkpoint_dir``, ``resume``, ``preemption_guard``) are not
+        ported yet and raise."""
         if checkpoint_dir is not None or (resume is not None
                                           and resume is not False) \
                 or preemption_guard is not None:
             raise NotImplementedError(
                 "fit(checkpoint_dir=, resume=, preemption_guard=) is not "
                 "ported yet (ROADMAP A6: io/checkpoint.py)")
-        if int(steps_per_loop) > 1:
-            raise NotImplementedError(
-                "fit(steps_per_loop > 1), the fused K-step loop, is not "
-                "ported yet (ROADMAP A3.2: train_loop_batch as a CUDA "
-                "graph)")
         assert self._optimizer is not None and self._loss is not None, \
             "call prepare(optimizer, loss, ...) before fit()"
+        if steps_per_loop is None:
+            steps_per_loop = flags.get_flag("steps_per_loop")
+        k_loop = max(int(steps_per_loop), 1)
         loader = self._as_loader(train_data, batch_size, shuffle)
         eval_loader = self._as_loader(eval_data, batch_size, False) \
             if eval_data is not None else None
@@ -708,13 +1014,37 @@ class Model:
                 self._drain_metric_updates()
                 for m in self._metrics:
                     m.reset()
-                for batch in loader:
-                    inputs, labels = self._split_batch(batch)
-                    cbks.on_train_batch_begin(step)
-                    logs = self.train_batch(inputs, labels)
-                    cbks.on_train_batch_end(step, logs)
-                    step += 1
-                self._drain_metric_updates()
+                try:
+                    it = loader.superbatches(k_loop) if k_loop > 1 \
+                        else iter(loader)
+                    for batch in it:
+                        inputs, labels = self._split_batch(batch)
+                        if k_loop > 1:
+                            k = int(np.shape(inputs[0])[0])
+                            if k == k_loop:
+                                for logs in self.train_loop_batch(
+                                        inputs, labels):
+                                    cbks.on_train_batch_begin(step)
+                                    cbks.on_train_batch_end(step, logs)
+                                    step += 1
+                                continue
+                            # a ragged tail slab (< K steps) runs step
+                            # by step: the same math
+                            sub = [(tuple(x[i] for x in inputs),
+                                    tuple(y[i] for y in labels))
+                                   for i in range(k)]
+                        else:
+                            sub = [(inputs, labels)]
+                        for inp, lab in sub:
+                            cbks.on_train_batch_begin(step)
+                            logs = self.train_batch(inp, lab)
+                            cbks.on_train_batch_end(step, logs)
+                            step += 1
+                    # the tail drain inside the rollback scope: a trip
+                    # buffered by the pass's last batches escalates here
+                    self._drain_metric_updates()
+                except _nguard.GuardRollback as rb:
+                    self._guard_rollback(rb)
                 # freeze the epoch's final train logs now (an epoch
                 # boundary is a display boundary): the eval pass below
                 # resets the shared metric accumulators

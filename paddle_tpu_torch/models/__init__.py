@@ -1,5 +1,5 @@
 """Model zoo of the port (GPT in this slice)."""
 
 from .gpt import (PRESETS, GPTConfig, GPTForCausalLM,  # noqa: F401
-                  GPTFusedPretrainingCriterion, GPTModel,
+                  GPTFusedPretrainingCriterion, GPTGreedyDecoder, GPTModel,
                   GPTPretrainingCriterion, gpt_config, llama_config)

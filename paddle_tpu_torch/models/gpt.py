@@ -25,6 +25,7 @@ from ..core.device import resolve_device
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.layer import Layer, LayerList
+from ..nn.utils import checkpoint, scan_layer_stack
 from ..ops.fused_xent import fused_linear_cross_entropy
 from ..ops.rotary import apply_rotary_pos_emb, rope_tables
 
@@ -48,12 +49,12 @@ class GPTConfig:
     layer_norm_epsilon: float = 1e-5
     tie_word_embeddings: bool = True
     use_flash: bool = True
-    # remat, sequence_parallel and scan_layers are not ported yet: each
-    # raises at construction, naming the ROADMAP item that brings it
-    remat: bool = False
+    remat: bool = False        # recompute each block in the backward
+    # sequence_parallel (ring attention) is not ported yet: it raises at
+    # construction, naming its ROADMAP item
     sequence_parallel: bool = False
     ring_chunk_size: Optional[int] = None
-    scan_layers: bool = False
+    scan_layers: bool = False  # the JAX package's scan over the blocks
     fused_loss: bool = False   # training forward returns (hidden, W)
 
     def __post_init__(self):
@@ -61,13 +62,10 @@ class GPTConfig:
             self.ffn_hidden_size = 4 * self.hidden_size
         if self.num_kv_heads is None:
             self.num_kv_heads = self.num_heads
-        for flag, item in (("sequence_parallel", "ring attention"),
-                           ("scan_layers", "scan_layers and remat"),
-                           ("remat", "scan_layers and remat")):
-            if getattr(self, flag):
-                raise NotImplementedError(
-                    f"GPTConfig({flag}=True) is not ported yet "
-                    f"(ROADMAP Queue A: {item})")
+        if self.sequence_parallel:
+            raise NotImplementedError(
+                "GPTConfig(sequence_parallel=True) is not ported yet "
+                "(ROADMAP A6: ring attention)")
 
     @property
     def head_dim(self) -> int:
@@ -275,7 +273,12 @@ class GPTEmbeddings(Layer):
 
 
 class GPTModel(Layer):
-    """Transformer trunk: embeddings -> N decoder blocks -> final norm."""
+    """Transformer trunk: embeddings -> N decoder blocks -> final norm.
+    ``cfg.scan_layers`` runs the blocks as the JAX package's scan does
+    (per-layer dropout keys folded from one key,
+    ``nn.utils.scan_layer_stack``); ``cfg.remat`` recomputes each block
+    in the backward (``nn.utils.checkpoint``). With caches both take the
+    plain loop, as in the JAX package."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -290,13 +293,21 @@ class GPTModel(Layer):
         x = self.embeddings(input_ids, position_ids)
         rope_pos = position_ids if self.cfg.use_rope else None
         new_caches = [] if caches is not None else None
-        for i, layer in enumerate(self.layers):
-            if caches is not None:
-                x, c = layer(x, attn_mask=attn_mask, cache=caches[i],
-                             position_ids=rope_pos)
-                new_caches.append(c)
-            else:
-                x = layer(x, attn_mask=attn_mask, position_ids=rope_pos)
+        if self.cfg.scan_layers and caches is None:
+            x = scan_layer_stack(self.layers, x, remat=self.cfg.remat,
+                                 rng_tag="scan_trunk", attn_mask=attn_mask,
+                                 position_ids=rope_pos)
+        else:
+            for i, layer in enumerate(self.layers):
+                if caches is not None:
+                    x, c = layer(x, attn_mask=attn_mask, cache=caches[i],
+                                 position_ids=rope_pos)
+                    new_caches.append(c)
+                elif self.cfg.remat:
+                    x = checkpoint(layer, x, attn_mask=attn_mask,
+                                   position_ids=rope_pos)
+                else:
+                    x = layer(x, attn_mask=attn_mask, position_ids=rope_pos)
         x = self.ln_f(x)
         if caches is not None:
             return x, new_caches
@@ -397,6 +408,44 @@ class GPTForCausalLM(Layer):
                                        caches=caches)
             next_logits = next_logits[:, -1]
         return tokens
+
+
+class GPTGreedyDecoder(Layer):
+    """Greedy generation as one module call: prefill, then one decode
+    step per new token over the dense KV cache, the argmax staying on
+    the device (the JAX package's ``lax.scan`` loop, unrolled in eager
+    PyTorch). Returns ``[b, s + max_new_tokens]`` int32 ids."""
+
+    def __init__(self, model: GPTForCausalLM, max_new_tokens: int):
+        super().__init__()
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1 (the prefill "
+                             "always argmaxes one token)")
+        self.model = model
+        self.max_new_tokens = max_new_tokens
+
+    @torch.no_grad()
+    def forward(self, input_ids):
+        self.eval()
+        cfg = self.model.cfg
+        b, s = input_ids.shape
+        max_len = s + self.max_new_tokens
+        if max_len > cfg.max_position_embeddings:
+            raise ValueError(
+                f"prompt {s} + {self.max_new_tokens} new tokens exceeds "
+                f"max_position_embeddings {cfg.max_position_embeddings}")
+        caches = self.model.init_caches(b, max_len)
+        logits, caches = self.model(input_ids, caches=caches)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        toks = [tok]
+        for i in range(self.max_new_tokens - 1):
+            pos = torch.full((b, 1), s + i, device=input_ids.device)
+            lg, caches = self.model(tok[:, None], position_ids=pos,
+                                    caches=caches)
+            tok = torch.argmax(lg[:, -1], dim=-1)
+            toks.append(tok)
+        return torch.cat([input_ids, torch.stack(toks, dim=1)],
+                         dim=1).to(torch.int32)
 
 
 class GPTPretrainingCriterion(Layer):

@@ -60,16 +60,41 @@ def dropout(x, p: float = 0.5, training: bool = True,
     recipe of ``jax.random.bernoulli``), so that a step under the same
     ``key_guard`` drops the same elements in both packages. As there,
     ``x / keep`` divides by ``keep`` rounded to x's dtype (JAX's weak
-    type)."""
+    type). The key stays on the host and enters the hash as two ints,
+    so a step with dropout copies nothing to the device and does not
+    sync."""
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training:
             return x * (1.0 - p)
         return x
     keep = 1.0 - p
-    key = rng.next_key(rng_name).to(x.device)
-    mask = threefry.uniform(key, x.shape) < keep
+    mask = threefry.uniform(rng.next_key(rng_name), x.shape,
+                            device=x.device) < keep
     if mode == "upscale_in_train":
-        x = x / torch.tensor(keep, dtype=x.dtype, device=x.device)
+        x = x / _keep_divisor(keep, x)
+    return torch.where(mask, x, 0.0).to(x.dtype)
+
+
+def _keep_divisor(keep: float, x):
+    """``keep`` rounded to x's dtype (JAX's weak type), as a 0-dim tensor
+    filled on x's device: a tensor divisor divides (a host scalar may be
+    applied as its reciprocal), and a fill copies nothing to the
+    device."""
+    return torch.full((), keep, dtype=x.dtype, device=x.device)
+
+
+def dropout2d(x, p: float = 0.5, training: bool = True,
+              data_format: str = "NCHW"):
+    """Channel dropout: one keep draw per (sample, channel), on the key
+    ``rng.next_key()``, with the JAX package's masks (as :func:`dropout`);
+    kept channels are scaled by ``1 / (1 - p)``."""
+    if not training or p == 0.0:
+        return x
+    keep = 1.0 - p
+    shape = (x.shape[0], x.shape[1], 1, 1) if data_format == "NCHW" else \
+        (x.shape[0], 1, 1, x.shape[3])
+    mask = threefry.uniform(rng.next_key(), shape, device=x.device) < keep
+    x = x / _keep_divisor(keep, x)
     return torch.where(mask, x, 0.0).to(x.dtype)
 
 

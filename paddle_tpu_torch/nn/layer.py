@@ -23,12 +23,16 @@ class Layer(torch.nn.Module):
     def create_parameter(self, shape, dtype=None,
                          initializer: Optional[Callable] = None,
                          trainable: bool = True) -> torch.nn.Parameter:
-        """A new parameter drawn by ``initializer`` on the CPU (the
-        caller assigns it to an attribute)."""
+        """A new parameter drawn by ``initializer`` (by default the global
+        one of ``initializer.set_global_initializer``, else
+        ``XavierUniform``) on the CPU; the caller assigns it to an
+        attribute."""
+        from . import initializer as I
         dt = dtype_mod.dtype(dtype) if dtype is not None \
             else dtype_mod.get_default_dtype()
-        return torch.nn.Parameter(initializer(shape, dt),
-                                  requires_grad=trainable)
+        init = initializer or I.get_global_initializer() \
+            or I.XavierUniform()
+        return torch.nn.Parameter(init(shape, dt), requires_grad=trainable)
 
 
 class LayerList(torch.nn.ModuleList):

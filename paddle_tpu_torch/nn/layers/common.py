@@ -1,4 +1,4 @@
-"""Linear, Embedding and Dropout (the port's counterpart of
+"""Linear, Embedding, Dropout and Dropout2D (the port's counterpart of
 ``paddle_tpu/nn/layers/common.py``)."""
 
 from __future__ import annotations
@@ -20,13 +20,15 @@ class Linear(Layer):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        init_w = weight_attr if callable(weight_attr) else I.XavierUniform()
+        init_w = weight_attr if callable(weight_attr) else \
+            (I.get_global_initializer() or I.XavierUniform())
         self.weight = self.create_parameter(
             [in_features, out_features], initializer=init_w)
         if bias_attr is False:
             self.bias = None
         else:
-            init_b = bias_attr if callable(bias_attr) else I.Constant(0.0)
+            init_b = bias_attr if callable(bias_attr) else \
+                (I.get_global_bias_initializer() or I.Constant(0.0))
             self.bias = self.create_parameter([out_features],
                                               initializer=init_b)
 
@@ -57,3 +59,16 @@ class Dropout(Layer):
 
     def forward(self, x):
         return F.dropout(x, self.p, training=self.training, mode=self.mode)
+
+
+class Dropout2D(Layer):
+    """Channel dropout (:func:`~paddle_tpu_torch.nn.functional.dropout2d`)."""
+
+    def __init__(self, p: float = 0.5, data_format: str = "NCHW"):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, training=self.training,
+                           data_format=self.data_format)

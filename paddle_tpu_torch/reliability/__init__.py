@@ -12,12 +12,16 @@ package's stdlib-only modules of the same names.
   backoff-with-jitter policy (attempt budgets, per-attempt timeouts,
   composable :class:`~paddle_tpu_torch.reliability.retry.Deadline`
   objects).
-
-The numeric guard (``guard.py``) waits for ROADMAP Queue A3.4.
+- :mod:`~paddle_tpu_torch.reliability.guard` — the numeric guard:
+  on-device verdicts over each train step's loss and gradients (torch
+  ops, no host read) and the skip / rollback / abort policy applied at
+  the metric drain.
 """
 
 from . import faults  # noqa: F401
+from . import guard  # noqa: F401
 from . import retry  # noqa: F401
 from .faults import FaultInjected  # noqa: F401
 from .retry import (Deadline, DeadlineExceeded, RetryExhausted,  # noqa: F401
                     RetryPolicy, as_deadline, backoff_delay)
+from .guard import GuardAbort, GuardPolicy, GuardRollback  # noqa: F401,E402

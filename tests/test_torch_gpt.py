@@ -115,8 +115,13 @@ def test_load_reference_state_raises_on_mismatch():
 @pytest.mark.parametrize("flag", ["sequence_parallel", "scan_layers",
                                   "remat"])
 def test_unported_config_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgpt.gpt_config("gpt2-small", **{flag: True})
+    """sequence_parallel still raises naming its ROADMAP item;
+    scan_layers and remat are ported and build."""
+    if flag == "sequence_parallel":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tgpt.gpt_config("gpt2-small", **{flag: True})
+    else:
+        assert getattr(tgpt.gpt_config("gpt2-small", **{flag: True}), flag)
 
 
 def test_entry_point_needs_a_card_or_an_explicit_cpu():

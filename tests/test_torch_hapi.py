@@ -480,8 +480,8 @@ def test_summary_counts_match_jax(capsys):
 
 def test_entry_points_raise_what_is_not_there():
     """No card: a network or a device DataLoader with no ``device``
-    raises; fit's checkpointing, the fused loop and the numeric guard
-    raise naming their ROADMAP items."""
+    raises; fit's checkpointing raises naming its ROADMAP item (the
+    fused loop and the numeric guard, once raising too, now run)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tgpt.GPTForCausalLM(_tiny(tgpt))
@@ -495,7 +495,8 @@ def test_entry_points_raise_what_is_not_there():
         m.fit(ds, checkpoint_dir="unused", verbose=0)
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         m.fit(ds, resume="auto", verbose=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3.2"):
-        m.fit(ds, steps_per_loop=2, verbose=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3.4"):
-        m.prepare(loss=_tce, numeric_guard=True)
+    # the fused K-step loop and the numeric guard are ported
+    m.fit(ds, steps_per_loop=2, verbose=0)
+    assert m._loop_built
+    m.prepare(loss=_tce, numeric_guard=True)
+    assert m._guard is not None

@@ -422,11 +422,11 @@ def test_model_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         m.fit(tpt.io.TensorDataset([np.zeros((2, 8), np.int64)] * 2),
               checkpoint_dir="unused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.prepare(loss=tgpt.GPTFusedPretrainingCriterion(),
-                  numeric_guard=True)
-    with pytest.raises(NotImplementedError, match="CUDA graph"):
+    with pytest.raises(RuntimeError, match="prepare"):
         m.train_loop_batch([np.zeros((1, 2, 8), np.int64)])
     with pytest.raises(RuntimeError, match="prepare"):
         m.train_batch([np.zeros((1, 8), np.int64)])
+    # the numeric guard is ported: prepare arms it
+    m.prepare(loss=tgpt.GPTFusedPretrainingCriterion(), numeric_guard=True)
+    assert m._guard is not None
     assert len(list(m.parameters())) == len(list(tnet.parameters()))

@@ -101,7 +101,14 @@ the result line:
    turns (M F F M) and the synchronizing calls a step makes; a dense
    head run with ``Accuracy(topk=(1, 5))`` against a host recount over
    ``predict``'s logits;
-10. train_loop: the rest of the training path at the same width on
+10. checkpoint: the fit cell with full-state checkpoints: stopped after
+   step 6, resumed in a fresh Model at K 4, preempted at step 10 by a
+   ``PreemptionGuard`` (flush, exit 67), resumed at K 1; every loss
+   equal to the fit phase's uninterrupted run bit for bit, B1-B3 12
+   launches a resumed step, every manifest verified; the numeric
+   guard's rollback over a non-finite step; the stall per save beside
+   ``Model.save``'s, the commit, barrier, read and digest-check seconds;
+11. train_loop: the rest of the training path at the same width on
    B1-B3: two K-4 ``train_loop_batch`` slabs against 8 ``train_batch``
    calls (residual dropout 0.1; losses and parameters bit-identical, no
    synchronizing call in the slab) and ``fit(steps_per_loop=4)`` with a
@@ -113,8 +120,10 @@ the result line:
    ``remat``, ``scan_layers`` and both against the plain model (B1 twice
    a layer a step under remat, its fwd+bwd peak 1 GiB lower, step time
    in turns); ``GPTGreedyDecoder`` against ``generate``; the eight
-   other optimizers on the card against the CPU;
-11. a ``{"kernels": [...]}`` summary line, then the result line
+   other optimizers on the card against the CPU, over the embeddings
+   and the first two blocks;
+12. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
+   ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -1162,14 +1171,15 @@ def _migration_run(net, cfg) -> dict:
 def _control_plane_cost(net, ctx) -> dict:
     """Main-run tokens/s (direct submit) with the observability flags
     at their defaults (A) against the stream audit, goodput, memory and
-    perf ledgers all disabled (B), in turns A, B, B, A twice (a run is
-    host-bound, and its rate moves by ~10% from run to run)."""
+    perf ledgers all disabled (B), in turns A, B, B, A (a run is
+    host-bound, and its rate moves by ~10% from run to run: ten pairs
+    are ``tools/torch_control_plane_cost.py``'s work)."""
     from paddle_tpu_torch.observability import audit, goodput, memory, perf
     mods = (audit, goodput, memory, perf)
     saved = [m.enabled() for m in mods]
     runs = []
     try:
-        for turn in "ABBAABBA":
+        for turn in "ABBA":
             for m, on in zip(mods, saved):
                 (m.enable if turn == "A" and on else m.disable)()
             outs, run = _serve(net, ctx["prompts"], ctx["temps"],
@@ -2287,7 +2297,8 @@ FIT_T_MAX = 32        # CosineAnnealingDecay horizon: lr 5e-5 at step 16
 METRIC_BATCH, METRIC_STEPS = 4, 4
 
 
-def _fit_model(net, loss=None, metrics=None, amp_configs="O1"):
+def _fit_model(net, loss=None, metrics=None, amp_configs="O1",
+               numeric_guard=None):
     """The train phase's trainer (AdamW lr 1e-4, wd 0.01, AMP O1, fused
     loss) with its rate under CosineAnnealingDecay."""
     import paddle_tpu_torch as pt
@@ -2297,7 +2308,7 @@ def _fit_model(net, loss=None, metrics=None, amp_configs="O1"):
     model.prepare(pt.optimizer.AdamW(learning_rate=sched, parameters=net,
                                      weight_decay=0.01),
                   loss or GPTFusedPretrainingCriterion(), metrics=metrics,
-                  amp_configs=amp_configs)
+                  amp_configs=amp_configs, numeric_guard=numeric_guard)
     return model
 
 
@@ -2712,7 +2723,369 @@ def phase_fit() -> dict:
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise SystemExit(f"fit checks failed: {failed}")
-    return launches
+    return {"launches": launches, "losses": fit_losses, "save_s": save_s}
+
+
+# ---------------------------------------------------------------------------
+# full-state checkpoints: resume, preemption and the guard's rollback
+# ---------------------------------------------------------------------------
+
+CKPT_FREQ, CKPT_KEEP = 4, 2     # the interrupted run: a save every 4 steps
+CKPT_STOP, CKPT_PREEMPT = 6, 10  # the stop and the preemption, global steps
+CKPT_RESUME_FREQ = 8            # resumed runs: saves at 12 and 16 only
+# grad.nonfinite's 6th check poisons step 5 (data.poison NaNs floating
+# inputs only, and the GPT's inputs are token ids)
+CKPT_POISON_NTH = 6
+
+
+def _sync(dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def _ckpt_hist(name):
+    from paddle_tpu_torch.observability import metrics as obs
+    fam = obs.default_registry().get(name)
+    return (0, 0.0) if fam is None else (fam.count, fam.sum)
+
+
+def _hist_delta(before, name):
+    n, s = _ckpt_hist(name)
+    return {"count": n - before[name][0], "seconds": s - before[name][1]}
+
+
+def _timed_manager_class(ck, waits):
+    """A CheckpointManager recording the wall of each barrier the train
+    loop waits on (``close`` at fit exit, ``flush``, ``wait_until_
+    finished``) and of each restore, by stage, into ``waits``."""
+
+    class Timed(ck.CheckpointManager):
+        def _timed(self, what, fn, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                waits.setdefault(what, []).append(
+                    time.perf_counter() - t0)
+
+        def close(self):
+            return self._timed("close", super().close)
+
+        def flush(self, deadline=None):
+            return self._timed("flush", super().flush, deadline)
+
+        def wait_until_finished(self):
+            return self._timed("wait_until_finished",
+                               super().wait_until_finished)
+
+        def restore_with_state(self, step=None, like=None, verify=True):
+            return self._timed("restore", super().restore_with_state,
+                               step, like=like, verify=verify)
+    return Timed
+
+
+def _loss_tap():
+    """A callback keeping (global step, loss) in call order; losses stay
+    on the device until the run ends."""
+    from paddle_tpu_torch.callbacks import Callback
+
+    class Tap(Callback):
+        def __init__(self):
+            super().__init__()
+            self.rows = []
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self.epoch = epoch
+
+        def on_train_batch_end(self, step, logs=None):
+            self.rows.append((self.epoch * (FIT_TRAIN // FIT_BATCH)
+                              + step, logs["loss"]))
+
+        def losses(self):
+            return [(g, float(v)) for g, v in self.rows]
+    return Tap()
+
+
+def _at_step(tap, n, fn):
+    """A callback calling ``fn`` once ``tap`` has seen ``n`` steps."""
+    from paddle_tpu_torch.callbacks import Callback
+
+    class At(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            if len(tap.rows) >= n:
+                fn()
+    return At()
+
+
+def _stop():
+    raise RuntimeError("stopped by the checkpoint phase")
+
+
+def phase_checkpoint(fit=None, dev="cuda") -> dict:
+    """GPT-2-small at full width (the fit phase's configuration and
+    data) trained by ``Model.fit`` on B1-B3 with full-state checkpoints:
+    stopped after step 6 and resumed in a fresh Model at K 4, preempted
+    there by a ``PreemptionGuard`` at step 10 (flush, exit 67) and
+    resumed at K 1 to the end; every resumed loss against the fit
+    phase's uninterrupted losses, bit for bit. Then the numeric guard's
+    rollback over a poisoned batch, and every committed manifest
+    restored and verified. Reports the snapshot stall per save beside
+    ``Model.save``'s, commit, barrier, restore and verify seconds."""
+    import shutil
+    import tempfile
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed import (RESTART_EXIT_CODE,
+                                              PreemptionGuard)
+    from paddle_tpu_torch.io import checkpoint as ck
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_config
+    from paddle_tpu_torch.reliability import faults
+    from paddle_tpu_torch.reliability import guard as nguard
+    cfg = gpt_config("gpt2-small", max_position_embeddings=TRAIN_SEQ,
+                     hidden_dropout=0.0, attention_dropout=0.0,
+                     fused_loss=True)
+    pt.seed(0)
+    net = GPTForCausalLM(cfg, device=dev)
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    ids = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (FIT_TRAIN, TRAIN_SEQ + 1))
+    ds = pt.io.TensorDataset([ids[:, :-1], ids[:, 1:]])
+    steps = FIT_TRAIN // FIT_BATCH
+    total = steps * FIT_EPOCHS
+    fit_kw = dict(batch_size=FIT_BATCH, epochs=FIT_EPOCHS, shuffle=True,
+                  verbose=0)
+
+    def scramble():
+        # resumed runs start from other weights: the restore must
+        # overwrite every parameter
+        with torch.no_grad():
+            for p in net.parameters():
+                p.normal_(0.0, 0.02)
+
+    if fit is None:   # the phase alone: its own uninterrupted baseline
+        net.load_state_dict(init)
+        tap = _loss_tap()
+        pt.seed(FIT_SEED)
+        _fit_model(net).fit(ds, callbacks=[tap], **fit_kw)
+        base = [v for _, v in tap.losses()]
+        model_save_s = None
+    else:
+        base = list(fit["losses"])
+        model_save_s = fit["save_s"]
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build")
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_", dir=out_dir)
+    waits, stalls = {}, []
+    names = ("ckpt_snapshot_seconds", "checkpoint_save_seconds",
+             "checkpoint_restore_seconds")
+    before = {n: _ckpt_hist(n) for n in names}
+    real_manager = ck.CheckpointManager
+    ck.CheckpointManager = _timed_manager_class(ck, waits)
+    # every restore's read and digest check, timed apart
+    split = {"read_s": [], "verify_s": []}
+    real_read, real_diff = ck._read_step_dir, ck._digest_diff
+
+    def timed(fn, key):
+        def call(*a):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                split[key].append(time.perf_counter() - t0)
+        return call
+    ck._read_step_dir = timed(real_read, "read_s")
+    ck._digest_diff = timed(real_diff, "verify_s")
+
+    def timed_saves(model):
+        real = model._save_training_state
+
+        def save(*a, **kw):
+            t0 = time.perf_counter()
+            real(*a, **kw)
+            stalls.append(time.perf_counter() - t0)
+        model._save_training_state = save
+        return model
+
+    d = os.path.join(tmp, "resume")
+    try:
+        # 1. K 1, a save every 4 steps, stopped by a callback after step 6
+        net.load_state_dict(init)
+        tap1 = _loss_tap()
+        pt.seed(FIT_SEED)
+        stopped = False
+        try:
+            timed_saves(_fit_model(net)).fit(
+                ds, callbacks=[tap1, _at_step(tap1, CKPT_STOP, _stop)],
+                checkpoint_dir=d, checkpoint_freq=CKPT_FREQ,
+                keep_checkpoints=CKPT_KEEP, async_checkpoint=True,
+                **fit_kw)
+        except RuntimeError as e:
+            stopped = "checkpoint phase" in str(e)
+        with real_manager(d, async_save=False) as mgr:
+            after_stop = mgr.verified_steps()
+
+        # 2. a fresh Model resumes at K 4; preempted at step 10
+        scramble()
+        tap2 = _loss_tap()
+        guard = PreemptionGuard(install=False)
+        pt.seed(FIT_SEED)
+        _reset_flash_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        exit_code = None
+        try:
+            timed_saves(_fit_model(net)).fit(
+                ds, callbacks=[tap2, _at_step(tap2, CKPT_PREEMPT - 4,
+                                              guard.trigger)],
+                checkpoint_dir=d, checkpoint_freq=CKPT_RESUME_FREQ,
+                keep_checkpoints=CKPT_KEEP, resume="auto",
+                steps_per_loop=4, preemption_guard=guard, **fit_kw)
+        except SystemExit as e:
+            exit_code = e.code
+        _sync(dev)
+        wall2 = time.perf_counter() - t0
+        launches_k4 = _flash_counts()
+        with real_manager(d, async_save=False) as mgr:
+            after_preempt = mgr.verified_steps()
+
+        # 3. a fresh Model resumes at K 1 and runs to the end
+        scramble()
+        tap3 = _loss_tap()
+        pt.seed(FIT_SEED)
+        _reset_flash_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        timed_saves(_fit_model(net)).fit(
+            ds, callbacks=[tap3], checkpoint_dir=d,
+            checkpoint_freq=CKPT_RESUME_FREQ, keep_checkpoints=CKPT_KEEP,
+            resume="auto", **fit_kw)
+        _sync(dev)
+        wall3 = time.perf_counter() - t0
+        launches_k1 = _flash_counts()
+
+        # every committed manifest restores and verifies
+        verified, manifest_s = {}, []
+        with real_manager(d, async_save=False) as mgr:
+            for s in mgr.verified_steps():
+                t0 = time.perf_counter()
+                tree, state = mgr.restore_with_state(s)
+                manifest_s.append(time.perf_counter() - t0)
+                verified[s] = {k: state[k] for k in
+                               ("step", "epoch", "loader", "rng")}
+                state_bytes = ck._tree_bytes(tree)
+                del tree
+        step_dir = os.path.join(d, str(max(verified)))
+        disk_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                         for f in os.listdir(step_dir))
+        shutil.rmtree(d, ignore_errors=True)
+
+        # 4. the guard's rollback over a poisoned batch (one epoch)
+        net.load_state_dict(init)
+        tap4 = _loss_tap()
+        d4 = os.path.join(tmp, "rollback")
+        faults.reset()
+        faults.enable(seed=7)
+        faults.inject("grad.nonfinite", nth=(CKPT_POISON_NTH,))
+        pt.seed(FIT_SEED)
+        try:
+            rb_model = _fit_model(net, numeric_guard=nguard.GuardPolicy(
+                on_nonfinite="rollback", max_rollbacks=2))
+            rb_model.fit(ds, callbacks=[tap4], checkpoint_dir=d4,
+                         checkpoint_freq=CKPT_FREQ,
+                         keep_checkpoints=CKPT_KEEP,
+                         **dict(fit_kw, epochs=1))
+        finally:
+            faults.reset()
+        with real_manager(d4, async_save=False) as mgr:
+            rb_steps = mgr.verified_steps()
+            for s in rb_steps:
+                mgr.restore(s)   # raises CheckpointCorrupt on a mismatch
+        rb_losses = tap4.losses()
+    finally:
+        ck.CheckpointManager = real_manager
+        ck._read_step_dir, ck._digest_diff = real_read, real_diff
+        shutil.rmtree(tmp, ignore_errors=True)
+    del net
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+    l1, l2, l3 = tap1.losses(), tap2.losses(), tap3.losses()
+    per_step = {k: cfg.num_layers for k in
+                ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")}
+    want_k4 = {k: v * (CKPT_PREEMPT + 2 - CKPT_FREQ)
+               for k, v in per_step.items()}
+    want_k1 = {k: v * (total - CKPT_PREEMPT - 2)
+               for k, v in per_step.items()}
+    snap = _hist_delta(before, "ckpt_snapshot_seconds")
+    commit = _hist_delta(before, "checkpoint_save_seconds")
+    restore = _hist_delta(before, "checkpoint_restore_seconds")
+    emit({"phase": "checkpoint", "run": "resume and preemption",
+          "model": "gpt2-small", "batch": FIT_BATCH, "seq": TRAIN_SEQ,
+          "steps": total, "checkpoint_freq": CKPT_FREQ,
+          "resumed_checkpoint_freq": CKPT_RESUME_FREQ,
+          "stopped_after": CKPT_STOP, "preempted_at": CKPT_PREEMPT,
+          "steps_run": {"stopped": [g for g, _ in l1],
+                        "resumed_k4": [g for g, _ in l2],
+                        "resumed_k1": [g for g, _ in l3]},
+          "verified_after_stop": after_stop,
+          "verified_after_preempt": after_preempt,
+          "exit_code": exit_code, "verified": verified,
+          "launches_resumed_k4": launches_k4,
+          "launches_resumed_k1": launches_k1,
+          "wall_s": {"resumed_k4": wall2, "resumed_k1": wall3},
+          "state_bytes_per_step": state_bytes,
+          "disk_bytes_per_step": disk_bytes,
+          "stall_s_per_save": stalls,
+          "snapshot": snap, "commit": commit, "restore": restore,
+          "barrier_s": waits, "restore_with_state_s": manifest_s,
+          "restore_read_s": split["read_s"],
+          "restore_verify_s": split["verify_s"],
+          "model_save_s": model_save_s})
+    emit({"phase": "checkpoint", "run": "guard rollback",
+          "poisoned_step": CKPT_POISON_NTH - 1,
+          "losses": [[g, v if math.isfinite(v) else repr(v)]
+                     for g, v in rb_losses],
+          "rollbacks": rb_model._guard.n_rollbacks,
+          "final_step": rb_model._step_count, "verified": rb_steps})
+    checks = {
+        "stopped_by_callback": stopped,
+        "stop_left_step_4": after_stop == [CKPT_FREQ],
+        "stopped_run_equals_baseline": [v for _, v in l1] ==
+        base[:CKPT_STOP],
+        "k4_resumed_at_4": [g for g, _ in l2] ==
+        list(range(CKPT_FREQ, CKPT_PREEMPT + 2)),
+        "k4_resume_equals_baseline": [v for _, v in l2] ==
+        base[CKPT_FREQ:CKPT_PREEMPT + 2],
+        "preemption_exit_67": exit_code == RESTART_EXIT_CODE,
+        "preemption_committed_12": after_preempt[-1:] == [CKPT_PREEMPT + 2],
+        "k1_resumed_at_12": [g for g, _ in l3] ==
+        list(range(CKPT_PREEMPT + 2, total)),
+        "k1_resume_equals_baseline": [v for _, v in l3] ==
+        base[CKPT_PREEMPT + 2:],
+        "launches_12_per_resumed_step_k4": launches_k4 == want_k4,
+        "launches_12_per_resumed_step_k1": launches_k1 == want_k1,
+        "every_manifest_verifies": sorted(verified) == [12, total],
+        "final_state_bundle": verified.get(total, {}).get("loader") ==
+        {"pass": FIT_EPOCHS, "batch": 0} and
+        verified.get(total, {}).get("epoch") == FIT_EPOCHS,
+        "rollback_once": rb_model._guard.n_rollbacks == 1,
+        "rollback_final_step": rb_model._step_count == steps - 2,
+        "rollback_restored_4": CKPT_FREQ in rb_steps,
+        "rollback_ends_finite": all(math.isfinite(v)
+                                    for _, v in rb_losses[-2:]),
+        "rollback_poisoned_step_nonfinite": not math.isfinite(
+            dict(rb_losses[:steps])[CKPT_POISON_NTH - 1]),
+    }
+    if dev == "cuda":
+        checks["stall_measured"] = len(stalls) >= 3 and snap["count"] >= 3
+    checks = {k: bool(v) for k, v in checks.items()}
+    emit({"phase": "checkpoint_checks", "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"checkpoint checks failed: {failed}")
+    return {"k4": launches_k4, "k1": launches_k1}
 
 
 # ---------------------------------------------------------------------------
@@ -2735,6 +3108,9 @@ DECODE_NEW, DECODE_PROMPTS = 64, (17, 60, 128, 200)
 # norms sum up to 38.6M squares in another order on each device) flips
 # that rounding now and then
 OPT_STEPS, OPT_RTOL, OPT_DELTA_RTOL = 2, 1e-5, 1e-4
+# the comparison's depth: the embeddings, the final norm and the first
+# OPT_LAYERS of the 12 blocks, at full width (54M of 124M parameters)
+OPT_LAYERS = 2
 NEW_OPTIMIZERS = ("Momentum", "Adagrad", "RMSProp", "Adadelta", "Adamax",
                   "Lamb", "Adafactor", "LarsMomentum")
 
@@ -3119,8 +3495,10 @@ def _decoder_runs(init, ids, dev):
 def _optimizer_runs(init, ids, dev):
     """The gradients of one O1 fwd+bwd on B1-B3; each new optimizer's
     OPT_STEPS updates on ``dev`` and on the CPU from the same
-    parameters and gradients (float32): ||delta_dev - delta_cpu|| /
-    ||delta_cpu|| over every parameter, and the state bytes."""
+    parameters and gradients (float32), over the parameters outside the
+    blocks and those of the first OPT_LAYERS blocks: ||delta_dev -
+    delta_cpu|| / ||delta_cpu|| over those parameters, and the state
+    bytes."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.models.gpt import GPTFusedPretrainingCriterion
@@ -3130,8 +3508,11 @@ def _optimizer_runs(init, ids, dev):
         hidden, w = net(ids[0, :, :-1])
     GPTFusedPretrainingCriterion()(hidden, w, ids[0, :, 1:]).float(
     ).backward()
-    grads = {k: p.grad.detach() for k, p in net.named_parameters()}
-    params = {k: p.detach() for k, p in net.named_parameters()}
+    kept = [(k, p) for k, p in net.named_parameters()
+            if not re.match(r"gpt\.layers\.(\d+)\.", k) or
+            int(k.split(".")[2]) < OPT_LAYERS]
+    grads = {k: p.grad.detach() for k, p in kept}
+    params = {k: p.detach() for k, p in kept}
     cpu_p = {k: v.cpu() for k, v in params.items()}
     cpu_g = {k: v.cpu() for k, v in grads.items()}
     out = {}
@@ -3218,7 +3599,8 @@ def phase_train_loop(dev="cuda") -> dict:
     t0 = time.perf_counter()
     opt = _optimizer_runs(init, ids, dev)
     emit({"phase": "train_loop", "run": "optimizers", "steps": OPT_STEPS,
-          "seconds": time.perf_counter() - t0, "rtol": OPT_RTOL,
+          "layers": OPT_LAYERS, "seconds": time.perf_counter() - t0,
+          "rtol": OPT_RTOL,
           "delta_rtol": OPT_DELTA_RTOL, "optimizers": opt})
 
     layers = cfg.num_layers
@@ -3299,6 +3681,15 @@ def _summary(name, source, replaces, launches, case):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
     info = phase_device()
     # float32 products in full float32, bf16 products with float32
     # reductions: the JAX package's numerics
@@ -3306,16 +3697,19 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
-    phase_build()
-    head = phase_kernels()
-    flash_heads = phase_flash_kernels()
-    launches, serve_ctx = phase_serve()
-    phase_serve_http(serve_ctx)
-    phase_fleet(info, serve_ctx)
+    timed("build", phase_build)
+    head = timed("kernels", phase_kernels)
+    flash_heads = timed("flash_kernels", phase_flash_kernels)
+    launches, serve_ctx = timed("serve", phase_serve)
+    timed("serve_http", phase_serve_http, serve_ctx)
+    timed("fleet", phase_fleet, info, serve_ctx)
     del serve_ctx
-    train_launches = phase_train()
-    phase_fit()
-    phase_train_loop()
+    train_launches = timed("train", phase_train)
+    fit = timed("fit", phase_fit)
+    timed("checkpoint", phase_checkpoint, fit)
+    timed("train_loop", phase_train_loop)
+    emit({"phase": "timing", "seconds": phase_s,
+          "total_s": time.perf_counter() - t_start})
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     emit({"kernels": [
         _summary("paged_attention",

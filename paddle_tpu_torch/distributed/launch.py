@@ -1,0 +1,106 @@
+"""Multi-process launcher: ``python -m paddle_tpu_torch.distributed.launch``
+(the port's counterpart of ``paddle_tpu/distributed/launch.py``).
+
+Reference being replaced: ``python -m paddle.distributed.launch``
+(python/paddle/distributed/launch/__main__.py:18 → main.py; the
+CollectiveController spawns one process per device with a watcher that
+restarts failures — launch/controllers/collective.py, launch/job/).
+
+This launcher covers the single-host multi-process story: it spawns N
+ranks with the PADDLE_MASTER / PADDLE_TRAINER_ID / PADDLE_TRAINERS_NUM
+environment (and torch.distributed's MASTER_ADDR / MASTER_PORT / RANK /
+WORLD_SIZE), streams logs per rank, and propagates the first failure
+(optionally restarting, the elastic watcher's job). The multi-node node
+agent (``--nnodes > 1``) is not ported yet and raises."""
+
+from __future__ import annotations
+
+import argparse
+import socket
+import sys
+from typing import List, Optional
+
+
+def find_free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("", 0))
+        return s.getsockname()[1]
+
+
+def trainer_env(rank: int, nprocs: int, master: str) -> dict:
+    """The rendezvous environment every worker-launch path sets
+    (launcher generations, elastic restarts, spawn)."""
+    host, port = master.split(":")
+    return {"PADDLE_MASTER": master, "MASTER_ADDR": host,
+            "MASTER_PORT": port, "PADDLE_TRAINER_ID": str(rank),
+            "PADDLE_TRAINERS_NUM": str(nprocs), "RANK": str(rank),
+            "WORLD_SIZE": str(nprocs)}
+
+
+def launch(nproc: int, training_script: str,
+           script_args: List[str],
+           master: Optional[str] = None,
+           log_dir: Optional[str] = None,
+           max_restarts: int = 0,
+           heartbeat_timeout: Optional[float] = None,
+           env_extra: Optional[dict] = None) -> int:
+    """Spawn ``nproc`` ranks of ``training_script``; return exit code.
+
+    One code path: the ElasticManager watches every generation
+    (process liveness always; progress heartbeats when
+    ``heartbeat_timeout`` is set) and restarts failed/stalled
+    generations up to ``max_restarts`` times."""
+    from .elastic import ElasticManager
+    return ElasticManager(
+        nproc, training_script, script_args, master=master,
+        log_dir=log_dir, max_restarts=max_restarts,
+        heartbeat_timeout=heartbeat_timeout, env_extra=env_extra).run()
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="paddle_tpu_torch.distributed.launch",
+        description="single-host multi-process launcher "
+                    "(ref: python -m paddle.distributed.launch)")
+    parser.add_argument("--nproc_per_node", type=int, default=1)
+    parser.add_argument("--master", type=str, default=None,
+                        help="host:port rendezvous (default: free port)")
+    parser.add_argument("--log_dir", type=str, default=None)
+    parser.add_argument("--max_restarts", type=int, default=0)
+    parser.add_argument("--heartbeat_timeout", type=float, default=None,
+                        help="restart the job if no rank heartbeats for "
+                             "this many seconds (elastic stall watch)")
+    parser.add_argument("--nnodes", type=int, default=1,
+                        help="number of nodes; >1 runs this process as "
+                             "the node agent for --node_rank (ref: "
+                             "launch/controllers/collective.py Pod)")
+    parser.add_argument("--node_rank", type=int, default=0)
+    parser.add_argument("--rdzv_dir", type=str, default=None,
+                        help="shared rendezvous directory (file "
+                             "backend; NFS/GCS-fuse on pods)")
+    parser.add_argument("--rdzv_backend", type=str, default="file",
+                        choices=("file", "tcp"),
+                        help="rendezvous store: 'file' (shared dir) or "
+                             "'tcp' (rank-0-hosted socket store, ref: "
+                             "distributed/store/tcp_store.h)")
+    parser.add_argument("--rdzv_endpoint", type=str, default=None,
+                        help="host:port of the tcp store (leader binds "
+                             "the port; peers connect)")
+    parser.add_argument("--node_timeout", type=float, default=10.0,
+                        help="seconds without a peer agent heartbeat "
+                             "before declaring the node lost")
+    parser.add_argument("training_script")
+    parser.add_argument("script_args", nargs=argparse.REMAINDER)
+    args = parser.parse_args(argv)
+    if args.nnodes > 1:
+        raise NotImplementedError(
+            "--nnodes > 1 (the multi-node NodeAgent of "
+            "distributed/multinode.py) is not ported yet (ROADMAP A6.3)")
+    return launch(args.nproc_per_node, args.training_script,
+                  args.script_args, master=args.master,
+                  log_dir=args.log_dir, max_restarts=args.max_restarts,
+                  heartbeat_timeout=args.heartbeat_timeout)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -22,11 +22,12 @@ With the numeric guard armed (``reliability/guard.py``), each step's
 update is computed out of place and masked by the step's verdict into
 the parameters, the optimizer state (whose step counter then lives on
 the device) and the buffers: a tripped step is an exact no-op, inside a
-slab too. The policy acts on the drained verdicts; a rollback escalates
-to ``GuardAbort``, since ``fit`` has no checkpoint manager yet (A6), as
-the JAX package does without a ``checkpoint_dir``. The fault sites
-``data.poison`` and ``grad.nonfinite`` sit where the JAX package has
-them.
+slab too. The policy acts on the drained verdicts; inside ``fit`` with a
+``checkpoint_dir`` a rollback restores the newest verified checkpoint at
+or below the trip and fast-forwards the loader cursor past the poisoned
+batches, and without one it escalates to ``GuardAbort``, as in the JAX
+package. The fault sites ``data.poison`` and ``grad.nonfinite`` sit
+where the JAX package has them.
 
 ``fit``/``evaluate``/``predict`` drive those batches from an
 ``io.DataLoader`` (built on the network's device when given a
@@ -39,17 +40,29 @@ read the JAX package's ``.pdparams`` (a pickled NumPy state dict under
 the same names and layouts) and ``.pdopt`` (``{"state", "step"}``), so a
 file crosses between the packages in both directions.
 
-Not ported yet, raising ``NotImplementedError`` naming its ROADMAP
-item: ``fit(checkpoint_dir=, resume=, preemption_guard=)`` (A6: the
-JAX package's ``io/checkpoint.py`` is built on orbax), and with it the
-guard's restore from a checkpoint. The K-step slab runs eagerly; as a
-CUDA graph it waits for a benchmark cell (A1 (a)). The profiler's
-model-perspective buckets record nothing: the port has no profiler yet
-(A7).
+Preemption-safe training: ``fit(checkpoint_dir=...)`` checkpoints the
+complete training state through ``io.checkpoint.CheckpointManager`` —
+the parameters, the optimizer state (AMP's float32 master weights
+included), the buffers and the guard's EMA carry as the array tree, and
+a manifest ``state`` bundle with the JAX package's fields: ``step``,
+``epoch``, the loader cursor, ``rng`` (the seed and the two uint32
+words of the base key) and ``metrics`` (the metric accumulators,
+pickled; the port's own objects, so this one field does not cross
+between the packages). ``resume`` restores it into the live tensors
+(``copy_``, so the network, the optimizer and the master weights keep
+their references) and continues with a loss stream bit-identical to the
+uninterrupted run at any ``steps_per_loop``; a ``PreemptionGuard`` is
+polled at step boundaries and flushes a final checkpoint under a
+deadline before exiting ``RESTART_EXIT_CODE``.
+
+The K-step slab runs eagerly; as a CUDA graph it waits for a benchmark
+cell (A1 (a)). The profiler's model-perspective buckets record nothing:
+the port has no profiler yet (A7).
 """
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import math
 import os
@@ -149,6 +162,37 @@ def _device_counters(state, device):
     if isinstance(state, int):
         return torch.full((), state, dtype=torch.int32, device=device)
     return state
+
+
+def _copy_into(live, src, where: str):
+    """Copy the restored tree ``src`` into the live tree ``live`` (same
+    structure): tensors in place, host ints as ints; returns the live
+    tree (a host int counter is replaced, not mutated)."""
+    if isinstance(live, dict):
+        if not isinstance(src, dict) or set(live) != set(src):
+            raise ValueError(
+                f"checkpoint {where}: keys {sorted(map(str, src))} do not "
+                f"match the model's {sorted(map(str, live))}")
+        return {k: _copy_into(v, src[k], f"{where}.{k}")
+                for k, v in live.items()}
+    if isinstance(live, (list, tuple)):
+        if not isinstance(src, (list, tuple)) or len(src) != len(live):
+            raise ValueError(f"checkpoint {where}: {src!r:.80} does not "
+                             f"match the model's {len(live)} entries")
+        return type(live)(_copy_into(v, w, f"{where}[{i}]")
+                          for i, (v, w) in enumerate(zip(live, src)))
+    if isinstance(live, torch.Tensor):
+        src = torch.as_tensor(src)
+        if tuple(src.shape) != tuple(live.shape):
+            raise ValueError(
+                f"checkpoint {where}: shape {tuple(src.shape)} does not "
+                f"match the model's {tuple(live.shape)}")
+        with torch.no_grad():
+            live.copy_(src)
+        return live
+    if isinstance(live, int):
+        return int(src)
+    return src
 
 
 def _stack_steps(per_step):
@@ -547,17 +591,6 @@ class Model:
         if len(self._guard_pending) >= self._PENDING_DRAIN_CAP:
             self._drain_metric_updates()
 
-    def _guard_rollback(self, rb: "_nguard.GuardRollback"):
-        """A ``GuardRollback`` inside ``fit``: the JAX package restores
-        the newest verified checkpoint; the port's ``fit`` has no
-        checkpoint manager yet (ROADMAP A6), so the rollback escalates to
-        ``GuardAbort``, as the JAX package's does with no
-        ``checkpoint_dir``."""
-        raise self._guard.escalate(
-            rb.step, rb.kind,
-            "rollback requested but fit() has no checkpoint_dir",
-            model=self) from rb
-
     # -- batch-level API ----------------------------------------------------
     def _check_prepared(self) -> None:
         if self._optimizer is None or self._loss is None:
@@ -935,6 +968,208 @@ class Model:
         self.network.eval()
         return self.network(*self._to_device(_as_tuple(inputs)))
 
+    # -- preemption-safe training state -------------------------------------
+    def _full_opt_state(self):
+        """The optimizer state, built by ``init_state`` from the current
+        parameters if no step has built it yet (what the first step
+        would build)."""
+        if self._opt_state is None and self._optimizer is not None:
+            self._opt_state = self._optimizer.init_state(
+                {k: p.detach() for k, p in self._trainable().items()})
+            if _memobs.enabled():
+                self._register_memory()
+        return self._opt_state
+
+    def _load_opt_state(self, tree) -> None:
+        """Copy a restored optimizer-state tree into the live one."""
+        self._opt_state = _copy_into(self._full_opt_state(), tree, "opt")
+
+    def _state_tree(self) -> Dict[str, Any]:
+        """The training state as the JAX package's checkpoint tree: the
+        live tensors (a save snapshots them)."""
+        named = dict(self.network.named_parameters())
+        tree = {"params": {k: p for k, p in named.items()
+                           if p.requires_grad},
+                "opt": self._full_opt_state()}
+        frozen = {k: p for k, p in named.items() if not p.requires_grad}
+        if frozen:
+            tree["frozen"] = frozen
+        persistent = self.network.state_dict(keep_vars=True)
+        buffers = {k: b for k, b in self.network.named_buffers()
+                   if k in persistent}
+        if buffers:
+            tree["buffers"] = buffers
+        if self._guard_state is not None:
+            # the numeric guard's EMA carry: resume (and guard
+            # rollback) keeps the spike baseline instead of re-warming
+            tree["guard"] = self._guard_state
+        return tree
+
+    def _save_training_state(self, mgr, loader, epoch: int,
+                             boundary: bool = False,
+                             force: bool = False) -> None:
+        """Checkpoint the COMPLETE training state: the parameters, the
+        optimizer state and the buffers as the array tree, plus the
+        manifest ``state`` bundle — global step, epoch, DataLoader
+        cursor, the RNG base key, and pickled metric accumulators. With
+        an async manager the call stalls only for the device→host
+        snapshot; the commit overlaps the next train steps. Pending
+        device metric buffers are drained FIRST, so the snapshot never
+        loses in-flight metric state.
+
+        ``boundary=True`` means the epoch (and its pass over the
+        loader) is COMPLETE: the state records the NEXT epoch at batch
+        0 — resuming from an exhausted cursor would replay the
+        finished epoch's on_epoch_begin/eval/on_epoch_end over an
+        empty train pass."""
+        self._drain_metric_updates()
+        tree = self._state_tree()
+        cursor = loader.state_dict()
+        if boundary:
+            cursor = {"pass": int(cursor["pass"]) + 1, "batch": 0}
+            epoch = epoch + 1
+        state = {
+            "step": int(self._step_count),
+            "epoch": int(epoch),
+            "loader": cursor,
+            "rng": {"seed": int(rng._tls.global_seed),
+                    "key_data": [int(w) for w in
+                                 rng.get_global_stream()._key.tolist()],
+                    "key_dtype": "uint32"},
+            "metrics": base64.b64encode(pickle.dumps(
+                [m.__dict__ for m in self._metrics],
+                protocol=4)).decode("ascii"),
+        }
+        mgr.save(self._step_count, tree, state=state, force=force)
+
+    def _restore_training_state(self, mgr, resume, loader):
+        """Resume from ``mgr``: newest verified step for
+        ``resume="auto"`` (or the step pinned by
+        ``$PADDLE_ELASTIC_RESUME_STEP`` — an elastic respawn's hint —
+        falling back to auto if that step is gone or corrupt), an
+        explicit int otherwise. Returns the manifest state bundle, or
+        None when the directory has no checkpoint (fresh start)."""
+        from ..io.checkpoint import CheckpointCorrupt
+        # identity/string checks, NOT `resume in (True, "auto")`:
+        # 1 == True in Python, and resume=1 must mean STEP 1
+        auto = resume == "auto" or resume is True
+        step = None
+        if not auto:
+            step = int(resume)
+        else:
+            env = os.environ.get("PADDLE_ELASTIC_RESUME_STEP")
+            if env:
+                step = int(env)
+        try:
+            try:
+                tree, state = mgr.restore_with_state(step)
+            except (CheckpointCorrupt, FileNotFoundError):
+                if not auto or step is None:
+                    raise
+                # the env-pinned step is gone or rotted: auto falls
+                # back to the newest verifying step
+                tree, state = mgr.restore_with_state(None)
+        except FileNotFoundError:
+            # only auto treats an empty directory as a fresh start; an
+            # explicit resume=<step> that is missing (GC'd, mistyped)
+            # must not silently retrain from step 0
+            if not auto:
+                raise
+            return None
+        # copy into the live tensors: the network, the optimizer state
+        # (and AMP's master weights in it) keep their references
+        live = self._state_tree()
+        for group in ("params", "frozen", "buffers"):
+            _copy_into(live.get(group, {}), tree.get(group) or {}, group)
+        self._load_opt_state(tree["opt"])
+        if tree.get("guard") is not None:
+            dev = self._device()
+            if self._guard_state is None:
+                self._guard_state = _tree_map(lambda x: x.to(dev),
+                                              tree["guard"])
+            else:
+                self._guard_state = _copy_into(self._guard_state,
+                                               tree["guard"], "guard")
+        state = dict(state or {})
+        self._step_count = int(state.get("step", mgr.latest_step() or 0))
+        rng_state = state.get("rng")
+        if rng_state:
+            # the base key, not just the seed: next_key() calls before
+            # fit() advance the stream past from_seed(seed)
+            rng._tls.global_seed = int(rng_state["seed"])
+            rng._tls.stack = [rng.KeyStream(torch.tensor(
+                [int(w) for w in rng_state["key_data"]],
+                dtype=torch.int64))]
+        blob = state.get("metrics")
+        if blob:
+            for m, st in zip(self._metrics,
+                             pickle.loads(base64.b64decode(blob))):
+                m.__dict__.update(st)
+        cursor = state.get("loader")
+        if cursor:
+            loader.load_state_dict(cursor)
+        return state
+
+    def _guard_rollback(self, mgr, loader, epoch: int, rb) -> int:
+        """Recover from a :class:`reliability.guard.GuardRollback`
+        raised at a drain boundary inside ``fit``: restore the newest
+        VERIFIED checkpoint at or below the trip (parameters, optimizer
+        state, RNG key, metric accumulators, guard EMA), then
+        fast-forward the DataLoader cursor ``rb.stride`` batches PAST
+        the offending step, so the poisoned range is never re-consumed.
+        Returns the in-epoch batch index training resumes at. Steps
+        between the checkpoint and the trip are discarded along with
+        their batches. Assumes the trip landed in the checkpoint's
+        epoch. No checkpoint manager / no committed step escalates to
+        :class:`GuardAbort`."""
+        if mgr is None:
+            raise self._guard.escalate(
+                rb.step, rb.kind,
+                "rollback requested but fit() has no checkpoint_dir",
+                model=self) from rb
+        # drop buffered device state from the poisoned window — the
+        # restore rewinds metric accumulators to the manifest bundle
+        self._metric_pending.clear()
+        self._guard_pending.clear()
+        self._nan_pending.clear()
+        # EXPLICIT step, never resume="auto": auto honors the
+        # $PADDLE_ELASTIC_RESUME_STEP pin an elastic respawn leaves in
+        # the environment for the whole process — a mid-run rollback
+        # must restore the newest verified step AT OR BELOW the trip,
+        # walking past steps that rotted since their manifest verified
+        from ..io.checkpoint import CheckpointCorrupt
+        mgr.wait_until_finished()  # in-flight async commits manifest
+        cand = [s for s in mgr.verified_steps() if s <= rb.step]
+        st = None
+        while cand:
+            try:
+                st = self._restore_training_state(
+                    mgr, cand.pop(), loader)
+                break
+            except (CheckpointCorrupt, FileNotFoundError):
+                continue
+        if st is None:
+            raise self._guard.escalate(
+                rb.step, rb.kind,
+                "rollback requested before any verified checkpoint "
+                "committed", model=self) from rb
+        ck_step = int(st.get("step", 0))
+        cur = dict(st.get("loader") or {"pass": epoch, "batch": 0})
+        tripped = int(cur["batch"]) + (rb.step - ck_step)
+        target = tripped + rb.stride
+        loader.load_state_dict({"pass": int(cur["pass"]),
+                                "batch": target})
+        if _trace.enabled():
+            _trace.start_span("train.guard", attrs={
+                "kind": rb.kind, "action": "rollback",
+                "step": rb.step, "restored_step": ck_step,
+                "fast_forward_to_batch": target}).end()
+        print(f"[numeric-guard] rollback: {rb.kind} at step {rb.step} "
+              f"-> restored verified step {ck_step}, fast-forwarded "
+              f"cursor past batch {tripped} (stride {rb.stride})",
+              file=sys.stderr)
+        return target
+
     # -- fit/evaluate/predict loops -----------------------------------------
     def _split_batch(self, batch) -> Tuple[Tuple, Tuple]:
         batch = _as_tuple(batch)
@@ -969,15 +1204,25 @@ class Model:
         ``steps_per_loop`` (default ``FLAGS.steps_per_loop``) runs K
         steps a ``train_loop_batch`` call over ``[K, ...]`` superbatches,
         losses equal to K=1; a short last slab runs step by step, and the
-        callbacks see every step. Full-state checkpoints
-        (``checkpoint_dir``, ``resume``, ``preemption_guard``) are not
-        ported yet and raise."""
-        if checkpoint_dir is not None or (resume is not None
-                                          and resume is not False) \
-                or preemption_guard is not None:
-            raise NotImplementedError(
-                "fit(checkpoint_dir=, resume=, preemption_guard=) is not "
-                "ported yet (ROADMAP A6: io/checkpoint.py)")
+        callbacks see every step.
+
+        Preemption-safe training, as in the JAX package:
+
+        - ``checkpoint_dir`` arms full-state checkpointing through
+          ``io.checkpoint.CheckpointManager`` — every ``checkpoint_freq``
+          optimizer steps (or each epoch when None), async by default:
+          the loop stalls only for the device→host snapshot.
+        - ``resume="auto"`` (or an explicit step) restores the newest
+          VERIFIED checkpoint — parameters, optimizer state, RNG base
+          key, DataLoader cursor (mid-epoch, mid-superbatch), and metric
+          accumulators — and continues with a loss stream bit-identical
+          to the uninterrupted run at any ``steps_per_loop``. An
+          elastic respawn pins the step via
+          ``$PADDLE_ELASTIC_RESUME_STEP``.
+        - ``preemption_guard`` (an ``distributed.PreemptionGuard``) is
+          polled at step boundaries: once triggered, the loop snapshots
+          the current state, flushes it under ``preemption_flush_budget``
+          seconds, and exits ``RESTART_EXIT_CODE``."""
         assert self._optimizer is not None and self._loss is not None, \
             "call prepare(optimizer, loss, ...) before fit()"
         if steps_per_loop is None:
@@ -986,6 +1231,74 @@ class Model:
         loader = self._as_loader(train_data, batch_size, shuffle)
         eval_loader = self._as_loader(eval_data, batch_size, False) \
             if eval_data is not None else None
+        train_ckpt = None
+        start_epoch = 0
+        resume_step_in_epoch = 0
+        if checkpoint_dir is not None:
+            from ..io.checkpoint import CheckpointManager
+            train_ckpt = CheckpointManager(
+                checkpoint_dir, max_to_keep=keep_checkpoints,
+                async_save=async_checkpoint)
+            # not a truthiness gate: resume=0 means "restore STEP 0",
+            # only None/False mean "don't resume"
+            if resume is not None and resume is not False:
+                st = self._restore_training_state(train_ckpt, resume,
+                                                  loader)
+                if st is not None:
+                    start_epoch = int(st.get("epoch", 0))
+                    resume_step_in_epoch = int(
+                        (st.get("loader") or {}).get("batch", 0))
+        last_ckpt_step = self._step_count
+        last_ckpt_boundary = True  # restored/fresh state never replays
+
+        def ckpt_tick(epoch: int, force: bool = False,
+                      boundary: bool = False) -> None:
+            """Step-boundary checkpoint cadence + preemption poll."""
+            nonlocal last_ckpt_step, last_ckpt_boundary
+            if train_ckpt is not None:
+                stale = self._step_count != last_ckpt_step
+                # an epoch-end tick UPGRADES a same-step mid-loop save:
+                # that save recorded (epoch, exhausted cursor), which
+                # would replay the finished epoch's callbacks/eval over
+                # an empty train pass on resume
+                upgrade = boundary and not stale and not last_ckpt_boundary
+                if (stale and (force or (checkpoint_freq and
+                                         self._step_count - last_ckpt_step
+                                         >= checkpoint_freq))) or upgrade:
+                    self._save_training_state(train_ckpt, loader, epoch,
+                                              boundary=boundary,
+                                              force=upgrade)
+                    last_ckpt_step = self._step_count
+                    last_ckpt_boundary = boundary
+            if preemption_guard is not None and preemption_guard.triggered:
+                def _flush():
+                    if train_ckpt is None:
+                        return
+                    from ..reliability.retry import Deadline
+                    dl = Deadline.after(preemption_flush_budget)
+                    outcome = None
+                    if self._step_count != last_ckpt_step:
+                        # drain queued commits FIRST: save()'s bounded
+                        # queue blocks while a snapshot is queued behind
+                        # a slow commit — snapshotting into a backed-up
+                        # writer could eat the whole grace budget
+                        drained = train_ckpt.flush(dl)
+                        if drained in ("committed", "noop"):
+                            # fresh snapshot of the CURRENT step
+                            self._save_training_state(
+                                train_ckpt, loader, epoch,
+                                boundary=boundary)
+                        else:
+                            outcome = drained  # timeout/error: the
+                            # previous manifested step stands
+                    if outcome is None:
+                        outcome = train_ckpt.flush(dl)
+                    print(f"[preemption] emergency checkpoint flush: "
+                          f"{outcome} (step {self._step_count})",
+                          file=sys.stderr)
+                # runs _flush then exits RESTART_EXIT_CODE
+                preemption_guard.check(save=_flush)
+
         try:
             steps = len(loader)
         except TypeError:
@@ -998,70 +1311,115 @@ class Model:
         self.stop_training = False
         cbks.on_train_begin()
         logs: Dict[str, Any] = {}
-        for epoch in range(epochs):
-            if self.stop_training:
-                break
-            cbks.on_epoch_begin(epoch)
-            # epoch span on the fit thread's stack, so the step and
-            # drain spans parent under it; closed even when an exception
-            # unwinds (Span.__exit__ records the error)
-            ep_span = _trace.span(
-                "train.epoch", attrs={"epoch": epoch}).__enter__() \
-                if _trace.enabled() else None
-            step = 0
-            try:
-                # fold any still-buffered outputs BEFORE the reset
-                self._drain_metric_updates()
-                for m in self._metrics:
-                    m.reset()
+        epoch_done = start_epoch - 1  # last fully completed epoch
+        try:
+            for epoch in range(start_epoch, epochs):
+                if self.stop_training:
+                    break
+                cbks.on_epoch_begin(epoch)
+                # epoch span on the fit thread's stack, so the step and
+                # drain spans parent under it; closed even when an
+                # exception unwinds (Span.__exit__ records the error)
+                ep_span = _trace.span(
+                    "train.epoch", attrs={"epoch": epoch}).__enter__() \
+                    if _trace.enabled() else None
+                step = resume_step_in_epoch if epoch == start_epoch else 0
                 try:
-                    it = loader.superbatches(k_loop) if k_loop > 1 \
-                        else iter(loader)
-                    for batch in it:
-                        inputs, labels = self._split_batch(batch)
-                        if k_loop > 1:
-                            k = int(np.shape(inputs[0])[0])
-                            if k == k_loop:
-                                for logs in self.train_loop_batch(
-                                        inputs, labels):
+                    # fold any still-buffered outputs BEFORE the reset; a
+                    # mid-epoch RESUME (step > 0) skips the reset: the
+                    # restored accumulators ARE this epoch's state so far
+                    if step == 0:
+                        self._drain_metric_updates()
+                        for m in self._metrics:
+                            m.reset()
+                    while True:
+                        # one epoch pass; restarts after a numeric-guard
+                        # ROLLBACK (the newest verified checkpoint is
+                        # restored and the loader cursor fast-forwarded
+                        # past the offending range)
+                        it = loader.superbatches(k_loop) if k_loop > 1 \
+                            else iter(loader)
+                        try:
+                            for batch in it:
+                                inputs, labels = self._split_batch(batch)
+                                if k_loop > 1:
+                                    k = int(np.shape(inputs[0])[0])
+                                    if k == k_loop:
+                                        for logs in self.train_loop_batch(
+                                                inputs, labels):
+                                            cbks.on_train_batch_begin(
+                                                step)
+                                            cbks.on_train_batch_end(
+                                                step, logs)
+                                            step += 1
+                                        ckpt_tick(epoch)
+                                        continue
+                                    # a ragged tail slab (< K steps) runs
+                                    # step by step: the same math
+                                    sub = [(tuple(x[i] for x in inputs),
+                                            tuple(y[i] for y in labels))
+                                           for i in range(k)]
+                                else:
+                                    sub = [(inputs, labels)]
+                                for inp, lab in sub:
                                     cbks.on_train_batch_begin(step)
+                                    logs = self.train_batch(inp, lab)
                                     cbks.on_train_batch_end(step, logs)
                                     step += 1
-                                continue
-                            # a ragged tail slab (< K steps) runs step
-                            # by step: the same math
-                            sub = [(tuple(x[i] for x in inputs),
-                                    tuple(y[i] for y in labels))
-                                   for i in range(k)]
-                        else:
-                            sub = [(inputs, labels)]
-                        for inp, lab in sub:
-                            cbks.on_train_batch_begin(step)
-                            logs = self.train_batch(inp, lab)
-                            cbks.on_train_batch_end(step, logs)
-                            step += 1
-                    # the tail drain inside the rollback scope: a trip
-                    # buffered by the pass's last batches escalates here
-                    self._drain_metric_updates()
-                except _nguard.GuardRollback as rb:
-                    self._guard_rollback(rb)
-                # freeze the epoch's final train logs now (an epoch
-                # boundary is a display boundary): the eval pass below
-                # resets the shared metric accumulators
-                logs = {n: float(v) if isinstance(
-                    v, (_LazyMetricValue, _SlabScalar)) else v
-                    for n, v in logs.items()}
-                if eval_loader is not None and epoch % eval_freq == 0:
-                    eval_logs = self.evaluate(eval_loader, verbose=0,
-                                              _callbacks=cbks)
-                    logs.update({f"eval_{k}": v
-                                 for k, v in eval_logs.items()})
-                cbks.on_epoch_end(epoch, logs)
-            finally:
-                if ep_span is not None:
-                    ep_span.set_attr("steps", step)
-                    ep_span.__exit__(*sys.exc_info())
-        cbks.on_train_end(logs)
+                                ckpt_tick(epoch)
+                            # the tail drain inside the rollback scope: a
+                            # trip buffered by the pass's last batches
+                            # must escalate where a rollback can still
+                            # restart this epoch's iteration
+                            self._drain_metric_updates()
+                            break
+                        except _nguard.GuardRollback as rb:
+                            step = self._guard_rollback(train_ckpt,
+                                                        loader, epoch, rb)
+                            last_ckpt_step = self._step_count
+                            if hasattr(it, "close"):
+                                it.close()
+                    # freeze the epoch's final train logs now (an epoch
+                    # boundary is a display boundary): the eval pass
+                    # below resets the shared metric accumulators
+                    logs = {n: float(v) if isinstance(
+                        v, (_LazyMetricValue, _SlabScalar)) else v
+                        for n, v in logs.items()}
+                    if eval_loader is not None and epoch % eval_freq == 0:
+                        eval_logs = self.evaluate(eval_loader, verbose=0,
+                                                  _callbacks=cbks)
+                        logs.update({f"eval_{k}": v
+                                     for k, v in eval_logs.items()})
+                    cbks.on_epoch_end(epoch, logs)
+                    # epoch-granular checkpoint default (checkpoint_freq
+                    # None): one full-state save per completed epoch
+                    ckpt_tick(epoch, force=checkpoint_freq is None,
+                              boundary=True)
+                    epoch_done = epoch
+                finally:
+                    if ep_span is not None:
+                        ep_span.set_attr("steps", step)
+                        ep_span.__exit__(*sys.exc_info())
+            cbks.on_train_end(logs)
+            if train_ckpt is not None:
+                # final full-state save (no-op if the last step is
+                # already boundary-checkpointed), keyed to the last
+                # COMPLETED epoch — a stop_training break leaves `epoch`
+                # naming an epoch that never ran
+                ckpt_tick(epoch_done, force=True, boundary=True)
+        finally:
+            if train_ckpt is not None:
+                # fit-exit barrier, exception path included: wait out
+                # in-flight async commits and stop the writer thread. A
+                # close/commit failure must not mask an exception
+                # already unwinding through fit — but on a clean exit it
+                # IS fit's failure (the final save never committed)
+                unwinding = sys.exc_info()[0] is not None
+                try:
+                    train_ckpt.close()
+                except BaseException:
+                    if not unwinding:
+                        raise
 
     def evaluate(self, eval_data, batch_size: int = 1, log_freq: int = 10,
                  verbose: int = 2, num_workers: int = 0, callbacks=None,

@@ -466,6 +466,10 @@ class _PrefetchIterator:
 
 _mp_dataset = None
 _mp_collate = None
+# the longest the loader waits for one batch from its fork pool: a worker
+# that hangs (a lock held across the fork, say) fails the pass under the
+# loader's name instead of hanging the train loop
+WORKER_RESULT_TIMEOUT_S = 120.0
 
 
 def _map_worker_init(dataset, collate_fn, wid, num_workers, seed):
@@ -474,6 +478,18 @@ def _map_worker_init(dataset, collate_fn, wid, num_workers, seed):
     _mp_collate = collate_fn
     _worker_info = WorkerInfo(wid, num_workers, seed)
     np.random.seed((seed + wid) % (2 ** 31))
+
+
+def _worker_result(fut):
+    """A fork-pool batch, waited on for at most
+    ``WORKER_RESULT_TIMEOUT_S``."""
+    import concurrent.futures
+    try:
+        return fut.result(timeout=WORKER_RESULT_TIMEOUT_S)
+    except concurrent.futures.TimeoutError:
+        raise TimeoutError(
+            f"DataLoader fork worker gave no batch in "
+            f"{WORKER_RESULT_TIMEOUT_S:.0f} s") from None
 
 
 def _map_worker_collate(batch_idx):
@@ -595,9 +611,14 @@ class DataLoader:
             for batch_idx in it:
                 pending.append(pool.submit(_map_worker_collate, batch_idx))
                 if len(pending) >= depth:
-                    yield pending.popleft().result()
+                    yield _worker_result(pending.popleft())
             while pending:
-                yield pending.popleft().result()
+                yield _worker_result(pending.popleft())
+        except TimeoutError:
+            # a hung worker would block the shutdown's wait as well
+            for proc in list(getattr(pool, "_processes", {}).values()):
+                proc.kill()
+            raise
         finally:
             pool.shutdown(wait=True, cancel_futures=True)
 
@@ -858,3 +879,5 @@ class WeightedRandomSampler(Sampler):
 
     def __len__(self):
         return self.num_samples
+
+from . import checkpoint  # noqa: E402,F401  (io.checkpoint.AutoCheckpoint)

@@ -69,7 +69,12 @@ per-bucket settled totals once the pending list exceeds
 covered interval, so a gap is never split mid-classification (the
 forced path past :data:`PENDING_HARD_CAP` may split one gap; its
 settled part classifies by its own length — a bounded, counted
-degradation, never an accounting leak).
+degradation, never an accounting leak). Past the cap a note finds the
+settle point by bisecting the pending list (ordered by end time) and
+folds only once :data:`SETTLE_BATCH` intervals have crossed the
+horizon; the clip floor still moves at every note, where the JAX
+package folds, so the totals are the JAX package's (up to the order of
+the float sums).
 
 Disabled cost is ONE module-flag check (``FLAGS.goodput_observability``,
 pinned like tracing/perf/mem). Surfaces: ``GET /goodputz``,
@@ -83,6 +88,7 @@ which bucket grew since the last watermark (docs/OBSERVABILITY.md
 
 from __future__ import annotations
 
+import bisect
 import threading
 import time
 from collections import deque
@@ -112,6 +118,10 @@ HOST_GAP_MAX_S = 1.0
 SETTLE_LAG_S = 300.0
 PENDING_SOFT_CAP = 8192
 PENDING_HARD_CAP = 4 * PENDING_SOFT_CAP
+# past the soft cap, intervals that crossed the settle horizon fold in
+# batches of at least this many (one O(n log n) sweep per batch, not
+# per note)
+SETTLE_BATCH = 512
 
 # bounded forensics ring: one entry per SLO trip / explicit watermark
 TRIP_CAP = 16
@@ -148,6 +158,10 @@ def _active_phase() -> str:
         if live:
             return live[-1]["name"]
     return "(untraced)"
+
+
+def _end(interval: Tuple[float, float, int]) -> float:
+    return interval[1]
 
 
 def _sweep(intervals: List[Tuple[float, float, int]], start: float,
@@ -215,6 +229,9 @@ class TimeLedger:
         self._pending: List[Tuple[float, float, int]] = []
         self._settled = {b: 0.0 for b in BUCKETS + DERIVED}
         self._settled_until: Optional[float] = None
+        # where the JAX package's ledger would have settled: notes
+        # reaching below it are clipped; folds catch up in batches
+        self._clip_floor: Optional[float] = None
         self._clipped_s = 0.0       # arrived below the settle horizon
         self._split_gaps = 0        # forced-settle gap splits (rare)
         # watermark: last snapshot the trip forensics diff against
@@ -236,6 +253,7 @@ class TimeLedger:
             self._armed_t = self._clock() if t is None else float(t)
             self._armed_wall = time.time()
             self._settled_until = self._armed_t
+            self._clip_floor = self._armed_t
 
     def note(self, bucket: str, seconds: float) -> None:
         """Attribute the just-closed interval of ``seconds`` ending now
@@ -251,12 +269,12 @@ class TimeLedger:
             # clamp it to zero length)
             self._arm_locked(t1 - float(seconds))
             t0 = max(t1 - float(seconds), self._armed_t)
-            if t0 < self._settled_until:
+            if t0 < self._clip_floor:
                 # reaches into the settled region: those seconds were
                 # already closed out (as gap or another owner) — clamp
                 # and count, never double-book
-                self._clipped_s += self._settled_until - t0
-                t0 = self._settled_until
+                self._clipped_s += self._clip_floor - t0
+                t0 = self._clip_floor
             if t1 > t0:
                 self._pending.append((t0, t1, prio))
             if len(self._pending) > PENDING_SOFT_CAP:
@@ -265,15 +283,28 @@ class TimeLedger:
     # -- settling (memory bound) ----------------------------------------
     def _settle_locked(self, now: float) -> None:
         horizon = now - SETTLE_LAG_S
-        point = max((t1 for _t0, t1, _p in self._pending
-                     if t1 <= horizon), default=None)
-        if point is None:
+        # the pending list is ordered by end time (each note ends at the
+        # clock's now), so the intervals ended by the horizon are a
+        # prefix
+        n = bisect.bisect_right(self._pending, horizon, key=_end)
+        if n == 0:
             if len(self._pending) <= PENDING_HARD_CAP:
                 return
             point = horizon     # forced: may split one open gap
             self._split_gaps += 1
-        if point <= self._settled_until:
+            fold = True
+        else:
+            point = self._pending[n - 1][1]
+            fold = n >= SETTLE_BATCH or \
+                len(self._pending) > PENDING_HARD_CAP
+        if point <= self._clip_floor:
             return
+        self._clip_floor = point
+        if fold:
+            self._fold_locked(point)
+
+    def _fold_locked(self, point: float) -> None:
+        """Fold everything before ``point`` into the settled totals."""
         covered, gaps = _sweep(self._pending, self._settled_until,
                                point)
         for i, b in enumerate(BUCKETS):
@@ -282,12 +313,9 @@ class TimeLedger:
             key = "host_gap" if (g1 - g0) <= self.gap_max_s \
                 else "unattributed"
             self._settled[key] += g1 - g0
-        kept = []
-        for t0, t1, prio in self._pending:
-            if t1 <= point:
-                continue
-            kept.append((max(t0, point), t1, prio))
-        self._pending = kept
+        n = bisect.bisect_right(self._pending, point, key=_end)
+        self._pending = [(max(t0, point), t1, prio)
+                         for t0, t1, prio in self._pending[n:]]
         self._settled_until = point
 
     # -- reads ----------------------------------------------------------
@@ -302,7 +330,7 @@ class TimeLedger:
         if self._armed_t is None:
             return {b: 0.0 for b in BUCKETS + DERIVED}
         now = self._clock() if now is None else float(now)
-        now = max(now, self._settled_until)
+        now = max(now, self._clip_floor)
         covered, gaps = _sweep(self._pending, self._settled_until, now)
         out = dict(self._settled)
         for i, b in enumerate(BUCKETS):

@@ -59,6 +59,7 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..core import flags as _flags
+from ._gclock import GcSafeLock
 from .metrics import default_registry
 
 # -- enable flag (pinned: one module-bool check at every call site) --------
@@ -114,8 +115,15 @@ def next_scope() -> str:
 
 
 def _cleanup_scope(scope: str) -> None:
+    """The GC finalizer's removal, which never blocks on the registry's
+    lock (:class:`GcSafeLock`). The process-wide registry is read
+    without ``instance()``'s lock for the same reason (no registry, no
+    entries to drop)."""
+    reg = _instance
+    if reg is None:
+        return
     try:
-        instance().remove_scope(scope)
+        reg._mu.call_or_defer(reg._drop_scope_locked, scope)
     except Exception:  # noqa: BLE001 — interpreter-shutdown tolerance
         pass
 
@@ -228,7 +236,8 @@ class MemoryLedger:
     """
 
     def __init__(self):
-        self._mu = threading.Lock()
+        # the scope finalizers' removals queue here while it is held
+        self._mu = GcSafeLock()
         # (scope, owner, kind) -> {"owner","kind","bytes","placement",
         #                          "scope","detail"}
         self._entries: Dict[Tuple[str, str, str], dict] = {}
@@ -274,10 +283,13 @@ class MemoryLedger:
         so long-lived processes creating owners in a loop can't grow
         the table with dead rows. Returns the number removed."""
         with self._mu:
-            dead = [k for k in self._entries if k[0] == scope]
-            for k in dead:
-                self._entries.pop(k, None)
-            had = self._providers.pop(scope, None) is not None
+            return self._drop_scope_locked(scope)
+
+    def _drop_scope_locked(self, scope: str) -> int:
+        dead = [k for k in self._entries if k[0] == scope]
+        for k in dead:
+            self._entries.pop(k, None)
+        had = self._providers.pop(scope, None) is not None
         return len(dead) + (1 if had else 0)
 
     # -- readout ---------------------------------------------------------

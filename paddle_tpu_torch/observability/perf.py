@@ -49,6 +49,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 from ..core import flags as _flags
+from ._gclock import GcSafeLock
 from .metrics import default_registry
 
 # same cap discipline as Model._guard_recompiles / the engine guard:
@@ -163,8 +164,15 @@ def next_scope() -> str:
 
 
 def _cleanup_scope(scope: str) -> None:
+    """The GC finalizer's removal, which never blocks on the registry's
+    lock (:class:`GcSafeLock`). The process-wide registry is read
+    without ``instance()``'s lock for the same reason (no registry, no
+    entries to drop)."""
+    reg = _instance
+    if reg is None:
+        return
     try:
-        instance().remove_scope(scope)
+        reg._mu.call_or_defer(reg._drop_scope_locked, scope)
     except Exception:  # noqa: BLE001 — interpreter-shutdown tolerance
         pass
 
@@ -245,7 +253,8 @@ class PerfRegistry:
     via :func:`instance`; tests build private ones)."""
 
     def __init__(self):
-        self._mu = threading.Lock()
+        # the scope finalizers' removals queue here while it is held
+        self._mu = GcSafeLock()
         self._programs: Dict[Tuple, ProgramHandle] = {}
         self._phases: Dict[Tuple[str, str], float] = {}
         # sliding-window accumulators: per-second buckets of
@@ -307,10 +316,13 @@ class PerfRegistry:
         new programs. Already-windowed events stay (they were real
         work); returns the number removed."""
         with self._mu:
-            dead = [k for k, h in self._programs.items()
-                    if h.scope == scope]
-            for k in dead:
-                self._programs.pop(k, None)
+            return self._drop_scope_locked(scope)
+
+    def _drop_scope_locked(self, scope: str) -> int:
+        dead = [k for k, h in self._programs.items()
+                if h.scope == scope]
+        for k in dead:
+            self._programs.pop(k, None)
         return len(dead)
 
     def get_program(self, component: str, kind: str, sig: Tuple = (),

@@ -84,7 +84,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             log, _ = proc.communicate(timeout=_BUILD_TIMEOUT_S)
         except subprocess.TimeoutExpired:
             proc.kill()
-            log, _ = proc.communicate()
+            log, _ = proc.communicate(timeout=30)
             log += f"\nnvcc timed out after {_BUILD_TIMEOUT_S} s"
         build_logs[n] = log
         seconds[n] = time.perf_counter() - t0

@@ -16,6 +16,7 @@ Tolerances, each with its reason:
 
 import numpy as np
 import pytest
+from torch_gc_barrier import collect_cycles  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -17,6 +17,7 @@ import importlib
 
 import numpy as np
 import pytest
+from torch_gc_barrier import collect_cycles  # noqa: F401
 
 pytest.importorskip("torch")
 

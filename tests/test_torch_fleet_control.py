@@ -21,6 +21,7 @@ from urllib.request import Request, urlopen
 
 import numpy as np
 import pytest
+from torch_gc_barrier import collect_cycles  # noqa: F401
 
 pytest.importorskip("torch")
 

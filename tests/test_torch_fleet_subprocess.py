@@ -12,6 +12,7 @@ import time
 from urllib.request import urlopen
 
 import pytest
+from torch_gc_barrier import collect_cycles  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

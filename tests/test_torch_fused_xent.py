@@ -11,6 +11,7 @@ their magnitude (2e-2 relative)."""
 
 import numpy as np
 import pytest
+from torch_gc_barrier import collect_cycles  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

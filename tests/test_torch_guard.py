@@ -16,6 +16,7 @@ Tolerances, each with its reason:
 
 import numpy as np
 import pytest
+from torch_gc_barrier import collect_cycles  # noqa: F401
 
 torch = pytest.importorskip("torch")
 
@@ -351,9 +352,10 @@ def test_rollback_stride_doubles_then_aborts():
 
 @pytest.mark.parametrize("k", [1, 2])
 def test_rollback_without_checkpoint_dir_escalates(k):
-    """fit has no checkpoint manager in the port (A6): a rollback
-    escalates to GuardAbort, as the JAX package's fit does with no
-    checkpoint_dir; same message up to the replay hint."""
+    """fit without a ``checkpoint_dir`` has nothing to roll back to: a
+    rollback escalates to GuardAbort in both packages, the same message
+    up to the replay hint (with a ``checkpoint_dir`` it restores:
+    ``tests/test_torch_preemption.py``)."""
     rs = np.random.RandomState(3)
     x = rs.randn(16, 8).astype(np.float32)
     y = rs.randint(0, 4, (16, 1))

@@ -26,6 +26,7 @@ import tempfile
 
 import numpy as np
 import pytest
+from torch_gc_barrier import collect_cycles  # noqa: F401
 
 torch = pytest.importorskip("torch")
 
@@ -478,23 +479,27 @@ def test_summary_counts_match_jax(capsys):
         tpt.flops(tnet, (1, 16))
 
 
-def test_entry_points_raise_what_is_not_there():
+def test_entry_points_raise_what_is_not_there(tmp_path):
     """No card: a network or a device DataLoader with no ``device``
-    raises; fit's checkpointing raises naming its ROADMAP item (the
-    fused loop and the numeric guard, once raising too, now run)."""
+    raises; what is still not ported raises naming its ROADMAP item (the
+    multi-node launcher, A6.3). fit's checkpointing, the fused loop and
+    the numeric guard, each once raising too, now run."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tgpt.GPTForCausalLM(_tiny(tgpt))
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tpt.io.DataLoader(tpt.io.TensorDataset([np.zeros((2, 2))]))
+    from paddle_tpu_torch.distributed import launch as tlaunch
+    with pytest.raises(NotImplementedError, match="ROADMAP A6.3"):
+        tlaunch.main(["--nnodes", "2", "unused.py"])
     m = tpt.Model(_TNet())
     m.prepare(tpt.optimizer.SGD(0.1, parameters=m.network), _tce)
     (x, y), _ = _cls_data()
     ds = tpt.io.TensorDataset([x, y])
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        m.fit(ds, checkpoint_dir="unused", verbose=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        m.fit(ds, resume="auto", verbose=0)
+    m.fit(ds, checkpoint_dir=str(tmp_path / "ck"), verbose=0)
+    assert os.path.exists(tmp_path / "ck" / f"manifest-{m._step_count}.json")
+    m.fit(ds, checkpoint_dir=str(tmp_path / "ck"), resume="auto",
+          epochs=2, verbose=0)
     # the fused K-step loop and the numeric guard are ported
     m.fit(ds, steps_per_loop=2, verbose=0)
     assert m._loop_built

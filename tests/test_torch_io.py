@@ -5,6 +5,7 @@ NumPy code over the same seeded draws)."""
 
 import numpy as np
 import pytest
+from torch_gc_barrier import collect_cycles  # noqa: F401
 
 torch = pytest.importorskip("torch")
 
@@ -207,6 +208,32 @@ def test_workers_yield_the_same_batches_as_none():
     forked = _passes(tio.DataLoader(ds, batch_size=6, shuffle=True,
                                     num_workers=2, to_device=False))
     _assert_same(forked, serial)
+
+
+class _StuckDataset(tio.Dataset):
+    """Index 3 hangs in a fork worker (as a worker would on a lock held
+    across the fork)."""
+
+    def __getitem__(self, i):
+        if i == 3:
+            import time
+            time.sleep(60)
+        return np.full((2,), i, np.float32)
+
+    def __len__(self):
+        return 8
+
+
+def test_a_hung_fork_worker_fails_under_the_loaders_name(monkeypatch):
+    import time
+    monkeypatch.setattr(tio, "WORKER_RESULT_TIMEOUT_S", 1.0)
+    loader = tio.DataLoader(_StuckDataset(), batch_size=2, num_workers=2,
+                            to_device=False)
+    t0 = time.monotonic()
+    with pytest.raises(TimeoutError, match="DataLoader fork worker"):
+        for _ in loader:
+            pass
+    assert time.monotonic() - t0 < 30
 
 
 def test_cursor_resumes_mid_pass_like_jax():

@@ -14,6 +14,7 @@ engine's streams by ``test_torch_engine*.py``), and the importer's
 import importlib
 
 import pytest
+from torch_gc_barrier import collect_cycles  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

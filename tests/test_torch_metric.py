@@ -7,6 +7,7 @@ the same count in another order: 2e-7 relative, about one ulp."""
 
 import numpy as np
 import pytest
+from torch_gc_barrier import collect_cycles  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -15,6 +15,7 @@ from urllib.request import urlopen
 
 import numpy as np
 import pytest
+from torch_gc_barrier import collect_cycles  # noqa: F401
 
 torch = pytest.importorskip("torch")
 
@@ -288,3 +289,131 @@ def test_served_flops_and_knobs_ride_the_result(engines):
     assert outs[1]["served_flops"] == outs[0]["served_flops"]
     assert outs[1]["knobs"] == outs[0]["knobs"]
     assert outs[1]["stream_digest"] == outs[0]["stream_digest"]
+
+
+# -- the time ledger past its soft cap ---------------------------------------
+
+class _Clock:
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self):
+        return self.t
+
+
+def _ledger_pair():
+    jgood = importlib.import_module("paddle_tpu.observability.goodput")
+    from paddle_tpu_torch.observability import goodput as tgood
+    jc, tc = _Clock(), _Clock()
+    return ((jc, jgood.TimeLedger(clock=jc,
+                                  registry=jmetrics.MetricRegistry())),
+            (tc, tgood.TimeLedger(clock=tc,
+                                  registry=tmetrics.MetricRegistry())),
+            tgood)
+
+
+@pytest.mark.parametrize("clock", ["dyadic", "random"])
+def test_time_ledger_past_the_soft_cap_equals_jax(clock):
+    """9,600 notes at ~31 a second, so that past ~265 s more than
+    PENDING_SOFT_CAP = 8192 intervals are pending within the 300 s
+    horizon, a few notes reaching back past the horizon: the port's totals, clipped seconds and gap splits
+    equal the JAX ledger's. ``dyadic`` times (multiples of 1/64 s) sum
+    exactly in float64, so the totals are equal; ``random`` times within
+    1e-9 relative (the port folds in batches, so its float sums run in
+    another order). The port sweeps the pending list once per fold, not
+    once per note."""
+    (jc, jled), (tc, tled), tgood = _ledger_pair()
+    rs = np.random.RandomState(0)
+    n = 9600
+    steps = rs.exponential(0.032, n)
+    durs = rs.exponential(0.015, n)
+    durs[rs.rand(n) < 0.002] = 350.0
+    if clock == "dyadic":
+        steps = np.round(steps * 64) / 64
+        durs = np.ceil(durs * 64) / 64
+    buckets = rs.randint(0, len(tgood.BUCKETS), n)
+    sweeps = {"n": 0}
+    real_sweep = tgood._sweep
+
+    def counting_sweep(*a):
+        sweeps["n"] += 1
+        return real_sweep(*a)
+
+    tgood._sweep = counting_sweep
+    try:
+        peak = 0
+        for i in range(n):
+            jc.t += float(steps[i])
+            tc.t += float(steps[i])
+            b = tgood.BUCKETS[buckets[i]]
+            jled.note(b, float(durs[i]))
+            tled.note(b, float(durs[i]))
+            peak = max(peak, len(jled._pending))
+    finally:
+        tgood._sweep = real_sweep
+    assert peak > tgood.PENDING_SOFT_CAP
+    want, got = jled.totals(), tled.totals()
+    assert got.keys() == want.keys()
+    if clock == "dyadic":
+        assert got == want
+        assert tled._clipped_s == jled._clipped_s
+    else:
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-9,
+                                       atol=1e-9)
+        np.testing.assert_allclose(tled._clipped_s, jled._clipped_s,
+                                   rtol=1e-9)
+    assert tled._split_gaps == jled._split_gaps
+    notes_past_cap = n - tgood.PENDING_SOFT_CAP
+    assert sweeps["n"] < notes_past_cap / 100
+
+
+# -- the registries' GC finalizers never block on their own lock -------------
+
+@pytest.mark.parametrize("registry", ["perf", "memory"])
+def test_finalizer_inside_the_registry_lock_does_not_deadlock(registry):
+    """A garbage owner (a reference cycle) whose scope finalizer runs in
+    a collection that starts while the registry's own lock is held (an
+    allocation inside ``register_program`` / ``set_entry``): the
+    finalizer must not block on the non-reentrant lock. The scope is
+    dropped by the lock's next holder."""
+    import gc
+    mod = tperf if registry == "perf" else tmem
+    mod.reset()
+    reg = mod.instance()
+
+    class Owner:
+        pass
+
+    owner = Owner()
+    owner.cycle = owner
+    scope = mod.next_scope()
+    if registry == "perf":
+        reg.register_program("train", "step", sig=("x",), scope=scope)
+    else:
+        reg.set_entry(scope, "owner", "kind", 64.0)
+    mod.finalize_scope(owner, scope)
+    del owner
+    done = threading.Event()
+
+    def collect_under_lock():
+        with reg._mu:
+            gc.collect()
+        done.set()
+
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        t = threading.Thread(target=collect_under_lock, daemon=True)
+        t.start()
+        t.join(timeout=30)
+    finally:
+        if was:
+            gc.enable()
+    assert done.is_set(), "the finalizer deadlocked on the registry lock"
+    if registry == "perf":
+        reg.register_program("train", "step", sig=("y",))
+        assert reg.get_program("train", "step", ("x",), scope=scope) is None
+    else:
+        assert not [r for r in reg.rows() if r.get("scope") == scope]
+    mod.reset()

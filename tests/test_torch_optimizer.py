@@ -23,6 +23,7 @@ import tempfile
 
 import numpy as np
 import pytest
+from torch_gc_barrier import collect_cycles  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

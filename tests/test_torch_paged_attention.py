@@ -18,6 +18,7 @@ import math
 
 import numpy as np
 import pytest
+from torch_gc_barrier import collect_cycles  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

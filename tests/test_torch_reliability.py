@@ -12,6 +12,7 @@ import importlib
 import threading
 
 import pytest
+from torch_gc_barrier import collect_cycles  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -22,6 +22,7 @@ import threading
 
 import numpy as np
 import pytest
+from torch_gc_barrier import collect_cycles  # noqa: F401
 
 torch = pytest.importorskip("torch")
 

@@ -28,6 +28,7 @@ Tolerances, each with its reason:
 
 import numpy as np
 import pytest
+from torch_gc_barrier import collect_cycles  # noqa: F401
 
 torch = pytest.importorskip("torch")
 
@@ -416,12 +417,22 @@ def test_untied_fused_head_returns_transposed_lm_head():
         (1, 8, 50)
 
 
-def test_model_refuses_what_is_not_ported():
+def test_model_refuses_what_is_not_ported(tmp_path):
+    """A step directory the JAX package committed (orbax data) is not
+    restorable in the port: ``fit(resume=)`` raises naming its ROADMAP
+    item, and before ``prepare`` the step entry points raise."""
+    from paddle_tpu.io.checkpoint import CheckpointManager
+    with CheckpointManager(str(tmp_path), async_save=False) as mgr:
+        mgr.save(1, {"params": {"w": np.zeros(2, np.float32)}})
     _, tnet = _pair()
     m = tpt.Model(tnet)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        m.fit(tpt.io.TensorDataset([np.zeros((2, 8), np.int64)] * 2),
-              checkpoint_dir="unused")
+    m.prepare(tpt.optimizer.SGD(0.1, parameters=tnet),
+              tgpt.GPTFusedPretrainingCriterion())
+    with pytest.raises(NotImplementedError, match="ROADMAP A6.3"):
+        m.fit(tpt.io.DataLoader(tpt.io.TensorDataset(
+            [np.zeros((2, 8), np.int64)] * 2), device="cpu"),
+            checkpoint_dir=str(tmp_path), resume="auto")
+    m = tpt.Model(tnet)
     with pytest.raises(RuntimeError, match="prepare"):
         m.train_loop_batch([np.zeros((1, 2, 8), np.int64)])
     with pytest.raises(RuntimeError, match="prepare"):

@@ -10,9 +10,11 @@ the result line:
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every CUDA kernel of the port, compiled from ``csrc/`` by
-   ``nvcc`` for sm_90a (with the ptxas register report and, where the
-   toolkit has ``cuobjdump``, each kernel's count of tensor-core
-   instructions in its SASS);
+   ``nvcc`` for sm_90a (with the ptxas register report, ptxas's notes
+   where it serializes wgmma and, where the toolkit has ``cuobjdump``,
+   each kernel's count of HMMA, HGMMA and TMA-load instructions in its
+   SASS: the ``mma.sync`` flash kernels must hold HMMA, the Hopper B2
+   and B3 HGMMA and UTMALDG);
 3. kernels: kernel B4 against its plain PyTorch twin at the serving
    path's shapes and dtypes (decode, a prefill chunk of two sequences
    and padding, GQA, one 1024-token row, head dims 80 and 256, a mixed
@@ -27,10 +29,12 @@ the result line:
 4. flash kernels: B1, B2 and B3 the same way at the training path's
    shapes (gpt2-small bf16 and f32, llama-style GQA, cross-length, head
    dim 80, head dims 256 f32, 320 bf16 and 264 f16 in the split-d
-   kernels, the train shape in f16 (GradScaler's training), and
-   lengths 97 and 200 / 136 that end in a partial tile),
-   each kernel's device time (``torch.profiler``) taken in
-   turns with its twin's and SDPA's (median of 3 windows of 20 calls);
+   kernels, the train shape in f16 (GradScaler's training), head dim
+   192 (B2 and B3 on ``mma.sync``), and lengths 97 and 200 / 136 that
+   end in a partial tile), each case naming the route of each kernel
+   and holding two launches of B2 and of B3 bit-identical, each
+   kernel's device time (``torch.profiler``) taken in turns with its
+   twin's and SDPA's (median of 3 windows of 20 calls);
 5. serve: GPT-2-small at full width (random weights from ``seed(0)``)
    serving eight requests through ``LLMEngine`` with its defaults
    (prefix cache, mixed tick) on kernel B4, then on the plain twin
@@ -226,8 +230,9 @@ def _ptxas_report(log: str) -> dict:
     return report
 
 
-def _sass_mma_counts(lib_path: str, nvcc: str):
-    """Tensor-core instructions (HMMA, HGMMA) in each kernel's SASS, by
+def _sass_counts(lib_path: str, nvcc: str):
+    """Tensor-core instructions (HMMA: mma.sync; HGMMA: wgmma) and TMA
+    loads (UTMALDG: cp.async.bulk.tensor) in each kernel's SASS, by
     ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.exists(tool):
@@ -237,9 +242,16 @@ def _sass_mma_counts(lib_path: str, nvcc: str):
     counts = {}
     for part in sass.split("Function : ")[1:]:
         name = _kernel_name(part.split("\n", 1)[0].strip())
-        counts[name] = counts.get(name, 0) + len(
-            re.findall(r"\bH(?:G)?MMA\.", part))
+        c = counts.setdefault(name, {"HMMA": 0, "HGMMA": 0, "UTMALDG": 0})
+        for op in c:
+            c[op] += len(re.findall(rf"\b{op}\b", part))
     return counts
+
+
+# the flash kernels by design: the mma.sync ones (B1, and B2 / B3 above
+# d 128) and the Hopper B2 / B3 (wgmma, TMA)
+FLASH_MMA_KERNELS = {"flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma"}
+FLASH_WGMMA_KERNELS = {"flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"}
 
 
 def phase_build() -> None:
@@ -248,23 +260,35 @@ def phase_build() -> None:
     per_kernel = _kernels.build_all()
     seconds = time.perf_counter() - t0
     ptxas = {n: _ptxas_report(log) for n, log in _kernels.build_logs.items()}
+    # ptxas's notes where it serializes wgmma (register pressure, a
+    # register written inside a wgmma pipeline stage)
+    serialized = [line.strip() for log in _kernels.build_logs.values()
+                  for line in log.splitlines()
+                  if "Performance Loss" in line]
     nvcc = _kernels.nvcc_path()
-    sass = {n: _sass_mma_counts(str(_kernels._library_path(n)), nvcc)
+    sass = {n: _sass_counts(str(_kernels._library_path(n)), nvcc)
             for n in _kernels.SOURCES}
+    flash_ptxas = ptxas.get("flash_attention", {})
+    tensor_core = {k: dict(v, **flash_ptxas.get(k, {}))
+                   for k, v in (sass.get("flash_attention") or {}).items()
+                   if k.split("<")[0] in FLASH_MMA_KERNELS |
+                   FLASH_WGMMA_KERNELS}
     emit({"phase": "build", "seconds": seconds,
           "per_kernel_s": per_kernel, "nvcc": nvcc,
           "flags": list(_kernels.NVCC_FLAGS), "ptxas": ptxas,
-          "sass_tensor_core_instructions": sass})
-    # the half-type B1, B2 and B3 are tensor-core kernels: the SASS of
-    # each must hold mma instructions
-    flash = sass.get("flash_attention")
-    if flash is not None:
-        mma = {k: v for k, v in flash.items() if "_mma<" in k}
-        kinds = {k.split("<")[0] for k in mma}
-        if kinds != {"flash_fwd_mma", "flash_bwd_dq_mma",
-                     "flash_bwd_dkv_mma"} or not all(mma.values()):
-            raise SystemExit(f"tensor-core flash kernels without mma "
-                             f"instructions in their SASS: {mma}")
+          "sass_counts": sass, "flash_tensor_core_kernels": tensor_core,
+          "wgmma_serialized": serialized})
+    # the half-type B1, B2 and B3 are tensor-core kernels: mma.sync ones
+    # must hold HMMA in their SASS, the Hopper B2 / B3 HGMMA and TMA loads
+    if sass.get("flash_attention") is not None:
+        kinds = {k.split("<")[0] for k in tensor_core}
+        bad = {k: v for k, v in tensor_core.items()
+               if (k.split("<")[0] in FLASH_MMA_KERNELS and not v["HMMA"])
+               or (k.split("<")[0] in FLASH_WGMMA_KERNELS and
+                   not (v["HGMMA"] and v["UTMALDG"]))}
+        if kinds != FLASH_MMA_KERNELS | FLASH_WGMMA_KERNELS or bad:
+            raise SystemExit(f"flash tensor-core kernels without their "
+                             f"instructions in SASS: {bad or tensor_core}")
 
 
 # ---------------------------------------------------------------------------
@@ -1938,6 +1962,8 @@ def phase_flash_kernels() -> dict:
         ("cross 512x1024 bf16", 8, 512, 1024, 12, 12, 64, torch.bfloat16),
         # head dim 80 (hidden 640, 8 heads), run padded to 128
         ("d80 bf16", 8, 1024, 1024, 8, 8, 80, torch.bfloat16),
+        # above d 128 B2 and B3 stay on mma.sync (D 256)
+        ("d192 f16 mma", 2, 1024, 1024, 8, 8, 192, torch.float16),
         # split d: the SIMT kernels summing over 64-column slices
         ("d256 f32 split", 2, 1024, 1024, 8, 8, 256, torch.float32),
         ("d320 bf16 split", 2, 1024, 1024, 8, 8, 320, torch.bfloat16),
@@ -1963,7 +1989,18 @@ def phase_flash_kernels() -> dict:
                                                    scale, causal)
         want_dq, want_dk, want_dv = fa.flash_attention_bwd_torch(
             q, k, v, o, lse, do, scale, causal)
+        # B2 and B3 sum in a fixed order, without atomics: a second launch
+        # on the same inputs gives the same bits
+        dq2 = fa.flash_attention_bwd_dq_kernel(q, k, v, o, lse, do, scale,
+                                               causal)
+        dk2, dv2 = fa.flash_attention_bwd_dkv_kernel(q, k, v, o, lse, do,
+                                                     scale, causal)
         torch.cuda.synchronize()
+        same = {"flash_attention_fwd": None,
+                "flash_attention_bwd_dq": torch.equal(dq, dq2),
+                "flash_attention_bwd_dkv": torch.equal(dk, dk2) and
+                torch.equal(dv, dv2)}
+        del dq2, dk2, dv2
 
         def err(got, want):
             """(max |got - want|, max |got - want| / (atol + rtol |want|))
@@ -2004,12 +2041,14 @@ def phase_flash_kernels() -> dict:
             case = {"phase": "kernel_case", "kernel": kernel, "case": name,
                     "b": b, "sq": sq, "sk": sk, "hq": hq, "hkv": hkv,
                     "head_dim": d, "causal": causal, "dtype": str(dt),
+                    "route": fa.kernel_route(d, dt, backward=side == "bwd"),
                     "max_abs_err": max(e for e, _ in errs),
                     "rtol_atol": FLASH_TOL[dt],
                     "lse_rtol_atol": FLASH_TOL[torch.float32],
                     "err_over_limit": [r for _, r in errs],
+                    "deterministic": same[kernel],
                     "ok": all(math.isfinite(r) and r <= 1.0
-                              for _, r in errs),
+                              for _, r in errs) and same[kernel] is not False,
                     "ms": ms[kernel], "plain_ms": ms[f"{side}_plain"],
                     "library_ms": ms[f"{side}_library"],
                     "timing": f"device time, median of {FLASH_WINDOWS} "
@@ -2022,10 +2061,11 @@ def phase_flash_kernels() -> dict:
         del q, k, v, do, o, lse, want_o, want_lse, dq, dk, dv
         del want_dq, want_dk, want_dv, lib_fwd, lib_bwd
         torch.cuda.empty_cache()
-    bad = [(c["kernel"], c["case"], c["max_abs_err"]) for c in cases
-           if not c["ok"]]
+    bad = [(c["kernel"], c["case"], c["max_abs_err"], c["deterministic"])
+           for c in cases if not c["ok"]]
     if bad:
-        raise SystemExit(f"flash kernels disagree with their twins: {bad}")
+        raise SystemExit(f"flash kernels disagree with their twins or "
+                         f"with themselves: {bad}")
     return heads
 
 

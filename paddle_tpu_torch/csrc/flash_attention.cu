@@ -20,53 +20,85 @@
 //       partials and sums them afterwards), written in k's / v's dtype.
 // Every sum is float32; inputs are read as their dtype. delta is computed
 // once per (b, q head, q row) by flash_bwd_delta into a float32 buffer
-// that B2 and B3 read (the TPU kernels recompute it per tile).
+// that B2 and B3 read (the TPU kernels recompute it per tile), in B2's
+// launch; B3's launch runs it only when it is not handed the buffer.
 //
 // Sequence lengths: any sq >= 1 and sk >= 1 (the TPU kernel tiles by the
 // largest power-of-two divisor, down to 1). The grids run ceil(s / 64)
-// tiles; a partial last tile is loaded with zeros in its rows past the
-// end, its score columns j >= sk take the mask value (P = 0), q rows past
-// sq take P = 0 in B3 (which sums over q rows), and no row past the end
-// is stored.
+// tiles (the Hopper B2 / B3 ceil(s / 128) blocks of two); a partial last
+// tile is loaded with zeros in its rows past the end, its score columns
+// j >= sk take the mask value (P = 0), q rows past sq take P = 0 in B3
+// (which sums over q rows), and no row past the end is stored.
 //
 // Head dims: any multiple of 8. The tensor-core kernels are instantiated
-// at a padded head dim D (64, 128, 256) and take the operands' d <= D at
-// run time: loads fill columns d..D-1 with zeros, which change neither
-// q . k nor the columns < d of a product, and stores write columns < d
-// only. The SIMT kernels take any d at D = 64 or 128 by summing the score
-// tiles over d in D-column slices (see "Split d" below).
+// at a padded head dim D (64, 128, 256; the Hopper ones 64, 128) and take
+// the operands' d <= D at run time: loads fill columns d..D-1 with zeros,
+// which change neither q . k nor the columns < d of a product, and stores
+// write columns < d only. The SIMT kernels take any d at D = 64 or 128
+// by summing the score tiles over d in D-column slices (see "Split d"
+// below).
 //
 // Bound. Each kernel does 4-8 flops per visible (query, key) pair per
 // head-dim element. At the gpt2-small train shape (s 1024, d 64, causal)
 // in bf16, moving each input and output once through device memory takes
 // about as long as the products at the tensor cores' peak (B1: 0.015 ms
-// by bytes, 0.013 ms by operations); float32, without tensor cores, is
-// bound by operations. Each block re-reads the other side's tiles from L2,
-// s / 64 times per row, so the reachable rate rests on feeding the
-// products from shared memory and registers.
+// by bytes, 0.013 ms by operations; B2: 0.023 / 0.020 ms; B3: 0.026 /
+// 0.026 ms); float32, without tensor cores, is bound by operations. The
+// hi/lo split below runs the products whose reference is float32 twice:
+// B2 runs 4 and B3 6 m-n-k products per visible pair and head-dim
+// element (2 x 6.45 GFLOP each at the train shape), 0.026 and 0.039 ms at
+// the peak, so as run both are bound by operations. Each block re-reads
+// the other side's tiles from L2, once per 64 (mma.sync) or 128 (Hopper)
+// rows, so the reachable rate rests on feeding the products from shared
+// memory and registers.
 //
-// Two designs.
+// Three designs.
 //
-// bf16 / f16 up to d = 256 (flash_fwd_mma, flash_bwd_dq_mma,
-// flash_bwd_dkv_mma): FlashAttention-2 on the tensor cores. A block of 4
-// warps owns a 64-row tile (B1, B2: q rows of one (b, q head); B3: k rows
-// of one (b, kv head)), 16 rows a warp, and walks the 64-row tiles of the
-// other side. The tiles stay in the input dtype in shared memory, in rows
-// of 16-byte chunks whose chunk index is XORed with the row (so the 8
-// rows of one ldmatrix fall in 8 distinct bank groups), loaded by cp.async
-// into two stages: tile kt+1 is in flight while tile kt is computed.
-// Products are mma.sync m16n8k16 with float32 sums; operands come from
-// ldmatrix (.trans where the tile is the B operand's k-major side). The
-// score tile stays in registers: since the m16n8 accumulator layout is the
-// m16n8k16 A-operand layout, the rounded P (B1), dS (B2) or P^T and dS^T
-// (B3, which computes the transposed tiles K Q^T and V dO^T so that their
-// rows are its k rows) feed the next product without a trip through
-// shared memory. Where the reference's product is float32 (dS . K in B2,
-// P^T . dO and dS^T . Q in B3), the score operand is split into
-// hi = round(x) and lo = round(x - hi) in the input dtype and both are
-// multiplied by the exact other operand (about 16 mantissa bits). Only the
-// diagonal tile is masked; tiles beyond it are skipped; the heaviest tiles
-// are scheduled first (the grid's slowest axis) to shorten the tail.
+// bf16 / f16 B2 and B3 up to d = 128 (flash_bwd_dq_wgmma,
+// flash_bwd_dkv_wgmma): Hopper. A block of three warpgroups owns 128 rows
+// of one (b, head) (B2: q rows, B3: k rows of a kv head): consumer
+// warpgroups 0 and 1 own 64 rows each and keep their two operand tiles
+// (Q and dO, or K and V) resident in shared memory; one thread of
+// warpgroup 2 (its registers handed to the consumers by setmaxnreg)
+// streams the other side's 64-row tiles (K and V; or Q and dO with their
+// lse and delta rows) by TMA through a ring of three stages, full and
+// empty mbarriers between them. TMA reads each operand as a rank-4
+// (d, h, s, b) tensor with the caller's strides in boxes of 64 columns
+// (128 bytes, the 128-byte swizzle) and fills rows past the end and
+// columns past d with zeros. The score products (S = Q K^T, dP = dO V^T;
+// B3 their transposes) are wgmma m64n64k16 with both operands K-major in
+// shared memory, committed as two groups so that P is taken while dP is
+// still on the tensor cores. dS (B2), P^T and dS^T (B3) are split into
+// hi and lo, written by each warpgroup into its own swizzled [64][64]
+// panels and read by the accumulating wgmma with the streamed or resident
+// tile as an MN-major B operand (the transpose bit): register A operands
+// measured slower here. Every sum runs in a fixed order, with no atomics:
+// two launches give the same bits. Only the diagonal band and a partial
+// last tile take the masking branch; tiles beyond the diagonal are
+// skipped, and the heaviest blocks are scheduled first. dQ, dK and dV
+// leave the accumulators as pairs straight to global memory.
+//
+// bf16 / f16 B1 up to d = 256, B2 and B3 above 128 (flash_fwd_mma,
+// flash_bwd_dq_mma, flash_bwd_dkv_mma): FlashAttention-2 on the tensor
+// cores. A block of 4 warps owns a 64-row tile (B1, B2: q rows of one
+// (b, q head); B3: k rows of one (b, kv head)), 16 rows a warp, and walks
+// the 64-row tiles of the other side. The tiles stay in the input dtype
+// in shared memory, in rows of 16-byte chunks whose chunk index is XORed
+// with the row (so the 8 rows of one ldmatrix fall in 8 distinct bank
+// groups), loaded by cp.async into two stages: tile kt+1 is in flight
+// while tile kt is computed. Products are mma.sync m16n8k16 with float32
+// sums; operands come from ldmatrix (.trans where the tile is the B
+// operand's k-major side). The score tile stays in registers: since the
+// m16n8 accumulator layout is the m16n8k16 A-operand layout, the rounded
+// P (B1), dS (B2) or P^T and dS^T (B3, which computes the transposed
+// tiles K Q^T and V dO^T so that their rows are its k rows) feed the next
+// product without a trip through shared memory. Where the reference's
+// product is float32 (dS . K in B2, P^T . dO and dS^T . Q in B3), the
+// score operand is split into hi = round(x) and lo = round(x - hi) in the
+// input dtype and both are multiplied by the exact other operand (about
+// 16 mantissa bits). Only the diagonal tile is masked; tiles beyond it
+// are skipped; the heaviest tiles are scheduled first (the grid's slowest
+// axis) to shorten the tail.
 //
 // float32, and the half types above d = 256 (flash_fwd, flash_bwd_dq,
 // flash_bwd_dkv): SIMT float32 FMAs. One block of 256 threads owns a
@@ -81,6 +113,7 @@
 // B1 runs k tile 0 first, which every row sees, so the finite mask value
 // never leaks into a result; B2 and B3 give masked entries P = 0.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -281,24 +314,39 @@ __device__ __forceinline__ void store_block(void* base, const Strides& st,
   }
 }
 
-// delta[b, h, s] = rowsum(O * dO) in float32, one warp per row: read by
-// B2 and B3 (the TPU kernels recompute it per tile)
+// delta[b, h, s] = rowsum(O * dO) in float32, read by B2 and B3 (the TPU
+// kernels recompute it per tile). Each lane reads 16 bytes of a row at a
+// time; a row takes 2^lanes_log2 lanes (the power of two that covers its
+// 16-byte chunks, at most 32), so a warp sums 32 >> lanes_log2 rows.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) flash_bwd_delta(Params p,
-                                                            int rows) {
-  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+                                                            int rows,
+                                                            int lanes_log2) {
+  constexpr int E = 16 / sizeof(T);  // elements of a 16-byte chunk
+  const int lanes = 1 << lanes_log2;
   const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const int s = row % p.sq;
-  const int bh = row / p.sq;
-  const T* o = row_ptr<T>(p.o, p.st[kO], bh / p.hq, s, bh % p.hq);
-  const T* dout = row_ptr<T>(p.dout, p.st[kDO], bh / p.hq, s, bh % p.hq);
+  const int row = (blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5)) *
+                      (32 >> lanes_log2) +
+                  (lane >> lanes_log2);
+  const int sub = lane & (lanes - 1);
   float acc = 0.f;
-  for (int c = lane; c < p.d; c += 32) acc += to_f32(o[c]) * to_f32(dout[c]);
+  if (row < rows) {
+    const int s = row % p.sq;
+    const int bh = row / p.sq;
+    const T* o = row_ptr<T>(p.o, p.st[kO], bh / p.hq, s, bh % p.hq);
+    const T* dout = row_ptr<T>(p.dout, p.st[kDO], bh / p.hq, s, bh % p.hq);
+    for (int c = sub * E; c < p.d; c += lanes * E) {
+      const uint4 a = *reinterpret_cast<const uint4*>(o + c);
+      const uint4 g = *reinterpret_cast<const uint4*>(dout + c);
+      const T* x = reinterpret_cast<const T*>(&a);
+      const T* y = reinterpret_cast<const T*>(&g);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
+      for (int e = 0; e < E; ++e) acc += to_f32(x[e]) * to_f32(y[e]);
+    }
+  }
+  for (int off = lanes >> 1; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) p.delta[row] = acc;
+  if (sub == 0 && row < rows) p.delta[row] = acc;
 }
 
 // B1, SIMT; grid (q tile, head + hq * batch, output slice)
@@ -662,24 +710,25 @@ __device__ __forceinline__ unsigned pack2<__half>(float x, float y) {
   return *reinterpret_cast<unsigned*>(&h);
 }
 
-template <typename T>
-__device__ __forceinline__ float2 unpack2(unsigned u);
-template <>
-__device__ __forceinline__ float2 unpack2<__nv_bfloat16>(unsigned u) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
-}
-template <>
-__device__ __forceinline__ float2 unpack2<__half>(unsigned u) {
-  return __half22float2(*reinterpret_cast<__half2*>(&u));
-}
-
 // hi = (x, y) rounded to T, lo = the remainders rounded to T
 template <typename T>
 __device__ __forceinline__ void split2(float x, float y, unsigned& hi,
-                                       unsigned& lo) {
-  hi = pack2<T>(x, y);
-  const float2 r = unpack2<T>(hi);
-  lo = pack2<T>(x - r.x, y - r.y);
+                                       unsigned& lo);
+template <>
+__device__ __forceinline__ void split2<__half>(float x, float y,
+                                               unsigned& hi, unsigned& lo) {
+  hi = pack2<__half>(x, y);
+  const float2 r = __half22float2(*reinterpret_cast<__half2*>(&hi));
+  lo = pack2<__half>(x - r.x, y - r.y);
+}
+// a bf16 is the top half of its float: the rounded values are bit masks
+template <>
+__device__ __forceinline__ void split2<__nv_bfloat16>(float x, float y,
+                                                      unsigned& hi,
+                                                      unsigned& lo) {
+  hi = pack2<__nv_bfloat16>(x, y);
+  lo = pack2<__nv_bfloat16>(x - __uint_as_float(hi << 16),
+                            y - __uint_as_float(hi & 0xffff0000u));
 }
 
 // Rows s0 .. s0+63 of (b, h) into a swizzled [64][D] tile by cp.async,
@@ -1226,10 +1275,717 @@ __global__ void __launch_bounds__(kMmaThreads) flash_bwd_dkv_mma(Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// Hopper kernels: bf16 / f16 B2 and B3 at D = 64 and 128 (TMA, wgmma)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;  // consumer warpgroups 0 and 1, producer 2
+constexpr int kPanel = 64;       // columns of one 128-byte swizzled panel
+constexpr int kPanelBytes = kTile * kPanel * 2;  // 8 KB, 1024-aligned
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// an arrival that also expects `bytes` more from TMA copies
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// until the phase of parity `parity` has completed; a wait of more than
+// ~2^35 cycles (~17 s) traps, so that a fault in the protocol ends the
+// launch with an error instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done;
+  long long start = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > (1ll << 35)) {
+      __trap();
+    }
+  }
+}
+
+// One [64 rows][64 columns] panel of a rank-4 (d, h, s, b) operand by TMA,
+// 128-byte swizzled, rows past the end and columns past d zero-filled;
+// completion is counted on `bar`.
+__device__ __forceinline__ void tma_panel(void* dst, const CUtensorMap* map,
+                                          int c, int h, int s, int b,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(h), "r"(s), "r"(b),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+// rows s0 .. s0+63 of (b, h), all D columns: D / 64 panels
+template <int D>
+__device__ __forceinline__ void tma_tile(unsigned char* dst,
+                                         const CUtensorMap* map, int h,
+                                         int s0, int b, uint64_t* bar) {
+#pragma unroll
+  for (int pn = 0; pn < D / kPanel; ++pn)
+    tma_panel(dst + pn * kPanelBytes, map, pn * kPanel, h, s0, b, bar);
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile at p (rows
+// of 128 bytes, 8-row groups 1024 bytes apart). K-major operands step
+// through a panel's k16 slices by +32 bytes, MN-major ones by +2048 (16
+// rows); a 64-wide operand spans one swizzle atom, so the leading offset
+// is not read and is given the group stride too.
+__device__ __forceinline__ uint64_t wg_desc(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | (uint64_t{1024 >> 4} << 16) |
+         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// orders the compiler's accesses of wgmma accumulators against the
+// fence / wait instructions
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// the 128 threads of consumer warpgroup wg (named barrier 1 + wg)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+#define FLASH_WG_D                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define FLASH_WG_OPS(d)                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+// m64n64k16 products with float32 sums, A and B from shared memory: `ss`
+// with both K-major (d = A B, or d += A B if acc), `ss_t` with B
+// MN-major (the transpose bit), accumulating.
+template <typename T>
+struct Wgmma;
+#define FLASH_WGMMA(T, TY)                                                  \
+  template <>                                                               \
+  struct Wgmma<T> {                                                         \
+    static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,   \
+                                              uint64_t b, int acc) {        \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"             \
+                   "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY  \
+                   " " FLASH_WG_D ", %32, %33, p, 1, 1, 0, 0;\n}\n"         \
+                   : FLASH_WG_OPS(d)                                        \
+                   : "l"(a), "l"(b), "r"(acc));                             \
+    }                                                                       \
+    static __device__ __forceinline__ void ss_t(float (&d)[32], uint64_t a, \
+                                                uint64_t b) {               \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"             \
+                   "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY  \
+                   " " FLASH_WG_D ", %32, %33, p, 1, 1, 0, 1;\n}\n"         \
+                   : FLASH_WG_OPS(d)                                        \
+                   : "l"(a), "l"(b), "r"(1));                               \
+    }                                                                       \
+  };
+FLASH_WGMMA(__nv_bfloat16, "bf16")
+FLASH_WGMMA(__half, "f16")
+#undef FLASH_WGMMA
+#undef FLASH_WG_OPS
+#undef FLASH_WG_D
+
+// S (or S^T) = A B^T over the head dim: A rows and B rows are 64-row
+// tiles of D / 64 panels, both K-major
+template <typename T, int D>
+__device__ __forceinline__ void wg_scores(float (&s)[32],
+                                          const unsigned char* a,
+                                          const unsigned char* b) {
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    const int off = (kd / 4) * kPanelBytes + (kd % 4) * 32;
+    Wgmma<T>::ss(s, wg_desc(a + off), wg_desc(b + off), kd > 0);
+  }
+}
+
+// This thread's byte offsets in a [64][64] panel in the 128-byte swizzle
+// (a K-major A operand): row 16 warp + g, 16-byte chunk j; row + 8 is
+// 1024 bytes on, in the same chunk order.
+__device__ __forceinline__ void split_offsets(int (&off)[8], int warp, int g,
+                                              int t) {
+  const int r = 16 * warp + g;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) off[j] = r * 128 + ((j ^ (r & 7)) << 4) + 4 * t;
+}
+
+// An m64n64 accumulator x, split into hi = round(x) and lo = round(x -
+// hi), into two [64][64] panels at this thread's offsets: rows 16 warp + g
+// and + 8, columns 8 j + 2 t, +1.
+template <typename T>
+__device__ __forceinline__ void stage_split(const float (&x)[32],
+                                            unsigned char* hi,
+                                            unsigned char* lo,
+                                            const int (&off)[8]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      unsigned h, l;
+      split2<T>(x[4 * j + 2 * half], x[4 * j + 2 * half + 1], h, l);
+      *reinterpret_cast<unsigned*>(hi + off[j] + 1024 * half) = h;
+      *reinterpret_cast<unsigned*>(lo + off[j] + 1024 * half) = l;
+    }
+}
+
+// The split panels written by the whole warpgroup, visible to its wgmma
+// (the async proxy).
+__device__ __forceinline__ void publish_split(int wg) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  wg_sync(wg);
+}
+
+// acc[pn] += X B over a 64-row k tile: X = hi + lo, two [64][64] K-major
+// panels (hi before lo in each k16 step), B a 64-row tile read MN-major
+// (its columns are the output's)
+template <typename T, int NP>
+__device__ __forceinline__ void wg_accumulate(float (&acc)[NP][32],
+                                              const unsigned char* hi,
+                                              const unsigned char* lo,
+                                              const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) {
+      const uint64_t bd = wg_desc(b + pn * kPanelBytes + kk * 16 * 128);
+      Wgmma<T>::ss_t(acc[pn], wg_desc(hi + kk * 32), bd);
+      Wgmma<T>::ss_t(acc[pn], wg_desc(lo + kk * 32), bd);
+    }
+}
+
+// rows row and row + 8 (those < s) of an m64 accumulator over D columns
+// (those < d), as pairs in T
+template <typename T, int NP>
+__device__ __forceinline__ void store_acc(void* base, const Strides& st,
+                                          int b, int h, int row, int s,
+                                          int d, int t,
+                                          const float (&acc)[NP][32]) {
+  T* out = static_cast<T*>(base) + b * st.b + h * st.h;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = row + 8 * half;
+    if (r >= s) continue;
+    T* dst = out + r * st.s;
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = pn * kPanel + 8 * j + 2 * t;
+        if (col < d)
+          *reinterpret_cast<unsigned*>(dst + col) = pack2<T>(
+              acc[pn][4 * j + 2 * half], acc[pn][4 * j + 2 * half + 1]);
+      }
+  }
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  const unsigned a = smem_addr(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+constexpr int kStages = 3;  // the ring of streamed tiles
+
+// Shared memory of a Hopper kernel: the two resident 64-row tiles of each
+// of two operands, kStages streamed tiles of each of two operands, the
+// split panels of the two consumer warpgroups (B2: dS hi, lo; B3: P^T and
+// dS^T hi, lo), B3's staged lse and delta rows, the barriers, and slack
+// for 1024-alignment. B3 at D = 128 takes 231,992 of the 232,448 bytes a
+// block may have.
+template <bool kDkv, int D>
+struct WgShape {
+  static constexpr int kTileBytes = D / kPanel * kPanelBytes;
+  static constexpr size_t kSmem =
+      static_cast<size_t>(kTileBytes) * (4 + 2 * kStages) +
+      static_cast<size_t>(kPanelBytes) * 2 * (kDkv ? 4 : 2) +
+      (kDkv ? 2 * kStages * kTile * sizeof(float) : 0) +
+      (2 * kStages + 1) * sizeof(uint64_t) + 1024;
+  static_assert(kSmem <= 232448, "more shared memory than a block has");
+};
+
+// The mbarriers of a Hopper kernel: the ring's full and empty barriers and
+// the resident tiles'. A full barrier completes when its TMA bytes have
+// landed (and, in B3, when the producer's 32 lanes have staged their lse
+// and delta rows); an empty one when both consumer warpgroups are done
+// with the stage.
+struct WgBarriers {
+  uint64_t full[kStages], empty[kStages], resident;
+
+  __device__ void init(unsigned full_count) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], full_count);
+      mbar_init(&empty[i], 2);
+    }
+    mbar_init(&resident, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+// B2 on Hopper: dQ of 128 q rows of one (b, q head); grid (q head, batch,
+// 128-row q block), the heaviest block first. Warpgroups 0 and 1 own 64
+// q rows each, with their Q and dO tiles resident; one thread of
+// warpgroup 2 streams the K and V tiles through the ring.
+template <typename T, int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma(const Params p, const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo) {
+  constexpr int NP = D / kPanel;
+  constexpr int kTileBytes = WgShape<false, D>::kTileBytes;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* qs = align_1024(smem_raw);  // rows of warpgroup 0, 1
+  unsigned char* dos = qs + 2 * kTileBytes;
+  unsigned char* ks = dos + 2 * kTileBytes;  // the ring
+  unsigned char* vs = ks + kStages * kTileBytes;
+  unsigned char* split = vs + kStages * kTileBytes;  // 2 panels a warpgroup
+  auto* bar = reinterpret_cast<WgBarriers*>(split + 4 * kPanelBytes);
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * 2 * kTile;
+  const int kvh = h / (p.hq / p.hkv);
+  const int offset = p.sk - p.sq;
+  // k tiles that q rows r0 .. r0+63 see (0 past the end)
+  auto seen = [&](int r0) {
+    if (r0 >= p.sq) return 0;
+    if (!p.causal) return tiles(p.sk);
+    return min(tiles(p.sk), (min(r0 + kTile, p.sq) - 1 + offset) / kTile + 1);
+  };
+  const int nk = max(seen(q0), seen(q0 + kTile));
+
+  if (threadIdx.x == 0) bar->init(1);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      mbar_arrive_tx(&bar->resident, 4 * kTileBytes);
+      for (int w = 0; w < 2; ++w) {
+        tma_tile<D>(qs + w * kTileBytes, &tq, h, q0 + w * kTile, b,
+                    &bar->resident);
+        tma_tile<D>(dos + w * kTileBytes, &tdo, h, q0 + w * kTile, b,
+                    &bar->resident);
+      }
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % kStages;
+        mbar_wait(&bar->empty[st], ((kt / kStages) & 1) ^ 1);
+        mbar_arrive_tx(&bar->full[st], 2 * kTileBytes);
+        tma_tile<D>(ks + st * kTileBytes, &tk, kvh, kt * kTile, b,
+                    &bar->full[st]);
+        tma_tile<D>(vs + st * kTileBytes, &tv, kvh, kt * kTile, b,
+                    &bar->full[st]);
+      }
+    }
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + wg * kTile;  // the warpgroup's first q row
+    const int nkw = seen(r0);
+    const int row = r0 + warp * 16 + g;  // this thread's rows: +0, +8
+    const float scale2 = p.scale * kLog2e;
+    // lse (log2 units) and delta of rows row, row + 8 (0 past the end:
+    // those rows are not stored); delta scaled: dS = P (dP scale - delta
+    // scale)
+    const long long li = (static_cast<long long>(b) * p.hq + h) * p.sq + row;
+    const bool in0 = row < p.sq, in1 = row + 8 < p.sq;
+    const float lse2[2] = {in0 ? p.lse[li] * kLog2e : 0.f,
+                           in1 ? p.lse[li + 8] * kLog2e : 0.f};
+    const float dscaled[2] = {in0 ? p.delta[li] * p.scale : 0.f,
+                              in1 ? p.delta[li + 8] * p.scale : 0.f};
+    unsigned char* ds_hi = split + 2 * wg * kPanelBytes;
+    unsigned char* ds_lo = ds_hi + kPanelBytes;
+    int off[8];
+    split_offsets(off, warp, g, t);
+    const unsigned char* qw = qs + wg * kTileBytes;
+    const unsigned char* dw = dos + wg * kTileBytes;
+    float dq[NP][32];
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dq[pn][e] = 0.f;
+
+    mbar_wait(&bar->resident, 0);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int st = kt % kStages;
+      mbar_wait(&bar->full[st], (kt / kStages) & 1);
+      if (kt < nkw) {  // a tile this warpgroup's rows see
+        const unsigned char* kb = ks + st * kTileBytes;
+        const unsigned char* vb = vs + st * kTileBytes;
+        const int k0 = kt * kTile;
+        const bool diag = p.causal && k0 + kTile - 1 > r0 + offset;
+        const bool edge = diag || k0 + kTile > p.sk;
+        // S = Q K^T and dP = dO V^T, one commit group each: P is taken
+        // while dP is still on the tensor cores
+        float s[32], dp[32];
+        wg_fence();
+        wg_scores<T, D>(s, qw, kb);
+        wg_commit();
+        wg_scores<T, D>(dp, dw, vb);
+        wg_commit();
+        wg_wait<1>();
+        fence_regs(s);
+        // P = exp(S - lse); masked entries 0 (a branch of its own: only
+        // the diagonal band and a last partial tile take it)
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          s[e] = ex2(s[e] * scale2 - lse2[(e >> 1) & 1]);
+        if (edge) {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int col = k0 + (e >> 2) * 8 + 2 * t + (e & 1);
+            if ((diag && row + ((e >> 1) & 1) * 8 + offset < col) ||
+                col >= p.sk)
+              s[e] = 0.f;
+          }
+        }
+        wg_wait<0>();
+        fence_regs(dp);
+        // dS = P (dP - delta) scale, staged as hi + lo (the reference's
+        // dS K is float32)
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          s[e] *= fmaf(dp[e], p.scale, -dscaled[(e >> 1) & 1]);
+        stage_split<T>(s, ds_hi, ds_lo, off);
+        publish_split(wg);
+
+        // dQ += dS K
+        wg_fence();
+        wg_accumulate<T, NP>(dq, ds_hi, ds_lo, kb);
+        wg_commit();
+        wg_wait<0>();
+      }
+      if (tid == 0) mbar_arrive(&bar->empty[st]);  // done with the stage
+    }
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) fence_regs(dq[pn]);
+    store_acc<T, NP>(p.dq, p.st[kDQ], b, h, row, p.sq, p.d, t, dq);
+  }
+}
+
+// B3 on Hopper: dK and dV of 128 k rows of one (b, kv head), summed over
+// the GQA group; grid (kv head, batch, 128-row k block), block 0 (the
+// heaviest under the causal mask) first. Warpgroups 0 and 1 own 64 k
+// rows each, with their K and V tiles resident; warp 0 of warpgroup 2
+// streams the (q head, q tile) pairs' Q and dO tiles by TMA and stages
+// their lse (log2 units) and delta (times the scale) rows with plain
+// loads.
+template <typename T, int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_wgmma(const Params p, const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo) {
+  constexpr int NP = D / kPanel;
+  constexpr int kTileBytes = WgShape<true, D>::kTileBytes;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ks = align_1024(smem_raw);  // rows of warpgroup 0, 1
+  unsigned char* vs = ks + 2 * kTileBytes;
+  unsigned char* qs = vs + 2 * kTileBytes;  // the ring
+  unsigned char* dos = qs + kStages * kTileBytes;
+  unsigned char* split = dos + kStages * kTileBytes;  // 4 panels a warpgroup
+  float* lse_s = reinterpret_cast<float*>(split + 8 * kPanelBytes);
+  float* delta_s = lse_s + kStages * kTile;
+  auto* bar = reinterpret_cast<WgBarriers*>(delta_s + kStages * kTile);
+
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * 2 * kTile;
+  const int group = p.hq / p.hkv;
+  const int offset = p.sk - p.sq;
+  // q tiles that see this k block: from the first one that reaches it
+  const int qt0 = p.causal ? max(0, k0 - offset) / kTile : 0;
+  const int nqt = tiles(p.sq) - qt0;
+  const int n_it = group * nqt;  // (q head, q tile) pairs
+
+  if (threadIdx.x == 0) bar->init(32);  // the producer warp's lanes
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x < 256 + 32) {
+      if (lane == 0) {
+        mbar_arrive_tx(&bar->resident, 4 * kTileBytes);
+        for (int w = 0; w < 2; ++w) {
+          tma_tile<D>(ks + w * kTileBytes, &tk, kvh, k0 + w * kTile, b,
+                      &bar->resident);
+          tma_tile<D>(vs + w * kTileBytes, &tv, kvh, k0 + w * kTile, b,
+                      &bar->resident);
+        }
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int st = it % kStages;
+        const int h = kvh * group + it / nqt;
+        const int q0 = (qt0 + it % nqt) * kTile;
+        // this lane's rows lane, lane + 32, loaded before the stage is
+        // free
+        const long long base =
+            (static_cast<long long>(b) * p.hq + h) * p.sq + q0;
+        float l[2], dl[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool in = q0 + lane + 32 * e < p.sq;
+          l[e] = in ? p.lse[base + lane + 32 * e] * kLog2e : 0.f;
+          dl[e] = in ? p.delta[base + lane + 32 * e] * p.scale : 0.f;
+        }
+        mbar_wait(&bar->empty[st], ((it / kStages) & 1) ^ 1);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          lse_s[st * kTile + lane + 32 * e] = l[e];
+          delta_s[st * kTile + lane + 32 * e] = dl[e];
+        }
+        if (lane == 0) {
+          mbar_arrive_tx(&bar->full[st], 2 * kTileBytes);
+          tma_tile<D>(qs + st * kTileBytes, &tq, h, q0, b, &bar->full[st]);
+          tma_tile<D>(dos + st * kTileBytes, &tdo, h, q0, b, &bar->full[st]);
+        } else {
+          mbar_arrive(&bar->full[st]);
+        }
+      }
+    }
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int kr0 = k0 + wg * kTile;  // the warpgroup's first k row
+    const int row = kr0 + warp * 16 + g;  // this thread's k rows: +0, +8
+    const float scale2 = p.scale * kLog2e;
+    const unsigned char* kw = ks + wg * kTileBytes;
+    const unsigned char* vw = vs + wg * kTileBytes;
+    unsigned char* p_hi = split + 4 * wg * kPanelBytes;
+    unsigned char* p_lo = p_hi + kPanelBytes;
+    unsigned char* ds_hi = p_lo + kPanelBytes;
+    unsigned char* ds_lo = ds_hi + kPanelBytes;
+    int off[8];
+    split_offsets(off, warp, g, t);
+    float dk[NP][32], dv[NP][32];
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dk[pn][e] = dv[pn][e] = 0.f;
+
+    mbar_wait(&bar->resident, 0);
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it % kStages;
+      const int q0 = (qt0 + it % nqt) * kTile;
+      mbar_wait(&bar->full[st], (it / kStages) & 1);
+      // skip a pair the causal mask hides from all of this warpgroup's
+      // rows, and rows past the end
+      if (kr0 < p.sk && !(p.causal && q0 + kTile - 1 + offset < kr0)) {
+        const unsigned char* qb = qs + st * kTileBytes;
+        const unsigned char* db = dos + st * kTileBytes;
+        const float* lse = lse_s + st * kTile;
+        const float* dl = delta_s + st * kTile;
+        const bool diag = p.causal && q0 + offset < kr0 + kTile - 1;
+        const bool edge = diag || q0 + kTile > p.sq;
+        // S^T = K Q^T and dP^T = V dO^T (k rows, q columns), one commit
+        // group each: P^T is taken while dP^T is still on the tensor cores
+        float s[32], dp[32];
+        wg_fence();
+        wg_scores<T, D>(s, kw, qb);
+        wg_commit();
+        wg_scores<T, D>(dp, vw, db);
+        wg_commit();
+        wg_wait<1>();
+        fence_regs(s);
+        // P^T = exp(S^T - lse); masked 0, and 0 in the q columns past sq
+        // (they add nothing): a branch of its own, as in B2
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float2 l2 =
+              *reinterpret_cast<const float2*>(lse + 8 * c + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[4 * c + e] =
+                ex2(s[4 * c + e] * scale2 - ((e & 1) ? l2.y : l2.x));
+        }
+        if (edge) {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const int q = q0 + (e >> 2) * 8 + 2 * t + (e & 1);
+            if (q >= p.sq || (diag && q + offset < row + ((e >> 1) & 1) * 8))
+              s[e] = 0.f;
+          }
+        }
+        stage_split<T>(s, p_hi, p_lo, off);
+        wg_wait<0>();
+        fence_regs(dp);
+        // dS^T = P^T (dP^T - delta) scale, delta staged scaled
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float2 d2 =
+              *reinterpret_cast<const float2*>(dl + 8 * c + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * c + e] = s[4 * c + e] * fmaf(dp[4 * c + e], p.scale,
+                                                -((e & 1) ? d2.y : d2.x));
+        }
+        stage_split<T>(dp, ds_hi, ds_lo, off);
+        publish_split(wg);
+
+        // dV += P^T dO and dK += dS^T Q, P^T and dS^T as hi + lo (the
+        // reference's products are float32)
+        wg_fence();
+        wg_accumulate<T, NP>(dv, p_hi, p_lo, db);
+        wg_accumulate<T, NP>(dk, ds_hi, ds_lo, qb);
+        wg_commit();
+        wg_wait<0>();
+      }
+      if (tid == 0) mbar_arrive(&bar->empty[st]);  // done with the stage
+    }
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn) {
+      fence_regs(dv[pn]);
+      fence_regs(dk[pn]);
+    }
+    store_acc<T, NP>(p.dk, p.st[kDK], b, kvh, row, p.sk, p.d, t, dk);
+    store_acc<T, NP>(p.dv, p.st[kDV], b, kvh, row, p.sk, p.d, t, dv);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
 enum Which : int { kFwd = 0, kBwdDq = 1, kBwdDkv = 2 };
+// kernel designs, as ops/flash_attention.py::kernel_route names them
+enum Design : int { kSimt = 0, kMma = 1, kWgmma = 2 };
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (nothing more is linked); null where it is missing
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(ptr)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A BSHD operand as a rank-4 (d, h, s, b) tensor with the caller's
+// strides, read in boxes of 64 columns x 64 rows of one (b, h), 128-byte
+// swizzled; out-of-bounds columns and rows read as zeros. A dimension of
+// size 1 is never stepped: its stride is taken as if it were packed.
+template <typename T>
+bool make_map(CUtensorMap* map, const void* base, const Strides& st, int d,
+              int heads, int seq, int batch) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const long long given[3] = {st.h, st.s, st.b};
+  cuuint64_t strides[3];
+  cuuint64_t packed = (d * sizeof(T) + 15) / 16 * 16;
+  for (int i = 0; i < 3; ++i) {
+    strides[i] = dims[i + 1] == 1 ? packed : given[i] * sizeof(T);
+    packed = strides[i] * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {kPanel, 1, kTile, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map,
+            std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            4, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// B2 / B3 on Hopper: q, do [b, sq, hq, d] and k, v [b, sk, hkv, d] as
+// tensor maps; 128-row blocks
+template <typename T, int D>
+cudaError_t launch_wgmma(int which, int batch, const Params& p,
+                         cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_map<T>(&tq, p.q, p.st[kQ], p.d, p.hq, p.sq, batch) ||
+      !make_map<T>(&tk, p.k, p.st[kK], p.d, p.hkv, p.sk, batch) ||
+      !make_map<T>(&tv, p.v, p.st[kV], p.d, p.hkv, p.sk, batch) ||
+      !make_map<T>(&tdo, p.dout, p.st[kDO], p.d, p.hq, p.sq, batch))
+    return cudaErrorInvalidValue;
+  const bool dq = which == kBwdDq;
+  auto kernel = dq ? flash_bwd_dq_wgmma<T, D> : flash_bwd_dkv_wgmma<T, D>;
+  const size_t smem = dq ? WgShape<false, D>::kSmem : WgShape<true, D>::kSmem;
+  // one block a 128-row block of (q head or kv head, batch)
+  constexpr int kBlockRows = 2 * kTile;
+  const dim3 grid =
+      dq ? dim3(p.hq, batch, (p.sq + kBlockRows - 1) / kBlockRows)
+         : dim3(p.hkv, batch, (p.sk + kBlockRows - 1) / kBlockRows);
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kWgThreads, smem, stream>>>(p, tq, tk, tv, tdo);
+  return cudaGetLastError();
+}
 
 template <int D>
 constexpr size_t simt_smem_bytes(int which) {
@@ -1262,35 +2018,44 @@ cudaError_t launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// bf16 / f16 with d <= D run on the tensor cores; float32, and the half
-// types above 256 (at D = 64, split d), the SIMT kernels.
+// The design kernel_route picked: kWgmma (bf16 / f16 B2 and B3, D 64 or
+// 128), kMma (bf16 / f16 with d <= D: B1 up to 256, B2 and B3 at 256),
+// kSimt (float32, and at D = 64 the half types above 256: split d).
 template <typename T, int D>
-cudaError_t launch(int which, int batch, const Params& p,
+cudaError_t launch(int design, int which, int batch, const Params& p,
                    cudaStream_t stream) {
   constexpr bool kHalf = !std::is_same<T, float>::value;
+  if constexpr (kHalf && D <= 128) {
+    if (design == kWgmma) {
+      if (which == kFwd || p.d > D) return cudaErrorInvalidValue;
+      return launch_wgmma<T, D>(which, batch, p, stream);
+    }
+  }
   if constexpr (kHalf) {
-    if (p.d <= D) {
-      switch (which) {
-        case kFwd:  // grid (head, batch, q tile), heaviest q tile first
-          return launch_kernel(flash_fwd_mma<T, D>,
-                               dim3(p.hq, batch, tiles(p.sq)), kMmaThreads,
-                               mma_smem_bytes<T, D>(kFwd), p, stream);
-        case kBwdDq:
+    if (design == kMma) {
+      if (p.d > D) return cudaErrorInvalidValue;
+      if (which == kFwd)  // grid (head, batch, q tile), heaviest first
+        return launch_kernel(flash_fwd_mma<T, D>,
+                             dim3(p.hq, batch, tiles(p.sq)), kMmaThreads,
+                             mma_smem_bytes<T, D>(kFwd), p, stream);
+      // B2 and B3 take mma.sync only above d 128
+      if constexpr (D == 256) {
+        if (which == kBwdDq)
           return launch_kernel(flash_bwd_dq_mma<T, D>,
                                dim3(p.hq, batch, tiles(p.sq)), kMmaThreads,
                                mma_smem_bytes<T, D>(kBwdDq), p, stream);
-        case kBwdDkv:
+        if (which == kBwdDkv)
           return launch_kernel(flash_bwd_dkv_mma<T, D>,
                                dim3(p.hkv * (D / dkv_cols<D>()), batch,
                                     tiles(p.sk)),
                                kMmaThreads, mma_smem_bytes<T, D>(kBwdDkv), p,
                                stream);
-        default:
-          return cudaErrorInvalidValue;
       }
+      return cudaErrorInvalidValue;
     }
   }
   if constexpr (!kHalf || D == 64) {
+    if (design != kSimt) return cudaErrorInvalidValue;
     const int slices = (p.d + D - 1) / D;
     switch (which) {
       case kFwd:
@@ -1316,27 +2081,30 @@ cudaError_t launch(int which, int batch, const Params& p,
 template <typename T>
 cudaError_t launch_delta(int batch, const Params& p, cudaStream_t stream) {
   const int rows = batch * p.hq * p.sq;
-  constexpr int kRowsPerBlock = kThreads / 32;
-  flash_bwd_delta<T><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, kThreads,
-                       0, stream>>>(p, rows);
+  const int chunks = p.d / (16 / static_cast<int>(sizeof(T)));
+  int lanes_log2 = 0;
+  while (lanes_log2 < 5 && (1 << lanes_log2) < chunks) ++lanes_log2;
+  const int per_block = (kThreads / 32) * (32 >> lanes_log2);
+  flash_bwd_delta<T><<<(rows + per_block - 1) / per_block, kThreads, 0,
+                       stream>>>(p, rows, lanes_log2);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_d(int padded_dim, int which, int batch, int delta_ready,
-                     const Params& p, cudaStream_t stream) {
+cudaError_t launch_d(int design, int padded_dim, int which, int batch,
+                     int delta_ready, const Params& p, cudaStream_t stream) {
   if (which != kFwd && !delta_ready) {
     const cudaError_t e = launch_delta<T>(batch, p, stream);
     if (e != cudaSuccess) return e;
   }
   switch (padded_dim) {
     case 64:
-      return launch<T, 64>(which, batch, p, stream);
+      return launch<T, 64>(design, which, batch, p, stream);
     case 128:
-      return launch<T, 128>(which, batch, p, stream);
+      return launch<T, 128>(design, which, batch, p, stream);
     case 256:  // the tensor-core kernels only
       if constexpr (!std::is_same<T, float>::value)
-        return launch<T, 256>(which, batch, p, stream);
+        return launch<T, 256>(design, which, batch, p, stream);
       else
         return cudaErrorInvalidValue;
     default:
@@ -1347,20 +2115,25 @@ cudaError_t launch_d(int padded_dim, int which, int batch, int delta_ready,
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. `which`: 0 = B1 (writes o and
-// lse), 1 = B2 (writes dq), 2 = B3 (writes dk and dv). `head_dim` is the
-// operands' d (a multiple of 8), `padded_dim` the instantiation D: the
-// tensor-core kernels (bf16 / f16, d <= 256) take D = 64, 128 or 256 >= d;
-// the SIMT kernels D = 64 or 128, summing over d in D-column slices where
-// d > D. `ptrs` holds the device pointers q, k, v, o, do, lse, delta, dq,
-// dk, dv (unused ones may be null); `strides` the (b, s, h) element
-// strides of q, k, v, o, do, dq, dk, dv, in that order (unit stride on
-// the head dim is the caller's check, as are rows that start on 16
-// bytes). B2 and B3 read delta = rowsum(O * dO) [b, hq, sq] from `delta`;
+// lse), 1 = B2 (writes dq), 2 = B3 (writes dk and dv). `design`: 0 the
+// SIMT kernels, 1 the mma.sync kernels, 2 the Hopper B2 / B3 (wgmma,
+// TMA); a design the kernel or the dtype does not have is refused.
+// `head_dim` is the operands' d (a multiple of 8), `padded_dim` the
+// instantiation D: the tensor-core kernels (bf16 / f16, d <= 256) take
+// D = 64, 128 or 256 >= d (the Hopper ones 64 or 128); the SIMT kernels
+// D = 64 or 128, summing over d in D-column slices where d > D. `ptrs`
+// holds the device pointers q, k, v, o, do, lse, delta, dq, dk, dv
+// (unused ones may be null); `strides` the (b, s, h) element strides of
+// q, k, v, o, do, dq, dk, dv, in that order (unit stride on the head dim
+// is the caller's check, as are rows that start on 16 bytes, 16-byte
+// strides and no stride 0 over a dimension longer than 1, which TMA
+// needs). B2 and B3 read delta = rowsum(O * dO) [b, hq, sq] from `delta`;
 // unless `delta_ready`, a first kernel writes it there. Sequence lengths
 // are any sq, sk >= 1. Returns the launches' cudaError_t (0 on success).
 // Allocates nothing.
-extern "C" int flash_attention_launch(int which, int dtype, int head_dim,
-                                      int padded_dim, void* const* ptrs,
+extern "C" int flash_attention_launch(int which, int design, int dtype,
+                                      int head_dim, int padded_dim,
+                                      void* const* ptrs,
                                       const long long* strides, int batch,
                                       int sq, int sk, int hq, int hkv,
                                       float scale, int causal,
@@ -1389,12 +2162,14 @@ extern "C" int flash_attention_launch(int which, int dtype, int head_dim,
   auto st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
-      return launch_d<float>(padded_dim, which, batch, delta_ready, p, st);
+      return launch_d<float>(design, padded_dim, which, batch, delta_ready, p,
+                             st);
     case kBF16:
-      return launch_d<__nv_bfloat16>(padded_dim, which, batch, delta_ready, p,
-                                     st);
+      return launch_d<__nv_bfloat16>(design, padded_dim, which, batch,
+                                     delta_ready, p, st);
     case kF16:
-      return launch_d<__half>(padded_dim, which, batch, delta_ready, p, st);
+      return launch_d<__half>(design, padded_dim, which, batch, delta_ready,
+                              p, st);
     default:
       return cudaErrorInvalidValue;
   }

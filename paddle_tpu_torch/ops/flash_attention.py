@@ -17,10 +17,14 @@ a run on the card can be compared with its kernels.
 The kernels read q/k/v through their (b, s, h) strides, so the strided
 views GPT's attention cuts from its fused qkv projection are not copied.
 Every head dim that is a multiple of 8 runs in a kernel
-(:func:`kernel_route` picks it): in bfloat16 and float16 up to 256, B1,
-B2 and B3 run on the tensor cores (``mma.sync``) at a padded head dim D
-(tiles loaded with zeros in columns d..D-1, which change neither QK^T
-nor the written columns, and stored in columns < d only); float32, and
+(:func:`kernel_route` picks it from dtype and shape before the launch):
+in bfloat16 and float16 up to 128, B2 and B3 are Hopper kernels (TMA
+loads through a ring of shared-memory stages, ``wgmma`` from two
+consumer warpgroups of 64 rows each); up to 256, B1 (and B2 and B3
+above 128) run on the tensor cores with ``mma.sync``; all of them at a
+padded head dim D (tiles loaded with zeros in columns d..D-1, which
+change neither QK^T nor the written columns, and stored in columns < d
+only); float32, and
 the half types above 256, run the SIMT kernels, which sum the score
 tiles over d in 64- or 128-column slices, so their shared memory does
 not grow with d. B2 and B3 read delta = rowsum(O dO) from a buffer that
@@ -49,25 +53,32 @@ launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
 # dtype codes of csrc/flash_attention.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _FWD, _BWD_DQ, _BWD_DKV = 0, 1, 2
+# design codes of csrc/flash_attention.cu
+_DESIGN_CODES = {"simt": 0, "split": 0, "mma": 1, "wgmma": 2}
 _launcher = None
 
 # "kernel": CUDA tensors launch B1-B3; "plain": the twins run everywhere
 impl = "kernel"
 
 
-def kernel_route(d: int, dtype: torch.dtype):
+def kernel_route(d: int, dtype: torch.dtype, backward: bool = False):
     """``(design, D)``: the kernels that run head dim ``d`` in ``dtype``
-    and the head dim D they are built at. ``"mma"``: the tensor-core
-    kernels at the smallest of 64, 128, 256 that is >= d (bfloat16 and
-    float16 up to 256); ``"simt"``: the float32 SIMT kernels at D = 64
-    or 128 >= d; ``"split"``: the SIMT kernels at D = 64 summing over d
-    in 64-column slices (float32 above 128, the half types above 256).
-    None for a d that is not a positive multiple of 8 (rows of whole
-    16-byte chunks), which ``flash_attention_available`` never admits."""
+    and the head dim D they are built at; B1's route, or B2's and B3's
+    if ``backward``. ``"wgmma"``: the Hopper B2 and B3 (TMA, wgmma) at
+    D = 64 or 128 >= d (bfloat16 and float16 up to 128); ``"mma"``: the
+    ``mma.sync`` kernels at the smallest of 64, 128, 256 that is >= d
+    (bfloat16 and float16 up to 256: B1 throughout, B2 and B3 above
+    128, where dK and dV outgrow a Hopper consumer's registers);
+    ``"simt"``: the float32 SIMT kernels at D = 64 or 128 >= d;
+    ``"split"``: the SIMT kernels at D = 64 summing over d in 64-column
+    slices (float32 above 128, the half types above 256). None for a d
+    that is not a positive multiple of 8 (rows of whole 16-byte
+    chunks), which ``flash_attention_available`` never admits."""
     if d <= 0 or d % 8:
         return None
     if dtype != torch.float32 and d <= 256:
-        return "mma", next(D for D in (64, 128, 256) if d <= D)
+        D = next(D for D in (64, 128, 256) if d <= D)
+        return ("wgmma" if backward and D <= 128 else "mma"), D
     if dtype == torch.float32 and d <= 128:
         return "simt", 64 if d <= 64 else 128
     return "split", 64
@@ -153,7 +164,7 @@ def _load_launcher():
     if _launcher is None:
         fn = _kernels.library("flash_attention").flash_attention_launch
         i = ctypes.c_int
-        fn.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_void_p),
+        fn.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_void_p),
                        ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i,
                        ctypes.c_float, i, i, ctypes.c_void_p]
         fn.restype = i
@@ -196,9 +207,11 @@ def _strides(x):
 
 def _aligned(x):
     """Input ``x`` itself if its rows start on 16 bytes (the kernels copy
-    whole 16-byte chunks), else a contiguous copy."""
+    whole 16-byte chunks; TMA takes such strides only) and no dimension
+    longer than 1 repeats rows (stride 0), else a contiguous copy."""
     if x is None or (x.data_ptr() % 16 == 0 and all(
-            st * x.element_size() % 16 == 0 for st in x.stride()[:3])):
+            st * x.element_size() % 16 == 0 and (st or n == 1)
+            for st, n in zip(x.stride()[:3], x.shape[:3]))):
         return x
     return x.clone(memory_format=torch.contiguous_format)
 
@@ -215,8 +228,9 @@ def _launch(which, q, k, v, o, do, lse, delta, dq, dk, dv, sm_scale,
     st = sum((_strides(x) for x in (q, k, v, o, do, dq, dk, dv)), [])
     strides = (ctypes.c_longlong * 24)(*st)
     b, sq, hq, d = q.shape
+    design, padded = kernel_route(d, q.dtype, backward=which != _FWD)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(which, _DTYPE_CODES[q.dtype], d, kernel_route(d, q.dtype)[1],
+    err = fn(which, _DESIGN_CODES[design], _DTYPE_CODES[q.dtype], d, padded,
              ptrs, strides, b, sq, k.shape[1], hq, k.shape[2],
              float(sm_scale), int(causal), int(delta_ready), stream)
     if err != 0:

@@ -241,15 +241,34 @@ def test_pick_block_matches_jax(n):
     (192, ("mma", 256), ("split", 64)), (256, ("mma", 256), ("split", 64)),
     (264, ("split", 64), ("split", 64)), (68, None, None), (0, None, None)])
 def test_padded_head_dim(d, D, D_f32):
-    """The kernels and the head dim D they run head dim d at: the
-    tensor cores in the half types up to 256, the float32 SIMT kernels
-    up to 128, the split-d SIMT kernels above; nothing for what no
-    16-byte row holds."""
+    """The kernels and the head dim D they run head dim d at: B1 on the
+    tensor cores (mma.sync) in the half types up to 256, and B2 and B3
+    there too above 128 but on the Hopper kernels (wgmma) up to 128; the
+    float32 SIMT kernels up to 128, the split-d SIMT kernels above;
+    nothing for what no 16-byte row holds."""
     for dtype in (torch.bfloat16, torch.float16):
         assert tfa.kernel_route(d, dtype) == D
+        bwd = ("wgmma", D[1]) if D is not None and D[0] == "mma" and \
+            D[1] <= 128 else D
+        assert tfa.kernel_route(d, dtype, backward=True) == bwd
     assert tfa.kernel_route(d, torch.float32) == D_f32
+    assert tfa.kernel_route(d, torch.float32, backward=True) == D_f32
     if D is not None and D[0] == "mma":
         assert d <= D[1]
+
+
+@pytest.mark.parametrize("d,route", [
+    (8, ("wgmma", 64)), (64, ("wgmma", 64)), (72, ("wgmma", 128)),
+    (80, ("wgmma", 128)), (128, ("wgmma", 128)), (136, ("mma", 256)),
+    (256, ("mma", 256)), (264, ("split", 64))])
+def test_backward_route_of_the_half_types(d, route):
+    """B2 and B3 in bfloat16 and float16: the Hopper kernels at D 64 or
+    128, the mma.sync kernels from 136 to 256, split d above; B1 stays
+    on mma.sync up to 256."""
+    for dtype in (torch.bfloat16, torch.float16):
+        assert tfa.kernel_route(d, dtype, backward=True) == route
+        assert tfa.kernel_route(d, dtype)[0] == \
+            ("split" if d > 256 else "mma")
 
 
 @pytest.mark.parametrize("d", range(64, 513, 8))
@@ -263,6 +282,10 @@ def test_every_admitted_head_dim_has_a_kernel(d):
                                          True)
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         assert tfa.kernel_route(d, dtype) is not None
+        design, D = tfa.kernel_route(d, dtype, backward=True)
+        assert design == ("wgmma" if dtype != torch.float32 and d <= 128
+                          else "mma" if dtype != torch.float32 and d <= 256
+                          else "simt" if d <= 128 else "split")
 
 
 def test_mask_value_matches_jax():
@@ -386,6 +409,19 @@ CARD_CASES = {
     "bf16-gqa-q97-k136-d64": (1, 97, 136, 8, 2, 64, True, "bfloat16"),
     "f32-d256-s97-causal": (1, 97, 97, 2, 2, 256, True, "float32"),
     "bf16-d320-q136-k200": (1, 136, 200, 2, 2, 320, False, "bfloat16"),
+    # the Hopper B2 / B3 (bf16 / f16, d <= 128) and the edge of their
+    # route (d 136 stays on mma.sync); 128-row blocks of two 64-row
+    # warpgroups, with a partial block and a warpgroup past the end
+    "bf16-d128-causal": (2, 256, 256, 4, 4, 128, True, "bfloat16"),
+    "f16-d128-s200": (1, 200, 200, 2, 2, 128, False, "float16"),
+    "bf16-d136-causal": (1, 192, 192, 2, 2, 136, True, "bfloat16"),
+    "f16-gqa4-d80-causal": (1, 200, 200, 8, 2, 80, True, "float16"),
+    "bf16-gqa4-s97-causal": (2, 97, 97, 8, 2, 64, True, "bfloat16"),
+    "bf16-s97-d128-causal": (1, 97, 97, 2, 2, 128, True, "bfloat16"),
+    "f16-q200-k136": (2, 200, 136, 4, 4, 64, False, "float16"),
+    "bf16-q136-k200-d80-causal": (1, 136, 200, 4, 2, 80, True, "bfloat16"),
+    "f16-s64-causal": (1, 64, 64, 2, 2, 64, True, "float16"),
+    "bf16-d8-s300-causal": (1, 300, 300, 2, 2, 8, True, "bfloat16"),
 }
 
 
@@ -494,3 +530,40 @@ def test_misaligned_views_give_the_aligned_result_on_card():
                                                     q.contiguous(), 0.125,
                                                     True)
     assert torch.equal(o, want) and torch.equal(lse, want_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(64, "bfloat16"), (128, "float16"),
+                                     (80, "bfloat16")])
+def test_backward_is_deterministic_on_card(d, dtype):
+    """Two launches of B2 and of B3 on the same inputs give bit-identical
+    dq, dk and dv: every sum runs in a fixed order, with no atomics. q,
+    k, v are strided views of one [b, s, (hq + 2 hkv) d] projection, as
+    the model passes them (GQA group 4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("kernels B1-B3 run only on a CUDA card")
+    b, s, hq, hkv = 2, 384, 8, 2
+    dt = getattr(torch, dtype)
+    assert tfa.kernel_route(d, dt, backward=True)[0] == "wgmma"
+    g = torch.Generator(device="cuda").manual_seed(3)
+    qkv = torch.randn(b, s, (hq + 2 * hkv) * d, generator=g,
+                      device="cuda").to(dt)
+    q, k, v = torch.split(qkv, [hq * d, hkv * d, hkv * d], dim=-1)
+    q = q.reshape(b, s, hq, d)
+    k, v = k.reshape(b, s, hkv, d), v.reshape(b, s, hkv, d)
+    assert not q.is_contiguous()
+    do = torch.randn(b, s, hq, d, generator=g, device="cuda").to(dt)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = tfa.flash_attention_fwd_kernel(q, k, v, scale, True)
+    runs = []
+    for _ in range(2):
+        dq = tfa.flash_attention_bwd_dq_kernel(q, k, v, o, lse, do, scale,
+                                               True)
+        runs.append((dq,) + tfa.flash_attention_bwd_dkv_kernel(
+            q, k, v, o, lse, do, scale, True))
+    torch.cuda.synchronize()
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+    want = tfa.flash_attention_bwd_torch(q, k, v, o, lse, do, scale, True)
+    for got, w in zip(runs[0], want):
+        _close(got, w, dtype)

@@ -12,8 +12,10 @@ package, with device time from ``torch.profiler`` as ``chip_smoke.py``
 takes it:
 
 - ``flash``: B1, B2 and B3 causal at the gpt2-small train shape (b 8, s
-  1024, 12 heads, d 64) in bf16 and f32 (median of 3 windows of 20
-  calls, in turns), trees in turns A, B, B, A;
+  1024, 12 heads, d 64) in bf16, f16 and f32, and at ``chip_smoke.py``'s
+  GQA llama case (b 2, s 2048, 16 / 4 heads, d 128, bf16); median of 3
+  windows of 20 calls, in turns; B2 and B3 each with its own delta pass,
+  as ``chip_smoke.py`` times them; trees in turns A, B, B, A;
 - ``paged``: B4 at ``chip_smoke.py``'s serving shapes (gpt2 decode in
   f32 and int8 pages, a gpt2 prefill chunk, llama-style GQA decode, a
   verify window) on its 12 layer pools, with the same inputs in every
@@ -21,8 +23,8 @@ takes it:
   beside the profiler, trees in turns A, B, B, A, B, A, A, B.
 
 Prints the card and its power limit, each tree's ptxas registers and
-spills (of the tensor-core kernels for ``flash``), and one JSON line per
-timing."""
+spills (of the tensor-core kernels for ``flash``: ``mma.sync`` and
+``wgmma``), and one JSON line per timing."""
 
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import subprocess
 import sys
 
 # library built, ptxas kernels kept, turns of the trees
-KERNELS = {"flash": ("flash_attention", "_mma<", "ABBA"),
+KERNELS = {"flash": ("flash_attention", "mma<", "ABBA"),
            "paged": ("paged_attention", "", "ABBABAAB")}
 
 
@@ -62,11 +64,17 @@ def _time_flash(c, out):
     import torch
     from paddle_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(1)
-    for name, dtype in (("gpt2 bf16", "bfloat16"), ("gpt2 f32", "float32")):
+    for name, b, s, hq, hkv, d, dtype in (
+            ("gpt2 bf16", 8, 1024, 12, 12, 64, "bfloat16"),
+            ("gpt2 f16", 8, 1024, 12, 12, 64, "float16"),
+            ("gpt2 f32", 8, 1024, 12, 12, 64, "float32"),
+            ("gqa llama bf16", 2, 2048, 16, 4, 128, "bfloat16")):
         dt = getattr(torch, dtype)
-        q, k, v, do = [torch.randn(8, 1024, 12, 64, generator=g,
-                                   device="cuda").to(dt) for _ in range(4)]
-        sc = 64 ** -0.5
+        q, do = [torch.randn(b, s, hq, d, generator=g, device="cuda").to(dt)
+                 for _ in range(2)]
+        k, v = [torch.randn(b, s, hkv, d, generator=g, device="cuda").to(dt)
+                for _ in range(2)]
+        sc = d ** -0.5
         o, lse = fa.flash_attention_fwd_kernel(q, k, v, sc, True)
         out[name] = c._time_interleaved({
             "B1": lambda: fa.flash_attention_fwd_kernel(q, k, v, sc, True),

@@ -13,8 +13,8 @@ the result line:
    ``nvcc`` for sm_90a (with the ptxas register report, ptxas's notes
    where it serializes wgmma and, where the toolkit has ``cuobjdump``,
    each kernel's count of HMMA, HGMMA and TMA-load instructions in its
-   SASS: the ``mma.sync`` flash kernels must hold HMMA, the Hopper B2
-   and B3 HGMMA and UTMALDG);
+   SASS: the ``mma.sync`` flash kernels must hold HMMA, the Hopper B1,
+   B2 and B3 HGMMA and UTMALDG);
 3. kernels: kernel B4 against its plain PyTorch twin at the serving
    path's shapes and dtypes (decode, a prefill chunk of two sequences
    and padding, GQA, one 1024-token row, head dims 80 and 256, a mixed
@@ -30,9 +30,9 @@ the result line:
    shapes (gpt2-small bf16 and f32, llama-style GQA, cross-length, head
    dim 80, head dims 256 f32, 320 bf16 and 264 f16 in the split-d
    kernels, the train shape in f16 (GradScaler's training), head dim
-   192 (B2 and B3 on ``mma.sync``), and lengths 97 and 200 / 136 that
+   192 (B1, B2 and B3 on ``mma.sync``), and lengths 97 and 200 / 136 that
    end in a partial tile), each case naming the route of each kernel
-   and holding two launches of B2 and of B3 bit-identical, each
+   and holding two launches of B1, of B2 and of B3 bit-identical, each
    kernel's device time (``torch.profiler``) taken in turns with its
    twin's and SDPA's (median of 3 windows of 20 calls);
 5. serve: GPT-2-small at full width (random weights from ``seed(0)``)
@@ -213,7 +213,8 @@ def _kernel_name(mangled: str) -> str:
 
 
 def _ptxas_report(log: str) -> dict:
-    """Registers and spill bytes of each kernel, from ``-Xptxas=-v``."""
+    """Registers, stack frame and spill bytes of each kernel, from
+    ``-Xptxas=-v``."""
     report, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -221,6 +222,9 @@ def _ptxas_report(log: str) -> dict:
             name = _kernel_name(m.group(1))
             report[name] = {}
         elif name is not None:
+            m = re.search(r"(\d+) bytes stack frame", line)
+            if m:
+                report[name]["stack_frame_bytes"] = int(m.group(1))
             m = re.search(r"(\d+) bytes spill stores", line)
             if m:
                 report[name]["spill_store_bytes"] = int(m.group(1))
@@ -248,10 +252,19 @@ def _sass_counts(lib_path: str, nvcc: str):
     return counts
 
 
-# the flash kernels by design: the mma.sync ones (B1, and B2 / B3 above
-# d 128) and the Hopper B2 / B3 (wgmma, TMA)
+# the flash kernels by design: the mma.sync ones (B1, B2 and B3 above d
+# 128) and the Hopper B1, B2 and B3 (wgmma, TMA)
 FLASH_MMA_KERNELS = {"flash_fwd_mma", "flash_bwd_dq_mma", "flash_bwd_dkv_mma"}
-FLASH_WGMMA_KERNELS = {"flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"}
+FLASH_WGMMA_KERNELS = {"flash_fwd_wgmma", "flash_bwd_dq_wgmma",
+                       "flash_bwd_dkv_wgmma"}
+# registers a thread each Hopper kernel launches with (csrc/
+# flash_attention.cu: B1's FwdShape<D>::kEntryRegs, B2 / B3 one block of
+# three warpgroups an SM): setmaxnreg.inc hands the consumers registers
+# out of that share, so a build that ptxas gives fewer lets more blocks
+# onto an SM and its consumers wait in setmaxnreg forever
+FLASH_WGMMA_REGISTERS = {"flash_fwd_wgmma": {64: 64, 128: 128},
+                         "flash_bwd_dq_wgmma": {64: 168, 128: 168},
+                         "flash_bwd_dkv_wgmma": {64: 168, 128: 168}}
 
 
 def phase_build() -> None:
@@ -278,8 +291,24 @@ def phase_build() -> None:
           "flags": list(_kernels.NVCC_FLAGS), "ptxas": ptxas,
           "sass_counts": sass, "flash_tensor_core_kernels": tensor_core,
           "wgmma_serialized": serialized})
+    # each Hopper kernel this run built, at each dtype and D, holds
+    # exactly its launch share of registers
+    if "flash_attention" in _kernels.build_logs:
+        regs = {(kind, dt, d): flash_ptxas.get(f"{kind}<{dt},{d}>", {})
+                .get("registers")
+                for kind, want in FLASH_WGMMA_REGISTERS.items()
+                for d in want for dt in ("__nv_bfloat16", "__half")}
+        wrong = {f"{k}<{dt},{d}>": {"registers": r,
+                                     "launch_share":
+                                         FLASH_WGMMA_REGISTERS[k][d]}
+                 for (k, dt, d), r in regs.items()
+                 if r != FLASH_WGMMA_REGISTERS[k][d]}
+        if wrong:
+            raise SystemExit(f"Hopper flash kernels whose registers are "
+                             f"not their launch share (setmaxnreg would "
+                             f"wait forever): {wrong}")
     # the half-type B1, B2 and B3 are tensor-core kernels: mma.sync ones
-    # must hold HMMA in their SASS, the Hopper B2 / B3 HGMMA and TMA loads
+    # must hold HMMA in their SASS, the Hopper ones HGMMA and TMA loads
     if sass.get("flash_attention") is not None:
         kinds = {k.split("<")[0] for k in tensor_core}
         bad = {k: v for k, v in tensor_core.items()
@@ -1962,7 +1991,7 @@ def phase_flash_kernels() -> dict:
         ("cross 512x1024 bf16", 8, 512, 1024, 12, 12, 64, torch.bfloat16),
         # head dim 80 (hidden 640, 8 heads), run padded to 128
         ("d80 bf16", 8, 1024, 1024, 8, 8, 80, torch.bfloat16),
-        # above d 128 B2 and B3 stay on mma.sync (D 256)
+        # above d 128 B1, B2 and B3 stay on mma.sync (D 256)
         ("d192 f16 mma", 2, 1024, 1024, 8, 8, 192, torch.float16),
         # split d: the SIMT kernels summing over 64-column slices
         ("d256 f32 split", 2, 1024, 1024, 8, 8, 256, torch.float32),
@@ -1989,18 +2018,20 @@ def phase_flash_kernels() -> dict:
                                                    scale, causal)
         want_dq, want_dk, want_dv = fa.flash_attention_bwd_torch(
             q, k, v, o, lse, do, scale, causal)
-        # B2 and B3 sum in a fixed order, without atomics: a second launch
-        # on the same inputs gives the same bits
+        # B1, B2 and B3 sum in a fixed order, without atomics: a second
+        # launch on the same inputs gives the same bits
+        o2, lse2 = fa.flash_attention_fwd_kernel(q, k, v, scale, causal)
         dq2 = fa.flash_attention_bwd_dq_kernel(q, k, v, o, lse, do, scale,
                                                causal)
         dk2, dv2 = fa.flash_attention_bwd_dkv_kernel(q, k, v, o, lse, do,
                                                      scale, causal)
         torch.cuda.synchronize()
-        same = {"flash_attention_fwd": None,
+        same = {"flash_attention_fwd": torch.equal(o, o2) and
+                torch.equal(lse, lse2),
                 "flash_attention_bwd_dq": torch.equal(dq, dq2),
                 "flash_attention_bwd_dkv": torch.equal(dk, dk2) and
                 torch.equal(dv, dv2)}
-        del dq2, dk2, dv2
+        del o2, lse2, dq2, dk2, dv2
 
         def err(got, want):
             """(max |got - want|, max |got - want| / (atol + rtol |want|))
@@ -2041,14 +2072,14 @@ def phase_flash_kernels() -> dict:
             case = {"phase": "kernel_case", "kernel": kernel, "case": name,
                     "b": b, "sq": sq, "sk": sk, "hq": hq, "hkv": hkv,
                     "head_dim": d, "causal": causal, "dtype": str(dt),
-                    "route": fa.kernel_route(d, dt, backward=side == "bwd"),
+                    "route": fa.kernel_route(d, dt),
                     "max_abs_err": max(e for e, _ in errs),
                     "rtol_atol": FLASH_TOL[dt],
                     "lse_rtol_atol": FLASH_TOL[torch.float32],
                     "err_over_limit": [r for _, r in errs],
                     "deterministic": same[kernel],
                     "ok": all(math.isfinite(r) and r <= 1.0
-                              for _, r in errs) and same[kernel] is not False,
+                              for _, r in errs) and same[kernel],
                     "ms": ms[kernel], "plain_ms": ms[f"{side}_plain"],
                     "library_ms": ms[f"{side}_library"],
                     "timing": f"device time, median of {FLASH_WINDOWS} "

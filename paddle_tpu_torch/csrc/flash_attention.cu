@@ -25,13 +25,14 @@
 //
 // Sequence lengths: any sq >= 1 and sk >= 1 (the TPU kernel tiles by the
 // largest power-of-two divisor, down to 1). The grids run ceil(s / 64)
-// tiles (the Hopper B2 / B3 ceil(s / 128) blocks of two); a partial last
-// tile is loaded with zeros in its rows past the end, its score columns
-// j >= sk take the mask value (P = 0), q rows past sq take P = 0 in B3
-// (which sums over q rows), and no row past the end is stored.
+// tiles (in blocks of two in the Hopper B2 / B3, of one or three in the
+// Hopper B1); a partial last tile is loaded with zeros in its rows past
+// the end, its score columns j >= sk take the mask value (P = 0), q rows
+// past sq take P = 0 in B3 (which sums over q rows), and no row past the
+// end is stored.
 //
 // Head dims: any multiple of 8. The tensor-core kernels are instantiated
-// at a padded head dim D (64, 128, 256; the Hopper ones 64, 128) and take
+// at a padded head dim D (the Hopper ones 64, 128; mma.sync 256) and take
 // the operands' d <= D at run time: loads fill columns d..D-1 with zeros,
 // which change neither q . k nor the columns < d of a product, and stores
 // write columns < d only. The SIMT kernels take any d at D = 64 or 128
@@ -48,11 +49,35 @@
 // B2 runs 4 and B3 6 m-n-k products per visible pair and head-dim
 // element (2 x 6.45 GFLOP each at the train shape), 0.026 and 0.039 ms at
 // the peak, so as run both are bound by operations. Each block re-reads
-// the other side's tiles from L2, once per 64 (mma.sync) or 128 (Hopper)
+// the other side's tiles from L2, once per 64 (mma.sync, the Hopper B1
+// at D = 64), 128 (the Hopper B2 / B3) or 192 (the Hopper B1 at D = 128)
 // rows, so the reachable rate rests on feeding the products from shared
 // memory and registers.
 //
-// Three designs.
+// Four designs.
+//
+// bf16 / f16 B1 up to d = 128 (flash_fwd_wgmma): Hopper. B1 does one
+// exponential per visible pair; the SM's 16 ex2 a clock take as long as
+// the pair's 4 x 64 flops at the bf16 tensor-core peak, so at d = 64 the
+// softmax alone matches the products and the bytes (0.012-0.015 ms at
+// the train shape each). What bounds it as built is latency: a block
+// waits for its first TMA tiles and its stores, a warpgroup for each
+// product and for its own softmax, and only other warpgroups on the SM
+// fill those gaps. A block holds W consumer warpgroups of 64 q rows of
+// one (b, q head), their Q tiles loaded once by TMA and resident, and a
+// producer warpgroup one thread of which streams the K and V tiles of kv
+// head h / group through a ring of full / empty mbarriers (no consumer
+// spends registers or issue slots on addresses; setmaxnreg hands the
+// producer's registers to the consumers). At D = 64 a block is one
+// consumer warpgroup and four blocks share an SM (2 stages: 104
+// registers a consumer thread); at D = 128 one block of three (3
+// stages, 160 registers). S = Q K^T is wgmma with both operands K-major
+// in shared memory; the online softmax runs in registers in log2 units
+// (ex2 of the scores scaled by scale * log2 e, the row's max and sum as
+// trees); P is rounded to T in registers, where the m64n64 accumulator
+// layout is the register A fragment layout, and O += P V is an RS wgmma
+// against the V tile read MN-major. O leaves the accumulators as pairs
+// scaled by 1 / l; no atomics.
 //
 // bf16 / f16 B2 and B3 up to d = 128 (flash_bwd_dq_wgmma,
 // flash_bwd_dkv_wgmma): Hopper. A block of three warpgroups owns 128 rows
@@ -78,14 +103,16 @@
 // skipped, and the heaviest blocks are scheduled first. dQ, dK and dV
 // leave the accumulators as pairs straight to global memory.
 //
-// bf16 / f16 B1 up to d = 256, B2 and B3 above 128 (flash_fwd_mma,
-// flash_bwd_dq_mma, flash_bwd_dkv_mma): FlashAttention-2 on the tensor
-// cores. A block of 4 warps owns a 64-row tile (B1, B2: q rows of one
-// (b, q head); B3: k rows of one (b, kv head)), 16 rows a warp, and walks
-// the 64-row tiles of the other side. The tiles stay in the input dtype
-// in shared memory, in rows of 16-byte chunks whose chunk index is XORed
-// with the row (so the 8 rows of one ldmatrix fall in 8 distinct bank
-// groups), loaded by cp.async into two stages: tile kt+1 is in flight
+// bf16 / f16 B1, B2 and B3 from d = 136 to 256 (flash_fwd_mma,
+// flash_bwd_dq_mma, flash_bwd_dkv_mma, at D = 256, where a Hopper
+// consumer's registers would not hold the accumulators):
+// FlashAttention-2 on the tensor cores. A block of 4 warps owns a 64-row
+// tile (B1, B2: q rows of one (b, q head); B3: k rows of one (b, kv
+// head)), 16 rows a warp, and walks the 64-row tiles of the other side.
+// The tiles stay in the input dtype in shared memory, in rows of 16-byte
+// chunks whose chunk index is XORed with the row (so the 8 rows of one
+// ldmatrix fall in 8 distinct bank groups), loaded by cp.async into two
+// stages: tile kt+1 is in flight
 // while tile kt is computed. Products are mma.sync m16n8k16 with float32
 // sums; operands come from ldmatrix (.trans where the tile is the B
 // operand's k-major side). The score tile stays in registers: since the
@@ -623,7 +650,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core kernels (bf16 / f16 B1 and B2)
+// mma.sync kernels (bf16 / f16 B1, B2 and B3 at D = 256)
 // ---------------------------------------------------------------------------
 
 // Element (r, c) of a [64][D] tile in shared memory: 16-byte chunk c / 8
@@ -850,10 +877,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(Params p) {
   load_tile_async<T, D>(vs, p.v, p.st[kV], b, 0, p.sk, kvh, p.d);
   cp_async_commit();
 
-  // Q fragments stay in registers up to D = 128; at 256 they would take
-  // 64 more registers a thread and are read from the q tile per step
-  constexpr bool kQInRegs = D <= 128;
-  unsigned qf[kQInRegs ? KD : 1][4];
+  // Q fragments are read from the q tile per step: at D = 256 they would
+  // take 64 more registers a thread
   float o[ND][4];
 #pragma unroll
   for (int j = 0; j < ND; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
@@ -863,11 +888,6 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(Params p) {
   for (int kt = 0; kt < nk; ++kt) {
     cp_async_wait_all();
     __syncthreads();  // tile kt landed; stage (kt+1)&1 is free
-    if (kQInRegs && kt == 0) {
-#pragma unroll
-      for (int kd = 0; kd < (kQInRegs ? KD : 1); ++kd)
-        load_a<D>(qf[kd], qs, r0, kd * 16, lane);
-    }
     if (kt + 1 < nk) {
       const int next = ((kt + 1) & 1) * kTile * D;
       load_tile_async<T, D>(ks + next, p.k, p.st[kK], b, (kt + 1) * kTile,
@@ -887,12 +907,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(Params p) {
 #pragma unroll
     for (int kd = 0; kd < KD; ++kd) {
       unsigned qa[4];
-      if constexpr (kQInRegs) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qa[i] = qf[kd][i];
-      } else {
-        load_a<D>(qa, qs, r0, kd * 16, lane);
-      }
+      load_a<D>(qa, qs, r0, kd * 16, lane);
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) {
         unsigned bk[4];
@@ -967,7 +982,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_fwd_mma(Params p) {
     if (l[r] == 0.f) l[r] = 1.f;
     inv[r] = 1.f / l[r];
   }
-  // the warp's rows of the q tile are its own since its Q fragments
+  // the warp's rows of the q tile are read by this warp only
   store_rows<T, D>(p.o, p.st[kO], b, q0 + r0, p.sq, h, qs, r0, o, inv[0],
                    inv[1], 0, p.d, lane);
   if (t == 0) {
@@ -1399,9 +1414,11 @@ __device__ __forceinline__ float ex2(float x) {
       "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
       "+f"(d[31])
 
-// m64n64k16 products with float32 sums, A and B from shared memory: `ss`
-// with both K-major (d = A B, or d += A B if acc), `ss_t` with B
-// MN-major (the transpose bit), accumulating.
+// m64n64k16 products with float32 sums: `ss` with A and B K-major in
+// shared memory (d = A B, or d += A B if acc); `ss_t` with B MN-major
+// (the transpose bit), accumulating; `rs_t` the same with A from
+// registers (four 32-bit registers of the m16n8k16 A-fragment layout in
+// each warp's 16 rows).
 template <typename T>
 struct Wgmma;
 #define FLASH_WGMMA(T, TY)                                                  \
@@ -1422,6 +1439,17 @@ struct Wgmma;
                    " " FLASH_WG_D ", %32, %33, p, 1, 1, 0, 1;\n}\n"         \
                    : FLASH_WG_OPS(d)                                        \
                    : "l"(a), "l"(b), "r"(1));                               \
+    }                                                                       \
+    static __device__ __forceinline__ void rs_t(float (&d)[32],             \
+                                                const unsigned (&a)[4],     \
+                                                uint64_t b) {               \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"             \
+                   "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY  \
+                   " " FLASH_WG_D ", {%32, %33, %34, %35}, %36, p, 1, 1, "  \
+                   "1;\n}\n"                                                \
+                   : FLASH_WG_OPS(d)                                        \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),    \
+                     "r"(1));                                               \
     }                                                                       \
   };
 FLASH_WGMMA(__nv_bfloat16, "bf16")
@@ -1546,18 +1574,19 @@ struct WgShape {
   static_assert(kSmem <= 232448, "more shared memory than a block has");
 };
 
-// The mbarriers of a Hopper kernel: the ring's full and empty barriers and
-// the resident tiles'. A full barrier completes when its TMA bytes have
-// landed (and, in B3, when the producer's 32 lanes have staged their lse
-// and delta rows); an empty one when both consumer warpgroups are done
-// with the stage.
-struct WgBarriers {
-  uint64_t full[kStages], empty[kStages], resident;
+// The mbarriers of a Hopper kernel: the full and empty barriers of a ring
+// of S stages and the resident tiles'. A full barrier completes when its
+// TMA bytes have landed (and, in B3, when the producer's 32 lanes have
+// staged their lse and delta rows); an empty one when every consumer
+// warpgroup is done with the stage.
+template <int S>
+struct Ring {
+  uint64_t full[S], empty[S], resident;
 
-  __device__ void init(unsigned full_count) {
-    for (int i = 0; i < kStages; ++i) {
+  __device__ void init(unsigned full_count, unsigned consumers) {
+    for (int i = 0; i < S; ++i) {
       mbar_init(&full[i], full_count);
-      mbar_init(&empty[i], 2);
+      mbar_init(&empty[i], consumers);
     }
     mbar_init(&resident, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -1582,7 +1611,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   unsigned char* ks = dos + 2 * kTileBytes;  // the ring
   unsigned char* vs = ks + kStages * kTileBytes;
   unsigned char* split = vs + kStages * kTileBytes;  // 2 panels a warpgroup
-  auto* bar = reinterpret_cast<WgBarriers*>(split + 4 * kPanelBytes);
+  auto* bar = reinterpret_cast<Ring<kStages>*>(split + 4 * kPanelBytes);
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -1597,7 +1626,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   };
   const int nk = max(seen(q0), seen(q0 + kTile));
 
-  if (threadIdx.x == 0) bar->init(1);
+  if (threadIdx.x == 0) bar->init(1, 2);  // consumers: warpgroups 0, 1
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
@@ -1733,7 +1762,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   unsigned char* split = dos + kStages * kTileBytes;  // 4 panels a warpgroup
   float* lse_s = reinterpret_cast<float*>(split + 8 * kPanelBytes);
   float* delta_s = lse_s + kStages * kTile;
-  auto* bar = reinterpret_cast<WgBarriers*>(delta_s + kStages * kTile);
+  auto* bar = reinterpret_cast<Ring<kStages>*>(delta_s + kStages * kTile);
 
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
@@ -1745,7 +1774,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int nqt = tiles(p.sq) - qt0;
   const int n_it = group * nqt;  // (q head, q tile) pairs
 
-  if (threadIdx.x == 0) bar->init(32);  // the producer warp's lanes
+  if (threadIdx.x == 0) bar->init(32, 2);  // producer warp's lanes; 2 WGs
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
@@ -1895,6 +1924,255 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// Hopper kernel: bf16 / f16 B1 at D = 64 and 128 (TMA, wgmma)
+// ---------------------------------------------------------------------------
+
+// The Hopper B1's block at D 64 and at D 128, chosen by runs in turns
+// (PERF.md): S ring stages of a K and a V tile, W consumer warpgroups of
+// 64 q rows and a producer warpgroup, C blocks an SM (at D 64 four blocks
+// of one warpgroup beat bigger blocks: one block's TMA waits and stores
+// overlap the others' products). Registers a thread at launch (multiples
+// of 8), the producer's 24 after setmaxnreg and the consumers' share of
+// the rest; shared memory: the W resident 64-row Q tiles, S stages of a K
+// and a V tile, the barriers, and slack for 1024-alignment.
+// setmaxnreg.inc takes the consumers' registers from the block's launch
+// share, so ptxas must give the kernel exactly kEntryRegs a thread (64 at
+// D 64, 128 at D 128; __launch_bounds__ caps it there): a build with
+// fewer lets more blocks onto an SM, and its consumers would wait in
+// setmaxnreg forever. chip_smoke.py's build phase fails on such a build.
+template <int D>
+struct FwdShape {
+  static_assert(D == 64 || D == 128, "the Hopper B1 is built at D 64, 128");
+  static constexpr int S = D == 64 ? 2 : 3;
+  static constexpr int W = D == 64 ? 1 : 3;
+  static constexpr int C = D == 64 ? 4 : 1;
+  static constexpr int kThreads = (W + 1) * 128;
+  static constexpr int kEntryRegs = 65536 / C / kThreads / 8 * 8;
+  static constexpr int kConsumerRegs = (kEntryRegs * (W + 1) - 24) / W / 8 * 8;
+  static constexpr int kTileBytes = D / kPanel * kPanelBytes;
+  static constexpr size_t kSmem = static_cast<size_t>(kTileBytes) *
+                                      (W + 2 * S) +
+                                  sizeof(Ring<S>) + 1024;
+  // an SM has 228 KB, of which each block reserves 1 KB
+  static_assert((kSmem + 1024) * C <= 228 * 1024,
+                "more shared memory than an SM has");
+  static_assert(kConsumerRegs <= 240, "setmaxnreg takes at most 240 here");
+};
+
+// O += P V over a 64-row k tile: P in registers as four A fragments, V a
+// 64-row tile of D / 64 panels read MN-major (its columns are O's)
+template <typename T, int NP>
+__device__ __forceinline__ void wg_pv(float (&o)[NP][32],
+                                      const unsigned (&a)[4][4],
+                                      const unsigned char* v) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+      Wgmma<T>::rs_t(o[pn], a[kk], wg_desc(v + pn * kPanelBytes + kk * 2048));
+}
+
+// The online softmax of one 64-column score tile in this thread's rows
+// (row and row + 8 of the accumulator layout: s[4 j + 2 r + c] is row
+// + 8 r, column k0 + 8 j + 2 t + c): S scaled to log2 units, masked only
+// where the tile reaches past the causal diagonal of the warpgroup's
+// first row (row0_off: that row plus the offset sk - sq) or past sk,
+// then P against the running max m, l rescaled and summed over the
+// unrounded P (the TPU kernel's l); alpha is O's rescale. The row's max
+// and sum are taken as trees, so their dependency chains stay short.
+__device__ __forceinline__ void online_softmax(float (&s)[32], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&alpha)[2],
+                                               float scale2, int k0,
+                                               int row0_off, int row_off,
+                                               int t, int causal, int sk) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] *= scale2;
+  const bool diag = causal && k0 + kTile - 1 > row0_off;
+  if (diag || k0 + kTile > sk) {  // a branch uniform over the warpgroup
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int col = k0 + (e >> 2) * 8 + 2 * t + (e & 1);
+      if ((diag && row_off + ((e >> 1) & 1) * 8 < col) || col >= sk)
+        s[e] = kMaskValue;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = fmaxf(fmaxf(s[8 * i + 2 * r], s[8 * i + 2 * r + 1]),
+                   fmaxf(s[8 * i + 4 + 2 * r], s[8 * i + 5 + 2 * r]));
+    float mx = fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(m[r], mx);
+    alpha[r] = ex2(m[r] - mx);
+    m[r] = mx;
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = ex2(s[e] - m[(e >> 1) & 1]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = (s[8 * i + 2 * r] + s[8 * i + 2 * r + 1]) +
+             (s[8 * i + 4 + 2 * r] + s[8 * i + 5 + 2 * r]);
+    l[r] = l[r] * alpha[r] + ((x[0] + x[1]) + (x[2] + x[3]));
+  }
+}
+
+// rows row (f[0]) and row + 8 (f[1]) of an m64 accumulator times f
+template <int NP>
+__device__ __forceinline__ void scale_rows(float (&o)[NP][32],
+                                           const float (&f)[2]) {
+#pragma unroll
+  for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) o[pn][e] *= f[(e >> 1) & 1];
+}
+
+// P rounded to T as the A fragments of P V's k16 steps: the accumulator
+// layout (rows g, g + 8; columns 8 j + 2 t, +1) is the A-fragment layout,
+// so no value leaves its thread
+template <typename T>
+__device__ __forceinline__ void pack_p(unsigned (&a)[4][4],
+                                       const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = pack2<T>(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+}
+
+// B1 on Hopper: O and lse of 64 W q rows of one (b, q head); grid (q
+// head, batch, q block), the heaviest block first; C blocks an SM.
+// Consumer warpgroups 0 .. W-1 own 64 q rows each, with their Q tile
+// resident; one thread of warpgroup W (its registers handed to the
+// consumers by setmaxnreg) streams the K and V tiles of kv head h / group
+// through the ring. The k tiles run in order from tile 0, which every row
+// of a causal launch sees, so the finite mask value never sets a row's
+// running max.
+template <typename T, int D>
+__global__ void __launch_bounds__(FwdShape<D>::kThreads, FwdShape<D>::C)
+    flash_fwd_wgmma(const Params p, const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv) {
+  using Shape = FwdShape<D>;
+  constexpr int S = Shape::S, W = Shape::W;
+  constexpr int NP = D / kPanel;
+  constexpr int kTileBytes = Shape::kTileBytes;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* qs = align_1024(smem_raw);  // rows of warpgroup 0 .. W-1
+  unsigned char* ks = qs + W * kTileBytes;   // the ring
+  unsigned char* vs = ks + S * kTileBytes;
+  auto* bar = reinterpret_cast<Ring<S>*>(vs + S * kTileBytes);
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * W * kTile;
+  const int kvh = h / (p.hq / p.hkv);
+  const int offset = p.sk - p.sq;
+  // k tiles that q rows r0 .. r0+63 see (0 past the end)
+  auto seen = [&](int r0) {
+    if (r0 >= p.sq) return 0;
+    if (!p.causal) return tiles(p.sk);
+    return min(tiles(p.sk), (min(r0 + kTile, p.sq) - 1 + offset) / kTile + 1);
+  };
+  // the block's last warpgroup with rows sees the most
+  const int nk = seen(min(q0 + (W - 1) * kTile, (p.sq - 1) / kTile * kTile));
+
+  if (threadIdx.x == 0) bar->init(1, W);
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == W) {  // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == W * 128) {
+      mbar_arrive_tx(&bar->resident, W * kTileBytes);
+      for (int w = 0; w < W; ++w)
+        tma_tile<D>(qs + w * kTileBytes, &tq, h, q0 + w * kTile, b,
+                    &bar->resident);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % S;
+        mbar_wait(&bar->empty[st], ((kt / S) & 1) ^ 1);
+        mbar_arrive_tx(&bar->full[st], 2 * kTileBytes);
+        tma_tile<D>(ks + st * kTileBytes, &tk, kvh, kt * kTile, b,
+                    &bar->full[st]);
+        tma_tile<D>(vs + st * kTileBytes, &tv, kvh, kt * kTile, b,
+                    &bar->full[st]);
+      }
+    }
+  } else {  // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        Shape::kConsumerRegs));
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + wg * kTile;  // the warpgroup's first q row
+    const int nkw = seen(r0);
+    const int row = r0 + warp * 16 + g;  // this thread's rows: +0, +8
+    const float scale2 = p.scale * kLog2e;  // scores in log2 units
+    const unsigned char* qw = qs + wg * kTileBytes;
+    float o[NP][32];
+#pragma unroll
+    for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[pn][e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};  // this thread's part of the row sums
+    float alpha[2];           // O's rescale for the newest tile
+    float s[32];              // S, then P, of one k tile
+    unsigned a[4][4];         // P rounded to T: P V's A fragments
+
+    mbar_wait(&bar->resident, 0);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int st = kt % S;
+      mbar_wait(&bar->full[st], (kt / S) & 1);
+      if (kt < nkw) {  // a tile this warpgroup's rows see
+        // S = Q K^T; the softmax; O += P V with P from registers
+        wg_fence();
+        wg_scores<T, D>(s, qw, ks + st * kTileBytes);
+        wg_commit();
+        wg_wait<0>();
+        fence_regs(s);
+        online_softmax(s, m, l, alpha, scale2, kt * kTile, r0 + offset,
+                       row + offset, t, p.causal, p.sk);
+        scale_rows<NP>(o, alpha);
+        pack_p<T>(a, s);
+        wg_fence();
+        wg_pv<T, NP>(o, a, vs + st * kTileBytes);
+        wg_commit();
+        wg_wait<0>();
+#pragma unroll
+        for (int pn = 0; pn < NP; ++pn) fence_regs(o[pn]);
+      }
+      if (tid == 0) mbar_arrive(&bar->empty[st]);  // done with the stage
+    }
+
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if (l[r] == 0.f) l[r] = 1.f;
+      inv[r] = 1.f / l[r];
+    }
+    scale_rows<NP>(o, inv);
+    store_acc<T, NP>(p.o, p.st[kO], b, h, row, p.sq, p.d, t, o);
+    if (t == 0) {
+      float* lse =
+          p.lse + (static_cast<long long>(b) * p.hq + h) * p.sq + row;
+      if (row < p.sq) lse[0] = m[0] * kLn2 + logf(l[0]);
+      if (row + 8 < p.sq) lse[8] = m[1] * kLn2 + logf(l[1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1960,8 +2238,9 @@ bool make_map(CUtensorMap* map, const void* base, const Strides& st, int d,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// B2 / B3 on Hopper: q, do [b, sq, hq, d] and k, v [b, sk, hkv, d] as
-// tensor maps; 128-row blocks
+// B1, B2 and B3 on Hopper: q, do [b, sq, hq, d] and k, v [b, sk, hkv, d]
+// as tensor maps (do for B2 and B3 only); B1 in blocks of FwdShape's
+// W x 64 q rows, B2 and B3 in 128-row blocks
 template <typename T, int D>
 cudaError_t launch_wgmma(int which, int batch, const Params& p,
                          cudaStream_t stream) {
@@ -1969,13 +2248,30 @@ cudaError_t launch_wgmma(int which, int batch, const Params& p,
   if (!make_map<T>(&tq, p.q, p.st[kQ], p.d, p.hq, p.sq, batch) ||
       !make_map<T>(&tk, p.k, p.st[kK], p.d, p.hkv, p.sk, batch) ||
       !make_map<T>(&tv, p.v, p.st[kV], p.d, p.hkv, p.sk, batch) ||
-      !make_map<T>(&tdo, p.dout, p.st[kDO], p.d, p.hq, p.sq, batch))
+      (which != kFwd &&
+       !make_map<T>(&tdo, p.dout, p.st[kDO], p.d, p.hq, p.sq, batch)))
     return cudaErrorInvalidValue;
+  // B2 / B3: one block a 128-row block of (q head or kv head, batch)
+  constexpr int kBlockRows = 2 * kTile;
+  if (which == kFwd) {
+    using Shape = FwdShape<D>;
+    constexpr int kRows = Shape::W * kTile;  // q rows a block
+    auto kernel = flash_fwd_wgmma<T, D>;
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Shape::kSmem));
+    if (e == cudaSuccess && Shape::C > 1)  // room for C blocks an SM
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return e;
+    kernel<<<dim3(p.hq, batch, (p.sq + kRows - 1) / kRows), Shape::kThreads,
+             Shape::kSmem, stream>>>(p, tq, tk, tv);
+    return cudaGetLastError();
+  }
   const bool dq = which == kBwdDq;
   auto kernel = dq ? flash_bwd_dq_wgmma<T, D> : flash_bwd_dkv_wgmma<T, D>;
   const size_t smem = dq ? WgShape<false, D>::kSmem : WgShape<true, D>::kSmem;
-  // one block a 128-row block of (q head or kv head, batch)
-  constexpr int kBlockRows = 2 * kTile;
   const dim3 grid =
       dq ? dim3(p.hq, batch, (p.sq + kBlockRows - 1) / kBlockRows)
          : dim3(p.hkv, batch, (p.sk + kBlockRows - 1) / kBlockRows);
@@ -2018,28 +2314,28 @@ cudaError_t launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-// The design kernel_route picked: kWgmma (bf16 / f16 B2 and B3, D 64 or
-// 128), kMma (bf16 / f16 with d <= D: B1 up to 256, B2 and B3 at 256),
-// kSimt (float32, and at D = 64 the half types above 256: split d).
+// The design kernel_route picked: kWgmma (bf16 / f16 B1, B2 and B3, D 64
+// or 128), kMma (bf16 / f16 with d <= D at D 256: B1, B2 and B3), kSimt
+// (float32, and at D = 64 the half types above 256: split d).
 template <typename T, int D>
 cudaError_t launch(int design, int which, int batch, const Params& p,
                    cudaStream_t stream) {
   constexpr bool kHalf = !std::is_same<T, float>::value;
   if constexpr (kHalf && D <= 128) {
     if (design == kWgmma) {
-      if (which == kFwd || p.d > D) return cudaErrorInvalidValue;
+      if (p.d > D) return cudaErrorInvalidValue;
       return launch_wgmma<T, D>(which, batch, p, stream);
     }
   }
   if constexpr (kHalf) {
     if (design == kMma) {
       if (p.d > D) return cudaErrorInvalidValue;
-      if (which == kFwd)  // grid (head, batch, q tile), heaviest first
-        return launch_kernel(flash_fwd_mma<T, D>,
-                             dim3(p.hq, batch, tiles(p.sq)), kMmaThreads,
-                             mma_smem_bytes<T, D>(kFwd), p, stream);
-      // B2 and B3 take mma.sync only above d 128
+      // mma.sync only above d 128
       if constexpr (D == 256) {
+        if (which == kFwd)  // grid (head, batch, q tile), heaviest first
+          return launch_kernel(flash_fwd_mma<T, D>,
+                               dim3(p.hq, batch, tiles(p.sq)), kMmaThreads,
+                               mma_smem_bytes<T, D>(kFwd), p, stream);
         if (which == kBwdDq)
           return launch_kernel(flash_bwd_dq_mma<T, D>,
                                dim3(p.hq, batch, tiles(p.sq)), kMmaThreads,
@@ -2116,11 +2412,11 @@ cudaError_t launch_d(int design, int padded_dim, int which, int batch,
 
 // Plain C entry point, loaded with ctypes. `which`: 0 = B1 (writes o and
 // lse), 1 = B2 (writes dq), 2 = B3 (writes dk and dv). `design`: 0 the
-// SIMT kernels, 1 the mma.sync kernels, 2 the Hopper B2 / B3 (wgmma,
+// SIMT kernels, 1 the mma.sync kernels, 2 the Hopper kernels (wgmma,
 // TMA); a design the kernel or the dtype does not have is refused.
 // `head_dim` is the operands' d (a multiple of 8), `padded_dim` the
 // instantiation D: the tensor-core kernels (bf16 / f16, d <= 256) take
-// D = 64, 128 or 256 >= d (the Hopper ones 64 or 128); the SIMT kernels
+// D = 64 or 128 >= d (Hopper) or 256 (mma.sync); the SIMT kernels
 // D = 64 or 128, summing over d in D-column slices where d > D. `ptrs`
 // holds the device pointers q, k, v, o, do, lse, delta, dq, dk, dv
 // (unused ones may be null); `strides` the (b, s, h) element strides of

@@ -18,13 +18,12 @@ The kernels read q/k/v through their (b, s, h) strides, so the strided
 views GPT's attention cuts from its fused qkv projection are not copied.
 Every head dim that is a multiple of 8 runs in a kernel
 (:func:`kernel_route` picks it from dtype and shape before the launch):
-in bfloat16 and float16 up to 128, B2 and B3 are Hopper kernels (TMA
-loads through a ring of shared-memory stages, ``wgmma`` from two
-consumer warpgroups of 64 rows each); up to 256, B1 (and B2 and B3
-above 128) run on the tensor cores with ``mma.sync``; all of them at a
-padded head dim D (tiles loaded with zeros in columns d..D-1, which
-change neither QK^T nor the written columns, and stored in columns < d
-only); float32, and
+in bfloat16 and float16 up to 128, B1, B2 and B3 are Hopper kernels
+(TMA loads through a ring of shared-memory stages, ``wgmma`` from
+consumer warpgroups of 64 rows each); from 136 to 256 they run on the
+tensor cores with ``mma.sync``; all of them at a padded head dim D
+(tiles loaded with zeros in columns d..D-1, which change neither QK^T
+nor the written columns, and stored in columns < d only); float32, and
 the half types above 256, run the SIMT kernels, which sum the score
 tiles over d in 64- or 128-column slices, so their shared memory does
 not grow with d. B2 and B3 read delta = rowsum(O dO) from a buffer that
@@ -61,24 +60,23 @@ _launcher = None
 impl = "kernel"
 
 
-def kernel_route(d: int, dtype: torch.dtype, backward: bool = False):
-    """``(design, D)``: the kernels that run head dim ``d`` in ``dtype``
-    and the head dim D they are built at; B1's route, or B2's and B3's
-    if ``backward``. ``"wgmma"``: the Hopper B2 and B3 (TMA, wgmma) at
-    D = 64 or 128 >= d (bfloat16 and float16 up to 128); ``"mma"``: the
-    ``mma.sync`` kernels at the smallest of 64, 128, 256 that is >= d
-    (bfloat16 and float16 up to 256: B1 throughout, B2 and B3 above
-    128, where dK and dV outgrow a Hopper consumer's registers);
-    ``"simt"``: the float32 SIMT kernels at D = 64 or 128 >= d;
-    ``"split"``: the SIMT kernels at D = 64 summing over d in 64-column
-    slices (float32 above 128, the half types above 256). None for a d
-    that is not a positive multiple of 8 (rows of whole 16-byte
-    chunks), which ``flash_attention_available`` never admits."""
+def kernel_route(d: int, dtype: torch.dtype):
+    """``(design, D)``: the kernels B1, B2 and B3 that run head dim ``d``
+    in ``dtype`` and the head dim D they are built at. ``"wgmma"``: the
+    Hopper kernels (TMA, wgmma) at D = 64 or 128 >= d (bfloat16 and
+    float16 up to 128); ``"mma"``: the ``mma.sync`` kernels at D = 256
+    (bfloat16 and float16 from 136 to 256, where a Hopper consumer's
+    registers would not hold the accumulators); ``"simt"``: the float32
+    SIMT kernels at D = 64 or 128 >= d; ``"split"``: the SIMT kernels
+    at D = 64 summing over d in 64-column slices (float32 above 128,
+    the half types above 256). None for a d that is not a positive
+    multiple of 8 (rows of whole 16-byte chunks), which
+    ``flash_attention_available`` never admits."""
     if d <= 0 or d % 8:
         return None
     if dtype != torch.float32 and d <= 256:
         D = next(D for D in (64, 128, 256) if d <= D)
-        return ("wgmma" if backward and D <= 128 else "mma"), D
+        return ("wgmma" if D <= 128 else "mma"), D
     if dtype == torch.float32 and d <= 128:
         return "simt", 64 if d <= 64 else 128
     return "split", 64
@@ -228,7 +226,7 @@ def _launch(which, q, k, v, o, do, lse, delta, dq, dk, dv, sm_scale,
     st = sum((_strides(x) for x in (q, k, v, o, do, dq, dk, dv)), [])
     strides = (ctypes.c_longlong * 24)(*st)
     b, sq, hq, d = q.shape
-    design, padded = kernel_route(d, q.dtype, backward=which != _FWD)
+    design, padded = kernel_route(d, q.dtype)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(which, _DESIGN_CODES[design], _DTYPE_CODES[q.dtype], d, padded,
              ptrs, strides, b, sq, k.shape[1], hq, k.shape[2],

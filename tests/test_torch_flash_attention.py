@@ -241,18 +241,16 @@ def test_pick_block_matches_jax(n):
     (192, ("mma", 256), ("split", 64)), (256, ("mma", 256), ("split", 64)),
     (264, ("split", 64), ("split", 64)), (68, None, None), (0, None, None)])
 def test_padded_head_dim(d, D, D_f32):
-    """The kernels and the head dim D they run head dim d at: B1 on the
-    tensor cores (mma.sync) in the half types up to 256, and B2 and B3
-    there too above 128 but on the Hopper kernels (wgmma) up to 128; the
-    float32 SIMT kernels up to 128, the split-d SIMT kernels above;
-    nothing for what no 16-byte row holds."""
+    """The kernels and the head dim D they run head dim d at: B1, B2
+    and B3 in the half types on the Hopper kernels (wgmma) up to 128 and
+    on the tensor cores with mma.sync at D 256 above; the float32 SIMT
+    kernels up to 128, the split-d SIMT kernels above; nothing for what
+    no 16-byte row holds."""
     for dtype in (torch.bfloat16, torch.float16):
-        assert tfa.kernel_route(d, dtype) == D
-        bwd = ("wgmma", D[1]) if D is not None and D[0] == "mma" and \
+        want = ("wgmma", D[1]) if D is not None and D[0] == "mma" and \
             D[1] <= 128 else D
-        assert tfa.kernel_route(d, dtype, backward=True) == bwd
+        assert tfa.kernel_route(d, dtype) == want
     assert tfa.kernel_route(d, torch.float32) == D_f32
-    assert tfa.kernel_route(d, torch.float32, backward=True) == D_f32
     if D is not None and D[0] == "mma":
         assert d <= D[1]
 
@@ -263,12 +261,24 @@ def test_padded_head_dim(d, D, D_f32):
     (256, ("mma", 256)), (264, ("split", 64))])
 def test_backward_route_of_the_half_types(d, route):
     """B2 and B3 in bfloat16 and float16: the Hopper kernels at D 64 or
-    128, the mma.sync kernels from 136 to 256, split d above; B1 stays
-    on mma.sync up to 256."""
+    128, the mma.sync kernels from 136 to 256, split d above; one route
+    for B1, B2 and B3."""
     for dtype in (torch.bfloat16, torch.float16):
-        assert tfa.kernel_route(d, dtype, backward=True) == route
-        assert tfa.kernel_route(d, dtype)[0] == \
-            ("split" if d > 256 else "mma")
+        assert tfa.kernel_route(d, dtype) == route
+
+
+@pytest.mark.parametrize("d,route", [
+    (8, ("wgmma", 64)), (64, ("wgmma", 64)), (72, ("wgmma", 128)),
+    (128, ("wgmma", 128)), (136, ("mma", 256)), (256, ("mma", 256)),
+    (264, ("split", 64))])
+def test_forward_route_of_the_half_types(d, route):
+    """B1 in bfloat16 and float16: the Hopper kernel (flash_fwd_wgmma)
+    at D 64 or 128, mma.sync at D 256 from 136, split d above; float32
+    keeps the SIMT kernels."""
+    for dtype in (torch.bfloat16, torch.float16):
+        assert tfa.kernel_route(d, dtype) == route
+    assert tfa.kernel_route(d, torch.float32)[0] == \
+        ("simt" if d <= 128 else "split")
 
 
 @pytest.mark.parametrize("d", range(64, 513, 8))
@@ -281,8 +291,7 @@ def test_every_admitted_head_dim_has_a_kernel(d):
     assert tfa.flash_attention_available(shape, shape, None, 0.0, True,
                                          True)
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
-        assert tfa.kernel_route(d, dtype) is not None
-        design, D = tfa.kernel_route(d, dtype, backward=True)
+        design, D = tfa.kernel_route(d, dtype)
         assert design == ("wgmma" if dtype != torch.float32 and d <= 128
                           else "mma" if dtype != torch.float32 and d <= 256
                           else "simt" if d <= 128 else "split")
@@ -422,6 +431,14 @@ CARD_CASES = {
     "bf16-q136-k200-d80-causal": (1, 136, 200, 4, 2, 80, True, "bfloat16"),
     "f16-s64-causal": (1, 64, 64, 2, 2, 64, True, "float16"),
     "bf16-d8-s300-causal": (1, 300, 300, 2, 2, 8, True, "bfloat16"),
+    # the Hopper B1: causal offsets (sk - sq) of 64 and 127, where some
+    # rows of a block see nothing of its diagonal tile, at D 64 and 128
+    "bf16-q100-k227-causal": (2, 100, 227, 4, 4, 64, True, "bfloat16"),
+    "f16-gqa4-q100-k227-d128-causal": (1, 100, 227, 8, 2, 128, True,
+                                       "float16"),
+    "f16-q136-k200-d128-causal": (1, 136, 200, 2, 2, 128, True, "float16"),
+    "bf16-s300-d128-causal": (1, 300, 300, 2, 2, 128, True, "bfloat16"),
+    "f16-d80-s300": (1, 300, 300, 2, 2, 80, False, "float16"),
 }
 
 
@@ -534,6 +551,37 @@ def test_misaligned_views_give_the_aligned_result_on_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,dtype", [(64, "bfloat16"), (128, "float16"),
+                                     (80, "bfloat16"), (136, "bfloat16")])
+def test_forward_is_deterministic_on_card(d, dtype):
+    """Two launches of B1 on the same inputs give bit-identical o and
+    lse (no atomics), on strided q/k/v views of one [b, s, (hq + 2 hkv)
+    d] projection, which the kernel reads in place (GQA group 4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("kernel B1 runs only on a CUDA card")
+    b, s, hq, hkv = 2, 300, 8, 2
+    dt = getattr(torch, dtype)
+    assert tfa.kernel_route(d, dt)[0] == ("wgmma" if d <= 128 else "mma")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    qkv = torch.randn(b, s, (hq + 2 * hkv) * d, generator=g,
+                      device="cuda").to(dt)
+    q, k, v = torch.split(qkv, [hq * d, hkv * d, hkv * d], dim=-1)
+    q = q.reshape(b, s, hq, d)
+    k, v = k.reshape(b, s, hkv, d), v.reshape(b, s, hkv, d)
+    assert not q.is_contiguous()
+    assert all(tfa._aligned(x) is x for x in (q, k, v))   # not copied
+    scale = 1.0 / math.sqrt(d)
+    runs = [tfa.flash_attention_fwd_kernel(q, k, v, scale, True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+    want_o, want_lse = tfa.flash_attention_fwd_torch(q, k, v, scale, True)
+    _close(runs[0][0], want_o, dtype)
+    _close(runs[0][1], want_lse, "float32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(64, "bfloat16"), (128, "float16"),
                                      (80, "bfloat16")])
 def test_backward_is_deterministic_on_card(d, dtype):
     """Two launches of B2 and of B3 on the same inputs give bit-identical
@@ -544,7 +592,7 @@ def test_backward_is_deterministic_on_card(d, dtype):
         pytest.skip("kernels B1-B3 run only on a CUDA card")
     b, s, hq, hkv = 2, 384, 8, 2
     dt = getattr(torch, dtype)
-    assert tfa.kernel_route(d, dt, backward=True)[0] == "wgmma"
+    assert tfa.kernel_route(d, dt)[0] == "wgmma"
     g = torch.Generator(device="cuda").manual_seed(3)
     qkv = torch.randn(b, s, (hq + 2 * hkv) * d, generator=g,
                       device="cuda").to(dt)

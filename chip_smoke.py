@@ -22,7 +22,9 @@ the result line:
    pages of 128 and 256 tokens, 40 and 64 q heads on one kv head, head
    dim 320, head dims 20 and 100 (not a multiple of 8), a speculative
    verify window of 8 slots x 4 rows with rising
-   limits, f32 and int8, and the same rows reversed within each slot),
+   limits, f32 and int8, the same rows reversed within each slot, and
+   head dims 16384 and 32768, the latter past a block's shared memory
+   (the streamed kernel)),
    with its device time (``torch.profiler``; CUDA events
    beside it) beside the plain twin's, a one-call PyTorch yardstick's
    and the least time the card could take;
@@ -126,7 +128,20 @@ the result line:
    in turns); ``GPTGreedyDecoder`` against ``generate``; the eight
    other optimizers on the card against the CPU, over the embeddings
    and the first two blocks;
-12. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
+12. distributed: multi-rank training of the train cell through the
+   port's launcher, ranks of this script (``--dist-rank``): a dp=1 mesh
+   on NCCL against no mesh (A B B A, bit for bit, B1-B3 12 launches a
+   step), dp=2 and fsdp=2 with two gloo ranks sharing the card (4 rows a
+   rank; the ranks' losses and parameter digests equal, within
+   ``TRAIN_LOSS_RTOL`` of one process, B1-B3 12 a step in each rank,
+   fsdp's shards half of each sharded weight and at most 0.55x dp's
+   resident parameter + optimizer bytes), then a checkpointed 2-block
+   fit on the two ranks, and the same fit as a 2-node job (``--nnodes 2
+   --rdzv_backend tcp``) whose node 1 is preempted once and rejoins,
+   its losses equal to the uninterrupted fit's; the step walls, the
+   gradient reduction's seconds, spawn-to-first-step and a profile of a
+   dp=2 step on rank 0;
+13. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
    ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -325,15 +340,18 @@ def phase_build() -> None:
 # ---------------------------------------------------------------------------
 
 def _case_inputs(g, t, heads, kv_heads, d, kv_dtype, q_dtype, lens_list,
-                 seqs, page_size=PAGE_SIZE, shared=0):
+                 seqs, page_size=PAGE_SIZE, shared=0, num_pages=None,
+                 pages_per_seq=None):
     """Layer-stacked pools and the rows of one launch. ``seqs[t]`` names
     the sequence of row t: rows of one sequence share a table, and every
     sequence's first ``shared`` table entries are sequence 0's (a cached
     prefix). The pool holds NUM_PAGES x PAGE_SIZE tokens at any page
-    size."""
+    size, unless ``num_pages`` / ``pages_per_seq`` cut it (the very
+    large head dims)."""
     from paddle_tpu_torch.ops.paged_attention import quantize_kv
     dev = "cuda"
-    num_pages = NUM_PAGES * PAGE_SIZE // page_size
+    if num_pages is None:
+        num_pages = NUM_PAGES * PAGE_SIZE // page_size
     shape = (LAYERS, num_pages, page_size, kv_heads, d)
     k = torch.randn(shape, generator=g, device=dev)
     v = torch.randn(shape, generator=g, device=dev)
@@ -343,7 +361,7 @@ def _case_inputs(g, t, heads, kv_heads, d, kv_dtype, q_dtype, lens_list,
     else:
         pools = (k.to(kv_dtype), v.to(kv_dtype), None, None)
     del k, v
-    P = PAGES_PER_SEQ * PAGE_SIZE // page_size
+    P = pages_per_seq or PAGES_PER_SEQ * PAGE_SIZE // page_size
     perm = torch.randperm(num_pages - 1, generator=g, device=dev) + 1
     n_seq = max(seqs) + 1
     seq_tables = perm[:n_seq * P].reshape(n_seq, P).to(torch.int32)
@@ -458,6 +476,8 @@ def phase_kernels() -> dict:
     verify_rev = [int(b) + SPEC_K - j for b in bases for j in range(SPEC_K)]
     f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
     all_dtypes = [(f32, f32), (bf16, f32), (bf16, bf16), (i8, f32)]
+    big_d_lens = [0, 5, 16, 17, 40, 64, 100, 128]
+    big_d_pool = dict(num_pages=72, pages_per_seq=8)
     shapes = [  # name, T, heads, kv heads, d, lens, seqs, (kv, q) dtypes
         ("decode gpt2", 8, 12, 12, 64, decode_lens, list(range(8)),
          all_dtypes),
@@ -504,6 +524,13 @@ def phase_kernels() -> dict:
          verify_seqs, [(f32, f32), (i8, f32)]),
         ("verify gpt2, rows reversed", 8 * SPEC_K, 12, 12, 64, verify_rev,
          verify_seqs, [(f32, f32)]),
+        # head dims whose staged K row, V column slice and q vectors pass
+        # a block's shared memory at 32768 (f32 and bf16; the streamed
+        # kernel), and 16384 f32 beside them; a few 16-token pages a row
+        ("decode d16384", 8, 2, 1, 16384, big_d_lens, list(range(8)),
+         [(f32, f32)], big_d_pool),
+        ("decode d32768 (streamed)", 8, 2, 1, 32768, big_d_lens,
+         list(range(8)), [(f32, f32), (bf16, bf16)], big_d_pool),
     ]
     cases = []
     for name, t, heads, kv_heads, d, lens_list, seqs, dtypes, *extra in \
@@ -3742,6 +3769,451 @@ def phase_train_loop(dev="cuda") -> dict:
     return loop["launches"]
 
 
+# ---------------------------------------------------------------------------
+# distributed: multi-rank training on torch.distributed
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 3                   # train steps of each dp / fsdp / nccl run
+DIST_FIT_LAYERS, DIST_FIT_STEPS, DIST_FIT_CKPT = 2, 8, 4
+DIST_PREEMPT = "5@0"             # node 1 preempted after step 5, gen 0
+DIST_TIMEOUT_S = 300
+
+
+def _dist_net(layers=None):
+    """The train cell's gpt2-small (full width, seq 1024, fused loss,
+    dropout 0, weights from ``seed(0)``) on this process's card; with
+    ``layers``, that many blocks."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_config
+    kw = {"num_layers": layers} if layers else {}
+    cfg = gpt_config("gpt2-small", max_position_embeddings=TRAIN_SEQ,
+                     hidden_dropout=0.0, attention_dropout=0.0,
+                     fused_loss=True, **kw)
+    pt.seed(0)
+    return GPTForCausalLM(cfg, device=f"cuda:{torch.cuda.current_device()}")
+
+
+def _dist_ids(n):
+    """``n`` global batches (TRAIN_BATCH x TRAIN_SEQ ids), drawn from a
+    seed: every rank passes the same global batch."""
+    return np.random.RandomState(0).randint(0, 50304,
+                                            (n, TRAIN_BATCH, TRAIN_SEQ))
+
+
+def _param_digest(model) -> str:
+    """An exact digest of every trainable parameter's bits (integer sums
+    on the card, order-free), gathered whole under fsdp."""
+    import hashlib
+    sums = []
+    with model._unsharded():
+        for k, p in sorted(model._trainable().items()):
+            bits = p.detach().contiguous().view(torch.int32).reshape(-1)
+            w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+            sums.append(int((bits.long() * w).sum()))
+    return hashlib.sha256(str(sums).encode()).hexdigest()[:16]
+
+
+def _dist_steps(model, ids, n, digest=True):
+    losses, digests, walls = [], [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.train_batch([ids[i]], [ids[i]])["loss"]
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if digest:
+            digests.append(_param_digest(model))
+    return losses, digests, walls
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+
+
+def _resident_bytes(model) -> dict:
+    """Parameter and optimizer-state bytes this rank holds between
+    steps (fsdp: its shards; freed full parameters hold none)."""
+    params = {k: p for k, p in model.network.named_parameters()}
+    if model._sync is not None:
+        params.update(model._sync.shards)
+    return {"params": _tree_bytes(params),
+            "opt_state": _tree_bytes(model._opt_state),
+            "memory_allocated": torch.cuda.memory_allocated()}
+
+
+def _gloo_cuda_probe() -> dict:
+    """Which collectives gloo carries on CUDA tensors here (the port
+    stages every gloo collective of a CUDA tensor through pinned host
+    memory whatever this says)."""
+    import torch.distributed as dist
+    out = {}
+    x = torch.ones(8, device="cuda")
+    for name, call in (
+            ("all_reduce", lambda: dist.all_reduce(x.clone())),
+            ("broadcast", lambda: dist.broadcast(x.clone(), 0)),
+            ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+                torch.empty(8 * dist.get_world_size(), device="cuda"), x)),
+            ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+                torch.empty(8 // dist.get_world_size(), device="cuda"),
+                x))):
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = True
+        except Exception as e:  # noqa: BLE001 — the probe's answer
+            out[name] = f"{type(e).__name__}: {str(e)[:120]}"
+    return out
+
+
+def dist_rank(scenario: str, outdir: str, t_launch: float) -> None:
+    """The body of one rank of the distributed phase (run by the port's
+    launcher as ``python3 chip_smoke.py --dist-rank <scenario> <dir>
+    <launch time>``); writes ``rank<r>.json`` into ``dir``."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.distributed import fleet
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    res = {"scenario": scenario}
+    if scenario == "nccl1":
+        fleet.init(is_collective=True)      # NCCL on cuda:{local rank}
+    else:
+        # two ranks share the one card: gloo, backend and device given
+        fleet.init(is_collective=True, backend="gloo", device="cuda:0")
+    rank = dist.get_rank()
+    res.update(rank=rank, world=dist.get_world_size(),
+               backend=dist.get_backend())
+    if scenario == "fit":
+        _dist_fit(outdir, rank, res, t_launch)
+    else:
+        net = _dist_net()
+        init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+        ids = _dist_ids(DIST_STEPS)
+        runs = (("plain", None), ("mesh", "dp"), ("mesh", "dp"),
+                ("plain", None)) if scenario == "nccl1" else \
+            (("dp2", "dp"), ("fsdp2", "fsdp"))
+        res["runs"] = []
+        for label, axis in runs:
+            with torch.no_grad():
+                for k, v in net.state_dict().items():
+                    v.copy_(init[k])
+            model = _train_model(net)
+            if axis == "dp" and scenario == "nccl1":
+                fleet.distributed_model(model)   # a dp=1 mesh
+            elif axis:
+                parallel.distributed_model(
+                    model, mesh=parallel.DeviceMesh(**{axis: 2}))
+            _reset_flash_counts()
+            if "first_step_s" not in res:
+                res["first_step_s"] = time.time() - t_launch
+            losses, digests, walls = _dist_steps(
+                model, ids, DIST_STEPS, digest=scenario != "nccl1")
+            run = {"label": label, "losses": losses, "digests": digests,
+                   "step_s": walls, "launches": _flash_counts()}
+            if model._sync is not None:
+                run["reduce_s_per_step"] = \
+                    model._sync.reduce_seconds / DIST_STEPS
+                run["mesh"] = repr(model._mesh)
+            run.update(_resident_bytes(model))
+            name = "gpt.layers.0.mlp.fc_in.weight"
+            local = (model._sync.shards.get(name) if model._sync else None)
+            run["fc_in_local_shape"] = list(
+                local.shape if local is not None
+                else net.get_parameter(name).shape)
+            if scenario != "nccl1" and label == "dp2":
+                prof = _profile_steps_dist(model, ids, rank)
+                if prof is not None:
+                    run["profile"] = prof
+            res["runs"].append(run)
+            del model
+            torch.cuda.empty_cache()
+        if scenario != "nccl1":
+            res["gloo_cuda"] = _gloo_cuda_probe()
+            # the uninterrupted 2-rank fit the 2-node job is held to
+            fit_dir = os.path.join(outdir, "fit")
+            os.makedirs(fit_dir, exist_ok=True)
+            fit = {}
+            _dist_fit(fit_dir, rank, fit, t_launch)
+            res["fit"] = fit
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    parallel.barrier()
+
+
+def _profile_steps_dist(model, ids, rank):
+    """Rank 0 profiles two more dp=2 steps (the other rank steps with
+    it, unprofiled): device time by kernel and the host's share."""
+    red0 = model._sync.reduce_seconds
+    if rank != 0:
+        for i in range(2):
+            model.train_batch([ids[i]], [ids[i]])
+        torch.cuda.synchronize()
+        return None
+
+    def work():
+        for i in range(2):
+            model.train_batch([ids[i]], [ids[i]])
+    out = _profile(work, 2, "step", phase="distributed", run="dp2 rank 0")
+    out["grad_reduce_ms_per_step"] = \
+        (model._sync.reduce_seconds - red0) / 2 * 1e3
+    return out
+
+
+def _dist_fit(outdir, rank, res, t_launch):
+    """A checkpointed ``fit`` of DIST_FIT_LAYERS blocks at full width,
+    data-parallel over the ranks; rank 0 logs each step's loss. With
+    ``MN_PREEMPT`` "s@g" the last rank exits 67 after step s in
+    generation g (a PreemptionGuard), and the job resumes from the
+    newest checkpoint."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.callbacks import Callback
+    from paddle_tpu_torch.distributed import elastic
+    from paddle_tpu_torch.io import Dataset
+    world = parallel.get_world_size()
+    gen = elastic.restart_count()
+    preempt = set()
+    for part in filter(None, os.environ.get("MN_PREEMPT", "").split(",")):
+        a, b = part.split("@")
+        preempt.add((int(a), int(b)))
+    model = _train_model(_dist_net(DIST_FIT_LAYERS))
+    parallel.distributed_model(model, mesh=parallel.DeviceMesh(dp=world))
+    rows = _dist_ids(DIST_FIT_STEPS).reshape(-1, TRAIN_SEQ)
+
+    class Rows(Dataset):
+        def __len__(self):
+            return len(rows)
+
+        def __getitem__(self, i):
+            return rows[i], rows[i]
+
+    guard = None
+    if rank == world - 1 and preempt:
+        from paddle_tpu_torch.distributed import PreemptionGuard
+        guard = PreemptionGuard(install=False)
+
+    class Log(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            s = model._step_count - 1
+            if "first_step_s" not in res:
+                res["first_step_s"] = time.time() - t_launch
+            if rank == 0:
+                with open(os.path.join(outdir, "losses.txt"), "a") as f:
+                    f.write(f"{s} {float(logs['loss'])!r} {gen}\n")
+            if guard is not None and (s, gen) in preempt:
+                guard.trigger()
+
+    _reset_flash_counts()
+    model.fit(Rows(), batch_size=TRAIN_BATCH, epochs=1, shuffle=False,
+              verbose=0, callbacks=[Log()],
+              checkpoint_dir=os.path.join(outdir, "ckpt"),
+              checkpoint_freq=DIST_FIT_CKPT, resume="auto",
+              async_checkpoint=False, preemption_guard=guard)
+    res["generation"] = gen
+    res["launches"] = _flash_counts()
+
+
+def _launch(args, logdir, env_extra=None, nnodes_rank=None):
+    """Start the port's launcher on ``args`` (its own session, so the
+    whole group can be killed)."""
+    os.makedirs(logdir, exist_ok=True)
+    env = dict(os.environ, PADDLE_MASTER_HOST="127.0.0.1")
+    env.update(env_extra or {})
+    return subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--log_dir", logdir, *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        start_new_session=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+
+
+def _finish(procs, what, logdir):
+    """Wait for launcher processes; on a failure or a timeout, kill the
+    groups and fail with the ranks' logs."""
+    import signal
+    deadline = time.time() + DIST_TIMEOUT_S
+    outs, bad = [], []
+    for p in procs:
+        try:
+            out, _ = p.communicate(timeout=max(1, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            out, bad = b"(timed out)", bad + [p]
+        outs.append(out.decode(errors="replace"))
+        if p.returncode != 0:
+            bad.append(p)
+    for p in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    if bad:
+        logs = ""
+        for name in sorted(os.listdir(logdir)) if os.path.isdir(logdir) \
+                else []:
+            with open(os.path.join(logdir, name), errors="replace") as f:
+                logs += f"--- {name}\n{f.read()[-3000:]}\n"
+        raise SystemExit(f"distributed {what} failed: "
+                         f"{[o[-2000:] for o in outs]}\n{logs}")
+
+
+def _read_ranks(outdir, n):
+    out = []
+    for r in range(n):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _read_losses(path):
+    got = {}
+    for line in open(path):
+        s, v, _ = line.split()
+        got[int(s)] = float(v)
+    return [got[s] for s in sorted(got)]
+
+
+def phase_distributed(info) -> dict:
+    """Multi-rank training of the train cell on the one card: the dp=1
+    mesh on NCCL against no mesh (A B B A), dp=2 and fsdp=2 with two gloo
+    ranks sharing the card against this process's single-process run,
+    then (in the same ``launch --nproc_per_node 2`` job) an uninterrupted
+    checkpointed fit that a 2-node job (``launch --nnodes 2
+    --rdzv_backend tcp``), preempted once, is held to. Returns the B1-B3
+    launches the ranks counted in the dp / fsdp runs."""
+    import shutil
+    import paddle_tpu_torch  # noqa: F401 — the launcher's package
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "distributed")
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = time.perf_counter()
+    me = os.path.basename(os.path.abspath(__file__))
+
+    # the single-process reference: the same 3 steps, no mesh, here
+    net = _dist_net()
+    model = _train_model(net)
+    ids = _dist_ids(DIST_STEPS)
+    base_losses, _, base_walls = _dist_steps(model, ids, DIST_STEPS,
+                                             digest=False)
+    del model, net
+    torch.cuda.empty_cache()
+
+    def job(tag, nproc, scenario):
+        outdir = os.path.join(root, tag)
+        os.makedirs(outdir)
+        t0 = time.time()
+        p = _launch(["--nproc_per_node", str(nproc), me, "--dist-rank",
+                     scenario, outdir, repr(t0)], os.path.join(outdir,
+                                                               "logs"))
+        _finish([p], tag, os.path.join(outdir, "logs"))
+        return outdir, time.time() - t0
+
+    d_nccl, s_nccl = job("nccl1", 1, "nccl1")
+    nccl = _read_ranks(d_nccl, 1)[0]
+    d_two, s_two = job("dp_fsdp", 2, "dpfsdp")
+    two = _read_ranks(d_two, 2)
+    ref_losses = _read_losses(os.path.join(d_two, "fit", "losses.txt"))
+    # the 2-node job: one agent a node, the leader hosting the tcp store
+    d_mn = os.path.join(root, "multinode")
+    os.makedirs(d_mn)
+    from paddle_tpu_torch.distributed.launch import find_free_port
+    ep = f"127.0.0.1:{find_free_port()}"
+    t0 = time.time()
+    agents = [_launch(["--nnodes", "2", "--node_rank", str(n),
+                       "--nproc_per_node", "1", "--rdzv_backend", "tcp",
+                       "--rdzv_endpoint", ep, "--max_restarts", "0",
+                       "--node_timeout", "10", me, "--dist-rank", "fit",
+                       d_mn, repr(t0)], os.path.join(d_mn, f"logs{n}"),
+                      {"MN_PREEMPT": DIST_PREEMPT}) for n in (0, 1)]
+    _finish(agents, "multinode", os.path.join(d_mn, "logs1"))
+    s_mn = time.time() - t0
+    mn_losses = _read_losses(os.path.join(d_mn, "losses.txt"))
+    mn_lines = open(os.path.join(d_mn, "losses.txt")).read().split("\n")
+    generations = sorted({int(x.split()[2]) for x in mn_lines if x})
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    def mean(xs):   # the steps after the first (which warms up)
+        return sum(xs[1:]) / len(xs[1:])
+    n_layers = 12
+    per_step = {k: n_layers for k in ("flash_attention_fwd",
+                                      "flash_attention_bwd_dq",
+                                      "flash_attention_bwd_dkv")}
+    a1, b1, b2, a2 = nccl["runs"]
+    dp = [r["runs"][0] for r in two]
+    fs = [r["runs"][1] for r in two]
+    checks = {
+        "nccl_backend": nccl["backend"] == "nccl" and nccl["world"] == 1,
+        "nccl_dp1_equals_no_mesh": a1["losses"] == b1["losses"] ==
+        b2["losses"] == a2["losses"],
+        "nccl_dp1_launches_12_a_step": all(
+            v == per_step[k] * DIST_STEPS for r in (b1, b2)
+            for k, v in r["launches"].items()),
+        "gloo_two_ranks": all(r["backend"] == "gloo" and r["world"] == 2
+                              for r in two),
+        "dp2_ranks_equal": dp[0]["losses"] == dp[1]["losses"] and
+        dp[0]["digests"] == dp[1]["digests"],
+        "fsdp2_ranks_equal": fs[0]["losses"] == fs[1]["losses"] and
+        fs[0]["digests"] == fs[1]["digests"],
+        "dp2_within_rtol": rel(dp[0]["losses"], base_losses) <=
+        TRAIN_LOSS_RTOL,
+        "fsdp2_within_rtol": rel(fs[0]["losses"], base_losses) <=
+        TRAIN_LOSS_RTOL,
+        "ranks_launch_12_a_step": all(
+            v == per_step[k] * DIST_STEPS for r in dp + fs
+            for k, v in r["launches"].items()),
+        "fsdp_holds_half": all(r["fc_in_local_shape"] == [384, 3072]
+                               for r in fs) and
+        all(r["fc_in_local_shape"] == [768, 3072] for r in dp),
+        "fsdp_state_bytes_le_055_dp": all(
+            f["params"] + f["opt_state"] <=
+            0.55 * (d["params"] + d["opt_state"])
+            for f, d in zip(fs, dp)),
+        "multinode_preempted_and_resumed": generations == [0, 1],
+        "multinode_losses_equal_uninterrupted": len(ref_losses) ==
+        DIST_FIT_STEPS and mn_losses == ref_losses,
+    }
+    base_step = mean(base_walls)
+    out = {
+        "phase": "distributed", "card": info["nvidia_smi"],
+        "single_losses": base_losses, "single_step_s": base_walls,
+        "nccl_dp1": {"runs_ABBA_step_s": [mean(r["step_s"]) for r in
+                                          (a1, b1, b2, a2)],
+                     "losses": b1["losses"], "launches": b1["launches"],
+                     "mesh_over_plain": (mean(b1["step_s"]) +
+                                         mean(b2["step_s"])) /
+                     (mean(a1["step_s"]) + mean(a2["step_s"]))},
+        "dp2": dp, "fsdp2": fs,
+        "dp2_step_over_single": mean(dp[0]["step_s"]) / base_step,
+        "fsdp2_step_over_single": mean(fs[0]["step_s"]) / base_step,
+        "grad_reduce_s_per_step": {"dp2": dp[0]["reduce_s_per_step"],
+                                   "fsdp2": fs[0]["reduce_s_per_step"]},
+        "fsdp_over_dp_state_bytes": (fs[0]["params"] + fs[0]["opt_state"])
+        / (dp[0]["params"] + dp[0]["opt_state"]),
+        "spawn_to_first_step_s": {"nccl1": nccl["first_step_s"],
+                                  "dp_fsdp": [r["first_step_s"]
+                                              for r in two]},
+        "gloo_cuda": two[0]["gloo_cuda"],
+        "profile_dp2_rank0": dp[0].get("profile"),
+        "fit": {"uninterrupted": ref_losses, "multinode": mn_losses,
+                "generations": generations, "layers": DIST_FIT_LAYERS,
+                "checkpoint_freq": DIST_FIT_CKPT, "preempt": DIST_PREEMPT},
+        "job_s": {"nccl1": s_nccl, "dp_fsdp_fit": s_two,
+                  "multinode": s_mn},
+        "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    emit({"phase": "distributed_checks", **checks})
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise SystemExit(f"distributed phase failed: {bad}")
+    launches = {k: 0 for k in per_step}
+    for r in [b1, b2] + dp + fs:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    return launches
+
+
 def _summary(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3779,6 +4251,9 @@ def main() -> None:
     fit = timed("fit", phase_fit)
     timed("checkpoint", phase_checkpoint, fit)
     timed("train_loop", phase_train_loop)
+    dist_launches = timed("distributed", phase_distributed, info)
+    for k, v in dist_launches.items():
+        train_launches[k] += v
     emit({"phase": "timing", "seconds": phase_s,
           "total_s": time.perf_counter() - t_start})
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
@@ -3803,4 +4278,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-rank"]:
+        dist_rank(sys.argv[2], sys.argv[3], float(sys.argv[4]))
+    else:
+        main()

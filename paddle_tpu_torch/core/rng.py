@@ -17,6 +17,11 @@ things.
   draw. ``Model.train_batch`` roots each step's stream at
   :func:`split_for_step` through :func:`key_guard`, so dropout masks are
   the JAX package's.
+
+Under data parallelism each rank runs the forward on its rows of the
+global batch; :func:`batch_rows` marks that, and dropout then draws the
+rank's rows of the global batch's mask (:func:`mask_rows`), as JAX's
+partitionable threefry does on a sharded batch.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ class _TLS(threading.local):
     def __init__(self):
         self.stack: list[KeyStream] = []
         self.global_seed = 0
+        self.batch_rows = None   # (index, count) of a data-parallel rank
 
 
 _tls = _TLS()
@@ -120,3 +126,28 @@ def key_guard(key: torch.Tensor):
 def split_for_step(step: int) -> torch.Tensor:
     """The key of train step ``step``, derived from the global seed."""
     return threefry.fold_in(get_global_stream()._key, step)
+
+
+@contextlib.contextmanager
+def batch_rows(index: int, count: int) -> Iterator[None]:
+    """In scope, a tensor's leading dim is this rank's share of a global
+    batch split evenly over ``count`` data ranks, ``index`` the rank's
+    position among them."""
+    prev = _tls.batch_rows
+    _tls.batch_rows = (int(index), int(count)) if count > 1 else None
+    try:
+        yield
+    finally:
+        _tls.batch_rows = prev
+
+
+def mask_rows(shape):
+    """The ``rows`` argument of ``threefry.random_bits`` for a mask of
+    ``shape`` whose leading dim is the batch: this rank's rows of the
+    global batch under :func:`batch_rows`, else None (the whole
+    array)."""
+    br = _tls.batch_rows
+    if br is None or not shape:
+        return None
+    index, count = br
+    return index * shape[0], count * shape[0]

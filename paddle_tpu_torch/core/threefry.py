@@ -72,18 +72,32 @@ def split(key, num: int = 2):
     return torch.stack([y1, y2], dim=-1)
 
 
-def random_bits(key, shape, device=None):
+def random_bits(key, shape, device=None, rows=None):
     """32-bit random bits of ``shape`` for each key of the batch
     ``key.shape[:-1]``: the result is ``key.shape[:-1] + shape``, on
     ``device`` (the key's by default). One host key drawing bits on
     another device enters the hash as two host ints, so no copy of it
-    reaches the device (a blocking copy would sync the host)."""
+    reaches the device (a blocking copy would sync the host).
+
+    ``rows`` ``(first, total)``: ``shape`` is rows ``first ..
+    first + shape[0]`` of an array of ``total`` rows, and the bits are
+    those rows of that array's bits. With ``jax_threefry_partitionable``
+    an element's bits hash its flat index in the whole shape, so a
+    data-parallel rank draws its rows of the global mask without
+    drawing the rest."""
     shape = tuple(shape)
     n = math.prod(shape)
-    if n >= 2 ** 32:
+    offset = 0
+    total = n
+    if rows is not None:
+        first, nrows = rows
+        per_row = math.prod(shape[1:])
+        offset = int(first) * per_row
+        total = int(nrows) * per_row
+    if total >= 2 ** 32:
         raise NotImplementedError("random bits past 2**32 elements")
     device = key.device if device is None else torch.device(device)
-    counts = torch.arange(n, dtype=torch.int64,
+    counts = torch.arange(offset, offset + n, dtype=torch.int64,
                           device=device).reshape(shape)
     if key.device != device:
         if key.dim() != 1:
@@ -98,11 +112,11 @@ def random_bits(key, shape, device=None):
 
 
 def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
-            device=None):
+            device=None, rows=None):
     """``jax.random.uniform`` in float32: 23 random mantissa bits under
     the exponent of 1.0, shifted and scaled into [minval, maxval); on
-    ``device`` as in :func:`random_bits`."""
-    bits = random_bits(key, shape, device)
+    ``device`` and of ``rows`` as in :func:`random_bits`."""
+    bits = random_bits(key, shape, device, rows)
     float_bits = (bits >> 9) | 0x3F800000
     floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
     lo = torch.full((), minval, dtype=torch.float32, device=bits.device)

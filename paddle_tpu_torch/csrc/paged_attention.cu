@@ -11,8 +11,7 @@
 // page_size]) and are dequantized as value * scale. lens[t] == 0 gives a
 // zero row; -1 table entries are read as page 0. Scores and the softmax
 // are float32; the output has q's dtype. Any d, any page_size and any
-// group H / KVH (as far as one K row, the q vectors and one V column slice
-// fit the block's shared memory: d up to ~12K at f32).
+// group H / KVH.
 //
 // Bound. Decode and chunked prefill read every K/V byte of every live
 // page once and do ~4 flops per element read (QK and PV, per q head of
@@ -64,6 +63,12 @@
 //   axis z); each tile reads the page itself. Above d 256 the output
 //   columns split over blocks (grid axis z too): each block sums the
 //   score over all of d and stages only its slice of V.
+// - A head dim whose two stages of one K row and one V column slice,
+//   plus the float32 q vectors of the block's rows, exceed the shared
+//   memory a block may have (past ~19K elements at f32) runs a streamed
+//   kernel instead: K, q and V are read from global memory over d in
+//   warp-strided slices, 32 page rows a pass, so its shared memory does
+//   not grow with d. Every shape the staged kernel takes stays on it.
 // f32 pools stay on float32 FMAs (TF32 would break the 2e-5 tolerance).
 
 #include <cuda_bf16.h>
@@ -647,6 +652,154 @@ __global__ void __launch_bounds__(kThreads) paged_attention(Args a) {
   }
 }
 
+// The streamed kernel: same grid, partitions, output and partials as
+// paged_attention, for head dims whose staged rows do not fit a block.
+// One row a block (no runs), at most kStreamQ q heads of the group, 32 page
+// rows a pass. QK: warp w scores rows w, w + 4, ...; its lanes walk d in
+// strides of 32 (coalesced K and q reads), summed by a warp reduction.
+// The online softmax runs a warp per q vector, PV a thread per output
+// element of the block's column tile, V read straight from global memory.
+constexpr int kStreamRows = 32;  // page rows a pass (one per lane)
+constexpr int kStreamQ = 8;      // q vectors of a block
+
+template <typename KV>
+__global__ void __launch_bounds__(kThreads) paged_attention_streamed(Args a) {
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  const int pj = blockIdx.x;
+  const int t = blockIdx.y;
+  const int kvh = blockIdx.z / (a.n_head_tiles * a.n_col_tiles);
+  const int tile = blockIdx.z % (a.n_head_tiles * a.n_col_tiles);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int G = a.n_heads / a.kv_heads;
+  const int d = a.d;
+  const int ps = a.page_size;
+  const int g0 = tile / a.n_col_tiles * a.head_tile;
+  const int M = min(a.head_tile, G - g0);
+  const int c0 = tile % a.n_col_tiles * a.cols;
+  const int dc = min(a.cols, d - c0);
+  const int head0 = kvh * G + g0;
+  const int len = a.lens[t];
+  if (len <= 0) {
+    if (pj == 0)
+      for (int i = tid; i < M * dc; i += kThreads)
+        store_f32(a.out,
+                  (static_cast<int64_t>(t) * a.n_heads + head0 + i / dc) * d +
+                      c0 + i % dc,
+                  0.f, a.q_dtype);
+    return;
+  }
+  const int live = (len + ps - 1) / ps;
+  const int p_begin = pj * a.part_pages;
+  if (p_begin >= live) return;
+  const int pos_end = min(len, min(live, p_begin + a.part_pages) * ps);
+
+  __shared__ float s_s[kStreamQ][kStreamRows];  // scores, then P
+  __shared__ float vsc_s[kStreamRows];
+  __shared__ float m_s[kStreamQ], l_s[kStreamQ], al_s[kStreamQ];
+  const int32_t* table = a.tables + static_cast<int64_t>(t) * a.pages_per_seq;
+  const int64_t row_stride = static_cast<int64_t>(a.kv_heads) * d;
+  const KV* kbase = static_cast<const KV*>(a.k_pages) +
+                    static_cast<int64_t>(kvh) * d;
+  const KV* vbase = static_cast<const KV*>(a.v_pages) +
+                    static_cast<int64_t>(kvh) * d + c0;
+  const int64_t q0 = (static_cast<int64_t>(t) * a.n_heads + head0) * d;
+  // scores in log2 units: exp(x) = exp2(x * log2 e)
+  const float qscale = a.scale * kLog2e;
+  if (tid < M) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+  }
+  float acc[kMaxItems];
+#pragma unroll
+  for (int k = 0; k < kMaxItems; ++k) acc[k] = 0.f;
+  auto row_of = [&](int pos) {
+    return static_cast<int64_t>(max(table[pos / ps], 0)) * ps + pos % ps;
+  };
+
+  for (int pos0 = p_begin * ps; pos0 < pos_end; pos0 += kStreamRows) {
+    const int rows = min(kStreamRows, pos_end - pos0);
+    for (int j = warp; j < rows; j += kWarps) {
+      const int64_t row = row_of(pos0 + j);
+      const KV* krow = kbase + row * row_stride;
+      float s[kStreamQ];
+#pragma unroll
+      for (int m = 0; m < kStreamQ; ++m) s[m] = 0.f;
+      for (int c = lane; c < d; c += 32) {
+        const float x = to_f32(krow[c]);
+#pragma unroll
+        for (int m = 0; m < kStreamQ; ++m)
+          if (m < M)
+            s[m] += load_f32(a.q, q0 + static_cast<int64_t>(m) * d + c,
+                             a.q_dtype) * x;
+      }
+#pragma unroll
+      for (int m = 0; m < kStreamQ; ++m) s[m] = warp_sum(s[m]);
+      if (lane == 0) {
+        const float ks = kQuant ? a.k_scales[row] : 1.f;
+        for (int m = 0; m < M; ++m) s_s[m][j] = s[m] * ks * qscale;
+        if (kQuant) vsc_s[j] = a.v_scales[row];
+      }
+    }
+    __syncthreads();
+
+    // online softmax, one warp per q vector, a lane per page row
+    for (int m = warp; m < M; m += kWarps) {
+      const float x = lane < rows ? s_s[m][lane] : -INFINITY;
+      const float m_old = m_s[m];
+      const float m_new = fmaxf(m_old, warp_max(x));
+      const float base = m_new == -INFINITY ? 0.f : m_new;
+      const float e = lane < rows ? exp2f(x - base) : 0.f;
+      if (lane < rows) s_s[m][lane] = kQuant ? e * vsc_s[lane] : e;
+      const float sum = warp_sum(e);
+      if (lane == 0) {
+        const float alpha = exp2f(m_old - base);
+        l_s[m] = l_s[m] * alpha + sum;
+        m_s[m] = m_new;
+        al_s[m] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // acc = alpha acc + P V over this thread's output elements
+#pragma unroll
+    for (int k = 0; k < kMaxItems; ++k) {
+      const int i = tid + k * kThreads;
+      if (i >= M * dc) break;
+      const int m = i / dc;
+      const int c = i - m * dc;
+      float x = acc[k] * al_s[m];
+      for (int j = 0; j < rows; ++j)
+        x += s_s[m][j] * to_f32(vbase[row_of(pos0 + j) * row_stride + c]);
+      acc[k] = x;
+    }
+    __syncthreads();  // s_s is rewritten by the next pass
+  }
+
+  const int np = parts_of(a, len);
+#pragma unroll
+  for (int k = 0; k < kMaxItems; ++k) {
+    const int i = tid + k * kThreads;
+    if (i >= M * dc) break;
+    const int m = i / dc;
+    const int c = i - m * dc;
+    const int64_t th = static_cast<int64_t>(t) * a.n_heads + head0 + m;
+    if (np <= 1) {
+      const float l = l_s[m];
+      store_f32(a.out, th * d + c0 + c, l == 0.f ? 0.f : acc[k] / l,
+                a.q_dtype);
+    } else {
+      const int64_t slot = th * a.n_parts + pj;
+      a.part_acc[slot * d + c0 + c] = acc[k];
+      if (c0 + c == 0) {
+        a.part_ml[2 * slot] = m_s[m];
+        a.part_ml[2 * slot + 1] = l_s[m];
+      }
+    }
+  }
+}
+
 // Combines the partitions of every row that spans more than one, in
 // partition order; grid (row, kv head, slice of kThreads of the group's
 // G x d output elements)
@@ -674,20 +827,24 @@ __global__ void __launch_bounds__(kThreads) paged_attention_merge(Args a) {
 }
 
 template <typename KV>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem =
-      smem_bytes(sizeof(KV), a.d, a.cols, a.stage_rows, a.max_q);
-  auto kernel = a.d % 8 ? paged_attention<KV, true>
-                        : paged_attention<KV, false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+cudaError_t launch(const Args& a, bool streamed, cudaStream_t stream) {
+  const dim3 grid(a.n_parts, a.T,
+                  a.kv_heads * a.n_head_tiles * a.n_col_tiles);
+  if (streamed) {
+    paged_attention_streamed<KV><<<grid, kThreads, 0, stream>>>(a);
+  } else {
+    const size_t smem =
+        smem_bytes(sizeof(KV), a.d, a.cols, a.stage_rows, a.max_q);
+    auto kernel = a.d % 8 ? paged_attention<KV, true>
+                          : paged_attention<KV, false>;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    kernel<<<grid, kThreads, smem, stream>>>(a);
   }
-  kernel<<<dim3(a.n_parts, a.T,
-                a.kv_heads * a.n_head_tiles * a.n_col_tiles),
-           kThreads, smem, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.n_parts == 1) return e;
   const int group_elems = a.n_heads / a.kv_heads * a.d;
@@ -709,8 +866,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // aligned to chunk_bytes(head_dim * element size), the width the rows are
 // staged in.
 // Returns kMisaligned where they are not, else the cudaError_t of the
-// launches (0 on success; an invalid value where the shared memory a
-// block needs exceeds the card's). Allocates nothing.
+// launches (0 on success). A head dim whose staged rows exceed a block's
+// shared memory runs the streamed kernel. Allocates nothing.
 constexpr int kMisaligned = -1;
 
 extern "C" int paged_attention_launch(
@@ -779,16 +936,33 @@ extern "C" int paged_attention_launch(
     a.stage_rows = cap;
   }
   a.scale = scale;
+  // a block's shared memory past the card's opt-in limit: the streamed
+  // kernel, at most kStreamQ q heads a block, one row a block
+  int dev = 0, smem_max = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  const bool streamed =
+      smem_bytes(kv_size, head_dim, a.cols, a.stage_rows, a.max_q) >
+      static_cast<size_t>(smem_max);
+  if (streamed) {
+    a.n_head_tiles = (group + kStreamQ - 1) / kStreamQ;
+    a.head_tile = (group + a.n_head_tiles - 1) / a.n_head_tiles;
+    a.run_rows = 1;
+    a.max_q = a.head_tile;
+  }
   auto st = static_cast<cudaStream_t>(stream);
   switch (kv_dtype) {
     case kF32:
-      return launch<float>(a, st);
+      return launch<float>(a, streamed, st);
     case kBF16:
-      return launch<__nv_bfloat16>(a, st);
+      return launch<__nv_bfloat16>(a, streamed, st);
     case kF16:
-      return launch<__half>(a, st);
+      return launch<__half>(a, streamed, st);
     case kI8:
-      return launch<int8_t>(a, st);
+      return launch<int8_t>(a, streamed, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -10,8 +10,11 @@ This launcher covers the single-host multi-process story: it spawns N
 ranks with the PADDLE_MASTER / PADDLE_TRAINER_ID / PADDLE_TRAINERS_NUM
 environment (and torch.distributed's MASTER_ADDR / MASTER_PORT / RANK /
 WORLD_SIZE), streams logs per rank, and propagates the first failure
-(optionally restarting, the elastic watcher's job). The multi-node node
-agent (``--nnodes > 1``) is not ported yet and raises."""
+(optionally restarting, the elastic watcher's job). With ``--nnodes >
+1`` this process is the node agent of ``--node_rank``
+(``multinode.NodeAgent``) over a shared rendezvous directory
+(``--rdzv_dir``) or the leader's socket store (``--rdzv_backend tcp
+--rdzv_endpoint``)."""
 
 from __future__ import annotations
 
@@ -93,9 +96,29 @@ def main(argv=None) -> int:
     parser.add_argument("script_args", nargs=argparse.REMAINDER)
     args = parser.parse_args(argv)
     if args.nnodes > 1:
-        raise NotImplementedError(
-            "--nnodes > 1 (the multi-node NodeAgent of "
-            "distributed/multinode.py) is not ported yet (ROADMAP A6.3)")
+        if args.rdzv_backend == "file" and not args.rdzv_dir:
+            parser.error("--nnodes > 1 requires --rdzv_dir "
+                         "(or --rdzv_backend tcp --rdzv_endpoint)")
+        if args.rdzv_backend == "tcp" and not args.rdzv_endpoint:
+            parser.error("--rdzv_backend tcp requires --rdzv_endpoint")
+        from .multinode import NodeAgent
+        from .tcp_store import StoreUnavailable
+        try:
+            return NodeAgent(
+                args.node_rank, args.nnodes, args.nproc_per_node,
+                args.training_script, args.script_args,
+                rdzv_dir=args.rdzv_dir, max_restarts=args.max_restarts,
+                node_timeout=args.node_timeout,
+                log_dir=args.log_dir,
+                rdzv_backend=args.rdzv_backend,
+                rdzv_endpoint=args.rdzv_endpoint).run()
+        except StoreUnavailable as e:
+            # leader's store never came up inside the rendezvous
+            # window: same exit as a rendezvous timeout, so the
+            # platform treats it as a job-level restart
+            print(f"[launch] rendezvous store unavailable: {e}",
+                  file=sys.stderr)
+            return 2
     return launch(args.nproc_per_node, args.training_script,
                   args.script_args, master=args.master,
                   log_dir=args.log_dir, max_restarts=args.max_restarts,

@@ -55,6 +55,15 @@ uninterrupted run at any ``steps_per_loop``; a ``PreemptionGuard`` is
 polled at step boundaries and flushes a final checkpoint under a
 deadline before exiting ``RESTART_EXIT_CODE``.
 
+On a mesh (``parallel.distributed_model``; the JAX package's hooks
+``_shard_params`` / ``_shard_batch`` / ``_shard_superbatch`` / ``_mesh``)
+every rank passes the global batch and runs its rows; after the backward
+the gradients are reduced over the data ranks and the logged loss is the
+global batch's (``parallel.reducer``: dp all-reduces, fsdp keeps each
+sharded parameter and its optimizer state as this rank's shard), metric
+outputs are gathered to the global batch's rows, and dropout draws the
+rank's rows of the global mask.
+
 The K-step slab runs eagerly; as a CUDA graph it waits for a benchmark
 cell (A1 (a)). The profiler's model-perspective buckets record nothing:
 the port has no profiler yet (A7).
@@ -345,6 +354,13 @@ class Model:
         self._step_count = 0
         self._train_step_built = False
         self.stop_training = False
+        # sharding hooks (set by parallel.distributed_model) and the
+        # gradient reduction / fsdp shards they imply (parallel.reducer)
+        self._shard_params = None     # fn(params) -> DTensor shards
+        self._shard_batch = None      # fn(batch) -> this rank's rows
+        self._shard_superbatch = None  # fn([K,...] slab) -> its rows
+        self._mesh = None
+        self._sync = None
         # recompile guard: distinct (shape, dtype) signatures seen
         self._shape_signatures = set()
         # device metric outputs buffered until a log/display boundary
@@ -442,10 +458,13 @@ class Model:
             self, self._mem_scope)
 
     def _register_memory(self) -> None:
-        """Register the network's parameters and buffers and, once
-        built, the optimizer state, per dtype (from shapes only; the
-        same rows re-registered overwrite)."""
-        trees = {"train_params": dict(self.network.named_parameters()),
+        """Register the network's parameters (this rank's shards under
+        fsdp) and buffers and, once built, the optimizer state, per dtype
+        (from shapes only; the same rows re-registered overwrite)."""
+        params = dict(self.network.named_parameters())
+        if self._sync is not None:
+            params.update(self._sync.shards)
+        trees = {"train_params": params,
                  "train_buffers": dict(self.network.named_buffers())}
         if self._opt_state is not None:
             trees["train_opt_state"] = self._opt_state
@@ -472,11 +491,17 @@ class Model:
         return self._loss(*_as_tuple(outputs), *_as_tuple(labels))
 
     @torch.no_grad()
-    def _metric_outputs(self, outputs, labels):
+    def _metric_outputs(self, outputs, labels, split: bool = False):
+        """Each metric's ``compute``; on a data-parallel rank that ran its
+        rows of the global batch, gathered over the data ranks in rank
+        order (the global batch's rows, as one process computes them)."""
         outs = _as_tuple(outputs)
         labs = _as_tuple(labels)
-        return tuple(m.compute(outs[0].detach(), labs[0])
-                     for m in self._metrics)
+        res = tuple(m.compute(outs[0].detach(), labs[0])
+                    for m in self._metrics)
+        if split and self._sync is not None and self._sync.active:
+            res = _tree_map(self._sync.gather_rows, res)
+        return res
 
     def _device(self) -> torch.device:
         return next(self.network.parameters()).device
@@ -490,6 +515,52 @@ class Model:
     def _trainable(self) -> Dict[str, torch.nn.Parameter]:
         return {k: p for k, p in self.network.named_parameters()
                 if p.requires_grad}
+
+    # -- the mesh (parallel.distributed_model) ------------------------------
+    def _mesh_sync(self):
+        """The gradient reduction and fsdp shards of this Model on its
+        mesh (``parallel.reducer.MeshSync``), set up collectively at the
+        first use; None without a mesh."""
+        if self._mesh is None:
+            return None
+        if self._sync is None:
+            from ..parallel.reducer import MeshSync
+            self._sync = MeshSync(self._mesh, self._shard_params)
+            self._sync.setup(self._trainable(), self._optimizer)
+        return self._sync
+
+    def _opt_params(self) -> Dict[str, torch.Tensor]:
+        """The tensors the optimizer updates: the trainable parameters,
+        this rank's shards of the fsdp-sharded ones."""
+        params = self._trainable()
+        sync = self._mesh_sync()
+        return sync.opt_params(params) if sync is not None else params
+
+    def _shard_in(self, inputs, labels, superbatch: bool = False):
+        """This rank's rows of a global batch (dim 1 of a superbatch)
+        through the mesh hooks, and whether they split it."""
+        fn = self._shard_superbatch if superbatch else self._shard_batch
+        if fn is None:
+            return inputs, labels, False
+        from ..parallel.sharding import is_split
+        split = bool(inputs) and is_split(inputs[0], int(superbatch),
+                                          self._mesh)
+        return fn(inputs), fn(labels), split
+
+    def _unsharded(self):
+        """Full parameters for the scope (fsdp gathers its shards)."""
+        sync = self._mesh_sync()
+        if sync is None or not sync.shards:
+            return contextlib.nullcontext()
+
+        @contextlib.contextmanager
+        def ctx():
+            sync.unshard()
+            try:
+                yield
+            finally:
+                sync.reshard()
+        return ctx()
 
     def _named_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """The network's tensors by group, for the non-finite reports."""
@@ -648,9 +719,10 @@ class Model:
         try:
             poison = float(self._grad_poison(1)[0]) \
                 if self._guard is not None else None
+            inputs, labels, split = self._shard_in(inputs, labels)
             loss, metric_outs, verdict, gnorm = self._train_step(
                 self._to_device(inputs), self._to_device(labels),
-                self._step_count, poison)
+                self._step_count, poison, split)
         except BaseException as e:
             if sp is not None:
                 sp.set_status("error")
@@ -678,37 +750,60 @@ class Model:
         self._attach_metric_logs(logs)
         return logs
 
-    def _train_step(self, inputs, labels, step_idx: int, poison=None):
+    def _train_step(self, inputs, labels, step_idx: int, poison=None,
+                    split: bool = False):
         """One optimizer step at ``step_idx`` on device tensors: (loss,
         metric outputs, verdict, grad norm); the last two are None unless
-        the guard is armed, when ``poison`` multiplies the loss."""
+        the guard is armed, when ``poison`` multiplies the loss. On a
+        mesh (``split``: the inputs are this rank's rows of the global
+        batch) the gradients are reduced over the data ranks after the
+        backward and the loss is the global batch's
+        (``parallel.reducer``)."""
+        sync = self._mesh_sync()
         self.network.train()
-        params = self._trainable()
+        trainable = self._trainable()
         guard = self._guard
         # buffers the forward may write, restored on a tripped step
         saved_bufs = [(b, b.clone()) for b in self.network.buffers()] \
             if guard is not None else ()
+        if sync is not None:
+            sync.unshard()
         with rng.key_guard(rng.split_for_step(step_idx)), \
-                self._amp_context():
+                self._amp_context(), \
+                (sync.rows_context(split) if sync is not None
+                 else contextlib.nullcontext()):
             out = self.network(*inputs)
         loss = self._compute_loss(out, labels).float()
+        weight = sync.loss_weight(self._loss, labels) \
+            if sync is not None else None
+        if weight is not None:
+            loss = loss * weight
         if poison is not None:
             loss = loss * poison
-        metric_outs = self._metric_outputs(out, labels)
+        metric_outs = self._metric_outputs(out, labels, split)
         loss.backward()
         loss = loss.detach()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for k, p in params.items()}
+                 for k, p in trainable.items()}
+        params = trainable
+        if sync is not None:
+            grads, loss = sync.reduce(grads, loss,
+                                      weighted=weight is not None)
+            params = sync.opt_params(trainable)
         built = self._opt_state is None
         verdict = gnorm = None
-        if guard is None:
-            self._opt_state = self._optimizer.apply_in_place(
-                params, grads, self._opt_state, step_idx)
-        else:
-            verdict, gnorm = self._guarded_update(params, grads, loss,
-                                                  step_idx, saved_bufs)
-        for p in params.values():
+        with (sync.norm_context() if sync is not None
+              else contextlib.nullcontext()):
+            if guard is None:
+                self._opt_state = self._optimizer.apply_in_place(
+                    params, grads, self._opt_state, step_idx)
+            else:
+                verdict, gnorm = self._guarded_update(
+                    params, grads, loss, step_idx, saved_bufs)
+        for p in trainable.values():
             p.grad = None
+        if sync is not None:
+            sync.reshard()
         self._train_step_built = True
         if built and _memobs.enabled():
             self._register_memory()
@@ -774,12 +869,15 @@ class Model:
         try:
             poison = self._grad_poison(k) if self._guard is not None \
                 else None
+            inputs, labels, split = self._shard_in(inputs, labels,
+                                                   superbatch=True)
             inputs = self._to_device(inputs)
             labels = self._to_device(labels)
             for i in range(k):
                 loss, mo, verdict, gnorm = self._train_step(
                     [x[i] for x in inputs], [y[i] for y in labels],
-                    step0 + i, None if poison is None else float(poison[i]))
+                    step0 + i, None if poison is None else float(poison[i]),
+                    split)
                 self._step_count += 1
                 losses.append(loss)
                 outs.append(mo)
@@ -949,24 +1047,37 @@ class Model:
         labels = _as_tuple(labels) if labels is not None else ()
         self._guard_recompiles(inputs, labels)
         self.network.eval()
+        inputs, labels, split = self._shard_in(inputs, labels)
         inputs = self._to_device(inputs)
         labels = self._to_device(labels)
-        with rng.key_guard(rng.split_for_step(self._step_count)), \
+        sync = self._mesh_sync()
+        with self._unsharded(), \
+                rng.key_guard(rng.split_for_step(self._step_count)), \
                 self._amp_context():
             out = self.network(*inputs)
         logs = {}
         if self._loss is not None:
             logs["loss"] = self._compute_loss(out, labels)
-        self._buffer_metric_outs(self._metric_outputs(out, labels), 1)
+            if sync is not None:
+                logs["loss"] = sync.global_loss(
+                    logs["loss"], sync.loss_weight(self._loss, labels))
+        self._buffer_metric_outs(
+            self._metric_outputs(out, labels, split), 1)
         self._attach_metric_logs(logs)
         return logs
 
     @torch.no_grad()
     def predict_batch(self, inputs):
         """The eval-mode forward of one batch, without the AMP context
-        (as in the JAX package's predict step)."""
+        (as in the JAX package's predict step); on a mesh, each rank runs
+        its rows and the outputs are the global batch's."""
         self.network.eval()
-        return self.network(*self._to_device(_as_tuple(inputs)))
+        inputs, _, split = self._shard_in(_as_tuple(inputs), ())
+        with self._unsharded():
+            out = self.network(*self._to_device(inputs))
+        if split:
+            out = _tree_map(self._sync.gather_rows, out)
+        return out
 
     # -- preemption-safe training state -------------------------------------
     def _full_opt_state(self):
@@ -975,7 +1086,7 @@ class Model:
         would build)."""
         if self._opt_state is None and self._optimizer is not None:
             self._opt_state = self._optimizer.init_state(
-                {k: p.detach() for k, p in self._trainable().items()})
+                {k: p.detach() for k, p in self._opt_params().items()})
             if _memobs.enabled():
                 self._register_memory()
         return self._opt_state
@@ -988,8 +1099,7 @@ class Model:
         """The training state as the JAX package's checkpoint tree: the
         live tensors (a save snapshots them)."""
         named = dict(self.network.named_parameters())
-        tree = {"params": {k: p for k, p in named.items()
-                           if p.requires_grad},
+        tree = {"params": self._opt_params(),
                 "opt": self._full_opt_state()}
         frozen = {k: p for k, p in named.items() if not p.requires_grad}
         if frozen:
@@ -1024,6 +1134,11 @@ class Model:
         empty train pass."""
         self._drain_metric_updates()
         tree = self._state_tree()
+        sync = self._mesh_sync()
+        if sync is not None:
+            # the unsharded tree (fsdp gathers each shard), written by
+            # rank 0 while the others wait at a barrier
+            tree = sync.full_tree(tree)
         cursor = loader.state_dict()
         if boundary:
             cursor = {"pass": int(cursor["pass"]) + 1, "batch": 0}
@@ -1040,7 +1155,10 @@ class Model:
                 [m.__dict__ for m in self._metrics],
                 protocol=4)).decode("ascii"),
         }
-        mgr.save(self._step_count, tree, state=state, force=force)
+        if sync is None or sync.is_writer:
+            mgr.save(self._step_count, tree, state=state, force=force)
+        if sync is not None:
+            sync.barrier()
 
     def _restore_training_state(self, mgr, resume, loader):
         """Resume from ``mgr``: newest verified step for
@@ -1077,8 +1195,11 @@ class Model:
                 raise
             return None
         # copy into the live tensors: the network, the optimizer state
-        # (and AMP's master weights in it) keep their references
+        # (and AMP's master weights in it) keep their references; on a
+        # mesh every rank restores, and fsdp keeps its shards of the tree
         live = self._state_tree()
+        if self._sync is not None:
+            tree = self._sync.local_tree(tree)
         for group in ("params", "frozen", "buffers"):
             _copy_into(live.get(group, {}), tree.get(group) or {}, group)
         self._load_opt_state(tree["opt"])
@@ -1222,12 +1343,22 @@ class Model:
         - ``preemption_guard`` (an ``distributed.PreemptionGuard``) is
           polled at step boundaries: once triggered, the loop snapshots
           the current state, flushes it under ``preemption_flush_budget``
-          seconds, and exits ``RESTART_EXIT_CODE``."""
+          seconds, and exits ``RESTART_EXIT_CODE`` (on a mesh of several
+          data ranks it flushes only what is committed: a snapshot
+          there is collective).
+
+        On a mesh (``parallel.distributed_model``) every rank passes the
+        global batch and trains on its rows; rank 0 writes the
+        checkpoints (the unsharded tree, fsdp shards gathered first)
+        while the others wait at a barrier, and every rank restores."""
         assert self._optimizer is not None and self._loss is not None, \
             "call prepare(optimizer, loss, ...) before fit()"
         if steps_per_loop is None:
             steps_per_loop = flags.get_flag("steps_per_loop")
         k_loop = max(int(steps_per_loop), 1)
+        if k_loop > 1 and self._shard_batch is not None \
+                and self._shard_superbatch is None:
+            k_loop = 1  # no superbatch sharding hook wired: stay exact
         loader = self._as_loader(train_data, batch_size, shuffle)
         eval_loader = self._as_loader(eval_data, batch_size, False) \
             if eval_data is not None else None
@@ -1277,7 +1408,11 @@ class Model:
                     from ..reliability.retry import Deadline
                     dl = Deadline.after(preemption_flush_budget)
                     outcome = None
-                    if self._step_count != last_ckpt_step:
+                    # on a mesh a snapshot is collective (rank 0 writes,
+                    # fsdp gathers): a rank preempted alone flushes what
+                    # is committed, and the job resumes from there
+                    alone = self._sync is not None and self._sync.active
+                    if self._step_count != last_ckpt_step and not alone:
                         # drain queued commits FIRST: save()'s bounded
                         # queue blocks while a snapshot is queued behind
                         # a slow commit — snapshotting into a backed-up
@@ -1477,9 +1612,17 @@ class Model:
         """Saves ``path + '.pdparams'`` (a pickled NumPy state dict under
         the JAX package's names and layouts) and, with ``training``,
         ``path + '.pdopt'`` (``{"state": optimizer state, "step"}``)."""
+        sync = self._mesh_sync()
+        with self._unsharded():
+            state = {k: _host(v)
+                     for k, v in self.network.state_dict().items()}
+        opt = self._opt_state
+        if sync is not None and opt is not None:
+            opt = sync.full_tree(opt)
+        if sync is not None and not sync.is_writer:
+            return
         d = os.path.dirname(os.path.abspath(path))
         os.makedirs(d, exist_ok=True)
-        state = {k: _host(v) for k, v in self.network.state_dict().items()}
         with open(path + ".pdparams", "wb") as f:
             pickle.dump(state, f, protocol=4)
         if training and self._optimizer is not None:
@@ -1487,7 +1630,7 @@ class Model:
             # int32 device scalars
             opt_state = _tree_map(
                 lambda x: np.asarray(x, np.int32) if isinstance(x, int)
-                else _host(x), self._opt_state)
+                else _host(x), opt)
             with open(path + ".pdopt", "wb") as f:
                 pickle.dump({"state": opt_state,
                              "step": np.asarray(self._step_count)}, f,
@@ -1499,7 +1642,11 @@ class Model:
         it into the optimizer state and step count."""
         with open(path + ".pdparams", "rb") as f:
             state = pickle.load(f)
-        load_reference_state(self.network, state)
+        sync = self._mesh_sync()
+        with self._unsharded():
+            load_reference_state(self.network, state)
+            if sync is not None:
+                sync.refresh_shards()
         if not reset_optimizer and os.path.exists(path + ".pdopt"):
             with open(path + ".pdopt", "rb") as f:
                 opt = pickle.load(f)
@@ -1512,6 +1659,8 @@ class Model:
                 return torch.from_numpy(np.array(a)).to(dev)
             self._opt_state = _tree_map(put, opt["state"]) \
                 if opt["state"] is not None else None
+            if sync is not None and self._opt_state is not None:
+                self._opt_state = sync.local_tree(self._opt_state)
             self._step_count = int(opt["step"])
         else:
             self._opt_state = None

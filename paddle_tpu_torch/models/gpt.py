@@ -134,9 +134,12 @@ class GPTAttention(Layer):
         self.num_kv_heads = cfg.num_kv_heads
         qkv_out = h + 2 * cfg.num_kv_heads * hd
         init = I.Normal(0.0, cfg.initializer_range)
-        self.qkv_proj = nn.Linear(h, qkv_out, weight_attr=init)
+        self.qkv_proj = nn.Linear(h, qkv_out, weight_attr=init,
+                                  axes=("embed", "heads"),
+                                  bias_axes=("heads",))
         self.out_proj = nn.Linear(h, h, weight_attr=I.Normal(
-            0.0, cfg.initializer_range / math.sqrt(2 * cfg.num_layers)))
+            0.0, cfg.initializer_range / math.sqrt(2 * cfg.num_layers)),
+            axes=("heads", "embed"), bias_axes=(None,))
 
     def forward(self, x, attn_mask=None, cache=None, position_ids=None):
         b, s, h = x.shape
@@ -211,9 +214,11 @@ class GPTMLP(Layer):
         self._swiglu = cfg.activation == "swiglu"
         in_width = 2 * cfg.ffn_hidden_size if self._swiglu \
             else cfg.ffn_hidden_size
-        self.fc_in = nn.Linear(cfg.hidden_size, in_width, weight_attr=init)
+        self.fc_in = nn.Linear(cfg.hidden_size, in_width, weight_attr=init,
+                               axes=("embed", "mlp"), bias_axes=("mlp",))
         self.fc_out = nn.Linear(cfg.ffn_hidden_size, cfg.hidden_size,
-                                weight_attr=init_out)
+                                weight_attr=init_out,
+                                axes=("mlp", "embed"), bias_axes=(None,))
         self.act = F.swiglu if self._swiglu else getattr(F, cfg.activation)
         self.dropout = nn.Dropout(cfg.hidden_dropout)
 
@@ -249,11 +254,12 @@ class GPTEmbeddings(Layer):
         super().__init__()
         init = I.Normal(0.0, cfg.initializer_range)
         self.word_embeddings = nn.Embedding(
-            cfg.vocab_size, cfg.hidden_size, weight_attr=init)
+            cfg.vocab_size, cfg.hidden_size, weight_attr=init,
+            axes=("vocab", "embed"))
         if not cfg.use_rope:  # rotary encodes positions in attention
             self.position_embeddings = nn.Embedding(
                 cfg.max_position_embeddings, cfg.hidden_size,
-                weight_attr=init)
+                weight_attr=init, axes=(None, "embed"))
         self.dropout = nn.Dropout(cfg.hidden_dropout)
         self._use_rope = cfg.use_rope
         self._max_pos = cfg.max_position_embeddings
@@ -338,7 +344,8 @@ class GPTForCausalLM(Layer):
         self.gpt = GPTModel(cfg)
         if not cfg.tie_word_embeddings:
             self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
-                                     bias_attr=False)
+                                     bias_attr=False,
+                                     axes=("embed", "vocab"))
         self.to(resolve_device(device))
 
     def _logits(self, hidden):
@@ -454,6 +461,12 @@ class GPTPretrainingCriterion(Layer):
     def __init__(self, ignore_index: int = -100):
         super().__init__()
         self.ignore_index = ignore_index
+
+    def count(self, labels):
+        """The targets the mean runs over (those not ``ignore_index``):
+        on a data-parallel mesh each rank's loss is weighted by its count
+        over the global count (``parallel.reducer``)."""
+        return (labels[:, 1:] != self.ignore_index).sum()
 
     def forward(self, logits, labels):
         # logits [b, s, v], labels [b, s]: predict token t+1 at position t

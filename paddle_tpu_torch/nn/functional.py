@@ -62,14 +62,16 @@ def dropout(x, p: float = 0.5, training: bool = True,
     ``x / keep`` divides by ``keep`` rounded to x's dtype (JAX's weak
     type). The key stays on the host and enters the hash as two ints,
     so a step with dropout copies nothing to the device and does not
-    sync."""
+    sync. Under ``rng.batch_rows`` (a data-parallel rank) the mask is
+    the rank's rows of the global batch's mask."""
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training:
             return x * (1.0 - p)
         return x
     keep = 1.0 - p
     mask = threefry.uniform(rng.next_key(rng_name), x.shape,
-                            device=x.device) < keep
+                            device=x.device,
+                            rows=rng.mask_rows(x.shape)) < keep
     if mode == "upscale_in_train":
         x = x / _keep_divisor(keep, x)
     return torch.where(mask, x, 0.0).to(x.dtype)
@@ -93,7 +95,8 @@ def dropout2d(x, p: float = 0.5, training: bool = True,
     keep = 1.0 - p
     shape = (x.shape[0], x.shape[1], 1, 1) if data_format == "NCHW" else \
         (x.shape[0], 1, 1, x.shape[3])
-    mask = threefry.uniform(rng.next_key(), shape, device=x.device) < keep
+    mask = threefry.uniform(rng.next_key(), shape, device=x.device,
+                            rows=rng.mask_rows(shape)) < keep
     x = x / _keep_divisor(keep, x)
     return torch.where(mask, x, 0.0).to(x.dtype)
 

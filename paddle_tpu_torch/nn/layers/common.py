@@ -13,10 +13,12 @@ from ..layer import Layer
 class Linear(Layer):
     """y = xW + b with W stored ``[in_features, out_features]``, Paddle's
     layout (not torch's ``[out, in]``), so weights pass between the two
-    packages untransposed."""
+    packages untransposed. ``axes`` / ``bias_axes``: the logical
+    sharding axes of W and b (``Layer.param_meta``)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 weight_attr=None, bias_attr=None):
+                 weight_attr=None, bias_attr=None, axes=None,
+                 bias_axes=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
@@ -31,6 +33,8 @@ class Linear(Layer):
                 (I.get_global_bias_initializer() or I.Constant(0.0))
             self.bias = self.create_parameter([out_features],
                                               initializer=init_b)
+            self.set_param_axes("bias", bias_axes)
+        self.set_param_axes("weight", axes)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -38,7 +42,8 @@ class Linear(Layer):
 
 class Embedding(Layer):
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 padding_idx: Optional[int] = None, weight_attr=None):
+                 padding_idx: Optional[int] = None, weight_attr=None,
+                 axes=None):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
@@ -46,6 +51,7 @@ class Embedding(Layer):
         init_w = weight_attr if callable(weight_attr) else I.Normal(0., 1.0)
         self.weight = self.create_parameter(
             [num_embeddings, embedding_dim], initializer=init_w)
+        self.set_param_axes("weight", axes)
 
     def forward(self, x):
         return F.embedding(x, self.weight, self.padding_idx)

@@ -1,0 +1,266 @@
+"""Collective primitives over mesh axes (the port's counterpart of
+``paddle_tpu/parallel/collective.py``).
+
+Two registers, as in the JAX package:
+
+1. **By mesh axis.** The JAX package's are ``jax.lax`` collectives inside
+   ``shard_map``, each device holding its block. Here each rank holds its
+   block as an ordinary tensor and the collective runs over the process
+   group of the named axis (``DeviceMesh.group``): rank ``r``'s result is
+   device ``r``'s result in the JAX package. ``axis`` is a name or a tuple
+   of names (ranks ordered row-major in ``AXIS_ORDER``).
+2. **Host-level on stacked arrays**: a "per-rank tensor" is one array
+   with a leading group dim; the collective is a reduction over dim 0
+   (``host_all_reduce``), the same pure function in both packages.
+
+Gloo on CUDA tensors: every collective here, and the gradient reduction
+of a ``Model`` on a mesh, stages a CUDA tensor through a pinned host
+buffer when the group's backend is gloo (``wire``), one code path for
+the collectives gloo does and does not carry on CUDA tensors; NCCL
+groups take the CUDA tensor itself.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from .mesh import DeviceMesh, get_mesh
+
+AxisName = Union[str, Sequence[str]]
+
+
+# -- the wire: staging through pinned host memory for gloo ------------------
+
+def _staged(x: torch.Tensor, group) -> bool:
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def wire(x: torch.Tensor, group) -> torch.Tensor:
+    """The tensor a collective of ``group`` runs on: ``x`` itself, or a
+    pinned host copy of a CUDA tensor under gloo."""
+    if _staged(x, group):
+        h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        h.copy_(x)
+        return h
+    return x
+
+
+def back(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A wire tensor on ``like``'s device."""
+    return h.to(like.device) if h.device != like.device else h
+
+
+def all_reduce_(x: torch.Tensor, group, op=dist.ReduceOp.SUM):
+    """In-place all-reduce of ``x`` over ``group`` (staged under gloo)."""
+    h = wire(x, group)
+    dist.all_reduce(h, op=op, group=group)
+    if h is not x:
+        x.copy_(h)
+    return x
+
+
+def all_gather_list(x: torch.Tensor, group):
+    """Every rank's ``x`` of ``group``, in group-rank order."""
+    h = wire(x.contiguous(), group)
+    outs = [torch.empty_like(h) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(outs, h, group=group)
+    return [back(o, x) for o in outs]
+
+
+def _mesh_group(axis: AxisName, mesh: Optional[DeviceMesh]):
+    mesh = mesh or get_mesh()
+    return mesh, mesh.group(axis)
+
+
+# -- register 1: by mesh axis -----------------------------------------------
+
+def _reduce(x, axis, op, mesh=None):
+    mesh, g = _mesh_group(axis, mesh)
+    out = torch.as_tensor(x).clone()
+    if g is not None:
+        all_reduce_(out, g, op)
+    return out
+
+
+def psum(x, axis: AxisName, mesh: Optional[DeviceMesh] = None):
+    return _reduce(x, axis, dist.ReduceOp.SUM, mesh)
+
+
+def pmean(x, axis: AxisName, mesh: Optional[DeviceMesh] = None):
+    return psum(x, axis, mesh) / axis_size(axis, mesh)
+
+
+def pmax(x, axis: AxisName, mesh: Optional[DeviceMesh] = None):
+    return _reduce(x, axis, dist.ReduceOp.MAX, mesh)
+
+
+def pmin(x, axis: AxisName, mesh: Optional[DeviceMesh] = None):
+    return _reduce(x, axis, dist.ReduceOp.MIN, mesh)
+
+
+def all_gather(x, axis: AxisName, *, tiled: bool = True, gather_dim: int = 0,
+               mesh: Optional[DeviceMesh] = None):
+    """ref: c_allgather_op.cc — concatenate (``tiled``) or stack the
+    blocks along ``gather_dim``."""
+    mesh, g = _mesh_group(axis, mesh)
+    x = torch.as_tensor(x)
+    parts = all_gather_list(x, g) if g is not None else [x]
+    return torch.cat(parts, dim=gather_dim) if tiled \
+        else torch.stack(parts, dim=gather_dim)
+
+
+def reduce_scatter(x, axis: AxisName, *, scatter_dim: int = 0,
+                   mesh: Optional[DeviceMesh] = None):
+    """ref: c_reducescatter_op.cc — the sum over the axis, this rank's
+    block of ``scatter_dim`` (the JAX package's tiled ``psum_scatter``)."""
+    n = axis_size(axis, mesh)
+    total = psum(x, axis, mesh)
+    return torch.chunk(total, n, dim=scatter_dim)[axis_index(axis, mesh)] \
+        .contiguous()
+
+
+def all_to_all(x, axis: AxisName, *, split_dim: int, concat_dim: int,
+               mesh: Optional[DeviceMesh] = None):
+    """ref: alltoall_op.cc — block j of ``split_dim`` goes to rank j; the
+    blocks received concatenate along ``concat_dim`` in rank order."""
+    x = torch.as_tensor(x)
+    n = axis_size(axis, mesh)
+    me = axis_index(axis, mesh)
+    blocks = torch.chunk(x, n, dim=split_dim)
+    gathered = [all_gather(b, axis, tiled=False, mesh=mesh)
+                for b in blocks]
+    # gathered[j][r]: rank r's block j; this rank keeps block `me`
+    return torch.cat(list(gathered[me].unbind(0)), dim=concat_dim)
+
+
+def ppermute(x, axis: AxisName, perm, mesh: Optional[DeviceMesh] = None):
+    """ref: send_v2/recv_v2 — rank ``src`` sends to ``dst`` for each
+    ``(src, dst)`` of ``perm``; a rank no one sends to gets zeros, as in
+    ``lax.ppermute``. Point-to-point over the axis's group."""
+    mesh, g = _mesh_group(axis, mesh)
+    x = torch.as_tensor(x)
+    me = axis_index(axis, mesh)
+    if g is None:
+        return x.clone() if (0, 0) in list(perm) else torch.zeros_like(x)
+    ranks = dist.get_process_group_ranks(g)
+    out = torch.zeros_like(x)
+    ops = []
+    h_out = wire(out, g)
+    h_in = wire(x.contiguous(), g)
+    for src, dst in perm:
+        if src == me and dst == me:
+            h_out.copy_(h_in)
+        elif src == me:
+            ops.append(dist.P2POp(dist.isend, h_in, ranks[dst], group=g))
+        elif dst == me:
+            ops.append(dist.P2POp(dist.irecv, h_out, ranks[src], group=g))
+    if ops:
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    if h_out is not out:
+        out.copy_(h_out)
+    return out
+
+
+def shift(x, axis: AxisName, offset: int = 1,
+          mesh: Optional[DeviceMesh] = None):
+    """Ring shift: rank i sends to (i+offset) mod n."""
+    n = axis_size(axis, mesh)
+    return ppermute(x, axis, [(i, (i + offset) % n) for i in range(n)],
+                    mesh)
+
+
+def axis_index(axis: AxisName, mesh: Optional[DeviceMesh] = None) -> int:
+    return (mesh or get_mesh()).index(axis)
+
+
+def axis_size(axis: AxisName, mesh: Optional[DeviceMesh] = None) -> int:
+    mesh = mesh or get_mesh()
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    return int(np.prod([mesh.axis_size(a) for a in axes]))
+
+
+def broadcast(x, axis: AxisName, src: int = 0,
+              mesh: Optional[DeviceMesh] = None):
+    """ref: c_broadcast_op.cc — everyone takes rank ``src``'s value."""
+    mesh, g = _mesh_group(axis, mesh)
+    out = torch.as_tensor(x).clone()
+    if g is not None:
+        h = wire(out, g)
+        dist.broadcast(h, dist.get_process_group_ranks(g)[src], group=g)
+        if h is not out:
+            out.copy_(h)
+    return out
+
+
+# -- register 2: host-level on stacked arrays -------------------------------
+
+_REDUCERS = {"sum": torch.sum, "max": torch.amax, "min": torch.amin,
+             "prod": torch.prod, "mean": torch.mean, "avg": torch.mean}
+
+
+def host_all_reduce(stacked, op: str = "sum"):
+    """``stacked``: [group, ...] array, one slice per rank; returns the
+    elementwise reduction over the group dim."""
+    if op not in _REDUCERS:
+        raise ValueError(f"unknown reduce op {op!r}")
+    return _REDUCERS[op](torch.as_tensor(stacked), dim=0)
+
+
+def quantized_ring_allreduce(x, axis: AxisName, bits: int = 8,
+                             mesh: Optional[DeviceMesh] = None):
+    """Bandwidth-compressed gradient all-reduce: a hand-rolled ring whose
+    wire format is int8 blocks + one f32 scale per hop, ~1/4 the bytes
+    of a dense f32 ring (technique shape: EQuARX), by point-to-point
+    ``ppermute`` over the axis, the JAX package's algorithm step for step:
+    a reduce-scatter phase (each rank accumulates one block, requantizing
+    each hop; accumulation in f32) and an all-gather phase in which each
+    reduced block is quantized once at its owner and the same payload
+    circulates, so every rank ends bit-identical."""
+    if not 2 <= bits <= 8:
+        raise ValueError(
+            f"bits={bits}: the wire dtype is int8, so 2..8 bits only")
+    x = torch.as_tensor(x)
+    n = axis_size(axis, mesh)
+    if n == 1:
+        return x
+    qmax = float(2 ** (bits - 1) - 1)
+    flat = x.reshape(-1)
+    pad = (-flat.shape[0]) % n
+    if pad:
+        flat = torch.cat([flat, torch.zeros((pad,), dtype=flat.dtype,
+                                            device=flat.device)])
+    acc = flat.reshape(n, -1).to(torch.float32).clone()
+    rank = axis_index(axis, mesh)
+    ring = [(i, (i + 1) % n) for i in range(n)]  # == shift()'s perm
+
+    def quant(b):
+        scale = torch.clamp(torch.max(torch.abs(b)), min=1e-20) / qmax
+        q = torch.clamp(torch.round(b / scale), -qmax, qmax).to(torch.int8)
+        return q, scale.reshape(1)
+
+    def dequant(q, scale):
+        return q.to(torch.float32) * scale[0]
+
+    for s in range(n - 1):
+        q, scale = quant(acc[(rank - s) % n])
+        q_in = ppermute(q, axis, ring, mesh)
+        s_in = ppermute(scale, axis, ring, mesh)
+        recv_idx = (rank - s - 1) % n
+        acc[recv_idx] = acc[recv_idx] + dequant(q_in, s_in)
+    own_idx = (rank + 1) % n
+    q_send, s_send = quant(acc[own_idx])
+    acc[own_idx] = dequant(q_send, s_send)
+    for s in range(n - 1):
+        q_in = ppermute(q_send, axis, ring, mesh)
+        s_in = ppermute(s_send, axis, ring, mesh)
+        acc[(rank - s) % n] = dequant(q_in, s_in)
+        q_send, s_send = q_in, s_in
+    out = acc.reshape(-1)
+    if pad:
+        out = out[:-pad]
+    return out.reshape(x.shape).to(x.dtype)

@@ -1,0 +1,230 @@
+"""Logical-axis sharding rules → DTensor placements (the port's
+counterpart of ``paddle_tpu/parallel/sharding.py``).
+
+Each parameter declares its *logical* axes once, at layer definition
+(``Layer.param_meta``, e.g. ``("embed", "mlp")``); a rule table maps
+them onto *mesh* axes — the Flax/T5X "logical axis rules" idiom, with
+the JAX package's table and resolution, so both packages shard the same
+dims over the same axes:
+
+ - Megatron TP (mp_layers.py:30/95/171): ``mlp``/``heads``/``vocab`` → tp
+ - ZeRO param sharding (group_sharded_stage3.py:60): ``embed`` → fsdp
+ - expert parallel (moe_layer.py:244): ``expert`` → ep
+
+Where the JAX package places a global array with a ``NamedSharding``,
+the port gives each rank its piece: :func:`shard_spec` is the
+``torch.distributed.tensor`` placements of a parameter on the mesh,
+:func:`shard_params` the ``DTensor`` of this rank's shard (sliced from
+the full value every rank holds, no communication), :func:`shard_batch`
+this rank's rows of the global batch. Only ``dp`` and ``fsdp`` run in
+this slice; ``tp``, ``pp``, ``sp`` and ``ep`` resolve like the JAX
+package's but raise where they would execute (ROADMAP A6.4, A6.5).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..io import _tree_map
+from .mesh import DeviceMesh, get_mesh
+
+# (logical axis, mesh axis) — first matching rule whose mesh axis is live
+# and evenly divides the dimension wins.
+DEFAULT_RULES: Tuple[Tuple[str, str], ...] = (
+    ("batch", "dp"),
+    ("batch", "fsdp"),
+    ("pp_stage", "pp"),
+    ("expert", "ep"),
+    ("vocab", "tp"),
+    ("mlp", "tp"),
+    ("heads", "tp"),
+    ("kv", "tp"),
+    ("embed", "fsdp"),
+    ("seq", "sp"),
+)
+
+# live mesh axes whose execution waits for its ROADMAP item (dp and fsdp
+# run)
+NOT_PORTED = {"tp": "A6.4", "pp": "A6.4", "ep": "A6.4", "sp": "A6.5"}
+
+
+def check_runnable(mesh: DeviceMesh) -> None:
+    """Raise for a live mesh axis whose execution is not ported."""
+    for axis, item in NOT_PORTED.items():
+        if mesh.has_axis(axis):
+            raise NotImplementedError(
+                f"a live {axis!r} mesh axis is not ported yet (ROADMAP "
+                f"{item}); the port runs dp and fsdp")
+
+
+class LogicalRules:
+    def __init__(self, rules: Sequence[Tuple[str, str]] = DEFAULT_RULES):
+        self.rules = tuple(rules)
+
+    def mesh_axes(self, logical: Optional[Tuple[Optional[str], ...]],
+                  shape: Tuple[int, ...], mesh: DeviceMesh) -> Tuple:
+        """Resolve logical dim names to the JAX package's PartitionSpec
+        entries (a mesh axis, a tuple of them, or None per dim; trailing
+        Nones dropped), skipping mesh axes already taken by another dim.
+        A logical name matching several rules collects ALL its live mesh
+        axes (e.g. ``batch`` → ``("dp", "fsdp")``)."""
+        if logical is None:
+            return ()
+        used = set()
+        out: List[Any] = []
+        for dim, name in enumerate(logical):
+            picks = []
+            if name is not None and dim < len(shape):
+                prod = 1
+                for lname, maxis in self.rules:
+                    if (lname == name and maxis not in used
+                            and mesh.has_axis(maxis)
+                            and shape[dim] % (
+                                prod * mesh.axis_size(maxis)) == 0):
+                        picks.append(maxis)
+                        used.add(maxis)
+                        prod *= mesh.axis_size(maxis)
+            out.append(tuple(picks) if len(picks) > 1
+                       else (picks[0] if picks else None))
+        while out and out[-1] is None:
+            out.pop()
+        return tuple(out)
+
+
+def _placements(spec: Tuple, mesh: DeviceMesh) -> List:
+    """DTensor placements (one per mesh dim) of a PartitionSpec."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for axis in mesh.axis_names:
+        dim = next((d for d, e in enumerate(spec)
+                    if e == axis or (isinstance(e, tuple) and axis in e)),
+                   None)
+        out.append(Replicate() if dim is None else Shard(dim))
+    return out
+
+
+def named_sharding(axes, shape, mesh: Optional[DeviceMesh] = None,
+                   rules: Optional[LogicalRules] = None) -> List:
+    """The DTensor placements of an array of ``shape`` whose dims carry
+    the logical ``axes``."""
+    mesh = mesh or get_mesh()
+    rules = rules or LogicalRules()
+    return _placements(rules.mesh_axes(axes, tuple(shape), mesh), mesh)
+
+
+def shard_spec(name: Optional[str], shape, meta,
+               mesh: Optional[DeviceMesh] = None,
+               rules: Optional[LogicalRules] = None) -> List:
+    """THE placement a parameter gets at runtime: ``meta[name].axes``
+    through the rules (replicated where the parameter has no axes)."""
+    axes = getattr(meta.get(name), "axes", None) \
+        if (meta and name is not None) else None
+    return named_sharding(axes, shape, mesh, rules)
+
+
+def local_chunk(x: torch.Tensor, placements, mesh: DeviceMesh):
+    """This rank's piece of the full ``x`` under ``placements`` (mesh
+    dims left to right, ``torch.chunk`` pieces, as DTensor does)."""
+    for axis, pl in zip(mesh.axis_names, placements):
+        if pl.is_shard():
+            x = torch.chunk(x, mesh.axis_size(axis), dim=pl.dim)[
+                mesh.local_rank(axis)]
+    return x
+
+
+def shard_params(params: Dict[str, torch.Tensor], meta: Dict[str, Any],
+                 mesh: Optional[DeviceMesh] = None,
+                 rules: Optional[LogicalRules] = None
+                 ) -> Dict[str, Any]:
+    """Each parameter as the DTensor of this rank's shard under its
+    placement (every rank holds the same full values — the same seed —
+    so no communication). Parameters with no annotation are
+    replicated."""
+    from torch.distributed.tensor import DTensor
+    mesh = mesh or get_mesh()
+    rules = rules or LogicalRules()
+    out = {}
+    for name, v in params.items():
+        v = v.detach()
+        pl = shard_spec(name, v.shape, meta, mesh, rules)
+        out[name] = DTensor.from_local(
+            local_chunk(v, pl, mesh).contiguous(), mesh.mesh, pl,
+            run_check=False, shape=v.shape, stride=v.stride())
+    return out
+
+
+def _rows(x, dim: int, mesh: DeviceMesh):
+    """This rank's slice of dim ``dim`` over the data axes, or x itself
+    where the dim does not divide (replicated)."""
+    n = mesh.data_size
+    shape = getattr(x, "shape", ())
+    if n <= 1 or len(shape) <= dim or shape[dim] % n:
+        return x
+    b = shape[dim] // n
+    i = mesh.index(mesh.data_axes)
+    sl = [slice(None)] * dim + [slice(i * b, (i + 1) * b)]
+    return x[tuple(sl)]
+
+
+def shard_batch(batch, mesh: Optional[DeviceMesh] = None):
+    """This rank's rows of the global batch: the leading dim split over
+    the data axes (dp, then fsdp), as the JAX package places it. A
+    scalar, or a final partial batch whose leading dim does not divide
+    the data ranks, stays whole (replicated — correct, just unsharded
+    for that one step); non-array leaves pass through."""
+    mesh = mesh or get_mesh()
+    return _tree_map(lambda x: _rows(x, 0, mesh), batch)
+
+
+def shard_superbatch(batch, mesh: Optional[DeviceMesh] = None):
+    """``shard_batch`` for the fused train loop's [K, batch, ...]
+    superbatches: dim 0 is the per-slab step axis (whole on every rank),
+    dim 1 the batch axis split over the data axes; a dim 1 that does
+    not divide stays whole."""
+    mesh = mesh or get_mesh()
+    return _tree_map(lambda x: _rows(x, 1, mesh), batch)
+
+
+def is_split(x, dim: int = 0, mesh: Optional[DeviceMesh] = None) -> bool:
+    """Whether :func:`shard_batch` (``dim`` 0) or
+    :func:`shard_superbatch` (``dim`` 1) splits a leaf of this shape."""
+    mesh = mesh or get_mesh()
+    shape = np.shape(x)
+    return mesh.data_size > 1 and len(shape) > dim and \
+        shape[dim] % mesh.data_size == 0
+
+
+def replicate(tree, mesh: Optional[DeviceMesh] = None):
+    """Every rank takes the mesh's first rank's values (a broadcast over
+    the mesh), tensors in place; other leaves pass through."""
+    from . import collective
+    mesh = mesh or get_mesh()
+    axes = mesh.axis_names
+
+    def put(x):
+        if isinstance(x, torch.Tensor) and mesh.size > 1:
+            with torch.no_grad():
+                x.copy_(collective.broadcast(x, axes, src=0, mesh=mesh))
+        return x
+    return _tree_map(put, tree)
+
+
+def with_logical_constraint(x, logical: Tuple[Optional[str], ...],
+                            mesh: Optional[DeviceMesh] = None,
+                            rules: Optional[LogicalRules] = None):
+    """In-graph activation sharding hint (the ``shard_op`` analog). A
+    no-op unless a ``tp`` or ``sp`` axis is live, whose activation
+    layouts are not ported yet."""
+    mesh = mesh or get_mesh(required=False)
+    if mesh is None:
+        return x
+    rules = rules or LogicalRules()
+    spec = rules.mesh_axes(logical, tuple(x.shape), mesh)
+    live = {a for e in spec for a in ((e,) if isinstance(e, str)
+                                      else (e or ()))}
+    if live & {"tp", "sp"}:
+        check_runnable(mesh)
+    return x

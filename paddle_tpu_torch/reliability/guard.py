@@ -33,6 +33,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..nn import clip as _clip
 from ..observability import metrics as _obs
 from ..observability import tracing as _trace
 
@@ -91,7 +92,12 @@ def inspect(loss, grads, state, *, spike_factor: float,
           if g.is_floating_point()]
     finite = torch.isfinite(loss)
     sq = torch.zeros((), dtype=torch.float32, device=loss.device)
-    if gs:
+    if gs and _clip.sharded():
+        # fsdp shards: the whole gradient's norm and finiteness
+        named = {k: g for k, g in grads.items() if g.is_floating_point()}
+        finite = finite & _clip.all_finite(named)
+        sq = _clip.sum_squares(named)
+    elif gs:
         finite = finite & torch.stack(
             [torch.isfinite(g).all() for g in gs]).all()
         sq = torch.stack([torch.sum(torch.square(g.float()))

@@ -482,16 +482,17 @@ def test_summary_counts_match_jax(capsys):
 def test_entry_points_raise_what_is_not_there(tmp_path):
     """No card: a network or a device DataLoader with no ``device``
     raises; what is still not ported raises naming its ROADMAP item (the
-    multi-node launcher, A6.3). fit's checkpointing, the fused loop and
-    the numeric guard, each once raising too, now run."""
+    auto-parallel planner, A6.4). The multi-node launcher, fit's
+    checkpointing, the fused loop and the numeric guard, each once
+    raising too, now run."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tgpt.GPTForCausalLM(_tiny(tgpt))
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tpt.io.DataLoader(tpt.io.TensorDataset([np.zeros((2, 2))]))
-    from paddle_tpu_torch.distributed import launch as tlaunch
-    with pytest.raises(NotImplementedError, match="ROADMAP A6.3"):
-        tlaunch.main(["--nnodes", "2", "unused.py"])
+    from paddle_tpu_torch import parallel as tpar
+    with pytest.raises(NotImplementedError, match="ROADMAP A6.4"):
+        tpar.distributed_model(tpt.Model(_TNet()), global_batch=8)
     m = tpt.Model(_TNet())
     m.prepare(tpt.optimizer.SGD(0.1, parameters=m.network), _tce)
     (x, y), _ = _cls_data()

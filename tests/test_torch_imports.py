@@ -97,5 +97,57 @@ def test_scan_covers_the_package():
                  "paddle_tpu_torch/distributed/elastic.py",
                  "paddle_tpu_torch/parallel/__init__.py",
                  "paddle_tpu_torch/parallel/recompute.py",
+                 "paddle_tpu_torch/parallel/api.py",
+                 "paddle_tpu_torch/parallel/collective.py",
+                 "paddle_tpu_torch/parallel/mesh.py",
+                 "paddle_tpu_torch/parallel/reducer.py",
+                 "paddle_tpu_torch/parallel/sharding.py",
+                 "paddle_tpu_torch/parallel/strategy.py",
+                 "paddle_tpu_torch/distributed/comm.py",
+                 "paddle_tpu_torch/distributed/fleet.py",
+                 "paddle_tpu_torch/distributed/fs.py",
+                 "paddle_tpu_torch/distributed/multinode.py",
                  "chip_smoke.py"):
         assert must in names
+
+
+def test_parallel_and_distributed_export_their_names():
+    """The names of the JAX package's ``parallel`` and ``distributed``
+    namespaces that this slice ports (less the planner, pipeline, local
+    SGD and the datasets, which wait for ROADMAP A6.3 / A6.4)."""
+    import paddle_tpu_torch.distributed as d
+    import paddle_tpu_torch.parallel as p
+    for name in ("AXIS_ORDER", "DeviceMesh", "get_mesh", "init_mesh",
+                 "set_mesh", "DEFAULT_RULES", "LogicalRules",
+                 "named_sharding", "replicate", "shard_batch",
+                 "shard_params", "shard_spec", "shard_superbatch",
+                 "with_logical_constraint", "AMPConfig",
+                 "DistributedStrategy", "GradientMergeConfig",
+                 "HybridConfig", "MoEConfig", "PipelineConfig",
+                 "RecomputeConfig", "ShardingConfig", "DataParallel",
+                 "all_gather", "all_reduce", "barrier", "broadcast",
+                 "distributed_model", "get_rank", "get_world_size",
+                 "init_parallel_env", "GradientMerge",
+                 "RecomputeSequential", "recompute", "collective"):
+        assert hasattr(p, name), name
+    for name in ("psum", "pmean", "pmax", "pmin", "all_gather",
+                 "reduce_scatter", "all_to_all", "ppermute", "shift",
+                 "axis_index", "axis_size", "broadcast", "host_all_reduce",
+                 "quantized_ring_allreduce"):
+        assert hasattr(p.collective, name), name
+    for name in ("Group", "ParallelEnv", "ParallelMode", "ReduceOp",
+                 "alltoall", "get_group", "gloo_barrier",
+                 "gloo_init_parallel_env", "gloo_release", "irecv",
+                 "is_initialized", "isend", "new_group", "recv", "reduce",
+                 "reduce_scatter", "scatter", "send", "split", "wait",
+                 "fleet", "fs", "launch", "elastic", "multinode",
+                 "ElasticManager", "ElasticStatus", "Heartbeat",
+                 "ProcessContext", "spawn", "FileRendezvous", "NodeAgent",
+                 "TCPRendezvous", "init_parallel_env", "distributed_model",
+                 "DataParallel", "shard_batch", "shard_params"):
+        assert hasattr(d, name), name
+    for name in ("init", "distributed_model", "distributed_optimizer",
+                 "worker_index", "worker_num", "is_first_worker",
+                 "barrier_worker", "get_strategy", "init_worker",
+                 "PaddleCloudRoleMaker", "UserDefinedRoleMaker", "utils"):
+        assert hasattr(d.fleet, name), name

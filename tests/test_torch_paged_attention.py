@@ -537,3 +537,49 @@ def test_kernel_checks_pool_alignment_against_its_copies(d, kv_dtype,
     assert tpa.launches == before + 1
     tol = 2e-2 if kv_dtype == "bfloat16" else 1e-4
     torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d, heads, kv_dtype", [
+    (16384, 2, "float32"), (32768, 2, "float32"), (32768, 10, "bfloat16"),
+    (24576, 2, "int8")], ids=lambda v: str(v))
+def test_kernel_takes_head_dims_past_shared_memory(d, heads, kv_dtype):
+    """Head dims whose staged K row, V column slice and float32 q vectors
+    pass a block's shared memory (f32 above ~19K, bf16 above ~28K): the
+    streamed kernel reads K, q and V over d from global memory. Decode
+    rows on one kv head, 2 and 10 q heads (two q-head tiles), a few
+    16-token pages a row, one zero row and rows split over several
+    partitions."""
+    if not torch.cuda.is_available():
+        pytest.skip("kernel B4 runs only on a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    ps, P = 16, 24
+    lens = [0, 5, 16, 17, 40, 64, 200, 333]
+    n_pages = len(lens) * P + 1
+    kp = torch.randn(n_pages, ps, 1, d, generator=g, device="cuda")
+    vp = torch.randn(n_pages, ps, 1, d, generator=g, device="cuda")
+    ks = vs = None
+    if kv_dtype == "int8":
+        (kp, ks), (vp, vs) = tpa.quantize_kv(kp), tpa.quantize_kv(vp)
+    else:
+        kp, vp = kp.to(getattr(torch, kv_dtype)), \
+            vp.to(getattr(torch, kv_dtype))
+    tables = (torch.randperm(n_pages - 1, generator=g, device="cuda")[
+        :len(lens) * P] + 1).int().reshape(len(lens), P)
+    lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    used = (lt + ps - 1) // ps
+    tables[torch.arange(P, device="cuda")[None, :] >= used[:, None]] = -1
+    q_dtype = torch.bfloat16 if kv_dtype == "bfloat16" else torch.float32
+    q = torch.randn(len(lens), heads, d, generator=g,
+                    device="cuda").to(q_dtype)
+    before = tpa.launches
+    got = tpa.paged_attention_kernel(q, kp, vp, tables.contiguous(), lt,
+                                     k_scales=ks, v_scales=vs)
+    want = tpa.paged_attention_torch(q, kp, vp, tables.contiguous(), lt,
+                                     k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 1
+    tol = {"float32": 2e-5, "bfloat16": 2e-2, "int8": 1e-4}[kv_dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+    assert torch.count_nonzero(got[lt == 0]) == 0

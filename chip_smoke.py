@@ -141,7 +141,23 @@ the result line:
    its losses equal to the uninterrupted fit's; the step walls, the
    gradient reduction's seconds, spawn-to-first-step and a profile of a
    dp=2 step on rank 0;
-13. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
+13. model_parallel: the train cell (12 layers, full width, batch 8,
+   fused loss, O1, AdamW, dropout 0, weights from ``seed(0)``) on tp, pp
+   and pp x tp meshes of ranks of this script (``--dist-rank mp2`` /
+   ``mp4``) sharing the card over gloo: tp=2 (3 steps; the local shapes
+   of the split weights), pp=2 with 4 microbatches at
+   ``virtual_pp_degree`` 1 and 2 (3 steps each; a profiled step a rank
+   for the bubble), pp=2 x tp=2 on four ranks (2 steps) and the planner
+   (``distributed_model(global_batch=8)`` on two ranks, its predicted
+   bytes beside ``verify_plan``'s measured peak): the ranks' losses
+   equal and within ``TRAIN_LOSS_RTOL`` of the distributed phase's one
+   process, gathered parameter digests equal across the ranks, B1-B3
+   launches a rank a step exactly the design's (12 under tp; 6 blocks x
+   4 microbatches under pp, B1 twice for the recomputed chunks), and a
+   ``Model.save`` of the tp=2 and pp=2 meshes reloaded here into one
+   process giving the gathered digest; each mesh's step wall over one
+   process's and the tp all-reduce seconds a step;
+14. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
    ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -3802,12 +3818,17 @@ def _dist_ids(n):
 
 def _param_digest(model) -> str:
     """An exact digest of every trainable parameter's bits (integer sums
-    on the card, order-free), gathered whole under fsdp."""
+    on the card, order-free), of the whole tensors on a mesh (fsdp
+    shards, tp slices and pp stages gathered: a collective)."""
     import hashlib
     sums = []
     with model._unsharded():
-        for k, p in sorted(model._trainable().items()):
-            bits = p.detach().contiguous().view(torch.int32).reshape(-1)
+        params = {k: p.detach() for k, p in
+                  sorted(model._trainable().items())}
+        if model._sync is not None:
+            params = model._sync.full_tree(params, fsdp=False)
+        for k, p in sorted(params.items()):
+            bits = p.contiguous().view(torch.int32).reshape(-1)
             w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
             sums.append(int((bits.long() * w).sum()))
     return hashlib.sha256(str(sums).encode()).hexdigest()[:16]
@@ -3888,6 +3909,8 @@ def dist_rank(scenario: str, outdir: str, t_launch: float) -> None:
                backend=dist.get_backend())
     if scenario == "fit":
         _dist_fit(outdir, rank, res, t_launch)
+    elif scenario in ("mp2", "mp4"):
+        _mp_rank(scenario, outdir, rank, res, t_launch)
     else:
         net = _dist_net()
         init = {k: v.detach().clone() for k, v in net.state_dict().items()}
@@ -4095,6 +4118,7 @@ def phase_distributed(info) -> dict:
     ids = _dist_ids(DIST_STEPS)
     base_losses, _, base_walls = _dist_steps(model, ids, DIST_STEPS,
                                              digest=False)
+    _SINGLE.update(losses=base_losses, step_s=base_walls)
     del model, net
     torch.cuda.empty_cache()
 
@@ -4214,6 +4238,253 @@ def phase_distributed(info) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# model_parallel: tensor and pipeline parallelism on torch.distributed
+# ---------------------------------------------------------------------------
+
+MP_STEPS, MP_PPTP_STEPS, MP_MICRO = 3, 2, 4
+MP_TP_SHAPES = {   # the tp=2 rank's slices of the split weights
+    "gpt.layers.0.attn.qkv_proj.weight": [768, 1152],
+    "gpt.layers.0.attn.out_proj.weight": [384, 768],
+    "gpt.layers.0.mlp.fc_in.weight": [768, 1536],
+    "gpt.layers.0.mlp.fc_out.weight": [1536, 768],
+    "gpt.embeddings.word_embeddings.weight": [25152, 768]}
+_SINGLE: dict = {}   # the distributed phase's one-process run
+
+
+def _pipe_state(dense, layers, pp, v):
+    """The state of a ``GPTForCausalLMPipe`` (pp x v chunks) holding the
+    weights of a dense ``GPTForCausalLM`` state dict: the blocks' tensors
+    stacked in the pipeline's round-robin chunk order."""
+    S, out = pp * v, {}
+    per = layers // S
+    order = [c * pp + r for r in range(pp) for c in range(v)]
+    for k, t in dense.items():
+        if k.startswith(("gpt.embeddings.", "gpt.ln_f.")):
+            out[k[len("gpt."):]] = t
+    for sfx in sorted({k.split(".", 3)[3] for k in dense
+                       if k.startswith("gpt.layers.")}):
+        name = sfx.replace(".", "__")
+        if per > 1:
+            out[f"pipe.{name}"] = torch.stack([torch.stack(
+                [dense[f"gpt.layers.{c * per + j}.{sfx}"]
+                 for j in range(per)]) for c in order])
+        else:
+            out[f"pipe.0__{name}"] = torch.stack(
+                [dense[f"gpt.layers.{c}.{sfx}"] for c in order])
+    return out
+
+
+def _pipe_net(v, mesh):
+    """The train cell's weights (``_dist_net``) in a pipelined net."""
+    from paddle_tpu_torch.interop import load_reference_state
+    from paddle_tpu_torch.models.gpt import GPTForCausalLMPipe
+    dense = _dist_net()
+    sd = {k: t.detach().cpu() for k, t in dense.state_dict().items()}
+    cfg = dense.cfg
+    del dense
+    net = GPTForCausalLMPipe(cfg, MP_MICRO, v, mesh=mesh,
+                             device=f"cuda:{torch.cuda.current_device()}")
+    load_reference_state(net, {k: t.numpy() for k, t in _pipe_state(
+        sd, cfg.num_layers, mesh.axis_size("pp") if mesh else 1,
+        v).items()})
+    return net
+
+
+def _mp_run(label, model, ids, n):
+    """``n`` steps of a Model on its mesh: losses, walls, B1-B3
+    launches, the tp all-reduce and gradient-reduction seconds, and the
+    gathered parameter digest after the last step."""
+    from paddle_tpu_torch.parallel import collective as coll
+    _reset_flash_counts()
+    coll.tp_seconds = 0.0
+    losses, _, walls = _dist_steps(model, ids, n, digest=False)
+    run = {"label": label, "losses": losses, "step_s": walls,
+           "launches": _flash_counts(),
+           "tp_allreduce_s_per_step": coll.tp_seconds / n,
+           "mesh": repr(model._mesh)}
+    if model._sync is not None:
+        run["reduce_s_per_step"] = model._sync.reduce_seconds / n
+    run["digest"] = _param_digest(model)
+    return run
+
+
+def _mp_rank(scenario, outdir, rank, res, t_launch):
+    """The model_parallel phase's rank body: ``mp2`` (tp=2, pp=2 at v 1
+    and 2, the planner) or ``mp4`` (pp=2 x tp=2)."""
+    from paddle_tpu_torch import parallel
+    ids = _dist_ids(MP_STEPS)
+    res["runs"] = []
+    res["first_step_s"] = time.time() - t_launch
+    if scenario == "mp4":
+        mesh = parallel.DeviceMesh(pp=2, tp=2)
+        model = _train_model(_pipe_net(1, mesh))
+        parallel.distributed_model(model, mesh=mesh)
+        res["runs"].append(_mp_run("pp2xtp2", model, ids, MP_PPTP_STEPS))
+        return
+    mesh = parallel.DeviceMesh(tp=2)
+    model = _train_model(_dist_net())
+    parallel.distributed_model(model, mesh=mesh)
+    run = _mp_run("tp2", model, ids, MP_STEPS)
+    run["local_shapes"] = {k: list(model.network.get_parameter(k).shape)
+                           for k in MP_TP_SHAPES}
+    model.save(os.path.join(outdir, "tp2_saved"), training=False)
+    res["runs"].append(run)
+    del model
+    torch.cuda.empty_cache()
+    pp_mesh = parallel.DeviceMesh(pp=2)
+    for v in (1, 2):
+        model = _train_model(_pipe_net(v, pp_mesh))
+        parallel.distributed_model(model, mesh=pp_mesh)
+        run = _mp_run(f"pp2_v{v}", model, ids, MP_STEPS)
+        if v == 1:
+            model.save(os.path.join(outdir, "pp2_saved"), training=False)
+
+            def work():
+                model.train_batch([ids[0]], [ids[0]])
+            try:   # this rank's device idle share: the bubble
+                run["profile"] = _profile(work, 1, "step",
+                                          phase="model_parallel",
+                                          run=f"pp2 v1 rank {rank}")
+            except Exception as e:  # noqa: BLE001 — reported, not fatal
+                run["profile"] = {"error": f"{type(e).__name__}: {e}"}
+        res["runs"].append(run)
+        del model
+        torch.cuda.empty_cache()
+    # the planner: distributed_model(global_batch=...) picks the mesh
+    from paddle_tpu_torch.parallel import planner
+    model = _train_model(_dist_net())
+    parallel.set_mesh(None)
+    parallel.distributed_model(model, global_batch=TRAIN_BATCH)
+    run = _mp_run("planner", model, ids, 1)
+    report, used = planner.verify_plan(model, [ids[1]], [ids[1]],
+                                       replan=False)
+    run.update(plan=model._plan.describe(), axes=dict(used.axes),
+               breakdown=used.breakdown, **report)
+    parallel.set_mesh(None)
+    res["runs"].append(run)
+
+
+def phase_model_parallel(info) -> dict:
+    """tp, pp and pp x tp meshes of the train cell on the card, against
+    the distributed phase's one-process run (see the module docstring).
+    Returns the B1-B3 launches the ranks counted."""
+    import shutil
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "model_parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = time.perf_counter()
+    me = os.path.basename(os.path.abspath(__file__))
+    if not _SINGLE:   # run alone: the one-process reference here
+        model = _train_model(_dist_net())
+        losses, _, walls = _dist_steps(model, _dist_ids(DIST_STEPS),
+                                       DIST_STEPS, digest=False)
+        _SINGLE.update(losses=losses, step_s=walls)
+        del model
+        torch.cuda.empty_cache()
+
+    def job(tag, nproc):
+        outdir = os.path.join(root, tag)
+        os.makedirs(outdir)
+        t0 = time.time()
+        p = _launch(["--nproc_per_node", str(nproc), me, "--dist-rank",
+                     tag, outdir, repr(t0)], os.path.join(outdir, "logs"))
+        _finish([p], tag, os.path.join(outdir, "logs"))
+        return outdir, time.time() - t0
+
+    d2, s2 = job("mp2", 2)
+    d4, s4 = job("mp4", 4)
+    two, four = _read_ranks(d2, 2), _read_ranks(d4, 4)
+
+    def runs(ranks, label):
+        return [next(x for x in r["runs"] if x["label"] == label)
+                for r in ranks]
+
+    # the saved meshes reloaded into one process (this one)
+    from paddle_tpu_torch import parallel
+    reloaded = {}
+    for label, path in (("tp2", "tp2_saved"), ("pp2_v1", "pp2_saved")):
+        net = _dist_net() if label == "tp2" else _pipe_net(
+            1, parallel.DeviceMesh(devices=2, pp=2))
+        model = _train_model(net)
+        model.load(os.path.join(d2, path), reset_optimizer=True)
+        reloaded[label] = _param_digest(model)
+        del model, net
+        torch.cuda.empty_cache()
+
+    base = _SINGLE["losses"]
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    def mean(xs):   # the steps after the first (which warms up)
+        return sum(xs[1:]) / len(xs[1:]) if len(xs) > 1 else xs[0]
+    blocks, n_layers = 6, 12
+    want = {"tp2": {"flash_attention_fwd": n_layers,
+                    "flash_attention_bwd_dq": n_layers,
+                    "flash_attention_bwd_dkv": n_layers}}
+    pp_step = {"flash_attention_fwd": 2 * blocks * MP_MICRO,
+               "flash_attention_bwd_dq": blocks * MP_MICRO,
+               "flash_attention_bwd_dkv": blocks * MP_MICRO}
+    for label in ("pp2_v1", "pp2_v2", "pp2xtp2"):
+        want[label] = pp_step
+    meshes = {"tp2": (two, MP_STEPS), "pp2_v1": (two, MP_STEPS),
+              "pp2_v2": (two, MP_STEPS), "pp2xtp2": (four, MP_PPTP_STEPS)}
+    checks, report = {}, {}
+    base_step = mean(_SINGLE["step_s"])
+    for label, (ranks, n) in meshes.items():
+        rs = runs(ranks, label)
+        checks[f"{label}_ranks_equal"] = all(
+            r["losses"] == rs[0]["losses"] and r["digest"] == rs[0]["digest"]
+            for r in rs)
+        checks[f"{label}_within_rtol"] = rel(rs[0]["losses"], base[:n]) \
+            <= TRAIN_LOSS_RTOL
+        checks[f"{label}_launches_exact"] = all(
+            r["launches"].get(k) == per * n for r in rs
+            for k, per in want[label].items())
+        report[label] = {
+            "losses": rs[0]["losses"], "step_s": [r["step_s"] for r in rs],
+            "step_over_single": mean(rs[0]["step_s"]) / base_step,
+            "tp_allreduce_s_per_step": [r["tp_allreduce_s_per_step"]
+                                        for r in rs],
+            "reduce_s_per_step": [r.get("reduce_s_per_step") for r in rs],
+            "launches_per_rank": rs[0]["launches"], "mesh": rs[0]["mesh"],
+            "max_rel_vs_single": rel(rs[0]["losses"], base[:n])}
+    tp = runs(two, "tp2")
+    checks["tp2_local_shapes"] = all(r["local_shapes"] == MP_TP_SHAPES
+                                     for r in tp)
+    checks["tp2_save_reload_digest"] = reloaded["tp2"] == tp[0]["digest"]
+    checks["pp2_save_reload_digest"] = \
+        reloaded["pp2_v1"] == runs(two, "pp2_v1")[0]["digest"]
+    plan = runs(two, "planner")
+    checks["planner_ranks_equal"] = all(
+        r["losses"] == plan[0]["losses"] and math.isfinite(r["losses"][0])
+        for r in plan)
+    report["pp2_v1"]["profile"] = [r.get("profile")
+                                   for r in runs(two, "pp2_v1")]
+    report["planner"] = {k: plan[0].get(k) for k in (
+        "plan", "axes", "breakdown", "predicted_bytes", "measured_bytes",
+        "ratio", "losses", "launches")}
+    report["planner"]["measured_bytes_per_rank"] = [
+        r["measured_bytes"] for r in plan]
+    out = {"phase": "model_parallel", "card": info["nvidia_smi"],
+           "single_losses": base, "single_step_s": _SINGLE["step_s"],
+           **report, "job_s": {"mp2": s2, "mp4": s4},
+           "spawn_to_first_step_s": [r["first_step_s"] for r in two + four],
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    emit({"phase": "model_parallel_checks", **checks})
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise SystemExit(f"model_parallel phase failed: {bad}")
+    launches = {k: 0 for k in want["tp2"]}
+    for r in two + four:
+        for run in r["runs"]:
+            for k, v in run["launches"].items():
+                launches[k] += v
+    return launches
+
+
 def _summary(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4252,8 +4523,10 @@ def main() -> None:
     timed("checkpoint", phase_checkpoint, fit)
     timed("train_loop", phase_train_loop)
     dist_launches = timed("distributed", phase_distributed, info)
-    for k, v in dist_launches.items():
-        train_launches[k] += v
+    mp_launches = timed("model_parallel", phase_model_parallel, info)
+    for launches_of in (dist_launches, mp_launches):
+        for k, v in launches_of.items():
+            train_launches[k] += v
     emit({"phase": "timing", "seconds": phase_s,
           "total_s": time.perf_counter() - t_start})
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"

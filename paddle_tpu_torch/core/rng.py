@@ -21,7 +21,10 @@ things.
 Under data parallelism each rank runs the forward on its rows of the
 global batch; :func:`batch_rows` marks that, and dropout then draws the
 rank's rows of the global batch's mask (:func:`mask_rows`), as JAX's
-partitionable threefry does on a sharded batch.
+partitionable threefry does on a sharded batch. Under tensor
+parallelism a rank's attention runs on its slice of the heads;
+:func:`head_slice` marks that, and the attention dropout draws the
+slice of the global ``[batch, heads, q, k]`` mask (:func:`mask_cols`).
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ class _TLS(threading.local):
         self.stack: list[KeyStream] = []
         self.global_seed = 0
         self.batch_rows = None   # (index, count) of a data-parallel rank
+        self.mask_cols = None    # (first, total) of a tensor-parallel rank
 
 
 _tls = _TLS()
@@ -151,3 +155,42 @@ def mask_rows(shape):
         return None
     index, count = br
     return index * shape[0], count * shape[0]
+
+
+@contextlib.contextmanager
+def head_slice(first: int, total: int) -> Iterator[None]:
+    """In scope, dim 1 of a dropout mask is this rank's heads ``first ..``
+    of ``total`` (a tensor-parallel rank's attention probabilities)."""
+    prev = _tls.mask_cols
+    _tls.mask_cols = (int(first), int(total))
+    try:
+        yield
+    finally:
+        _tls.mask_cols = prev
+
+
+def mask_cols(shape):
+    """The ``cols`` argument of ``threefry.random_bits`` for a mask of
+    ``shape``: this rank's slice of dim 1 under :func:`head_slice`, else
+    None."""
+    mc = _tls.mask_cols
+    if mc is None or len(shape) < 2:
+        return None
+    return mc
+
+
+def saved_slices() -> tuple:
+    """This thread's :func:`batch_rows` and :func:`head_slice` state, for
+    :func:`restored_slices` (a recompute on another thread, or after the
+    scope closed, draws the same masks)."""
+    return _tls.batch_rows, _tls.mask_cols
+
+
+@contextlib.contextmanager
+def restored_slices(saved: tuple) -> Iterator[None]:
+    prev = saved_slices()
+    _tls.batch_rows, _tls.mask_cols = saved
+    try:
+        yield
+    finally:
+        _tls.batch_rows, _tls.mask_cols = prev

@@ -72,7 +72,7 @@ def split(key, num: int = 2):
     return torch.stack([y1, y2], dim=-1)
 
 
-def random_bits(key, shape, device=None, rows=None):
+def random_bits(key, shape, device=None, rows=None, cols=None):
     """32-bit random bits of ``shape`` for each key of the batch
     ``key.shape[:-1]``: the result is ``key.shape[:-1] + shape``, on
     ``device`` (the key's by default). One host key drawing bits on
@@ -84,21 +84,34 @@ def random_bits(key, shape, device=None, rows=None):
     those rows of that array's bits. With ``jax_threefry_partitionable``
     an element's bits hash its flat index in the whole shape, so a
     data-parallel rank draws its rows of the global mask without
-    drawing the rest."""
+    drawing the rest. ``cols`` ``(first, total)`` does the same for
+    dim 1 (a tensor-parallel rank's heads of an attention mask): the
+    flat indices of such a slice are not contiguous, and only the
+    slice's are hashed."""
     shape = tuple(shape)
     n = math.prod(shape)
-    offset = 0
-    total = n
-    if rows is not None:
-        first, nrows = rows
-        per_row = math.prod(shape[1:])
-        offset = int(first) * per_row
-        total = int(nrows) * per_row
+    device = key.device if device is None else torch.device(device)
+    r0, nrows = (0, shape[0] if shape else 1) if rows is None else rows
+    c0, ncols = (0, shape[1] if len(shape) > 1 else 1) if cols is None \
+        else cols
+    if cols is not None and len(shape) < 2:
+        raise ValueError("cols slices dim 1 of a shape of two or more dims")
+    inner = math.prod(shape[2:]) if len(shape) > 1 else 1
+    total = int(nrows) * (int(ncols) * inner if len(shape) > 1 else
+                          math.prod(shape[1:]))
     if total >= 2 ** 32:
         raise NotImplementedError("random bits past 2**32 elements")
-    device = key.device if device is None else torch.device(device)
-    counts = torch.arange(offset, offset + n, dtype=torch.int64,
-                          device=device).reshape(shape)
+    if cols is None:
+        per_row = math.prod(shape[1:])
+        offset = int(r0) * per_row
+        counts = torch.arange(offset, offset + n, dtype=torch.int64,
+                              device=device).reshape(shape)
+    else:
+        r = torch.arange(shape[0], dtype=torch.int64, device=device) + r0
+        c = torch.arange(shape[1], dtype=torch.int64, device=device) + c0
+        base = (r[:, None] * int(ncols) + c[None, :]) * inner
+        counts = (base[:, :, None] + torch.arange(
+            inner, dtype=torch.int64, device=device)).reshape(shape)
     if key.device != device:
         if key.dim() != 1:
             raise ValueError("a batch of keys draws on the keys' device")
@@ -112,11 +125,11 @@ def random_bits(key, shape, device=None, rows=None):
 
 
 def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
-            device=None, rows=None):
+            device=None, rows=None, cols=None):
     """``jax.random.uniform`` in float32: 23 random mantissa bits under
     the exponent of 1.0, shifted and scaled into [minval, maxval); on
-    ``device`` and of ``rows`` as in :func:`random_bits`."""
-    bits = random_bits(key, shape, device, rows)
+    ``device`` and of ``rows`` / ``cols`` as in :func:`random_bits`."""
+    bits = random_bits(key, shape, device, rows, cols)
     float_bits = (bits >> 9) | 0x3F800000
     floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
     lo = torch.full((), minval, dtype=torch.float32, device=bits.device)

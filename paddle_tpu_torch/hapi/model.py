@@ -360,6 +360,7 @@ class Model:
         self._shard_batch = None      # fn(batch) -> this rank's rows
         self._shard_superbatch = None  # fn([K,...] slab) -> its rows
         self._mesh = None
+        self._rules = None             # the mesh's LogicalRules
         self._sync = None
         # recompile guard: distinct (shape, dtype) signatures seen
         self._shape_signatures = set()
@@ -499,8 +500,9 @@ class Model:
         labs = _as_tuple(labels)
         res = tuple(m.compute(outs[0].detach(), labs[0])
                     for m in self._metrics)
-        if split and self._sync is not None and self._sync.active:
-            res = _tree_map(self._sync.gather_rows, res)
+        sync = self._sync
+        if sync is not None and (split or sync.pp > 1):
+            res = _tree_map(lambda x: sync.gather_rows(x, split), res)
         return res
 
     def _device(self) -> torch.device:
@@ -525,8 +527,8 @@ class Model:
             return None
         if self._sync is None:
             from ..parallel.reducer import MeshSync
-            self._sync = MeshSync(self._mesh, self._shard_params)
-            self._sync.setup(self._trainable(), self._optimizer)
+            self._sync = MeshSync(self._mesh, self._rules)
+            self._sync.setup(self._trainable(), self.network)
         return self._sync
 
     def _opt_params(self) -> Dict[str, torch.Tensor]:
@@ -538,14 +540,20 @@ class Model:
 
     def _shard_in(self, inputs, labels, superbatch: bool = False):
         """This rank's rows of a global batch (dim 1 of a superbatch)
-        through the mesh hooks, and whether they split it."""
+        through the mesh hooks, and whether they split it; on a pp mesh
+        the labels are further cut to the pp rank's rows of the
+        pipeline's output."""
         fn = self._shard_superbatch if superbatch else self._shard_batch
         if fn is None:
             return inputs, labels, False
         from ..parallel.sharding import is_split
         split = bool(inputs) and is_split(inputs[0], int(superbatch),
                                           self._mesh)
-        return fn(inputs), fn(labels), split
+        labels = fn(labels)
+        sync = self._mesh_sync()
+        if sync is not None:
+            labels = sync.pp_rows(labels, int(superbatch))
+        return fn(inputs), labels, split
 
     def _unsharded(self):
         """Full parameters for the scope (fsdp gathers its shards)."""
@@ -1075,8 +1083,9 @@ class Model:
         inputs, _, split = self._shard_in(_as_tuple(inputs), ())
         with self._unsharded():
             out = self.network(*self._to_device(inputs))
-        if split:
-            out = _tree_map(self._sync.gather_rows, out)
+        sync = self._sync
+        if sync is not None and (split or sync.pp > 1):
+            out = _tree_map(lambda x: sync.gather_rows(x, split), out)
         return out
 
     # -- preemption-safe training state -------------------------------------
@@ -1614,8 +1623,10 @@ class Model:
         ``path + '.pdopt'`` (``{"state": optimizer state, "step"}``)."""
         sync = self._mesh_sync()
         with self._unsharded():
-            state = {k: _host(v)
-                     for k, v in self.network.state_dict().items()}
+            state = self.network.state_dict()
+            if sync is not None:   # tp slices and pp stages gathered
+                state = sync.full_tree(state, fsdp=False)
+            state = {k: _host(v) for k, v in state.items()}
         opt = self._opt_state
         if sync is not None and opt is not None:
             opt = sync.full_tree(opt)
@@ -1643,6 +1654,8 @@ class Model:
         with open(path + ".pdparams", "rb") as f:
             state = pickle.load(f)
         sync = self._mesh_sync()
+        if sync is not None:   # this rank's tp slices and pp stages
+            state = sync.local_tree(state, fsdp=False)
         with self._unsharded():
             load_reference_state(self.network, state)
             if sync is not None:

@@ -9,10 +9,22 @@ of the serving path goes through the paged KV pool of
 :meth:`GPTForCausalLM.generate`. Training runs the flash kernels through
 ``F.scaled_dot_product_attention`` and, with ``fused_loss``, hands
 ``(hidden, W)`` to :class:`GPTFusedPretrainingCriterion`.
+
+Tensor parallelism (a live ``tp`` axis, ``parallel.reducer``): a rank
+holds its slices of the weights the rules split (``vocab`` / ``mlp`` /
+``heads`` / ``kv``) and each layer that owns them computes on its
+slices once it learns its tp group (``attach_tp``): column-parallel qkv
+over the rank's heads (``tp_permutation`` puts each rank's q, k and v
+columns together), attention on the local heads, row-parallel
+``out_proj`` / ``fc_out`` whose replicated bias is added once after the
+all-reduce, a vocab-parallel embedding lookup and head, and the
+vocab-parallel fused loss. :class:`GPTForCausalLMPipe` runs the decoder
+blocks as a ``parallel.PipelineParallel`` trunk over ``pp``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -20,13 +32,15 @@ from typing import Optional
 import torch
 
 from .. import amp, nn
-from ..core import threefry
+from ..core import rng, threefry
 from ..core.device import resolve_device
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.layer import Layer, LayerList
 from ..nn.utils import checkpoint, scan_layer_stack
 from ..ops.fused_xent import fused_linear_cross_entropy
+from ..parallel.collective import (copy_to_tp, gather_from_tp,
+                                   reduce_from_tp)
 from ..ops.rotary import apply_rotary_pos_emb, rope_tables
 
 
@@ -115,6 +129,25 @@ def gpt_config(name: str, **overrides) -> GPTConfig:
     return GPTConfig(**cfg)
 
 
+def _block_perm(blocks, tp: int) -> torch.Tensor:
+    """A permutation of a dim made of contiguous ``blocks`` (``[(start,
+    width), ...]``) that puts rank i's 1/tp of every block together, in
+    block order, for i = 0 .. tp-1."""
+    idx = []
+    for i in range(tp):
+        for start, width in blocks:
+            w = width // tp
+            idx.extend(range(start + i * w, start + (i + 1) * w))
+    return torch.tensor(idx, dtype=torch.long)
+
+
+def _row_parallel(x, linear, tp):
+    """A row-parallel product: this rank's partial ``x @ W_local``
+    summed over the tp ranks, then the (replicated) bias, added once."""
+    y = reduce_from_tp(F.linear(x, linear.weight), tp)
+    return y + linear.bias if linear.bias is not None else y
+
+
 def _norm(cfg: GPTConfig):
     if cfg.norm_type == "rms":
         return nn.RMSNorm(cfg.hidden_size, epsilon=cfg.layer_norm_epsilon)
@@ -124,7 +157,11 @@ def _norm(cfg: GPTConfig):
 class GPTAttention(Layer):
     """Causal self-attention with fused QKV, grouped-query heads and an
     optional dense KV cache ``(k_cache, v_cache, idx)``; the cache is
-    written in place."""
+    written in place. Under tp the rank computes its heads (and its kv
+    heads under GQA) and sums ``out_proj`` over the tp ranks."""
+
+    _tp = None   # the tp group once the qkv and out weights are split
+    tp_params = ("qkv_proj.weight", "qkv_proj.bias", "out_proj.weight")
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -141,9 +178,36 @@ class GPTAttention(Layer):
             0.0, cfg.initializer_range / math.sqrt(2 * cfg.num_layers)),
             axes=("heads", "embed"), bias_axes=(None,))
 
-    def forward(self, x, attn_mask=None, cache=None, position_ids=None):
-        b, s, h = x.shape
+    def tp_permutation(self, name: str, tp: int):
+        """The qkv columns in head-aligned tp slices: rank i's q heads,
+        then its kv heads' k and v columns."""
+        if name not in ("qkv_proj.weight", "qkv_proj.bias"):
+            return None
         hd = self.cfg.head_dim
+        q, kv = self.num_heads * hd, self.num_kv_heads * hd
+        return _block_perm([(0, q), (q, kv), (q + kv, kv)], tp)
+
+    def attach_tp(self, tp) -> None:
+        width = (self.num_heads + 2 * self.num_kv_heads) * self.cfg.head_dim
+        if width % tp.size:
+            return      # the rules left the weights whole
+        if self.num_heads % tp.size or self.num_kv_heads % tp.size:
+            raise NotImplementedError(
+                f"tp={tp.size} must divide num_heads {self.num_heads} and "
+                f"num_kv_heads {self.num_kv_heads}")
+        self._tp = tp
+
+    def forward(self, x, attn_mask=None, cache=None, position_ids=None):
+        b, s, _ = x.shape
+        hd = self.cfg.head_dim
+        tp = self._tp
+        n = tp.size if tp is not None else 1
+        nh, nkv = self.num_heads // n, self.num_kv_heads // n
+        h = nh * hd
+        heads = rng.head_slice(tp.index * nh, self.num_heads) \
+            if tp is not None else contextlib.nullcontext()
+        if tp is not None:
+            x = copy_to_tp(x, tp)
         # [b, s] KEY-padding masks become the additive [b, 1, 1, s]
         # form; rows whose whole causal window is padding are zeroed
         dense_mask = attn_mask
@@ -155,12 +219,10 @@ class GPTAttention(Layer):
                                                               None, :]
             row_has_key = torch.cumsum(kpm.long(), dim=1) > 0
         qkv = self.qkv_proj(x)
-        q, k, v = torch.split(
-            qkv, [h, self.num_kv_heads * hd, self.num_kv_heads * hd],
-            dim=-1)
-        q = q.reshape(b, s, self.num_heads, hd)
-        k = k.reshape(b, s, self.num_kv_heads, hd)
-        v = v.reshape(b, s, self.num_kv_heads, hd)
+        q, k, v = torch.split(qkv, [h, nkv * hd, nkv * hd], dim=-1)
+        q = q.reshape(b, s, nh, hd)
+        k = k.reshape(b, s, nkv, hd)
+        v = v.reshape(b, s, nkv, hd)
         if self.cfg.use_rope:
             cos, sin = rope_tables(hd, self.cfg.max_position_embeddings,
                                    self.cfg.rope_base)
@@ -187,27 +249,37 @@ class GPTAttention(Layer):
                     dense_mask = torch.where(dense_mask, 0.0,
                                              float("-inf"))
                 causal = causal + dense_mask
-            out = F.scaled_dot_product_attention(
-                q, k, v, attn_mask=causal,
-                dropout_p=self.cfg.attention_dropout,
-                training=self.training, use_flash=False)
+            with heads:
+                out = F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=causal,
+                    dropout_p=self.cfg.attention_dropout,
+                    training=self.training, use_flash=False)
         else:
-            out = F.scaled_dot_product_attention(
-                q, k, v, attn_mask=dense_mask, is_causal=True,
-                dropout_p=self.cfg.attention_dropout,
-                training=self.training, use_flash=self.cfg.use_flash)
+            with heads:
+                out = F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=dense_mask, is_causal=True,
+                    dropout_p=self.cfg.attention_dropout,
+                    training=self.training, use_flash=self.cfg.use_flash)
             if row_has_key is not None:
                 out = torch.where(row_has_key[:, :, None, None], out,
                                   torch.zeros_like(out))
-        out = self.out_proj(out.reshape(b, s, h))
+        out = out.reshape(b, s, h)
+        out = self.out_proj(out) if tp is None else \
+            _row_parallel(out, self.out_proj, tp)
         if cache is not None:
             return out, cache
         return out
 
 
 class GPTMLP(Layer):
+    """fc_in column-parallel and fc_out row-parallel under tp."""
+
+    _tp = None
+    tp_params = ("fc_in.weight", "fc_in.bias", "fc_out.weight")
+
     def __init__(self, cfg: GPTConfig):
         super().__init__()
+        self.cfg = cfg
         init = I.Normal(0.0, cfg.initializer_range)
         init_out = I.Normal(
             0.0, cfg.initializer_range / math.sqrt(2 * cfg.num_layers))
@@ -222,8 +294,24 @@ class GPTMLP(Layer):
         self.act = F.swiglu if self._swiglu else getattr(F, cfg.activation)
         self.dropout = nn.Dropout(cfg.hidden_dropout)
 
+    def tp_permutation(self, name: str, tp: int):
+        """SwiGLU's fc_in holds two halves (silu input, gate): each rank
+        takes its slice of both."""
+        if not self._swiglu or name not in ("fc_in.weight", "fc_in.bias"):
+            return None
+        f = self.cfg.ffn_hidden_size
+        return _block_perm([(0, f), (f, f)], tp)
+
+    def attach_tp(self, tp) -> None:
+        if self.cfg.ffn_hidden_size % tp.size == 0:
+            self._tp = tp
+
     def forward(self, x):
-        return self.dropout(self.fc_out(self.act(self.fc_in(x))))
+        tp = self._tp
+        if tp is None:
+            return self.dropout(self.fc_out(self.act(self.fc_in(x))))
+        y = self.act(self.fc_in(copy_to_tp(x, tp)))
+        return self.dropout(_row_parallel(y, self.fc_out, tp))
 
 
 class GPTDecoderLayer(Layer):
@@ -250,6 +338,13 @@ class GPTDecoderLayer(Layer):
 
 
 class GPTEmbeddings(Layer):
+    """Under tp the word embeddings are vocab-parallel: a rank looks up
+    the ids in its vocab range, zeroes the rest, and the ranks' rows are
+    summed (ref: mp_layers.py:30 VocabParallelEmbedding)."""
+
+    _tp = None
+    tp_params = ("word_embeddings.weight",)
+
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         init = I.Normal(0.0, cfg.initializer_range)
@@ -270,12 +365,28 @@ class GPTEmbeddings(Layer):
             raise ValueError(
                 f"sequence length {s} exceeds max_position_embeddings "
                 f"{self._max_pos}")
-        tok = self.word_embeddings(input_ids)
+        tok = self._lookup(input_ids)
         if self._use_rope:
             return self.dropout(tok)
         if position_ids is None:
             position_ids = torch.arange(s, device=input_ids.device)[None]
         return self.dropout(tok + self.position_embeddings(position_ids))
+
+    def attach_tp(self, tp) -> None:
+        if self.word_embeddings.num_embeddings % tp.size == 0:
+            self._tp = tp
+
+    def _lookup(self, ids):
+        tp = self._tp
+        if tp is None:
+            return self.word_embeddings(ids)
+        w = self.word_embeddings.weight
+        n = w.shape[0]
+        local = ids - tp.index * n
+        outside = (local < 0) | (local >= n)
+        rows = F.embedding(local.masked_fill(outside, 0), w)
+        rows = torch.where(outside[..., None], torch.zeros_like(rows), rows)
+        return reduce_from_tp(rows, tp)
 
 
 class GPTModel(Layer):
@@ -321,17 +432,55 @@ class GPTModel(Layer):
 
 
 def _lm_logits(cfg: GPTConfig, embeddings: GPTEmbeddings, hidden,
-               lm_head=None):
+               lm_head=None, tp=None):
     """Shared head: the tied-embedding product (in the AMP compute dtype
-    under auto_cast; the loss upcasts to f32) or a separate lm_head."""
+    under auto_cast; the loss upcasts to f32) or a separate lm_head.
+    Under tp (vocab-parallel weights) each rank's vocab slice of the
+    logits, gathered."""
+    if tp is not None:
+        hidden = copy_to_tp(hidden, tp)
     if cfg.tie_word_embeddings:
         hidden, w = amp.white_cast(hidden,
                                    embeddings.word_embeddings.weight)
-        return torch.matmul(hidden, w.t())
-    return lm_head(hidden)
+        out = torch.matmul(hidden, w.t())
+    else:
+        out = lm_head(hidden)
+    return out if tp is None else gather_from_tp(out, tp)
 
 
-class GPTForCausalLM(Layer):
+class _CausalLMHead:
+    """The head and fused-loss output shared by :class:`GPTForCausalLM`
+    and :class:`GPTForCausalLMPipe` (which hold ``cfg``, their
+    embeddings in ``_embeddings()`` and an optional ``lm_head``)."""
+
+    _tp = None   # the tp group once the vocab dim of the head is split
+    tp_params = ("lm_head.weight",)
+
+    def attach_tp(self, tp) -> None:
+        if self.cfg.vocab_size % tp.size == 0:
+            self._tp = tp
+
+    def _logits(self, hidden):
+        return _lm_logits(self.cfg, self._embeddings(), hidden,
+                          getattr(self, "lm_head", None), self._tp)
+
+    def _fused_out(self, hidden):
+        """(hidden, W [vocab, hidden]) for the fused criterion; W rides
+        the output so its gradient flows through the loss. Under tp, W is
+        this rank's vocab slice and carries the tp group
+        (``_tp_vocab``), which makes the criterion's loss
+        vocab-parallel."""
+        if not self.cfg.tie_word_embeddings:
+            w = self.lm_head.weight.t()   # Linear is [H, V]
+        else:
+            w = self._embeddings().word_embeddings.weight
+        if self._tp is not None:
+            w = w.view_as(w)
+            w._tp_vocab = self._tp
+        return hidden, w
+
+
+class GPTForCausalLM(_CausalLMHead, Layer):
     """GPT with a (tied) LM head and generation utilities.
 
     Parameters are drawn on the CPU from the global generator
@@ -348,9 +497,8 @@ class GPTForCausalLM(Layer):
                                      axes=("embed", "vocab"))
         self.to(resolve_device(device))
 
-    def _logits(self, hidden):
-        return _lm_logits(self.cfg, self.gpt.embeddings, hidden,
-                          getattr(self, "lm_head", None))
+    def _embeddings(self):
+        return self.gpt.embeddings
 
     def forward(self, input_ids, position_ids=None, attn_mask=None,
                 caches=None):
@@ -359,11 +507,7 @@ class GPTForCausalLM(Layer):
             hidden, new_caches = out
             return self._logits(hidden), new_caches
         if self.cfg.fused_loss and self.training:
-            # (hidden, W [vocab, hidden]) for the fused criterion; W rides
-            # the output so its gradient flows through the loss
-            if not self.cfg.tie_word_embeddings:
-                return out, self.lm_head.weight.t()  # Linear is [H, V]
-            return out, self.gpt.embeddings.word_embeddings.weight
+            return self._fused_out(out)
         return self._logits(out)
 
     # -- decode-time KV cache -------------------------------------------
@@ -371,7 +515,9 @@ class GPTForCausalLM(Layer):
                     dtype=torch.float32):
         cfg = self.cfg
         dev = self.gpt.ln_f.weight.device
-        shape = (batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
+        tp = self.gpt.layers[0].attn._tp
+        kv = cfg.num_kv_heads // (tp.size if tp is not None else 1)
+        shape = (batch_size, max_len, kv, cfg.head_dim)
         return [(torch.zeros(shape, dtype=dtype, device=dev),
                  torch.zeros(shape, dtype=dtype, device=dev), 0)
                 for _ in range(cfg.num_layers)]
@@ -415,6 +561,69 @@ class GPTForCausalLM(Layer):
                                        caches=caches)
             next_logits = next_logits[:, -1]
         return tokens
+
+
+class GPTForCausalLMPipe(_CausalLMHead, Layer):
+    """GPT with its decoder blocks pipelined over the mesh's ``pp`` axis
+    (the JAX package's ``GPTForCausalLMPipe``, ref: fleet
+    GPTForPretrainingPipe over pp_layers.py:162): embeddings, the final
+    norm and the (tied) head stay OUTSIDE the trunk, replicated over pp,
+    while the structurally identical blocks run under
+    ``parallel.PipelineParallel`` (``remat=True``). Every pp rank runs
+    the embeddings (only the first feeds the trunk; the others keep
+    their key streams in step), and each runs the final norm and the
+    head on its block of the trunk's output rows, so the loss runs
+    data-parallel over pp; the gradients of the replicated parameters
+    are summed over pp (``parallel.reducer``), the tied word embedding's
+    from the first rank's lookup and every rank's head."""
+
+    def __init__(self, cfg: GPTConfig, num_microbatches: int = 1,
+                 virtual_pp_degree: int = 1, mesh=None, device=None):
+        super().__init__()
+        from ..parallel.mesh import get_mesh
+        from ..parallel.pipeline import PipelineLayer, PipelineParallel
+        self.cfg = cfg
+        if cfg.scan_layers:
+            import warnings
+            warnings.warn(
+                "GPTForCausalLMPipe ignores cfg.scan_layers: the "
+                "pipeline's tick loop and rematerialized chunks already "
+                "provide the depth loop and remat")
+        if cfg.sequence_parallel:
+            raise ValueError(
+                "sequence_parallel cannot compose with the pipelined "
+                "trunk: ring attention's shard_map would nest inside "
+                "the pipeline's manual pp region. Use sp with the "
+                "dense GPTForCausalLM, or pp without sp")
+        mesh = mesh or get_mesh(required=False)
+        pp = mesh.axis_size("pp") if mesh is not None else 1
+        num_stages = pp * virtual_pp_degree
+        if cfg.num_layers % num_stages:
+            raise ValueError(
+                f"num_layers {cfg.num_layers} not divisible by "
+                f"pp*virtual_pp_degree = {num_stages}")
+        self.embeddings = GPTEmbeddings(cfg)
+        blocks = [GPTDecoderLayer(cfg) for _ in range(cfg.num_layers)]
+        self.pipe = PipelineParallel(
+            PipelineLayer(blocks, num_stages=num_stages),
+            num_microbatches=num_microbatches,
+            virtual_pp_degree=virtual_pp_degree, mesh=mesh, remat=True)
+        self.ln_f = _norm(cfg)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                     bias_attr=False,
+                                     axes=("embed", "vocab"))
+        self.to(resolve_device(device))
+
+    def _embeddings(self):
+        return self.embeddings
+
+    def forward(self, input_ids, position_ids=None):
+        x = self.embeddings(input_ids, position_ids)
+        x = self.ln_f(self.pipe(x))
+        if self.cfg.fused_loss and self.training:
+            return self._fused_out(x)
+        return self._logits(x)
 
 
 class GPTGreedyDecoder(Layer):
@@ -481,13 +690,17 @@ class GPTFusedPretrainingCriterion(GPTPretrainingCriterion):
     and computes the shifted next-token cross entropy over vocab chunks,
     with no [b, s, v] logits (``ops/fused_xent.py``). With two arguments
     (an eval-mode forward's logits and the labels) it is the dense
-    criterion."""
+    criterion. A weight that carries a tp group (``_tp_vocab``: a
+    vocab-parallel head's slice) streams only its vocab slice, the
+    softmax statistics reduced over the tp ranks."""
 
     def forward(self, *args):
         if len(args) == 2:
             return super().forward(*args)
         hidden, weight, labels = args
+        tp = getattr(weight, "_tp_vocab", None)
         hidden, weight = amp.white_cast(hidden, weight, op="matmul")
         h = hidden[:, :-1].reshape(-1, hidden.shape[-1])
         lb = labels[:, 1:].reshape(-1)
-        return fused_linear_cross_entropy(h, weight, lb, self.ignore_index)
+        return fused_linear_cross_entropy(h, weight, lb, self.ignore_index,
+                                          tp=tp)

@@ -4,6 +4,6 @@ use)."""
 from . import clip, functional, initializer, utils  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue)
-from .layer import Layer, LayerList  # noqa: F401
+from .layer import Layer, LayerList, Sequential  # noqa: F401
 from .layers import (Dropout, Dropout2D, Embedding, LayerNorm,  # noqa: F401
                      Linear, RMSNorm)

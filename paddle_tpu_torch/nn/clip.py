@@ -4,11 +4,16 @@ ClipGradByGlobalNorm over a ``{name: grad}`` dict, applied by the
 Optimizer before its update. Norms are float32; clipped gradients keep
 their dtype. Pure: the input gradients are not modified.
 
-Under fsdp (``parallel.reducer``) a gradient dict holds this rank's
-shards of the sharded parameters: inside :func:`sharded_norms` the
-global norm sums the shards' squares across the fsdp ranks (and the
-replicated gradients' once), so every rank clips by the norm of the
-whole gradient; :func:`all_finite` is decided across the ranks too."""
+On a mesh (``parallel.reducer``) a gradient dict holds this rank's
+pieces of the sharded parameters: fsdp shards, tensor-parallel slices,
+a pipeline rank's stages. Inside :func:`sharded_norms` every norm sums
+the pieces' squares across the ranks that hold them (and a replicated
+gradient's once): the global norm (``ClipGradByGlobalNorm``, the numeric
+guard) and each tensor's own norm (``ClipGradByNorm``, and the
+per-tensor norms and means of Lamb, LarsMomentum and Adafactor through
+:func:`tensor_sum` and :func:`shard_of`), so every rank computes what one
+process computes on the whole tensors. :func:`all_finite` is decided
+across the ranks too."""
 
 from __future__ import annotations
 
@@ -17,49 +22,77 @@ from typing import Dict, Iterator, Optional
 
 import torch
 
-_SHARDED: Optional[tuple] = None   # (sharded names, fsdp process group)
+# (spec, group of every rank): spec maps a sharded name to (its axes,
+# the process group over them, {dim: pieces along it})
+_SHARDED: Optional[tuple] = None
 
 
 @contextlib.contextmanager
-def sharded_norms(names, group) -> Iterator[None]:
-    """In scope, gradients named in ``names`` are fsdp shards over
-    ``group``."""
+def sharded_norms(spec: Dict[str, tuple], world) -> Iterator[None]:
+    """In scope, the gradients named in ``spec`` are pieces:
+    ``spec[name] = (axes, group, {dim: count})`` says they are split over
+    the mesh ``axes`` (whose process ``group`` holds the other pieces),
+    ``count`` pieces along each ``dim``. ``world``: a group of every
+    rank, over which finiteness is decided."""
     global _SHARDED
-    prev, _SHARDED = _SHARDED, (frozenset(names), group)
+    prev, _SHARDED = _SHARDED, (dict(spec), world)
     try:
         yield
     finally:
         _SHARDED = prev
 
 
-def _across(x: torch.Tensor, op) -> torch.Tensor:
+def _allreduce(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    import torch.distributed as dist
+
     from ..parallel.collective import all_reduce_
-    return all_reduce_(x.reshape(1).clone(), _SHARDED[1], op).reshape(())
+    shape = x.shape
+    return all_reduce_(x.reshape(-1).clone(), group,
+                       op or dist.ReduceOp.SUM).reshape(shape)
+
+
+def shard_of(name: str) -> Optional[tuple]:
+    """``(axes, group, {dim: count})`` of a sharded name in scope."""
+    return None if _SHARDED is None else _SHARDED[0].get(name)
+
+
+def tensor_sum(name: str, s: torch.Tensor) -> torch.Tensor:
+    """A sum over every element of ``name``'s tensor, from this rank's
+    partial ``s``: summed across the ranks holding its other pieces."""
+    sh = shard_of(name)
+    return s if sh is None else _allreduce(s, sh[1])
 
 
 def sum_squares(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """float32 sum of every gradient's squares, across the fsdp shards
-    inside :func:`sharded_norms` (a device scalar)."""
-    import torch.distributed as dist
-    names = _SHARDED[0]
-    sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
-    shard = [s for k, s in zip(grads, sq) if k in names]
-    rest = [s for k, s in zip(grads, sq) if k not in names]
+    """float32 sum of every gradient's squares, across the pieces of the
+    sharded ones inside :func:`sharded_norms` (a device scalar)."""
+    spec = _SHARDED[0]
+    parts: Dict[tuple, list] = {}
+    rest = []
+    for k, g in grads.items():
+        sq = torch.sum(torch.square(g.float()))
+        if k in spec:
+            parts.setdefault(spec[k][0], [spec[k][1]]).append(sq)
+        else:
+            rest.append(sq)
     dev = next(iter(grads.values())).device
-    total = _across(torch.stack(shard).sum() if shard
-                    else torch.zeros((), device=dev), dist.ReduceOp.SUM)
-    return total + (torch.stack(rest).sum() if rest else 0.0)
+    total = torch.stack(rest).sum() if rest else \
+        torch.zeros((), device=dev)
+    for axes in sorted(parts):   # one all-reduce a group, in one order
+        group, *sq = parts[axes]
+        total = total + _allreduce(torch.stack(sq).sum(), group)
+    return total
 
 
 def all_finite(grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Whether every gradient is finite, on every fsdp rank inside
+    """Whether every gradient is finite, on every rank inside
     :func:`sharded_norms` (a 0-dim bool)."""
     import torch.distributed as dist
     ok = torch.stack([torch.isfinite(g).all()
                       for g in grads.values()]).all()
-    if _SHARDED is None:
+    if _SHARDED is None or _SHARDED[1] is None:
         return ok
-    return _across(ok.float(), dist.ReduceOp.MIN) > 0
+    return _allreduce(ok.float(), _SHARDED[1], dist.ReduceOp.MIN) > 0
 
 
 def sharded() -> bool:
@@ -88,12 +121,13 @@ class ClipGradByNorm(GradClipBase):
         self.clip_norm = float(clip_norm)
 
     def __call__(self, grads):
-        def _clip(g):
-            n = torch.sqrt(torch.sum(torch.square(g.float())))
+        def _clip(k, g):
+            n = torch.sqrt(tensor_sum(k, torch.sum(torch.square(
+                g.float()))))
             scale = torch.clamp(self.clip_norm / torch.clamp(n, min=1e-12),
                                 max=1.0)
             return (g * scale).to(g.dtype)
-        return {k: _clip(g) for k, g in grads.items()}
+        return {k: _clip(k, g) for k, g in grads.items()}
 
 
 def global_norm(grads: Dict[str, torch.Tensor]) -> torch.Tensor:

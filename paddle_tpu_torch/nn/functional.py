@@ -63,7 +63,9 @@ def dropout(x, p: float = 0.5, training: bool = True,
     type). The key stays on the host and enters the hash as two ints,
     so a step with dropout copies nothing to the device and does not
     sync. Under ``rng.batch_rows`` (a data-parallel rank) the mask is
-    the rank's rows of the global batch's mask."""
+    the rank's rows of the global batch's mask, and under
+    ``rng.head_slice`` (a tensor-parallel rank's heads) its slice of dim
+    1 of the global mask."""
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training:
             return x * (1.0 - p)
@@ -71,7 +73,8 @@ def dropout(x, p: float = 0.5, training: bool = True,
     keep = 1.0 - p
     mask = threefry.uniform(rng.next_key(rng_name), x.shape,
                             device=x.device,
-                            rows=rng.mask_rows(x.shape)) < keep
+                            rows=rng.mask_rows(x.shape),
+                            cols=rng.mask_cols(x.shape)) < keep
     if mode == "upscale_in_train":
         x = x / _keep_divisor(keep, x)
     return torch.where(mask, x, 0.0).to(x.dtype)

@@ -72,3 +72,34 @@ class Layer(torch.nn.Module):
 
 class LayerList(torch.nn.ModuleList):
     """Sublayers keyed ``"0"``, ``"1"``, ... as in the JAX package."""
+
+
+class Sequential(Layer):
+    """Sublayers keyed ``"0"``, ``"1"``, ... (or by ``(name, layer)``
+    pairs) applied in turn, as in the JAX package."""
+
+    def __init__(self, *layers):
+        super().__init__()
+        if len(layers) == 1 and isinstance(layers[0], (list, tuple)):
+            layers = tuple(layers[0])
+        for i, l in enumerate(layers):
+            if isinstance(l, tuple):  # (name, layer) pairs
+                self.add_module(l[0], l[1])
+            else:
+                self.add_module(str(i), l)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return Sequential(*list(self._modules.values())[idx])
+        return list(self._modules.values())[idx]
+
+    def forward(self, x):
+        for l in self._modules.values():
+            x = l(x)
+        return x

@@ -28,8 +28,11 @@ def checkpoint(fn, *args, **kwargs):
     The recompute replays the forward's thread-local state, which
     torch's checkpoint does not know: the innermost key stream (its key
     and the counters of its sub-streams, so dropout draws the same
-    masks again) and the ``amp.auto_cast`` state (the recompute may run
-    on the autograd engine's device thread, where neither is set). The
+    masks again), a data-parallel rank's rows and a tensor-parallel
+    rank's heads of the masks (``rng.batch_rows`` / ``rng.head_slice``:
+    the backward runs after their scope closed) and the
+    ``amp.auto_cast`` state (the recompute may run on the autograd
+    engine's device thread, where none is set). The
     live stream advances past the forward's draws, as an unwrapped call
     advances it. With gradients off it is a plain call."""
     if not torch.is_grad_enabled():
@@ -37,12 +40,14 @@ def checkpoint(fn, *args, **kwargs):
     stream = rng.current_stream()
     key, drawn = stream._key, dict(stream._streams)
     amp_state = amp._saved_state()
+    slices = rng.saved_slices()
     after = {}
 
     def run(*a):
         replay = rng.KeyStream(key)
         replay._streams = dict(drawn)
-        with rng.use_stream(replay), amp._restored(amp_state):
+        with rng.use_stream(replay), amp._restored(amp_state), \
+                rng.restored_slices(slices):
             out = fn(*a, **kwargs)
         after["streams"] = replay._streams
         return out

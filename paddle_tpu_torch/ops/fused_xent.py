@@ -17,6 +17,15 @@ with float32 results. A float32 result from half operands is taken
 without rounding: ``torch.mm(..., out_dtype=torch.float32)`` on the
 card, exactly upcast operands on the CPU. This is not a Pallas kernel in
 the JAX package (a ``lax.scan``), so its products are library matmuls.
+
+Vocab-parallel form (``tp``: a tensor-parallel head, the weight this
+rank's vocab slice ``[V / tp, H]``): each rank streams its slice in
+chunks as above; the row max and the sum of exponentials are then
+reduced over the tp ranks (the sum rescaled to the global max), and the
+label's logit comes from the rank whose slice holds it. The backward
+forms each chunk's gradient against the global logsumexp; dW is the
+slice's own and dh is summed over the tp ranks. No rank holds more
+than ``[T, chunk]`` logits.
 """
 
 from __future__ import annotations
@@ -69,7 +78,8 @@ def _local_labels(labels, off: int, c: int):
 class _FusedLinearCrossEntropy(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, hidden, weight, labels, bias, ignore_index, chunk):
+    def forward(ctx, hidden, weight, labels, bias, ignore_index, chunk,
+                tp=None):
         t = hidden.shape[0]
         v = weight.shape[0]
         w = weight if weight.dtype == hidden.dtype else \
@@ -78,6 +88,13 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
         bias_c = None if bias is None else \
             _chunk_rows(bias.float(), c)
         labels = labels.long()
+        valid = labels != ignore_index
+        if tp is not None:
+            # this rank's vocab slice starts at index*v; a label of
+            # another rank's slice matches no column here (not even the
+            # last chunk's pad columns)
+            labels = labels - tp.index * v
+            labels = torch.where((labels >= 0) & (labels < v), labels, -1)
         m = torch.full((t,), float("-inf"), device=hidden.device)
         l = torch.zeros((t,), device=hidden.device)
         picked = torch.zeros((t,), device=hidden.device)
@@ -93,12 +110,19 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
             picked = picked + torch.where(
                 inside, logits.gather(1, col[:, None])[:, 0],
                 torch.zeros_like(picked))
+        if tp is not None:
+            import torch.distributed as dist
+            from ..parallel.collective import all_reduce_
+            m_all = all_reduce_(m.clone(), tp.group, dist.ReduceOp.MAX)
+            l = all_reduce_(l * torch.exp(m - m_all), tp.group)
+            picked = all_reduce_(picked, tp.group)
+            m = m_all
         lse = m + torch.log(l)
-        valid = labels != ignore_index
         per_tok = torch.where(valid, lse - picked, torch.zeros_like(lse))
         n = torch.clamp(valid.sum(), min=1)
         ctx.save_for_backward(hidden, weight, labels, bias, lse, valid, n)
         ctx.chunk = c
+        ctx.tp = tp
         return per_tok.sum() / n
 
     @staticmethod
@@ -135,12 +159,16 @@ class _FusedLinearCrossEntropy(torch.autograd.Function):
         dw = torch.cat(dw_chunks)[:v].to(weight.dtype)
         dbias = None if bias is None else \
             torch.cat(db_chunks)[:v].to(bias.dtype)
-        return dh.to(hidden.dtype), dw, None, dbias, None, None
+        if ctx.tp is not None:
+            from ..parallel.collective import all_reduce_
+            all_reduce_(dh, ctx.tp.group)
+        return dh.to(hidden.dtype), dw, None, dbias, None, None, None
 
 
 def fused_linear_cross_entropy(hidden, weight, labels,
                                ignore_index: int = -100,
-                               chunk: Optional[int] = None, bias=None):
+                               chunk: Optional[int] = None, bias=None,
+                               tp=None):
     """Mean cross-entropy of ``softmax(hidden @ weight.T + bias)``
     against ``labels`` without materialising the logits.
 
@@ -148,6 +176,9 @@ def fused_linear_cross_entropy(hidden, weight, labels,
     tied-embedding layout); labels: [T] int; bias: optional [V] logits
     bias. ``ignore_index`` rows leave the mean. ``chunk`` (default
     min(8192, V)) need not divide V: the last chunk is zero-padded and
-    its pad columns are masked to -inf."""
+    its pad columns are masked to -inf. ``tp`` (a
+    ``parallel.collective.TPGroup``): ``weight`` (and ``bias``) are this
+    rank's vocab slice of the tp ranks' equal slices, ``labels`` global
+    ids; the loss is the whole vocab's, on every rank."""
     return _FusedLinearCrossEntropy.apply(hidden, weight, labels, bias,
-                                          ignore_index, chunk)
+                                          ignore_index, chunk, tp)

@@ -25,10 +25,12 @@ LarsMomentum).
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional
 
 import torch
 
+from ..nn import clip as _clip
 from ..nn.clip import GradClipBase
 from .lr import LRScheduler, make_schedule
 
@@ -476,8 +478,11 @@ class Lamb(Optimizer):
             r = (m / bc1) / (torch.sqrt(v / bc2) + eps)
             if wd and (self.exclude_fn is None or not self.exclude_fn(k)):
                 r = r + wd * p
-            w_norm = torch.sqrt(torch.sum(torch.square(p)))
-            r_norm = torch.sqrt(torch.sum(torch.square(r)))
+            # per-tensor norms over the tensor's pieces on a mesh
+            w_norm = torch.sqrt(_clip.tensor_sum(
+                k, torch.sum(torch.square(p))))
+            r_norm = torch.sqrt(_clip.tensor_sum(
+                k, torch.sum(torch.square(r))))
             trust = torch.where((w_norm > 0) & (r_norm > 0),
                                 w_norm / r_norm, 1.0)
             out[k] = -lr * trust * r
@@ -537,21 +542,38 @@ class Adafactor(Optimizer):
         s["t"] = 0
         return s
 
-    def _core(self, g, vr, vc, v, m, p, decay, step_size):
+    def _core(self, g, vr, vc, v, m, p, decay, step_size, shard=None):
         """One logical parameter's update: (delta, vr, vc, v, m).
         ``decay`` is (decay, 1 - decay), ``step_size`` (step size, step
-        size times weight decay)."""
+        size times weight decay). ``shard``: ``(group, {dim: count})``
+        when ``p`` is one piece of a tensor split along those (negative)
+        dims over the ranks of ``group``; its means and RMS are then the
+        whole tensor's."""
         decay, fresh = decay
         step_size, wd_step = step_size
+        nd = p.dim()
+
+        def mean(x, pdims, xdims=None, keepdim=False):
+            xdims = pdims if xdims is None else xdims
+            out = x.sum(dim=xdims, keepdim=keepdim)
+            count = math.prod(x.shape[d] for d in xdims)
+            hit = [c for d, c in (shard[1].items() if shard else ())
+                   if d in pdims]
+            if hit:
+                out = _clip._allreduce(out, shard[0])
+                count *= math.prod(hit)
+            return out / count
+
         def rms(x):
-            return torch.sqrt(torch.mean(torch.square(x)) + 1e-30)
+            return torch.sqrt(mean(torch.square(x),
+                                   tuple(range(-nd, 0))) + 1e-30)
         g32 = g.float()
         g2 = torch.square(g32) + self.epsilon1
         if self._factored(p):
-            vr = decay * vr + fresh * g2.mean(dim=-1)
-            vc = decay * vc + fresh * g2.mean(dim=-2)
+            vr = decay * vr + fresh * mean(g2, (-1,))
+            vc = decay * vc + fresh * mean(g2, (-2,))
             # v_hat = outer(vr, vc) / mean(vr): a rank-1 second moment
-            r = vr / vr.mean(dim=-1, keepdim=True)
+            r = vr / mean(vr, (-2,), (-1,), keepdim=True)
             u = g32 * torch.rsqrt(r)[..., None] * torch.rsqrt(vc)[..., None, :]
         else:
             v = decay * v + fresh * g2
@@ -585,10 +607,19 @@ class Adafactor(Optimizer):
             g, vr, vc, v = (grads[k], state["vr"][k], state["vc"][k],
                             state["v"][k])
             m = state["m"][k] if self.beta1 is not None else None
-            if p.dim() == 3 and p.shape[-2] * p.shape[-1] >= (1 << 20):
+            shard = _clip.shard_of(k)
+            split = {d - p.dim(): c for d, c in shard[2].items()} \
+                if shard else {}
+            full = [n * split.get(d - p.dim(), 1)
+                    for d, n in enumerate(p.shape)]
+            if p.dim() == 3 and full[-2] * full[-1] >= (1 << 20):
+                # slice by slice: a piece split along dim 0 holds whole
+                # slices
+                sub = {d: c for d, c in split.items() if d != -3}
+                sub = (shard[1], sub) if sub else None
                 rows = [self._core(g[i], vr[i], vc[i], v,
                                    None if m is None else m[i], p[i],
-                                   decay, step_size)
+                                   decay, step_size, sub)
                         for i in range(p.shape[0])]
                 res = [torch.stack([r[0] for r in rows]),
                        torch.stack([r[1] for r in rows]),
@@ -596,7 +627,8 @@ class Adafactor(Optimizer):
                        None if m is None else
                        torch.stack([r[4] for r in rows])]
             else:
-                res = self._core(g, vr, vc, v, m, p, decay, step_size)
+                res = self._core(g, vr, vc, v, m, p, decay, step_size,
+                                 (shard[1], split) if split else None)
             out[k] = res[0]
             for n, val in zip(("vr", "vc", "v", "m"), res[1:]):
                 new[n][k] = val
@@ -632,8 +664,10 @@ class LarsMomentum(Optimizer):
         out, vel = {}, {}
         for k, p in params.items():
             g = grads[k].to(p.dtype)
-            p_norm = torch.sqrt(torch.sum(torch.square(p)))
-            g_norm = torch.sqrt(torch.sum(torch.square(g)))
+            p_norm = torch.sqrt(_clip.tensor_sum(
+                k, torch.sum(torch.square(p))))
+            g_norm = torch.sqrt(_clip.tensor_sum(
+                k, torch.sum(torch.square(g))))
             local_lr = torch.where(
                 (p_norm > 0) & (g_norm > 0),
                 lr * coeff * p_norm / (g_norm + wd * p_norm + eps),

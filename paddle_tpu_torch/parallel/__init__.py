@@ -1,11 +1,12 @@
 """paddle_tpu_torch.parallel — distributed training on a named mesh of
 ``torch.distributed`` ranks (the port's counterpart of
 ``paddle_tpu/parallel``): a :class:`DeviceMesh` with named axes,
-logical-axis sharding rules, collectives by mesh axis, the strategy
-config, ``init_parallel_env`` / ``DataParallel`` / ``distributed_model``
-(dp and fsdp run; tp, pp, sp and ep resolve but raise), and
-recomputation with gradient merge. The planner, the pipeline schedules
-and local SGD are not ported yet (ROADMAP A6.4)."""
+logical-axis sharding rules, collectives by mesh axis (and the
+tensor-parallel pair), the strategy config, ``init_parallel_env`` /
+``DataParallel`` / ``distributed_model`` (dp, fsdp, tp and pp run; sp and
+ep resolve but raise), the pipeline (``PipelineLayer`` /
+``PipelineParallel``), the auto-parallel planner, local SGD, and
+recomputation with gradient merge."""
 
 from .mesh import (AXIS_ORDER, DeviceMesh, get_mesh, init_mesh,  # noqa
                    init_mesh_from_axes, set_mesh)
@@ -18,6 +19,12 @@ from .strategy import (AMPConfig, DistributedStrategy,  # noqa
 from .api import (DataParallel, all_gather, all_reduce, barrier,  # noqa
                   broadcast, distributed_model, get_rank, get_world_size,
                   init_parallel_env)
+from .pipeline import (LayerDesc, PipelineLayer, PipelineParallel,  # noqa
+                       SharedLayerDesc)
 from .recompute import (GradientMerge, RecomputeSequential,  # noqa: F401
                         recompute)
+from .planner import ChipSpec, Plan, evaluate, plan  # noqa: F401
+from .localsgd import (build_local_sgd_step, replicate_params,  # noqa
+                       unreplicate_params)
 from . import collective  # noqa: F401
+from . import planner  # noqa: F401

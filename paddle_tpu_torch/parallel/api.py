@@ -247,24 +247,52 @@ def distributed_model(model, strategy: Optional[DistributedStrategy] = None,
     ``distributed_model``): one call installs the parameter, batch and
     superbatch hooks the Model's steps go through (the JAX package's
     ``_shard_params`` / ``_shard_batch`` / ``_shard_superbatch`` /
-    ``_mesh``). With no mesh, one is built from ``strategy`` (or
-    ``dp`` over every rank). The auto-parallel planner
-    (``global_batch=``) and live ``tp`` / ``pp`` / ``sp`` / ``ep`` axes
-    raise: they are not ported yet."""
+    ``_mesh``); the Model's first step splits its parameters over the
+    mesh (``parallel.reducer``). With no mesh, one is built from
+    ``strategy`` or, given ``global_batch``, by the auto-parallel planner
+    (ref: auto_parallel/engine.py:53 Engine auto mode): the cost model
+    picks (dp, fsdp, tp) for the world's ranks and the plan is recorded
+    as ``model._plan``; else ``dp`` over every rank. ``seq_len``
+    defaults to the model's ``max_position_embeddings`` hint. Live
+    ``sp`` / ``ep`` axes raise: they are not ported yet."""
     if strategy is not None and global_batch is not None:
         raise ValueError(
             "pass either strategy (manual layout) or global_batch "
             "(auto-planned layout), not both — the planner would be "
             "silently skipped")
-    if global_batch is not None:
-        raise NotImplementedError(
-            "distributed_model(global_batch=...) runs the auto-parallel "
-            "planner, which is not ported yet (ROADMAP A6.4)")
     if mesh is None:
         mesh = get_mesh(required=False)
+        if mesh is not None and global_batch is not None:
+            import warnings
+            warnings.warn(
+                "distributed_model(global_batch=...) found a mesh already "
+                "installed; the auto-parallel planner was skipped and the "
+                "existing mesh is used as-is")
         if mesh is None:
-            axes = strategy.mesh_axes() if strategy else {"dp": -1}
-            mesh = init_mesh(**(axes or {"dp": -1}))
+            if strategy is None and global_batch is not None:
+                from . import planner
+                from .mesh import init_mesh_from_axes
+                n = get_world_size()
+                best = planner.plan(model.network, n,
+                                    global_batch=global_batch,
+                                    seq_len=seq_len, rules=rules,
+                                    act_dtype_bytes=act_dtype_bytes)
+                if not best.fits:
+                    import warnings
+                    warnings.warn(
+                        "auto-parallel planner predicts an OOM on every "
+                        f"layout; using the smallest footprint: "
+                        f"{best.describe()}")
+                mesh = init_mesh_from_axes(best.axes)
+                model._plan = best
+                # context for verify_plan's measured-memory re-plan loop
+                model._planner_ctx = {
+                    "n_devices": n, "global_batch": global_batch,
+                    "seq_len": seq_len, "rules": rules, "chip": None,
+                    "act_dtype_bytes": act_dtype_bytes}
+            else:
+                axes = strategy.mesh_axes() if strategy else {"dp": -1}
+                mesh = init_mesh(**(axes or {"dp": -1}))
     check_runnable(mesh)
     rules = rules or LogicalRules()
     meta = model.network.param_meta()
@@ -282,5 +310,6 @@ def distributed_model(model, strategy: Optional[DistributedStrategy] = None,
     model._shard_batch = _shard_batch
     model._shard_superbatch = _shard_superbatch
     model._mesh = mesh
+    model._rules = rules
     model._sync = None   # built at the Model's first step
     return model

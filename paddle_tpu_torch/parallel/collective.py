@@ -13,6 +13,17 @@ Two registers, as in the JAX package:
    with a leading group dim; the collective is a reduction over dim 0
    (``host_all_reduce``), the same pure function in both packages.
 
+3. **The tensor-parallel pair** (Megatron's f and g, ref:
+   fleet/layers/mpu/mp_ops.py ``_c_identity`` / ``_mp_allreduce``): where
+   GSPMD inserts the collectives of a tp-sharded matmul, the port's
+   layers call them as ``torch.autograd.Function``s over the ``tp``
+   group (:class:`TPGroup`): :func:`copy_to_tp` at a column-parallel
+   input (identity forward, all-reduce backward), :func:`reduce_from_tp`
+   after a row-parallel output (all-reduce forward, identity backward),
+   :func:`gather_from_tp` for vocab-sharded logits.
+4. **Point to point** (:func:`exchange`): the pipeline's activations and
+   their gradients, rank to rank over the ``pp`` group.
+
 Gloo on CUDA tensors: every collective here, and the gradient reduction
 of a ``Model`` on a mesh, stages a CUDA tensor through a pinned host
 buffer when the group's backend is gloo (``wire``), one code path for
@@ -22,6 +33,7 @@ groups take the CUDA tensor itself.
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -264,3 +276,114 @@ def quantized_ring_allreduce(x, axis: AxisName, bits: int = 8,
     if pad:
         out = out[:-pad]
     return out.reshape(x.shape).to(x.dtype)
+
+
+# -- register 3: the tensor-parallel pair -----------------------------------
+
+class TPGroup:
+    """This rank's place on the ``tp`` axis of a mesh: ``size`` ranks,
+    this one at ``index``, their process ``group``."""
+
+    def __init__(self, mesh: DeviceMesh):
+        self.mesh = mesh
+        self.size = mesh.axis_size("tp")
+        self.index = mesh.local_rank("tp")
+        self.group = mesh.group("tp")
+
+    def __repr__(self):
+        return f"TPGroup({self.index}/{self.size})"
+
+
+# host seconds the tp pair spent in its collectives (a staged gloo
+# collective waits for the card anyway, so the clock starts after a sync)
+tp_seconds = 0.0
+
+
+def _tp_all_reduce(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    global tp_seconds
+    if _staged(x, tp.group):
+        torch.cuda.synchronize(x.device)
+    t0 = time.perf_counter()
+    out = all_reduce_(x.contiguous().clone(), tp.group)
+    tp_seconds += time.perf_counter() - t0
+    return out
+
+
+class _CopyToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tp_all_reduce(g, ctx.tp), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return _tp_all_reduce(x, tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim, ctx.n = tp, dim, x.shape[dim]
+        return torch.cat(all_gather_list(x, tp.group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.tp.index * ctx.n, ctx.n).contiguous(), \
+            None, None
+
+
+def copy_to_tp(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """f: the input of a column-parallel product (its gradient summed
+    over the tp ranks)."""
+    return _CopyToTP.apply(x, tp)
+
+
+def reduce_from_tp(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """g: the sum of the tp ranks' partial results of a row-parallel
+    product."""
+    return _ReduceFromTP.apply(x, tp)
+
+
+def gather_from_tp(x: torch.Tensor, tp: TPGroup, dim: int = -1):
+    """The tp ranks' slices of ``dim`` concatenated (every rank computes
+    the same downstream, so the backward keeps this rank's slice)."""
+    return _GatherFromTP.apply(x, tp, dim % x.dim())
+
+
+# -- register 4: point to point ---------------------------------------------
+
+def exchange(sends, recvs, group) -> list:
+    """One round of point-to-point transfers over ``group``: ``sends``
+    ``[(tensor, group rank)]`` and ``recvs`` ``[(shape, dtype, device,
+    group rank)]``; returns the received tensors in ``recvs`` order.
+    Staged through pinned host memory under gloo, as :func:`wire`."""
+    if not sends and not recvs:
+        return []
+    ranks = dist.get_process_group_ranks(group)
+    staged = any(t.is_cuda for t, _ in sends) or any(
+        torch.device(d).type == "cuda" for _, _, d, _ in recvs)
+    staged = staged and dist.get_backend(group) == "gloo"
+    ops, outs = [], []
+    for t, dst in sends:
+        h = wire(t.detach().contiguous(), group)
+        ops.append(dist.P2POp(dist.isend, h, ranks[dst], group=group))
+    for shape, dtype, device, src in recvs:
+        buf = torch.empty(shape, dtype=dtype,
+                          device="cpu" if staged else device,
+                          pin_memory=staged)
+        outs.append((buf, device))
+        ops.append(dist.P2POp(dist.irecv, buf, ranks[src], group=group))
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    return [b.to(d) if b.device != torch.device(d) else b
+            for b, d in outs]

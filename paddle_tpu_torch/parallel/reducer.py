@@ -1,9 +1,10 @@
-"""The data-parallel and fully sharded state of a ``Model`` on a mesh:
-the gradient reduction, the global loss and the fsdp shards.
+"""The distributed state of a ``Model`` on a mesh: the gradient
+reduction, the global loss, fsdp shards, tensor-parallel slices and
+pipeline stages.
 
 In the JAX package, ``distributed_model`` attaches shardings and XLA
-compiles one SPMD program: each device computes on its rows, and the
-gradient all-reduce (dp) or reduce-scatter (fsdp) is inserted where the
+compiles one SPMD program: each device computes on its rows and its
+pieces of the parameters, and the collectives are inserted where the
 sharded and replicated parts of the step meet. The port runs one process
 a rank and does that part of the program by hand (the reference's
 EagerReducer, distributed/collective/reducer.h:88), after the backward
@@ -11,25 +12,40 @@ and before the update:
 
 - **dp.** Every rank holds every parameter. Gradients of its rows are
   all-reduced over the data ranks in one flat bucket a dtype, the loss
-  riding in the float32 bucket, and divided by the data ranks — or,
-  where the loss names its count (``loss.count(*labels)``: the tokens a
-  mean runs over, which a loss mask or ``ignore_index`` makes differ
-  between ranks), each rank's loss is weighted by its count over the
-  global count before the backward and the sum is the result. Every rank
-  then holds the same bits, and the update keeps the replicas equal.
+  riding in the float32 bucket, and divided by the ranks that split the
+  batch — or, where the loss names its count (``loss.count(*labels)``:
+  the tokens a mean runs over, which a loss mask or ``ignore_index``
+  makes differ between ranks), each rank's loss is weighted by its count
+  over the global count before the backward and the sum is the result.
+  Every rank then holds the same bits, and the update keeps the replicas
+  equal.
 - **fsdp.** A parameter whose logical ``embed`` dim the rules map to the
   fsdp axis lives as this rank's shard (a plain tensor; the network's
   parameter holds no storage between steps). The shards are all-gathered
   into the parameters before a forward, the full gradients
   reduce-scattered back to shards after the backward (then all-reduced
-  over dp where both axes are live), and the optimizer updates the shards,
-  so its state is sharded like its parameter. Replicated parameters
-  (biases, norms) take the dp path over all data ranks. Global norms
-  (the numeric guard, ``ClipGradByGlobalNorm``) sum the shards' squares
-  across the fsdp ranks (``nn.clip.sharded_norms``).
+  over the other axes that replicate it), and the optimizer updates the
+  shards, so its state is sharded like its parameter.
+- **tp.** A parameter the rules split over ``tp`` is this rank's slice,
+  in the network itself (``p.data``), from set-up on: the layers compute
+  on their slices with the collectives of ``collective.copy_to_tp`` /
+  ``reduce_from_tp``. Every tp rank computes the same loss, so the
+  gradients of tp-replicated parameters are equal across them already
+  and are not reduced over tp; the slices' gradients stay local.
+- **pp.** A pipelined trunk's stacked parameters (a leading
+  ``pp_stage`` dim) are this rank's stages. Each pp rank computes the
+  loss of its rows of the pipeline's output (``pp_rows``), so the loss
+  and the gradients of the parameters outside the trunk (replicated over
+  pp) are reduced over the data ranks and pp; the stages' over the data
+  ranks only.
 
-A mesh whose data axes have one rank leaves every tensor untouched, so a
-``dp=1`` step equals the unsharded step bit for bit.
+Norms (the numeric guard, ``ClipGradByGlobalNorm``, ``ClipGradByNorm``,
+Lamb, LarsMomentum, Adafactor) sum each piece's squares across the ranks
+that hold the other pieces (``nn.clip.sharded_norms``). A checkpoint, a
+``Model.save`` or a load moves between the rank's pieces and the whole
+tensors in the JAX package's names and layouts (:meth:`full_tree`,
+:meth:`local_tree`). A mesh of one rank leaves every tensor untouched,
+so a ``dp=1`` step equals the unsharded step bit for bit.
 """
 
 from __future__ import annotations
@@ -43,8 +59,9 @@ import torch.distributed as dist
 
 from ..nn import clip as _clip
 from . import collective as _coll
-from .mesh import DeviceMesh
-from .sharding import check_runnable
+from .mesh import AXIS_ORDER, DeviceMesh
+from .sharding import (LogicalRules, check_runnable, full_from_pieces,
+                       local_piece, param_layout, tp_permutation)
 
 _GATHER = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
@@ -65,28 +82,57 @@ def _unflat(flat: torch.Tensor, likes: List[torch.Tensor]):
     return out
 
 
+def _axes(*names) -> Tuple[str, ...]:
+    return tuple(a for a in AXIS_ORDER if a in names)
+
+
 class MeshSync:
     """One per ``Model`` under ``distributed_model``."""
 
-    def __init__(self, mesh: DeviceMesh, shard_params=None):
+    def __init__(self, mesh: DeviceMesh,
+                 rules: Optional[LogicalRules] = None):
         check_runnable(mesh)
         self.mesh = mesh
+        self.rules = rules or LogicalRules()
         self.n = mesh.data_size
-        self.active = self.n > 1
-        self.data_group = mesh.group(mesh.data_axes) if self.active \
-            else None
+        self.pp = mesh.axis_size("pp")
+        self.tp = mesh.axis_size("tp")
+        # the ranks whose rows of the global batch make the loss
+        self.rows = self.n * self.pp
+        self.active = mesh.size > 1
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        self.data_group = self.group(mesh.data_axes)
         self.data_index = mesh.index(mesh.data_axes)
+        self.rows_axes = _axes(*mesh.data_axes, *(
+            ("pp",) if self.pp > 1 else ()))
+        self.rows_group = self.group(self.rows_axes)
         self.fsdp = mesh.axis_size("fsdp")
-        self.fsdp_group = mesh.group("fsdp") if self.fsdp > 1 else None
+        self.fsdp_group = self.group(("fsdp",))
         self.fsdp_index = mesh.local_rank("fsdp")
-        self.dp_group = mesh.group("dp") if mesh.has_axis("dp") else None
-        self._shard_params = shard_params
+        self.pp_group = self.group(("pp",))
+        self.pp_index = mesh.local_rank("pp")
+        self.tp_group = _coll.TPGroup(mesh) if self.tp > 1 else None
+        self.world = self.group(mesh.axis_names)
         # fsdp: name -> (dim, full shape); name -> this rank's shard
         self.sharded: Dict[str, Tuple[int, torch.Size]] = {}
         self.shards: Dict[str, torch.Tensor] = {}
+        # tp / pp: name -> {"tp": (dim, permutation), "pp": dim}
+        self.pieces: Dict[str, dict] = {}
+        self.full_shapes: Dict[str, torch.Size] = {}
         self._params: Dict[str, torch.nn.Parameter] = {}
         self._set_up = False
         self.reduce_seconds = 0.0
+
+    def group(self, axes):
+        """The process group of the live ``axes`` (None when none is
+        live, or on a one-rank mesh), built once."""
+        axes = _axes(*axes)
+        live = tuple(a for a in axes if self.mesh.has_axis(a))
+        if not live:
+            return None
+        if live not in self._groups:
+            self._groups[live] = self.mesh.group(live)
+        return self._groups[live]
 
     @property
     def is_writer(self) -> bool:
@@ -95,10 +141,12 @@ class MeshSync:
 
     # -- set-up ---------------------------------------------------------
     def setup(self, params: Dict[str, torch.nn.Parameter],
-              optimizer=None) -> None:
-        """Once, before the first step: the replicas take the data group's
-        first rank's values; under fsdp each sharded parameter becomes this
-        rank's shard."""
+              network=None) -> None:
+        """Once, before the first step: every rank takes the mesh's first
+        rank's values; given the ``network`` (a Model's: its parameters'
+        logical axes), its tp- and pp-split parameters become this rank's
+        pieces, and under fsdp each sharded parameter this rank's
+        shard."""
         if self._set_up:
             return
         self._set_up = True
@@ -111,31 +159,77 @@ class MeshSync:
                 by_dt.setdefault(p.dtype, []).append(p)
             for ps in by_dt.values():   # one broadcast a dtype
                 flat = _coll.broadcast(_flat([p.detach() for p in ps]),
-                                       self.mesh.data_axes, 0, self.mesh)
+                                       self.mesh.axis_names, 0, self.mesh)
                 for p, v in zip(ps, _unflat(flat, ps)):
                     p.copy_(v)
-        if self.fsdp_group is None or self._shard_params is None:
+        if network is None:
             return
-        from ..nn.clip import ClipGradByNorm
-        from ..optimizer.optimizer import Adafactor, Lamb
-        if isinstance(optimizer, (Lamb, Adafactor)) or isinstance(
-                getattr(optimizer, "grad_clip", None), ClipGradByNorm):
-            raise NotImplementedError(
-                "per-tensor norms (Lamb, Adafactor, ClipGradByNorm) over "
-                "fsdp shards are not ported (ROADMAP A6.4)")
-        dts = self._shard_params({k: p.detach() for k, p in params.items()})
-        fs = self.mesh.axis_names.index("fsdp")
-        for name, dt in dts.items():
-            pl = dt.placements[fs]
-            if pl.is_shard():
-                p = params[name]
-                self.sharded[name] = (pl.dim, p.shape)
-                self.shards[name] = dt.to_local().clone()
+        meta = network.param_meta()
+        if self.tp > 1 or self.pp > 1:
+            self._split(network, meta)
+        if self.fsdp_group is None:
+            return
+        for name, p in params.items():
+            shape = self.full_shapes.get(name, p.shape)
+            dim = param_layout(name, shape, meta, self.mesh,
+                               self.rules).get("fsdp")
+            if dim is not None:
+                self.sharded[name] = (dim, p.shape)
+                self.shards[name] = local_piece(
+                    p.detach(), dim, self.fsdp, self.fsdp_index)
         self.reshard()
+
+    def _split(self, network, meta) -> None:
+        """This rank's tp slices and pp stages of ``network``'s
+        parameters, in place; the layers learn their tp group."""
+        from .pipeline import PipelineParallel
+        pipes = [m for m in network.modules()
+                 if isinstance(m, PipelineParallel)]
+        if self.pp > 1 and not pipes:
+            raise ValueError(
+                "a pp mesh needs a pipelined network (a PipelineParallel "
+                "trunk, e.g. models.gpt.GPTForCausalLMPipe)")
+        for pipe in pipes:
+            pipe.attach_mesh(self.mesh)
+        with torch.no_grad():
+            for name, p in network.named_parameters():
+                lay = param_layout(name, p.shape, meta, self.mesh,
+                                   self.rules)
+                piece = {}
+                if "pp" in lay:
+                    if lay["pp"] != 0:
+                        raise ValueError(f"{name}: the pp stage dim must "
+                                         f"lead, got dim {lay['pp']}")
+                    piece["pp"] = 0
+                if "tp" in lay:
+                    _check_tp_owner(network, name)
+                    perm = tp_permutation(network, name, self.tp)
+                    piece["tp"] = (lay["tp"], perm)
+                if not piece:
+                    continue
+                self.full_shapes[name] = p.shape
+                self.pieces[name] = piece
+                p.data = self._local(name, p.detach())
+        if self.tp_group is not None:
+            for m in list(network.modules()):
+                if hasattr(m, "attach_tp"):
+                    m.attach_tp(self.tp_group)
+
+    def _local(self, name, full, dim_of=lambda d: d):
+        piece = self.pieces[name]
+        x = full
+        if "pp" in piece and dim_of(0) is not None:
+            x = local_piece(x, dim_of(0), self.pp, self.pp_index)
+        if "tp" in piece:
+            d, perm = piece["tp"]
+            if dim_of(d) is not None:
+                x = local_piece(x, dim_of(d), self.tp, self.tp_group.index,
+                                perm)
+        return x
 
     def opt_params(self, params: Dict[str, torch.Tensor]):
         """What the optimizer updates: the shards of sharded parameters,
-        the parameters themselves otherwise."""
+        the parameters (this rank's pieces) otherwise."""
         return {k: self.shards.get(k, p) for k, p in params.items()}
 
     # -- fsdp gather / free ----------------------------------------------
@@ -200,8 +294,7 @@ class MeshSync:
 
     def chunk(self, name: str, full: torch.Tensor) -> torch.Tensor:
         dim = self.sharded[name][0]
-        return torch.chunk(full, self.fsdp, dim=dim)[
-            self.fsdp_index].contiguous()
+        return local_piece(full, dim, self.fsdp, self.fsdp_index)
 
     def refresh_shards(self) -> None:
         """Shards from the (unsharded) parameters: after a load wrote
@@ -210,17 +303,47 @@ class MeshSync:
             for k in self.shards:
                 self.shards[k].copy_(self.chunk(k, self._params[k].detach()))
 
+    # -- the batch ----------------------------------------------------------
+    def pp_rows(self, tree, dim: int = 0):
+        """This pp rank's rows of the pipeline's output, for labels:
+        piece ``pp index`` of the ``dim`` rows (a whole microbatch each
+        when the microbatches divide by pp)."""
+        if self.pp <= 1:
+            return tree
+        from ..io import _tree_map
+
+        def take(x):
+            shape = getattr(x, "shape", ())
+            if len(shape) <= dim:
+                return x
+            if shape[dim] % self.pp:
+                raise ValueError(
+                    f"{shape[dim]} rows do not split over pp={self.pp}: "
+                    f"the pipeline's output lands on the pp ranks in "
+                    f"equal row blocks")
+            b = shape[dim] // self.pp
+            sl = [slice(None)] * dim + [slice(self.pp_index * b,
+                                              (self.pp_index + 1) * b)]
+            return x[tuple(sl)]
+        return _tree_map(take, tree)
+
     # -- the step ---------------------------------------------------------
     def loss_weight(self, loss_fn, labels) -> Optional[torch.Tensor]:
         """This rank's count over the global count, where the loss names
         its count; None (an even average) otherwise."""
         counter = getattr(loss_fn, "count", None)
-        if not self.active or counter is None:
+        if self.rows_group is None or counter is None:
             return None
         c = torch.as_tensor(counter(*labels)).to(torch.float32).reshape(())
         total = c.clone()
-        _coll.all_reduce_(total, self.data_group)
+        _coll.all_reduce_(total, self.rows_group)
         return c / total
+
+    def _reduce_axes(self, name: str) -> Tuple[str, ...]:
+        """The axes over which a (non-fsdp) gradient is summed: the data
+        axes, and pp unless it is a pipeline stage."""
+        pp = () if "pp" in self.pieces.get(name, ()) else ("pp",)
+        return _axes(*self.mesh.data_axes, *pp)
 
     def reduce(self, grads: Dict[str, torch.Tensor], loss: torch.Tensor,
                weighted: bool):
@@ -231,46 +354,59 @@ class MeshSync:
             return grads, loss
         t0 = time.perf_counter()
         out = dict(grads)
-        rep = [k for k in grads if k not in self.sharded]
-        # replicated: one flat all-reduce a dtype over every data rank,
-        # the loss in the float32 bucket
-        by_dt: Dict[torch.dtype, List[str]] = {}
-        for k in rep:
-            by_dt.setdefault(grads[k].dtype, []).append(k)
-        by_dt.setdefault(torch.float32, [])
-        loss_out = None
-        for dt, names in by_dt.items():
+        # one flat all-reduce a (group, dtype), the loss in the float32
+        # bucket of the rows group
+        buckets: Dict[Tuple, List[str]] = {}
+        for k in grads:
+            if k not in self.sharded:
+                key = (self._reduce_axes(k), str(grads[k].dtype))
+                buckets.setdefault(key, []).append(k)
+        buckets.setdefault((self.rows_axes, str(torch.float32)), [])
+        loss_out = loss
+        for (axes, dt), names in sorted(buckets.items()):
+            group = self.group(axes)
             parts = [grads[k] for k in names]
-            if dt == torch.float32:
+            with_loss = axes == self.rows_axes and dt == str(torch.float32)
+            if with_loss:
                 parts = parts + [loss.detach().reshape(1)]
+            if not parts or (group is None and weighted):
+                continue
             flat = _flat(parts)
-            _coll.all_reduce_(flat, self.data_group)
+            if group is not None:
+                _coll.all_reduce_(flat, group)
             if not weighted:
-                flat.div_(self.n)
+                flat.div_(self.rows)
             vals = _unflat(flat, parts)
             for k, v in zip(names, vals):
                 out[k] = v
-            if dt == torch.float32:
+            if with_loss:
                 loss_out = vals[-1].reshape(())
-        # sharded: reduce-scatter over fsdp, then all-reduce over dp
+        # sharded: reduce-scatter over fsdp, then all-reduce over the
+        # other axes that replicate the shard
         if self.sharded:
             sh = [k for k in grads if k in self.sharded]
             for names in self._group_by_dtype(sh).values():
-                rows = []
+                by_rest: Dict[Tuple[str, ...], List[str]] = {}
                 for k in names:
-                    pieces = torch.chunk(grads[k], self.fsdp,
-                                         dim=self.sharded[k][0])
-                    rows.append(torch.stack([p.contiguous().reshape(-1)
-                                             for p in pieces]))
-                inp = torch.cat(rows, dim=1).reshape(-1)
-                res = self._scatter_flat(inp)
-                if self.dp_group is not None:
-                    _coll.all_reduce_(res, self.dp_group)
-                if not weighted:
-                    res.div_(self.n)
-                for k, v in zip(names, _unflat(
-                        res, [self.shards[k] for k in names])):
-                    out[k] = v
+                    rest = tuple(a for a in self._reduce_axes(k)
+                                 if a != "fsdp")
+                    by_rest.setdefault(rest, []).append(k)
+                for rest, ks in sorted(by_rest.items()):
+                    rows = []
+                    for k in ks:
+                        pieces = torch.chunk(grads[k], self.fsdp,
+                                             dim=self.sharded[k][0])
+                        rows.append(torch.stack(
+                            [p.contiguous().reshape(-1) for p in pieces]))
+                    inp = torch.cat(rows, dim=1).reshape(-1)
+                    res = self._scatter_flat(inp)
+                    if self.group(rest) is not None:
+                        _coll.all_reduce_(res, self.group(rest))
+                    if not weighted:
+                        res.div_(self.rows)
+                    for k, v in zip(ks, _unflat(
+                            res, [self.shards[k] for k in ks])):
+                        out[k] = v
         self.reduce_seconds += time.perf_counter() - t0
         return out, loss_out
 
@@ -285,32 +421,53 @@ class MeshSync:
     def global_loss(self, loss: torch.Tensor,
                     weight: Optional[torch.Tensor]) -> torch.Tensor:
         """The global mean of an evaluation loss (no gradient)."""
-        if not self.active:
+        if self.rows_group is None:
             return loss
         x = (loss.detach().float() * weight if weight is not None
              else loss.detach().float()).reshape(1).clone()
-        _coll.all_reduce_(x, self.data_group)
+        _coll.all_reduce_(x, self.rows_group)
         if weight is None:
-            x.div_(self.n)
+            x.div_(self.rows)
         return x.reshape(())
 
-    def gather_rows(self, x):
+    def gather_rows(self, x, split: bool = True):
         """The global batch's rows of a per-row output (metric outputs,
-        predictions), in rank order."""
-        if not self.active or not isinstance(x, torch.Tensor) \
+        predictions), in rank order: the pp ranks' rows of their data
+        rank's, then (when the data ranks ``split`` the batch) the data
+        ranks'."""
+        if self.rows_group is None or not isinstance(x, torch.Tensor) \
                 or x.dim() == 0:
             return x
-        return torch.cat(_coll.all_gather_list(x, self.data_group), dim=0)
+        for g in (self.pp_group, self.data_group if split else None):
+            if g is not None:
+                x = torch.cat(_coll.all_gather_list(x, g), dim=0)
+        return x
 
     def norm_context(self):
-        """Global norms and finiteness over the fsdp shards."""
-        if not self.sharded:
+        """Norms and finiteness over the pieces: each sharded name with
+        the axes and group of its other pieces and its split dims."""
+        spec = {}
+        for k in set(self.sharded) | set(self.pieces):
+            piece = self.pieces.get(k, {})
+            axes, dims = [], {}
+            if k in self.sharded:
+                axes.append("fsdp")
+                dims[self.sharded[k][0]] = self.fsdp
+            if "pp" in piece:
+                axes.append("pp")
+                dims[0] = self.pp
+            if "tp" in piece:
+                axes.append("tp")
+                dims[piece["tp"][0]] = self.tp
+            axes = _axes(*axes)
+            spec[k] = (axes, self.group(axes), dims)
+        if not spec:
             return contextlib.nullcontext()
-        return _clip.sharded_norms(set(self.sharded), self.fsdp_group)
+        return _clip.sharded_norms(spec, self.world)
 
     def rows_context(self, split: bool):
         from ..core import rng
-        if not (self.active and split):
+        if not (self.n > 1 and split):
             return contextlib.nullcontext()
         return rng.batch_rows(self.data_index, self.n)
 
@@ -320,57 +477,130 @@ class MeshSync:
             dist.all_reduce(x, group=self._host_group())
 
     def _host_group(self):
-        """A gloo group over the data ranks for host barriers (the data
-        group itself where it is gloo)."""
-        if dist.get_backend(self.data_group) == "gloo":
-            return self.data_group
+        """A gloo group over every rank of the mesh for host barriers
+        (the mesh's own group where it is gloo)."""
+        if dist.get_backend(self.world) == "gloo":
+            return self.world
         if not hasattr(self, "_gloo"):
             self._gloo = dist.new_group(
-                dist.get_process_group_ranks(self.data_group),
-                backend="gloo")
+                dist.get_process_group_ranks(self.world), backend="gloo")
         return self._gloo
 
     # -- checkpoint trees -------------------------------------------------
-    def _map_sharded(self, tree, fn):
-        """``fn(name, leaf)`` on every tensor leaf held under a sharded
-        parameter's name (parameters and their optimizer state)."""
+    def _leaf_dim(self, path, name: str, leaf, dim: int) -> Optional[int]:
+        """The dim of a state leaf under ``name`` that the parameter's
+        split ``dim`` maps to: the same dim for a leaf of the parameter's
+        rank; Adafactor's factored statistics drop a dim (``vr`` the
+        last, ``vc`` the one before), so a split of the dropped dim
+        leaves them whole; None where the leaf is not split."""
+        nd = len(self.full_shapes.get(name, self._params[name].shape
+                                      if name in self._params else ()))
+        if leaf.dim() == nd and leaf.numel():
+            return dim
+        if leaf.dim() == nd - 1 and leaf.numel():
+            if "vr" in path:
+                return dim if dim < nd - 1 else None
+            if "vc" in path:
+                return dim if dim < nd - 2 else (
+                    nd - 2 if dim == nd - 1 else None)
+        return None
+
+    def _map_split(self, tree, fn, path=()):
+        """``fn(path, name, leaf)`` on every tensor leaf held under a
+        split parameter's name (parameters and their optimizer state)."""
+        names = set(self.sharded) | set(self.pieces)
         if isinstance(tree, dict):
-            return {k: (fn(k, v) if k in self.sharded
-                        and isinstance(v, torch.Tensor)
-                        else self._map_sharded(v, fn))
+            return {k: (fn(path, k, v) if k in names
+                        and hasattr(v, "shape")
+                        else self._map_split(v, fn, path + (k,)))
                     for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
-            return type(tree)(self._map_sharded(v, fn) for v in tree)
+            return type(tree)(self._map_split(v, fn, path) for v in tree)
         return tree
 
-    def full_tree(self, tree):
-        """The unsharded training state: every shard gathered (a
-        collective on every rank), as ``DTensor.full_tensor()`` does."""
-        if not self.sharded:
+    def full_tree(self, tree, fsdp: bool = True):
+        """The whole training state in the JAX package's layouts: every
+        fsdp shard (unless ``fsdp`` is False: the tree already holds full
+        fsdp tensors), tp slice and pp stage gathered (collectives on
+        every rank), as ``DTensor.full_tensor()`` does."""
+        if not (self.sharded and fsdp) and not self.pieces:
             return tree
         items: List[Tuple[int, torch.Tensor]] = []
 
         class _Slot:
-            def __init__(self, i):
-                self.i = i
+            def __init__(self, i, path, name, leaf):
+                self.i, self.path, self.name, self.leaf = i, path, name, leaf
 
-        def collect(name, v):
-            items.append((self.sharded[name][0], v))
-            return _Slot(len(items) - 1)
-        keyed = self._map_sharded(tree, collect)
-        fulls = self._gather_many(items)
+        def collect(path, name, v):
+            if fsdp and name in self.sharded:
+                d = self._leaf_dim(path, name, v, self.sharded[name][0])
+                if d is not None:
+                    items.append((d, v))
+                    return _Slot(len(items) - 1, path, name, v)
+            return _Slot(None, path, name, v)
+        keyed = self._map_split(tree, collect)
+        fulls = self._gather_many(items) if items else []
 
         def put(t):
             if isinstance(t, dict):
                 return {k: put(v) for k, v in t.items()}
             if isinstance(t, (list, tuple)):
                 return type(t)(put(v) for v in t)
-            return fulls[t.i] if isinstance(t, _Slot) else t
+            if not isinstance(t, _Slot):
+                return t
+            x = fulls[t.i] if t.i is not None else t.leaf
+            return self._join(t.path, t.name, x)
         return put(keyed)
 
-    def local_tree(self, tree):
-        """This rank's shards of a restored unsharded tree."""
-        if not self.sharded:
+    def _join(self, path, name, x):
+        """A leaf's tp slices and pp stages gathered."""
+        piece = self.pieces.get(name)
+        if not piece:
+            return x
+        if "tp" in piece:
+            d, perm = piece["tp"]
+            ld = self._leaf_dim(path, name, x, d)
+            if ld is not None:
+                x = full_from_pieces(_coll.all_gather_list(
+                    x, self.tp_group.group), ld, perm)
+        if "pp" in piece and self._leaf_dim(path, name, x, 0) is not None:
+            x = torch.cat(_coll.all_gather_list(x, self.pp_group), dim=0)
+        return x
+
+    def local_tree(self, tree, fsdp: bool = True):
+        """This rank's pieces of a restored whole tree (its pp stages and
+        tp slices, and, unless ``fsdp`` is False, its fsdp shards)."""
+        if not (self.sharded and fsdp) and not self.pieces:
             return tree
-        return self._map_sharded(
-            tree, lambda k, v: self.chunk(k, torch.as_tensor(v)))
+
+        def cut(path, name, v):
+            v = torch.as_tensor(v)
+            if name in self.pieces:
+                v = self._local(name, v, lambda d: self._leaf_dim(
+                    path, name, v, d))
+            if fsdp and name in self.sharded:
+                d = self._leaf_dim(path, name, v, self.sharded[name][0])
+                if d is not None:
+                    v = local_piece(v, d, self.fsdp, self.fsdp_index)
+            return v
+        return self._map_split(tree, cut)
+
+
+def _check_tp_owner(network, name: str) -> None:
+    """A tp-split parameter needs the layer that owns it to compute on
+    slices (a ``tp_params`` entry, and ``attach_tp``): a plain layer
+    would compute on a slice as if it were the whole tensor."""
+    parts = name.split(".")
+    for i in range(len(parts) - 1, -1, -1):
+        mod = network.get_submodule(".".join(parts[:i])) if i else network
+        rest = ".".join(parts[i:])
+        inner = getattr(mod, "tp_inner", None)
+        if inner is not None:      # a pipeline's stacked stage parameter
+            mod, rest = inner(rest)
+            return _check_tp_owner(mod, rest)
+        if rest in getattr(mod, "tp_params", ()):
+            return
+    raise NotImplementedError(
+        f"{name} is split over tp by the rules, but the layer that owns it "
+        f"does not compute on tp slices (tp_params / attach_tp: the GPT "
+        f"family's attention, MLP, embeddings and head)")

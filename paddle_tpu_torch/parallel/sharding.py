@@ -16,9 +16,18 @@ the port gives each rank its piece: :func:`shard_spec` is the
 ``torch.distributed.tensor`` placements of a parameter on the mesh,
 :func:`shard_params` the ``DTensor`` of this rank's shard (sliced from
 the full value every rank holds, no communication), :func:`shard_batch`
-this rank's rows of the global batch. Only ``dp`` and ``fsdp`` run in
-this slice; ``tp``, ``pp``, ``sp`` and ``ep`` resolve like the JAX
-package's but raise where they would execute (ROADMAP A6.4, A6.5).
+this rank's rows of the global batch. ``dp``, ``fsdp``, ``tp`` and
+``pp`` run: a Model on the mesh holds its tp slices and pp stages as
+plain tensors (:func:`param_layout`, :func:`local_piece`,
+:func:`full_from_pieces`); ``sp`` and ``ep`` resolve like the JAX
+package's but raise where they would execute (ROADMAP A6.5, A7.1).
+
+Tensor parallelism and the fused qkv weight: the JAX GPT declares it as
+one ``heads`` dim of width ``h + 2 * kv * hd``, which GSPMD splits
+contiguously. A port rank computes its own heads, so it needs their q,
+k and v columns: a layer names a permutation of such a dim
+(``tp_permutation``), the columns are permuted into head-aligned slices
+before the split, and permuted back when the slices are gathered.
 """
 
 from __future__ import annotations
@@ -46,9 +55,10 @@ DEFAULT_RULES: Tuple[Tuple[str, str], ...] = (
     ("seq", "sp"),
 )
 
-# live mesh axes whose execution waits for its ROADMAP item (dp and fsdp
-# run)
-NOT_PORTED = {"tp": "A6.4", "pp": "A6.4", "ep": "A6.4", "sp": "A6.5"}
+# live mesh axes whose execution waits for its ROADMAP item (dp, fsdp,
+# tp and pp run)
+NOT_PORTED = {"sp": "A6.5 (ring attention)",
+              "ep": "A7.1 (the MoE layers)"}
 
 
 def check_runnable(mesh: DeviceMesh) -> None:
@@ -57,7 +67,7 @@ def check_runnable(mesh: DeviceMesh) -> None:
         if mesh.has_axis(axis):
             raise NotImplementedError(
                 f"a live {axis!r} mesh axis is not ported yet (ROADMAP "
-                f"{item}); the port runs dp and fsdp")
+                f"{item}); the port runs dp, fsdp, tp and pp")
 
 
 class LogicalRules:
@@ -215,9 +225,10 @@ def replicate(tree, mesh: Optional[DeviceMesh] = None):
 def with_logical_constraint(x, logical: Tuple[Optional[str], ...],
                             mesh: Optional[DeviceMesh] = None,
                             rules: Optional[LogicalRules] = None):
-    """In-graph activation sharding hint (the ``shard_op`` analog). A
-    no-op unless a ``tp`` or ``sp`` axis is live, whose activation
-    layouts are not ported yet."""
+    """In-graph activation sharding hint (the ``shard_op`` analog): an
+    identity, since a port rank's activations already have the layout
+    its layers compute (tp-replicated between blocks). A live ``sp``
+    axis raises: its activation layout is not ported yet."""
     mesh = mesh or get_mesh(required=False)
     if mesh is None:
         return x
@@ -225,6 +236,56 @@ def with_logical_constraint(x, logical: Tuple[Optional[str], ...],
     spec = rules.mesh_axes(logical, tuple(x.shape), mesh)
     live = {a for e in spec for a in ((e,) if isinstance(e, str)
                                       else (e or ()))}
-    if live & {"tp", "sp"}:
+    if "sp" in live:
         check_runnable(mesh)
+    return x
+
+
+# -- a rank's pieces of a parameter (tp slices, pp stages, fsdp shards) ------
+
+def param_layout(name: str, shape, meta, mesh: DeviceMesh,
+                 rules: Optional[LogicalRules] = None) -> Dict[str, int]:
+    """``{mesh axis: dim}`` of the live axes that split parameter
+    ``name`` (of full ``shape``) under the rules."""
+    spec = (rules or LogicalRules()).mesh_axes(
+        getattr(meta.get(name), "axes", None), tuple(shape), mesh)
+    out = {}
+    for dim, e in enumerate(spec):
+        for a in ((e,) if isinstance(e, str) else (e or ())):
+            out[a] = dim
+    return out
+
+
+def tp_permutation(network, name: str, tp: int):
+    """The permutation (a LongTensor over the split dim) that makes the
+    tp slices of parameter ``name`` head-aligned, from the innermost
+    layer on its path that names one (``Layer.tp_permutation``); None
+    for a plain contiguous split."""
+    parts = name.split(".")
+    for i in range(len(parts) - 1, -1, -1):
+        mod = network.get_submodule(".".join(parts[:i])) if i else network
+        fn = getattr(mod, "tp_permutation", None)
+        if fn is not None:
+            perm = fn(".".join(parts[i:]), tp)
+            if perm is not None:
+                return perm
+    return None
+
+
+def local_piece(x: torch.Tensor, dim: int, count: int, index: int,
+                perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Piece ``index`` of ``count`` equal pieces of ``x`` along ``dim``
+    (after permuting ``dim`` by ``perm``)."""
+    if perm is not None:
+        x = x.index_select(dim, perm.to(x.device))
+    return torch.chunk(x, count, dim=dim)[index].contiguous()
+
+
+def full_from_pieces(pieces, dim: int,
+                     perm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The tensor :func:`local_piece` split: the pieces concatenated
+    along ``dim`` and the permutation undone."""
+    x = torch.cat(list(pieces), dim=dim)
+    if perm is not None:
+        x = x.index_select(dim, torch.argsort(perm).to(x.device))
     return x

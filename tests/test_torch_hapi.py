@@ -481,18 +481,24 @@ def test_summary_counts_match_jax(capsys):
 
 def test_entry_points_raise_what_is_not_there(tmp_path):
     """No card: a network or a device DataLoader with no ``device``
-    raises; what is still not ported raises naming its ROADMAP item (the
-    auto-parallel planner, A6.4). The multi-node launcher, fit's
-    checkpointing, the fused loop and the numeric guard, each once
-    raising too, now run."""
+    raises; what is still not ported raises naming its ROADMAP item (a
+    live sp axis, A6.5). The multi-node launcher, fit's checkpointing,
+    the fused loop, the numeric guard and the auto-parallel planner,
+    each once raising too, now run."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tgpt.GPTForCausalLM(_tiny(tgpt))
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tpt.io.DataLoader(tpt.io.TensorDataset([np.zeros((2, 2))]))
     from paddle_tpu_torch import parallel as tpar
-    with pytest.raises(NotImplementedError, match="ROADMAP A6.4"):
-        tpar.distributed_model(tpt.Model(_TNet()), global_batch=8)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6.5"):
+        tpar.distributed_model(tpt.Model(_TNet()),
+                               mesh=tpar.DeviceMesh(devices=2, sp=2))
+    try:
+        planned = tpar.distributed_model(tpt.Model(_TNet()), global_batch=8)
+        assert planned._plan.axes == {"dp": 1, "fsdp": 1, "tp": 1}
+    finally:
+        tpar.set_mesh(None)
     m = tpt.Model(_TNet())
     m.prepare(tpt.optimizer.SGD(0.1, parameters=m.network), _tce)
     (x, y), _ = _cls_data()

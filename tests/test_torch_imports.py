@@ -102,6 +102,9 @@ def test_scan_covers_the_package():
                  "paddle_tpu_torch/parallel/mesh.py",
                  "paddle_tpu_torch/parallel/reducer.py",
                  "paddle_tpu_torch/parallel/sharding.py",
+                 "paddle_tpu_torch/parallel/pipeline.py",
+                 "paddle_tpu_torch/parallel/planner.py",
+                 "paddle_tpu_torch/parallel/localsgd.py",
                  "paddle_tpu_torch/parallel/strategy.py",
                  "paddle_tpu_torch/distributed/comm.py",
                  "paddle_tpu_torch/distributed/fleet.py",
@@ -113,8 +116,9 @@ def test_scan_covers_the_package():
 
 def test_parallel_and_distributed_export_their_names():
     """The names of the JAX package's ``parallel`` and ``distributed``
-    namespaces that this slice ports (less the planner, pipeline, local
-    SGD and the datasets, which wait for ROADMAP A6.3 / A6.4)."""
+    namespaces that the port has (less ``pipeline_spmd``, the JAX
+    package's scan primitive, and the datasets, which wait for ROADMAP
+    A6.3)."""
     import paddle_tpu_torch.distributed as d
     import paddle_tpu_torch.parallel as p
     for name in ("AXIS_ORDER", "DeviceMesh", "get_mesh", "init_mesh",
@@ -128,7 +132,11 @@ def test_parallel_and_distributed_export_their_names():
                  "all_gather", "all_reduce", "barrier", "broadcast",
                  "distributed_model", "get_rank", "get_world_size",
                  "init_parallel_env", "GradientMerge",
-                 "RecomputeSequential", "recompute", "collective"):
+                 "RecomputeSequential", "recompute", "collective",
+                 "LayerDesc", "PipelineLayer", "PipelineParallel",
+                 "SharedLayerDesc", "ChipSpec", "Plan", "evaluate", "plan",
+                 "build_local_sgd_step", "replicate_params",
+                 "unreplicate_params", "planner"):
         assert hasattr(p, name), name
     for name in ("psum", "pmean", "pmax", "pmin", "all_gather",
                  "reduce_scatter", "all_to_all", "ppermute", "shift",

@@ -180,23 +180,28 @@ def test_shard_batch_rows_and_partial_replication():
 
 
 def test_with_logical_constraint_is_identity_without_tp():
-    m = tpar.DeviceMesh(devices=2, dp=2)
+    """An identity wherever the port runs the layout (dp, tp: a rank's
+    activations already have it); a live sp axis raises, naming its
+    ROADMAP item."""
     x = torch.randn(4, 8)
-    assert tpar.with_logical_constraint(x, ("batch", "embed"), m) is x
-    with pytest.raises(NotImplementedError, match="A6.4"):
-        tpar.with_logical_constraint(torch.randn(4, 8), (None, "mlp"),
-                                     tpar.DeviceMesh(devices=2, tp=2))
+    for m in (tpar.DeviceMesh(devices=2, dp=2),
+              tpar.DeviceMesh(devices=2, tp=2)):
+        assert tpar.with_logical_constraint(x, ("batch", "mlp"), m) is x
+    with pytest.raises(NotImplementedError, match="A6.5"):
+        tpar.with_logical_constraint(torch.randn(4, 8), (None, "seq"),
+                                     tpar.DeviceMesh(devices=2, sp=2))
 
 
-def test_distributed_model_raises_for_planner_and_tp():
+@pytest.mark.parametrize("axis, item", [("sp", "A6.5"), ("ep", "A7.1")])
+def test_sp_and_ep_still_raise_naming_their_items(axis, item):
+    """tp and pp run (tests/test_torch_tensor_parallel.py,
+    test_torch_pipeline.py, test_torch_planner.py); a live sp or ep axis
+    raises at distributed_model, naming the ROADMAP item it waits for."""
     from paddle_tpu_torch.hapi.model import Model
     from paddle_tpu_torch.nn import Linear
-    model = Model(Linear(4, 4))
-    with pytest.raises(NotImplementedError, match="A6.4"):
-        tpar.distributed_model(model, global_batch=8)
-    with pytest.raises(NotImplementedError, match="'tp'"):
-        tpar.distributed_model(model,
-                               mesh=tpar.DeviceMesh(devices=2, tp=2))
+    with pytest.raises(NotImplementedError, match=f"'{axis}'.*{item}"):
+        tpar.distributed_model(Model(Linear(4, 4)),
+                               mesh=tpar.DeviceMesh(devices=2, **{axis: 2}))
 
 
 # ---------------------------------------------------------------------------

@@ -21,18 +21,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 
 
-def start_ranks(fn: str, world: int, tmp_path, args=None):
-    """Start ``fn(rank, world, dir, args)`` of this module on ``world``
-    gloo CPU ranks; :func:`collect` waits for them."""
+def start_ranks(fn: str, world: int, tmp_path, args=None, script=None):
+    """Start ``fn(rank, world, dir, args)`` of this module (or of the
+    worker file ``script``, whose ``__main__`` calls :func:`main` with its
+    globals) on ``world`` gloo CPU ranks; :func:`collect` waits for
+    them."""
     d = str(tmp_path)
     os.makedirs(d, exist_ok=True)
     with open(os.path.join(d, f"{fn}.args.json"), "w") as f:
         json.dump(args or {}, f)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, HERE]),
                OMP_NUM_THREADS="1")
+    script = os.path.abspath(script or __file__)
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), fn, str(r), str(world),
-         d], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        [sys.executable, script, fn, str(r), str(world), d], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in range(world)]
     return fn, world, d, procs
 
@@ -499,11 +502,11 @@ def _data_parallel(mesh):
                        for k, p in net.named_parameters()}}
 
 
-def main(fn, rank, world, d):
+def main(fn, rank, world, d, namespace=None):
     with open(os.path.join(d, f"{fn}.args.json")) as f:
         args = json.load(f)
     try:
-        res = globals()[fn](rank, world, d, args)
+        res = (namespace or globals())[fn](rank, world, d, args)
     except BaseException:
         traceback.print_exc()
         sys.exit(1)

@@ -157,7 +157,22 @@ the result line:
    ``Model.save`` of the tp=2 and pp=2 meshes reloaded here into one
    process giving the gathered digest; each mesh's step wall over one
    process's and the tp all-reduce seconds a step;
-14. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
+14. sequence_parallel: the train cell with ``sequence_parallel=True``
+   on sp meshes of ranks of this script (``--dist-rank sp2`` / ``sp4``)
+   sharing the card over gloo: sp=2 (3 steps) and sp=2 x dp=2 (2
+   steps), each rank's losses equal and within ``TRAIN_LOSS_RTOL`` of
+   the distributed phase's one process, the gathered digests equal,
+   B1, B2 and B3 launched exactly 12 x (r + 1) times a step on sp rank
+   r (it computes r + 1 ring blocks a layer), the sp=2 save reloaded
+   here with the same digest; the ring op alone at the train shape
+   against flash attention over the whole sequence (o, dq, dk, dv
+   within the bound of ``SP_BLOCK_ROUND``, two launches bit-identical),
+   one ring fwd + bwd's peak bytes at 4096 and 8192 tokens (ratio at
+   most 2.6), and a step with attention dropout 0.1 over a padded tail
+   (finite, equal on the ranks, another loss than the unmasked
+   step's); each mesh's step wall over one process's and the ring's
+   exchange seconds a step;
+15. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
    ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -2022,6 +2037,87 @@ def _sdpa_calls(q, k, v, do, causal):
     return fwd, bwd
 
 
+def _ring_merged_cases(fa, g) -> list:
+    """B1-B3 as sp rank 1 of the sequence_parallel phase's ring runs them
+    (gpt2 bf16, s 1024 at sp=2: 512 queries, two key blocks of 512): B1
+    on the diagonal block (causal) and the earlier block (not), the
+    blocks merged in f32 as ``ops.ring_attention._merge`` merges them,
+    then B2 and B3 on each block with the merged o and lse, the diagonal
+    block's B2 writing the shared delta and the earlier block's B2
+    reading it (``delta_ready``). Each launch is held against its plain
+    twin on the same inputs (the merged o against the twins' blocks
+    merged alike, the merged lse against the twin's over the whole key
+    range: the same natural-log base), and the earlier block's B2 / B3
+    are launched twice
+    on the same inputs, which must give the same bits."""
+    from paddle_tpu_torch.ops.ring_attention import _merge
+    b, sq, h, d, dt = 8, 512, 12, 64, torch.bfloat16
+    scale = 1.0 / math.sqrt(d)
+    q, do = (torch.randn(b, sq, h, d, generator=g, device="cuda").to(dt)
+             for _ in range(2))
+    k, v = (torch.randn(b, 2 * sq, h, d, generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    blocks = {"earlier": (k[:, :sq], v[:, :sq], False),
+              "diagonal": (k[:, sq:], v[:, sq:], True)}
+    def merged(fwd):
+        (o0, l0), (o1, l1) = (fwd(q, kb, vb, scale, c)
+                              for kb, vb, c in blocks.values())
+        o, lse = _merge(o0.float(), l0, o1.float(), l1)
+        return o.to(dt), lse.contiguous()
+    o, lse = merged(fa.flash_attention_fwd_kernel)
+    want_o = merged(fa.flash_attention_fwd_torch)[0]
+    want_lse = fa.flash_attention_fwd_torch(q, k, v, scale, True)[1]
+
+    def err(got, want):
+        rtol, atol = FLASH_TOL[got.dtype]
+        e = (got.float() - want.float()).abs()
+        return e.max().item(), \
+            (e / (atol + rtol * want.float().abs())).max().item()
+
+    def case(kernel, name, errs, same=True):
+        c = {"phase": "kernel_case", "kernel": kernel, "case": name,
+             "b": b, "sq": sq, "sk": sq, "hq": h, "hkv": h, "head_dim": d,
+             "dtype": str(dt), "route": fa.kernel_route(d, dt),
+             "max_abs_err": max(e for e, _ in errs),
+             "rtol_atol": FLASH_TOL[dt],
+             "lse_rtol_atol": FLASH_TOL[torch.float32],
+             "err_over_limit": [r for _, r in errs], "deterministic": same,
+             "ok": all(math.isfinite(r) and r <= 1.0 for _, r in errs)
+             and same}
+        emit(c)
+        return c
+    out = [case("flash_attention_fwd", "sp ring merged o/lse of two blocks "
+                "bf16", [err(o, want_o), err(lse, want_lse)])]
+    delta = torch.empty_like(lse)
+    ready = False
+    for name in ("diagonal", "earlier"):   # the ring's order on rank 1
+        kb, vb, c = blocks[name]
+        dq = fa.flash_attention_bwd_dq_kernel(q, kb, vb, o, lse, do, scale,
+                                              c, delta=delta,
+                                              delta_ready=ready)
+        dk, dv = fa.flash_attention_bwd_dkv_kernel(q, kb, vb, o, lse, do,
+                                                   scale, c, delta=delta)
+        same_dq = same_dkv = True
+        if ready:
+            dq2 = fa.flash_attention_bwd_dq_kernel(
+                q, kb, vb, o, lse, do, scale, c, delta=delta,
+                delta_ready=True)
+            dk2, dv2 = fa.flash_attention_bwd_dkv_kernel(
+                q, kb, vb, o, lse, do, scale, c, delta=delta)
+            same_dq = torch.equal(dq, dq2)
+            same_dkv = torch.equal(dk, dk2) and torch.equal(dv, dv2)
+        ready = True
+        want = fa.flash_attention_bwd_torch(q, kb, vb, o, lse, do, scale, c)
+        label = (f"sp ring {name} block on the merged o/lse bf16, delta "
+                 + ("read" if name == "earlier" else "written"))
+        out.append(case("flash_attention_bwd_dq", label,
+                        [err(dq, want[0])], same_dq))
+        out.append(case("flash_attention_bwd_dkv", label,
+                        [err(dk, want[1]), err(dv, want[2])], same_dkv))
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_flash_kernels() -> dict:
     from paddle_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -2043,6 +2139,11 @@ def phase_flash_kernels() -> dict:
         # lengths that end in a partial 64-row tile
         ("s97 gqa bf16", 8, 97, 97, 12, 4, 64, torch.bfloat16),
         ("q200 k136 f32", 8, 200, 136, 12, 12, 64, torch.float32, False),
+        # the sequence_parallel phase's ring blocks at sp=2: an earlier
+        # block (not causal) and the diagonal block (causal)
+        ("sp ring block bf16", 8, 512, 512, 12, 12, 64, torch.bfloat16,
+         False),
+        ("sp ring diagonal bf16", 8, 512, 512, 12, 12, 64, torch.bfloat16),
     ]
     cases, heads = [], {}
     for name, b, sq, sk, hq, hkv, d, dt, *causal in shapes:
@@ -2135,6 +2236,7 @@ def phase_flash_kernels() -> dict:
         del q, k, v, do, o, lse, want_o, want_lse, dq, dk, dv
         del want_dq, want_dk, want_dv, lib_fwd, lib_bwd
         torch.cuda.empty_cache()
+    cases += _ring_merged_cases(fa, g)
     bad = [(c["kernel"], c["case"], c["max_abs_err"], c["deterministic"])
            for c in cases if not c["ok"]]
     if bad:
@@ -3911,6 +4013,8 @@ def dist_rank(scenario: str, outdir: str, t_launch: float) -> None:
         _dist_fit(outdir, rank, res, t_launch)
     elif scenario in ("mp2", "mp4"):
         _mp_rank(scenario, outdir, rank, res, t_launch)
+    elif scenario in ("sp2", "sp4"):
+        _sp_rank(scenario, outdir, rank, res, t_launch)
     else:
         net = _dist_net()
         init = {k: v.detach().clone() for k, v in net.state_dict().items()}
@@ -4485,6 +4589,268 @@ def phase_model_parallel(info) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# sequence_parallel: ring attention and the sp mesh on torch.distributed
+# ---------------------------------------------------------------------------
+
+SP_STEPS, SP_DP_STEPS = 3, 2
+SP_MEM_SEQS = (4096, 8192)      # one ring fwd + bwd's peak at each length
+SP_MEM_RATIO = 2.6              # the JAX package's test's bound
+SP_PAD_FROM = 960               # the padded tail of the dropout step's rows
+# the ring op on the kernels against flash attention over the whole
+# sequence on the kernels, element by element: the whole is within
+# FLASH_TOL (rtol, atol) of the exact values, and the ring runs the same
+# kernels on each block, then rounds each block's output (and each
+# block's dQ, dK, dV) to bf16 once before the f32 merge: sp roundings
+# of 2^-9 of a block's share, which is at most about the largest
+# magnitude in its row (the head dim of one position and head):
+# |ring - whole| <= atol + rtol |whole| + sp 2^-9 rowmax |whole|
+SP_BLOCK_ROUND = 2 ** -9
+
+
+def _sp_net(dropout=0.0):
+    """The train cell's gpt2-small (``_dist_net``) with
+    ``sequence_parallel=True`` (and attention dropout ``dropout``)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_config
+    cfg = gpt_config("gpt2-small", max_position_embeddings=TRAIN_SEQ,
+                     hidden_dropout=0.0, attention_dropout=dropout,
+                     fused_loss=True, sequence_parallel=True)
+    pt.seed(0)
+    return GPTForCausalLM(cfg, device=f"cuda:{torch.cuda.current_device()}")
+
+
+def _sp_run(label, model, ids, n):
+    """``n`` steps of a Model on its sp mesh (``_mp_run``'s record) with
+    the ring's exchange seconds a step."""
+    from paddle_tpu_torch.ops import ring_attention as ra
+    ra.exchange_seconds = 0.0
+    run = _mp_run(label, model, ids, n)
+    run["exchange_s_per_step"] = ra.exchange_seconds / n
+    return run
+
+
+def _ring_vs_whole(mesh):
+    """The ring op alone at the train shape (bf16, causal) against flash
+    attention of the whole sequence, both on the kernels: the gathered
+    o, dq, dk, dv, their largest error against the stated bound, and two
+    ring launches on the same inputs bit-identical. Reported beside it,
+    not checked: the same ring on the kernels' plain twins (every block
+    the twins, the same merges) against the kernels' ring, under the
+    same bound."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.flash_attention import flash_attention
+    from paddle_tpu_torch.ops.ring_attention import ring_attention
+    from paddle_tpu_torch.parallel import collective as coll
+    sp, r = mesh.axis_size("sp"), mesh.local_rank("sp")
+    g = torch.Generator().manual_seed(0)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, 12, 64)
+    q, k, v, do = (torch.randn(shape, generator=g).to("cuda", torch.bfloat16)
+                   for _ in range(4))
+    n = TRAIN_SEQ // sp
+
+    def ring():
+        xs = [t[:, r * n:(r + 1) * n].clone().requires_grad_()
+              for t in (q, k, v)]
+        o = ring_attention(*xs, causal=True, mesh=mesh)
+        o.backward(do[:, r * n:(r + 1) * n])
+        return [coll.all_gather(t, "sp", gather_dim=1, mesh=mesh)
+                for t in (o.detach(), *(x.grad for x in xs))]
+    first, second = ring(), ring()
+    fa.impl = "plain"
+    try:
+        plain = ring()
+    finally:
+        fa.impl = "kernel"
+    xs = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = flash_attention(*xs, causal=True)
+    o.backward(do)
+    whole = [o.detach(), *(x.grad for x in xs)]
+    rtol, atol = FLASH_TOL[torch.bfloat16]
+    out = {"bit_identical": all(torch.equal(a, b)
+                                for a, b in zip(first, second)),
+           "bound": "atol + rtol |ref| + sp 2^-9 rowmax |ref|",
+           "vs_plain_ring": {}}
+
+    def reading(a, b):
+        a, b = a.float(), b.float()
+        bound = atol + rtol * b.abs() + \
+            sp * SP_BLOCK_ROUND * b.abs().amax(dim=-1, keepdim=True)
+        err = (a - b).abs()
+        return {"max_abs_err": float(err.max()),
+                "max_err_over_bound": float((err / bound).max()),
+                "within": bool((err <= bound).all())}
+    for name, a, b, p in zip(("o", "dq", "dk", "dv"), first, whole, plain):
+        out[name] = reading(a, b)
+        out["vs_plain_ring"][name] = reading(a, p)
+    return out
+
+
+def _ring_peak_bytes(mesh, s):
+    """Bytes the allocator held above the inputs in one ring fwd + bwd
+    at sequence ``s`` (batch 8, 12 heads of 64, bf16, causal)."""
+    from paddle_tpu_torch.ops.ring_attention import ring_attention
+    n = s // mesh.axis_size("sp")
+    g = torch.Generator().manual_seed(1)
+    xs = [torch.randn((TRAIN_BATCH, n, 12, 64), generator=g).to(
+        "cuda", torch.bfloat16).requires_grad_() for _ in range(3)]
+    do = torch.randn((TRAIN_BATCH, n, 12, 64), generator=g).to(
+        "cuda", torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ring_attention(*xs, causal=True, mesh=mesh).backward(do)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _sp_rank(scenario, outdir, rank, res, t_launch):
+    """The sequence_parallel phase's rank body: ``sp2`` (sp=2: 3 steps
+    and a save, the ring op against whole-sequence flash, the memory at
+    two lengths, a step with attention dropout and a padded tail) or
+    ``sp4`` (sp=2 x dp=2, 2 steps)."""
+    from paddle_tpu_torch import parallel
+    ids = _dist_ids(SP_STEPS)
+    res["runs"] = []
+    res["first_step_s"] = time.time() - t_launch
+    if scenario == "sp4":
+        mesh = parallel.DeviceMesh(sp=2, dp=2)
+        model = _train_model(_sp_net())
+        parallel.distributed_model(model, mesh=mesh)
+        res["sp_index"] = mesh.local_rank("sp")
+        res["runs"].append(_sp_run("sp2xdp2", model, ids, SP_DP_STEPS))
+        return
+    mesh = parallel.DeviceMesh(sp=2)
+    res["sp_index"] = mesh.local_rank("sp")
+    model = _train_model(_sp_net())
+    parallel.distributed_model(model, mesh=mesh)
+    run = _sp_run("sp2", model, ids, SP_STEPS)
+    model.save(os.path.join(outdir, "sp2_saved"), training=False)
+    res["runs"].append(run)
+    del model
+    torch.cuda.empty_cache()
+    res["ring_op"] = _ring_vs_whole(mesh)
+    res["peak_bytes"] = {s: _ring_peak_bytes(mesh, s) for s in SP_MEM_SEQS}
+    torch.cuda.empty_cache()
+    # attention dropout 0.1 over a padded tail: the plain ring blocks
+    model = _train_model(_sp_net(dropout=0.1))
+    parallel.distributed_model(model, mesh=mesh)
+    kpm = np.ones((TRAIN_BATCH, TRAIN_SEQ), bool)
+    kpm[:, SP_PAD_FROM:] = False
+    pos = np.broadcast_to(np.arange(TRAIN_SEQ), (TRAIN_BATCH, TRAIN_SEQ))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(model.train_batch([ids[0], pos, kpm], [ids[0]])["loss"])
+    torch.cuda.synchronize()
+    res["dropout_mask"] = {"loss": loss,
+                           "step_s": time.perf_counter() - t0}
+
+
+def phase_sequence_parallel(info) -> dict:
+    """The train cell on sp meshes of ranks of this script (``--dist-rank
+    sp2`` / ``sp4``) sharing the card over gloo, against the distributed
+    phase's one-process run (see the module docstring). Returns the
+    B1-B3 launches the ranks counted."""
+    import shutil
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "sequence_parallel")
+    shutil.rmtree(root, ignore_errors=True)
+    t_phase = time.perf_counter()
+    me = os.path.basename(os.path.abspath(__file__))
+    if not _SINGLE:   # run alone: the one-process reference here
+        model = _train_model(_dist_net())
+        losses, _, walls = _dist_steps(model, _dist_ids(DIST_STEPS),
+                                       DIST_STEPS, digest=False)
+        _SINGLE.update(losses=losses, step_s=walls)
+        del model
+        torch.cuda.empty_cache()
+
+    def job(tag, nproc):
+        outdir = os.path.join(root, tag)
+        os.makedirs(outdir)
+        t0 = time.time()
+        p = _launch(["--nproc_per_node", str(nproc), me, "--dist-rank",
+                     tag, outdir, repr(t0)], os.path.join(outdir, "logs"))
+        _finish([p], tag, os.path.join(outdir, "logs"))
+        return outdir, time.time() - t0
+
+    d2, s2 = job("sp2", 2)
+    d4, s4 = job("sp4", 4)
+    two, four = _read_ranks(d2, 2), _read_ranks(d4, 4)
+
+    # the sp=2 save reloaded into one process (this one)
+    model = _train_model(_dist_net())
+    model.load(os.path.join(d2, "sp2_saved"), reset_optimizer=True)
+    reloaded = _param_digest(model)
+    del model
+    torch.cuda.empty_cache()
+
+    base = _SINGLE["losses"]
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    def mean(xs):   # the steps after the first (which warms up)
+        return sum(xs[1:]) / len(xs[1:]) if len(xs) > 1 else xs[0]
+    checks, report = {}, {}
+    base_step = mean(_SINGLE["step_s"])
+    for label, ranks, n in (("sp2", two, SP_STEPS),
+                            ("sp2xdp2", four, SP_DP_STEPS)):
+        rs = [r["runs"][0] for r in ranks]
+        checks[f"{label}_ranks_equal"] = all(
+            x["losses"] == rs[0]["losses"] and x["digest"] == rs[0]["digest"]
+            for x in rs)
+        checks[f"{label}_within_rtol"] = rel(rs[0]["losses"], base[:n]) \
+            <= TRAIN_LOSS_RTOL
+        checks[f"{label}_launches_exact"] = all(
+            x["launches"].get(k) == 12 * (r["sp_index"] + 1) * n
+            for r, x in zip(ranks, rs)
+            for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                      "flash_attention_bwd_dkv"))
+        report[label] = {
+            "losses": rs[0]["losses"], "step_s": [x["step_s"] for x in rs],
+            "step_over_single": mean(rs[0]["step_s"]) / base_step,
+            "exchange_s_per_step": [x["exchange_s_per_step"] for x in rs],
+            "reduce_s_per_step": [x.get("reduce_s_per_step") for x in rs],
+            "launches_per_rank": [x["launches"] for x in rs],
+            "mesh": rs[0]["mesh"],
+            "max_rel_vs_single": rel(rs[0]["losses"], base[:n])}
+    checks["sp2_save_reload_digest"] = \
+        reloaded == two[0]["runs"][0]["digest"]
+    ring = [r["ring_op"] for r in two]
+    checks["ring_op_within_bound"] = all(
+        x[t]["within"] for x in ring for t in ("o", "dq", "dk", "dv"))
+    checks["ring_op_bit_identical"] = all(x["bit_identical"] for x in ring)
+    ratios = [r["peak_bytes"][str(SP_MEM_SEQS[1])]
+              / r["peak_bytes"][str(SP_MEM_SEQS[0])] for r in two]
+    checks["ring_memory_ratio"] = max(ratios) <= SP_MEM_RATIO
+    drop = [r["dropout_mask"]["loss"] for r in two]
+    checks["dropout_mask_finite_equal"] = all(
+        math.isfinite(x) and x == drop[0] for x in drop)
+    checks["dropout_mask_differs"] = drop[0] != report["sp2"]["losses"][0]
+    out = {"phase": "sequence_parallel", "card": info["nvidia_smi"],
+           "single_losses": base, "single_step_s": _SINGLE["step_s"],
+           **report, "ring_op": ring,
+           "peak_bytes": [r["peak_bytes"] for r in two],
+           "memory_ratio": ratios,
+           "dropout_mask": [r["dropout_mask"] for r in two],
+           "job_s": {"sp2": s2, "sp4": s4},
+           "spawn_to_first_step_s": [r["first_step_s"] for r in two + four],
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    emit({"phase": "sequence_parallel_checks", **checks})
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise SystemExit(f"sequence_parallel phase failed: {bad}")
+    launches = {k: 0 for k in ("flash_attention_fwd",
+                               "flash_attention_bwd_dq",
+                               "flash_attention_bwd_dkv")}
+    for r in two + four:
+        for k, v in r["runs"][0]["launches"].items():
+            launches[k] += v
+    return launches
+
+
 def _summary(name, source, replaces, launches, case):
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4524,7 +4890,8 @@ def main() -> None:
     timed("train_loop", phase_train_loop)
     dist_launches = timed("distributed", phase_distributed, info)
     mp_launches = timed("model_parallel", phase_model_parallel, info)
-    for launches_of in (dist_launches, mp_launches):
+    sp_launches = timed("sequence_parallel", phase_sequence_parallel, info)
+    for launches_of in (dist_launches, mp_launches, sp_launches):
         for k, v in launches_of.items():
             train_launches[k] += v
     emit({"phase": "timing", "seconds": phase_s,

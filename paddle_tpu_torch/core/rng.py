@@ -25,6 +25,9 @@ partitionable threefry does on a sharded batch. Under tensor
 parallelism a rank's attention runs on its slice of the heads;
 :func:`head_slice` marks that, and the attention dropout draws the
 slice of the global ``[batch, heads, q, k]`` mask (:func:`mask_cols`).
+Under sequence parallelism a rank's activations are its slice of the
+sequence (dim 1 of ``[batch, seq, hidden]``); :func:`seq_slice` marks
+that, and a residual dropout draws that slice of the global mask.
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ class _TLS(threading.local):
         self.global_seed = 0
         self.batch_rows = None   # (index, count) of a data-parallel rank
         self.mask_cols = None    # (first, total) of a tensor-parallel rank
+        self.seq_cols = None     # (first, total) of a sequence-parallel rank
 
 
 _tls = _TLS()
@@ -133,12 +137,15 @@ def split_for_step(step: int) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def batch_rows(index: int, count: int) -> Iterator[None]:
+def batch_rows(index: int, count: int, groups: int = 1) -> Iterator[None]:
     """In scope, a tensor's leading dim is this rank's share of a global
     batch split evenly over ``count`` data ranks, ``index`` the rank's
-    position among them."""
+    position among them; with ``groups`` (a pipeline's microbatches on a
+    pp mesh) the global batch is that many blocks, each split over the
+    data ranks, and the rank's rows are its slice of each."""
     prev = _tls.batch_rows
-    _tls.batch_rows = (int(index), int(count)) if count > 1 else None
+    _tls.batch_rows = (int(index), int(count), int(groups)) \
+        if count > 1 else None
     try:
         yield
     finally:
@@ -153,8 +160,20 @@ def mask_rows(shape):
     br = _tls.batch_rows
     if br is None or not shape:
         return None
-    index, count = br
+    index, count, groups = br
+    if groups > 1 and shape[0] % groups == 0:
+        per = shape[0] // groups
+        return (tuple((g * count + index) * per for g in range(groups)),
+                count * shape[0])
     return index * shape[0], count * shape[0]
+
+
+def one_block(saved: tuple) -> tuple:
+    """:func:`saved_slices` state for a tensor that is one block of the
+    batch (a pipeline's microbatch): its rows are the rank's slice of
+    that block."""
+    br = saved[0]
+    return ((br[0], br[1], 1) if br is not None else None,) + saved[1:]
 
 
 @contextlib.contextmanager
@@ -169,28 +188,41 @@ def head_slice(first: int, total: int) -> Iterator[None]:
         _tls.mask_cols = prev
 
 
-def mask_cols(shape):
+@contextlib.contextmanager
+def seq_slice(first: int, total: int) -> Iterator[None]:
+    """In scope, dim 1 of an activation is this rank's positions ``first
+    ..`` of a sequence of ``total`` (a sequence-parallel rank's slice)."""
+    prev = _tls.seq_cols
+    _tls.seq_cols = (int(first), int(total))
+    try:
+        yield
+    finally:
+        _tls.seq_cols = prev
+
+
+def mask_cols(shape, seq: bool = True):
     """The ``cols`` argument of ``threefry.random_bits`` for a mask of
     ``shape``: this rank's slice of dim 1 under :func:`head_slice`, else
-    None."""
-    mc = _tls.mask_cols
-    if mc is None or len(shape) < 2:
+    (unless ``seq`` is False) under :func:`seq_slice`, else None."""
+    if len(shape) < 2:
         return None
-    return mc
+    if _tls.mask_cols is not None or not seq:
+        return _tls.mask_cols
+    return _tls.seq_cols
 
 
 def saved_slices() -> tuple:
-    """This thread's :func:`batch_rows` and :func:`head_slice` state, for
-    :func:`restored_slices` (a recompute on another thread, or after the
-    scope closed, draws the same masks)."""
-    return _tls.batch_rows, _tls.mask_cols
+    """This thread's :func:`batch_rows`, :func:`head_slice` and
+    :func:`seq_slice` state, for :func:`restored_slices` (a recompute on
+    another thread, or after the scope closed, draws the same masks)."""
+    return _tls.batch_rows, _tls.mask_cols, _tls.seq_cols
 
 
 @contextlib.contextmanager
 def restored_slices(saved: tuple) -> Iterator[None]:
     prev = saved_slices()
-    _tls.batch_rows, _tls.mask_cols = saved
+    _tls.batch_rows, _tls.mask_cols, _tls.seq_cols = saved
     try:
         yield
     finally:
-        _tls.batch_rows, _tls.mask_cols = prev
+        _tls.batch_rows, _tls.mask_cols, _tls.seq_cols = prev

@@ -81,7 +81,8 @@ def random_bits(key, shape, device=None, rows=None, cols=None):
 
     ``rows`` ``(first, total)``: ``shape`` is rows ``first ..
     first + shape[0]`` of an array of ``total`` rows, and the bits are
-    those rows of that array's bits. With ``jax_threefry_partitionable``
+    those rows of that array's bits; ``first`` may be a tuple of block
+    starts (the leading dim is that many equal blocks of rows). With ``jax_threefry_partitionable``
     an element's bits hash its flat index in the whole shape, so a
     data-parallel rank draws its rows of the global mask without
     drawing the rest. ``cols`` ``(first, total)`` does the same for
@@ -92,6 +93,12 @@ def random_bits(key, shape, device=None, rows=None, cols=None):
     n = math.prod(shape)
     device = key.device if device is None else torch.device(device)
     r0, nrows = (0, shape[0] if shape else 1) if rows is None else rows
+    if isinstance(r0, tuple):   # blocks of rows: their global indices
+        per = shape[0] // len(r0)
+        row_idx = torch.cat([torch.arange(f, f + per, dtype=torch.int64,
+                                          device=device) for f in r0])
+    else:
+        row_idx = None
     c0, ncols = (0, shape[1] if len(shape) > 1 else 1) if cols is None \
         else cols
     if cols is not None and len(shape) < 2:
@@ -101,13 +108,20 @@ def random_bits(key, shape, device=None, rows=None, cols=None):
                           math.prod(shape[1:]))
     if total >= 2 ** 32:
         raise NotImplementedError("random bits past 2**32 elements")
-    if cols is None:
+    if cols is None and row_idx is None:
         per_row = math.prod(shape[1:])
         offset = int(r0) * per_row
         counts = torch.arange(offset, offset + n, dtype=torch.int64,
                               device=device).reshape(shape)
+    elif cols is None:
+        per_row = math.prod(shape[1:])
+        counts = (row_idx.reshape((-1,) + (1,) * (len(shape) - 1))
+                  * per_row + torch.arange(
+                      per_row, dtype=torch.int64,
+                      device=device).reshape(shape[1:])).reshape(shape)
     else:
-        r = torch.arange(shape[0], dtype=torch.int64, device=device) + r0
+        r = row_idx if row_idx is not None else torch.arange(
+            shape[0], dtype=torch.int64, device=device) + r0
         c = torch.arange(shape[1], dtype=torch.int64, device=device) + c0
         base = (r[:, None] * int(ncols) + c[None, :]) * inner
         counts = (base[:, :, None] + torch.arange(

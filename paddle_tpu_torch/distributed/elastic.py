@@ -42,7 +42,7 @@ import time
 from ..core.monitor import stat_add
 from ..observability import goodput as _goodput
 from ..reliability.retry import backoff_delay
-from .launch import find_free_port, trainer_env
+from .launch import find_free_port, rank_argv, trainer_env
 from typing import Dict, List, Optional
 
 HB_DIR_ENV = "PADDLE_ELASTIC_HB_DIR"
@@ -288,7 +288,7 @@ class ElasticManager:
                 self._logs.append(f)
                 stdout = f
             self._procs.append(subprocess.Popen(
-                [sys.executable, self.script, *self.script_args],
+                rank_argv(self.script, self.script_args),
                 env=env, stdout=stdout,
                 stderr=subprocess.STDOUT if stdout else None))
 

@@ -19,6 +19,7 @@ WORLD_SIZE), streams logs per rank, and propagates the first failure
 from __future__ import annotations
 
 import argparse
+import os
 import socket
 import sys
 from typing import List, Optional
@@ -28,6 +29,15 @@ def find_free_port() -> int:
     with socket.socket() as s:
         s.bind(("", 0))
         return s.getsockname()[1]
+
+
+def rank_argv(script: str, script_args: List[str]) -> List[str]:
+    """The command of one rank of ``script``: run by ``run_rank.py``,
+    which ends the rank without the interpreter's finalization, where
+    gloo's worker thread can abort a rank that finished its work."""
+    runner = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "run_rank.py")
+    return [sys.executable, runner, script, *script_args]
 
 
 def trainer_env(rank: int, nprocs: int, master: str) -> dict:

@@ -71,7 +71,7 @@ import time
 from typing import Dict, List, Optional
 
 from .elastic import RESTART_COUNT_ENV, RESTART_EXIT_CODE, HB_DIR_ENV
-from .launch import find_free_port, trainer_env
+from .launch import find_free_port, rank_argv, trainer_env
 
 AGENT_BEAT_INTERVAL = 0.5
 
@@ -290,7 +290,7 @@ class NodeAgent:
                 self._logs.append(f)
                 stdout = f
             self._procs.append(subprocess.Popen(
-                [sys.executable, self.script, *self.script_args],
+                rank_argv(self.script, self.script_args),
                 env=env, stdout=stdout,
                 stderr=subprocess.STDOUT if stdout else None))
 

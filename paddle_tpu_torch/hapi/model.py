@@ -498,9 +498,11 @@ class Model:
         order (the global batch's rows, as one process computes them)."""
         outs = _as_tuple(outputs)
         labs = _as_tuple(labels)
-        res = tuple(m.compute(outs[0].detach(), labs[0])
-                    for m in self._metrics)
         sync = self._sync
+        first = outs[0].detach()
+        if self._metrics and sync is not None:
+            first = sync.gather_seq(first)   # sp: the whole sequence
+        res = tuple(m.compute(first, labs[0]) for m in self._metrics)
         if sync is not None and (split or sync.pp > 1):
             res = _tree_map(lambda x: sync.gather_rows(x, split), res)
         return res
@@ -528,7 +530,7 @@ class Model:
         if self._sync is None:
             from ..parallel.reducer import MeshSync
             self._sync = MeshSync(self._mesh, self._rules)
-            self._sync.setup(self._trainable(), self.network)
+            self._sync.setup(self._trainable(), self.network, self._loss)
         return self._sync
 
     def _opt_params(self) -> Dict[str, torch.Tensor]:
@@ -1084,6 +1086,8 @@ class Model:
         with self._unsharded():
             out = self.network(*self._to_device(inputs))
         sync = self._sync
+        if sync is not None and sync.sp > 1:
+            out = _tree_map(sync.gather_seq, out)
         if sync is not None and (split or sync.pp > 1):
             out = _tree_map(lambda x: sync.gather_rows(x, split), out)
         return out

@@ -20,6 +20,19 @@ columns together), attention on the local heads, row-parallel
 all-reduce, a vocab-parallel embedding lookup and head, and the
 vocab-parallel fused loss. :class:`GPTForCausalLMPipe` runs the decoder
 blocks as a ``parallel.PipelineParallel`` trunk over ``pp``.
+
+Sequence parallelism (``GPTConfig(sequence_parallel=True)`` on a mesh
+with a live ``sp`` axis): the embeddings run on the whole sequence (its
+positions are global), then a rank keeps its slice of the sequence
+(``parallel.sharding.seq_slice``), its residual dropout
+draws that slice of the global masks (``rng.seq_slice``), attention runs
+as ``ops.ring_attention`` over the sp ranks, and the criteria take each
+position's next-token label from the whole label row. The sp group is
+the one a Model on the mesh attaches (``attach_sp``: ``MeshSync`` sums
+the gradients over sp and gives the criterion the group too), else, for
+a forward without gradients only, that of the installed mesh (the JAX
+package's ``_sp_mesh``); off such a mesh the config runs plain
+attention, and the decode cache always does.
 """
 
 from __future__ import annotations
@@ -39,8 +52,9 @@ from ..nn import initializer as I
 from ..nn.layer import Layer, LayerList
 from ..nn.utils import checkpoint, scan_layer_stack
 from ..ops.fused_xent import fused_linear_cross_entropy
-from ..parallel.collective import (copy_to_tp, gather_from_tp,
+from ..parallel.collective import (SPGroup, copy_to_tp, gather_from_tp,
                                    reduce_from_tp)
+from ..parallel.sharding import seq_slice
 from ..ops.rotary import apply_rotary_pos_emb, rope_tables
 
 
@@ -64,8 +78,10 @@ class GPTConfig:
     tie_word_embeddings: bool = True
     use_flash: bool = True
     remat: bool = False        # recompute each block in the backward
-    # sequence_parallel (ring attention) is not ported yet: it raises at
-    # construction, naming its ROADMAP item
+    # context parallelism: attention runs as ring attention over the
+    # mesh's sp axis (ops/ring_attention); composes with dp/fsdp/tp, not
+    # with the pp trunk or the decode cache. ring_chunk_size tiles each
+    # plain ring block's K/V (it selects the JAX package's dropout tiles)
     sequence_parallel: bool = False
     ring_chunk_size: Optional[int] = None
     scan_layers: bool = False  # the JAX package's scan over the blocks
@@ -76,10 +92,6 @@ class GPTConfig:
             self.ffn_hidden_size = 4 * self.hidden_size
         if self.num_kv_heads is None:
             self.num_kv_heads = self.num_heads
-        if self.sequence_parallel:
-            raise NotImplementedError(
-                "GPTConfig(sequence_parallel=True) is not ported yet "
-                "(ROADMAP A6: ring attention)")
 
     @property
     def head_dim(self) -> int:
@@ -148,17 +160,58 @@ def _row_parallel(x, linear, tp):
     return y + linear.bias if linear.bias is not None else y
 
 
+def _installed_sp() -> Optional[SPGroup]:
+    """The sp group of the installed mesh when it has a live ``sp`` axis
+    and a process group, else None."""
+    from ..parallel.mesh import get_mesh
+    mesh = get_mesh(required=False)
+    if mesh is None or not mesh.has_axis("sp") or mesh.mesh is None:
+        return None
+    return SPGroup(mesh)
+
+
+class _SequenceParallel:
+    """A layer that computes on a sequence-parallel rank's slice: the sp
+    group a Model on an sp mesh attaches, else the installed mesh's."""
+
+    _sp = None
+
+    def attach_sp(self, sp) -> None:
+        if self.cfg.sequence_parallel:
+            self._sp = sp
+
+    def _sp_mesh(self) -> Optional[SPGroup]:
+        """The sp group when the config is sequence-parallel and a mesh
+        with a real sp axis is attached or installed, else None (plain
+        attention: the same config runs unsharded unchanged). The
+        installed mesh's group serves a forward without gradients only:
+        training needs the Model's ``MeshSync``, which sums the gradients
+        over sp and slices the criterion's labels."""
+        if not self.cfg.sequence_parallel:
+            return None
+        if self._sp is not None:
+            return self._sp
+        sp = _installed_sp()
+        if sp is not None and torch.is_grad_enabled():
+            raise NotImplementedError(
+                "a sequence-parallel GPT trains through a Model on the sp "
+                "mesh (parallel.distributed_model); under the installed "
+                "mesh alone it runs a forward under torch.no_grad()")
+        return sp
+
+
 def _norm(cfg: GPTConfig):
     if cfg.norm_type == "rms":
         return nn.RMSNorm(cfg.hidden_size, epsilon=cfg.layer_norm_epsilon)
     return nn.LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_epsilon)
 
 
-class GPTAttention(Layer):
+class GPTAttention(_SequenceParallel, Layer):
     """Causal self-attention with fused QKV, grouped-query heads and an
     optional dense KV cache ``(k_cache, v_cache, idx)``; the cache is
     written in place. Under tp the rank computes its heads (and its kv
-    heads under GQA) and sums ``out_proj`` over the tp ranks."""
+    heads under GQA) and sums ``out_proj`` over the tp ranks; under sp
+    it is ring attention over the sp ranks' slices of the sequence."""
 
     _tp = None   # the tp group once the qkv and out weights are split
     tp_params = ("qkv_proj.weight", "qkv_proj.bias", "out_proj.weight")
@@ -254,6 +307,8 @@ class GPTAttention(Layer):
                     q, k, v, attn_mask=causal,
                     dropout_p=self.cfg.attention_dropout,
                     training=self.training, use_flash=False)
+        elif (sp := self._sp_mesh()) is not None:
+            out = self._ring(q, k, v, attn_mask, sp, heads)
         else:
             with heads:
                 out = F.scaled_dot_product_attention(
@@ -269,6 +324,32 @@ class GPTAttention(Layer):
         if cache is not None:
             return out, cache
         return out
+
+    def _ring(self, q, k, v, attn_mask, sp, heads):
+        """Ring attention of this rank's slice; ``attn_mask`` is the
+        whole sequence's key-padding mask (the rank's slice travels with
+        its K/V chunk). GQA's k and v stay unexpanded."""
+        from ..ops.ring_attention import ring_attention
+        b, s = q.shape[0], q.shape[1] * sp.size
+        if attn_mask is not None and tuple(attn_mask.shape) != (b, s):
+            # a general [.., sq, sk] mask would have to be materialized
+            # per ring block pair; padded batches are a KEY-padding mask
+            raise NotImplementedError(
+                "sequence_parallel attention takes a KEY-padding "
+                f"attn_mask of shape [batch, seq] = {(b, s)} (bool "
+                "True=attend, or additive float); got "
+                f"{tuple(attn_mask.shape)}")
+        kpm = None if attn_mask is None else \
+            seq_slice(attn_mask, 1, sp.size, sp.index)
+        dp = self.cfg.attention_dropout if self.training else 0.0
+        with heads:
+            return ring_attention(
+                q, k, v, causal=True, mesh=sp.mesh,
+                chunk_size=self.cfg.ring_chunk_size, key_padding_mask=kpm,
+                dropout_p=dp, use_flash=self.cfg.use_flash,
+                # the same key on every sp rank; the ring folds in each
+                # block's global coordinates
+                dropout_key=rng.next_key("sp_attn") if dp else None)
 
 
 class GPTMLP(Layer):
@@ -389,13 +470,14 @@ class GPTEmbeddings(Layer):
         return reduce_from_tp(rows, tp)
 
 
-class GPTModel(Layer):
+class GPTModel(_SequenceParallel, Layer):
     """Transformer trunk: embeddings -> N decoder blocks -> final norm.
     ``cfg.scan_layers`` runs the blocks as the JAX package's scan does
     (per-layer dropout keys folded from one key,
     ``nn.utils.scan_layer_stack``); ``cfg.remat`` recomputes each block
     in the backward (``nn.utils.checkpoint``). With caches both take the
-    plain loop, as in the JAX package."""
+    plain loop, as in the JAX package. Under sp the blocks and the final
+    norm run on this rank's slice of the sequence, which it returns."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -409,6 +491,20 @@ class GPTModel(Layer):
                 caches=None):
         x = self.embeddings(input_ids, position_ids)
         rope_pos = position_ids if self.cfg.use_rope else None
+        sp = self._sp_mesh() if caches is None else None
+        if sp is None:
+            return self._trunk(x, attn_mask, rope_pos, caches)
+        b, s = input_ids.shape[0], input_ids.shape[1]
+        x = seq_slice(x, 1, sp.size, sp.index)
+        if self.cfg.use_rope:   # the rank's global positions
+            if rope_pos is None:
+                rope_pos = torch.arange(s, device=x.device)[None]
+            rope_pos = seq_slice(rope_pos.expand(b, s), 1, sp.size,
+                                 sp.index)
+        with rng.seq_slice(sp.index * x.shape[1], s):
+            return self._trunk(x, attn_mask, rope_pos, None)
+
+    def _trunk(self, x, attn_mask, rope_pos, caches):
         new_caches = [] if caches is not None else None
         if self.cfg.scan_layers and caches is None:
             x = scan_layer_stack(self.layers, x, remat=self.cfg.remat,
@@ -665,22 +761,47 @@ class GPTGreedyDecoder(Layer):
 
 
 class GPTPretrainingCriterion(Layer):
-    """Shifted next-token cross entropy over dense logits."""
+    """Shifted next-token cross entropy over dense logits. Under sp (a
+    Model on an sp mesh attaches the group) the logits are this rank's
+    slice of the sequence and the labels the whole row: every position
+    of the slice predicts the next label, the last rank's last position
+    ``ignore_index``."""
+
+    _sp = None
 
     def __init__(self, ignore_index: int = -100):
         super().__init__()
         self.ignore_index = ignore_index
 
+    def attach_sp(self, sp) -> None:
+        self._sp = sp
+
+    def _targets(self, labels):
+        """The next-token label of each position this rank predicts:
+        ``labels[:, 1:]``, or under sp its slice of the row shifted by
+        one with ``ignore_index`` after the end."""
+        if self._sp is None:
+            return labels[:, 1:]
+        end = torch.full_like(labels[:, :1], self.ignore_index)
+        return seq_slice(torch.cat([labels[:, 1:], end], dim=1), 1,
+                         self._sp.size, self._sp.index)
+
+    def _positions(self, n: int) -> int:
+        """How many of this rank's ``n`` positions predict a token."""
+        return n if self._sp is not None else n - 1
+
     def count(self, labels):
         """The targets the mean runs over (those not ``ignore_index``):
-        on a data-parallel mesh each rank's loss is weighted by its count
-        over the global count (``parallel.reducer``)."""
-        return (labels[:, 1:] != self.ignore_index).sum()
+        on a data-parallel or sequence-parallel mesh each rank's loss is
+        weighted by its count over the global count
+        (``parallel.reducer``)."""
+        return (self._targets(labels) != self.ignore_index).sum()
 
     def forward(self, logits, labels):
         # logits [b, s, v], labels [b, s]: predict token t+1 at position t
-        lg = logits[:, :-1].reshape(-1, logits.shape[-1])
-        lb = labels[:, 1:].reshape(-1)
+        n = self._positions(logits.shape[1])
+        lg = logits[:, :n].reshape(-1, logits.shape[-1])
+        lb = self._targets(labels).reshape(-1)
         return F.cross_entropy(lg, lb, ignore_index=self.ignore_index)
 
 
@@ -700,7 +821,8 @@ class GPTFusedPretrainingCriterion(GPTPretrainingCriterion):
         hidden, weight, labels = args
         tp = getattr(weight, "_tp_vocab", None)
         hidden, weight = amp.white_cast(hidden, weight, op="matmul")
-        h = hidden[:, :-1].reshape(-1, hidden.shape[-1])
-        lb = labels[:, 1:].reshape(-1)
+        n = self._positions(hidden.shape[1])
+        h = hidden[:, :n].reshape(-1, hidden.shape[-1])
+        lb = self._targets(labels).reshape(-1)
         return fused_linear_cross_entropy(h, weight, lb, self.ignore_index,
                                           tp=tp)

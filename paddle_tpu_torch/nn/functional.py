@@ -64,8 +64,9 @@ def dropout(x, p: float = 0.5, training: bool = True,
     so a step with dropout copies nothing to the device and does not
     sync. Under ``rng.batch_rows`` (a data-parallel rank) the mask is
     the rank's rows of the global batch's mask, and under
-    ``rng.head_slice`` (a tensor-parallel rank's heads) its slice of dim
-    1 of the global mask."""
+    ``rng.head_slice`` (a tensor-parallel rank's heads) or
+    ``rng.seq_slice`` (a sequence-parallel rank's positions) its slice
+    of dim 1 of the global mask."""
     if not training or p == 0.0:
         if mode == "downscale_in_infer" and not training:
             return x * (1.0 - p)

@@ -28,9 +28,10 @@ def checkpoint(fn, *args, **kwargs):
     The recompute replays the forward's thread-local state, which
     torch's checkpoint does not know: the innermost key stream (its key
     and the counters of its sub-streams, so dropout draws the same
-    masks again), a data-parallel rank's rows and a tensor-parallel
-    rank's heads of the masks (``rng.batch_rows`` / ``rng.head_slice``:
-    the backward runs after their scope closed) and the
+    masks again), a data-parallel rank's rows, a tensor-parallel rank's
+    heads and a sequence-parallel rank's positions of the masks
+    (``rng.batch_rows`` / ``rng.head_slice`` / ``rng.seq_slice``: the
+    backward runs after their scope closed) and the
     ``amp.auto_cast`` state (the recompute may run on the autograd
     engine's device thread, where none is set). The
     live stream advances past the forward's draws, as an unwrapped call

@@ -275,20 +275,26 @@ def _delta_buffer(q, lse, delta):
 
 
 def flash_attention_bwd_dq_kernel(q, k, v, o, lse, do, sm_scale: float,
-                                  causal: bool, delta=None):
+                                  causal: bool, delta=None,
+                                  delta_ready: bool = False):
     """Kernel B2: dQ in q's dtype (the first output of
     :func:`flash_attention_bwd_torch`, which a CPU tensor runs). On the
     card a first kernel computes delta = rowsum(O dO) [b, hq, sq] in
-    float32; into ``delta`` if it is given, so that B3 can read it."""
+    float32; into ``delta`` if it is given, so that B3 can read it. With
+    ``delta_ready``, ``delta`` already holds it (an earlier launch on the
+    same o and dO wrote it: the ring's blocks share one) and B2 reads
+    it."""
     if not q.is_cuda:
         return flash_attention_bwd_torch(q, k, v, o, lse, do, sm_scale,
                                          causal)[0]
     _check_cuda_args(q, k, v, o, do, lse)
     _check_residuals(q, o, lse, do)
+    if delta_ready and delta is None:
+        raise ValueError("delta_ready needs the delta buffer")
     delta = _delta_buffer(q, lse, delta)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     _launch(_BWD_DQ, q, k, v, o, do, lse, delta, dq, None, None, sm_scale,
-            causal)
+            causal, delta_ready=delta_ready)
     launches["flash_attention_bwd_dq"] += 1
     return dq
 

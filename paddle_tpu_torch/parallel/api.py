@@ -25,7 +25,8 @@ import torch.distributed as dist
 
 from ..nn.layer import Layer
 from .mesh import DeviceMesh, get_mesh, init_mesh
-from .sharding import (LogicalRules, check_runnable, is_split,
+from .sharding import (LogicalRules, check_runnable,
+                       check_sequence_parallel, is_split, row_groups,
                        shard_batch, shard_params, shard_superbatch)
 from .strategy import DistributedStrategy
 
@@ -253,8 +254,10 @@ def distributed_model(model, strategy: Optional[DistributedStrategy] = None,
     (ref: auto_parallel/engine.py:53 Engine auto mode): the cost model
     picks (dp, fsdp, tp) for the world's ranks and the plan is recorded
     as ``model._plan``; else ``dp`` over every rank. ``seq_len``
-    defaults to the model's ``max_position_embeddings`` hint. Live
-    ``sp`` / ``ep`` axes raise: they are not ported yet."""
+    defaults to the model's ``max_position_embeddings`` hint. A live
+    ``sp`` axis runs a sequence-parallel GPT (ring attention; every sp
+    rank passes the same global batch); a live ``ep`` axis raises: it is
+    not ported yet."""
     if strategy is not None and global_batch is not None:
         raise ValueError(
             "pass either strategy (manual layout) or global_batch "
@@ -294,17 +297,20 @@ def distributed_model(model, strategy: Optional[DistributedStrategy] = None,
                 axes = strategy.mesh_axes() if strategy else {"dp": -1}
                 mesh = init_mesh(**(axes or {"dp": -1}))
     check_runnable(mesh)
+    check_sequence_parallel(model.network, mesh)
     rules = rules or LogicalRules()
     meta = model.network.param_meta()
 
     def _shard_params(tree):
         return shard_params(tree, meta, mesh, rules)
 
+    groups = row_groups(model.network, mesh)
+
     def _shard_batch(tree):
-        return shard_batch(tree, mesh)
+        return shard_batch(tree, mesh, groups)
 
     def _shard_superbatch(tree):
-        return shard_superbatch(tree, mesh)
+        return shard_superbatch(tree, mesh, groups)
 
     model._shard_params = _shard_params
     model._shard_batch = _shard_batch

@@ -280,18 +280,30 @@ def quantized_ring_allreduce(x, axis: AxisName, bits: int = 8,
 
 # -- register 3: the tensor-parallel pair -----------------------------------
 
-class TPGroup:
-    """This rank's place on the ``tp`` axis of a mesh: ``size`` ranks,
-    this one at ``index``, their process ``group``."""
+class AxisGroup:
+    """This rank's place on one axis of a mesh: ``size`` ranks, this one
+    at ``index``, their process ``group``."""
+
+    axis = ""
 
     def __init__(self, mesh: DeviceMesh):
         self.mesh = mesh
-        self.size = mesh.axis_size("tp")
-        self.index = mesh.local_rank("tp")
-        self.group = mesh.group("tp")
+        self.size = mesh.axis_size(self.axis)
+        self.index = mesh.local_rank(self.axis)
+        self.group = mesh.group(self.axis)
 
     def __repr__(self):
-        return f"TPGroup({self.index}/{self.size})"
+        return f"{type(self).__name__}({self.index}/{self.size})"
+
+
+class TPGroup(AxisGroup):
+    """The ``tp`` axis: the layers that compute on tp slices."""
+    axis = "tp"
+
+
+class SPGroup(AxisGroup):
+    """The ``sp`` axis: the sequence-parallel GPT's ring and slices."""
+    axis = "sp"
 
 
 # host seconds the tp pair spent in its collectives (a staged gloo

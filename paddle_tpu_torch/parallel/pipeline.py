@@ -393,7 +393,8 @@ class _Schedule:
         self.table = tick_table(self.pp, self.v, self.m)
         self.base_key = rng.next_key()
         self.amp_state = amp._saved_state()
-        self.slices = rng.saved_slices()
+        # the chunks run on microbatches: a data rank's rows of each
+        self.slices = rng.one_block(rng.saved_slices())
         self.grad = torch.is_grad_enabled()
         self.remat = pipe._remat
         self.saved = {}

@@ -146,9 +146,11 @@ def _model_hints(net) -> Dict[str, float]:
 
 def _extract(net):
     """One tree walk: (shapes, logical axes, hints) — reused across every
-    candidate the search evaluates."""
+    candidate the search evaluates. A parameter a Model split over a
+    mesh counts at its whole shape."""
     meta = net.param_meta()
-    shapes = {name: tuple(p.shape) for name, p in net.named_parameters()}
+    shapes = {name: tuple(getattr(p, "_full_shape", p.shape))
+              for name, p in net.named_parameters()}
     logical = {name: getattr(meta.get(name), "axes", None)
                for name in shapes}
     return shapes, logical, _model_hints(net)
@@ -415,12 +417,13 @@ def verify_plan(model, inputs, labels=(), tolerance: float = 2.0,
     model._plan = new
     if new.axes == plan_obj.axes:
         return report, new
-    if model._sync is not None and model._sync.active:
-        raise NotImplementedError(
-            "re-planning a Model whose state is already split over a "
-            f"mesh (now {plan_obj.describe()}): rebuild the Model and "
-            f"call distributed_model(model, mesh=init_mesh_from_axes("
-            f"{dict(new.axes)}))")
+    # install the corrected layout: the whole parameters back in the
+    # network, the optimizer state dropped (as the JAX package drops
+    # it), and the next step splits the state over the new mesh
+    if model._sync is not None:
+        model._sync.release(model.network, model._loss)
+    model._sync = None
+    model._opt_state = None
     _api.distributed_model(model, mesh=init_mesh_from_axes(new.axes),
                            rules=ctx["rules"])
     model._plan = new

@@ -38,6 +38,15 @@ and before the update:
   and the gradients of the parameters outside the trunk (replicated over
   pp) are reduced over the data ranks and pp; the stages' over the data
   ranks only.
+- **sp.** Every sp rank of a data slice takes the same rows; the
+  sequence-parallel GPT keeps its slice of the sequence after the
+  embeddings and runs ring attention over the ``sp`` group, which its
+  layers and its criterion learn at set-up (``attach_sp``). Each sp rank
+  computes the loss of its positions (their next-token labels come from
+  the whole label row, the last position of the last rank predicting
+  nothing), so the loss is count-weighted over the data ranks, pp and
+  sp, and the gradients of parameters (replicated over sp: partial sums
+  over the rank's tokens) are summed over sp as well.
 
 Norms (the numeric guard, ``ClipGradByGlobalNorm``, ``ClipGradByNorm``,
 Lamb, LarsMomentum, Adafactor) sum each piece's squares across the ranks
@@ -60,8 +69,10 @@ import torch.distributed as dist
 from ..nn import clip as _clip
 from . import collective as _coll
 from .mesh import AXIS_ORDER, DeviceMesh
-from .sharding import (LogicalRules, check_runnable, full_from_pieces,
-                       local_piece, param_layout, tp_permutation)
+from .sharding import (LogicalRules, check_runnable,
+                       check_sequence_parallel, full_from_pieces,
+                       local_piece, param_layout, row_groups,
+                       tp_permutation)
 
 _GATHER = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
@@ -97,14 +108,17 @@ class MeshSync:
         self.n = mesh.data_size
         self.pp = mesh.axis_size("pp")
         self.tp = mesh.axis_size("tp")
-        # the ranks whose rows of the global batch make the loss
-        self.rows = self.n * self.pp
+        self.sp = mesh.axis_size("sp")
+        # the ranks whose rows (and sequence slices) of the global batch
+        # make the loss
+        self.rows = self.n * self.pp * self.sp
         self.active = mesh.size > 1
         self._groups: Dict[Tuple[str, ...], object] = {}
         self.data_group = self.group(mesh.data_axes)
         self.data_index = mesh.index(mesh.data_axes)
         self.rows_axes = _axes(*mesh.data_axes, *(
-            ("pp",) if self.pp > 1 else ()))
+            ("pp",) if self.pp > 1 else ()), *(
+            ("sp",) if self.sp > 1 else ()))
         self.rows_group = self.group(self.rows_axes)
         self.fsdp = mesh.axis_size("fsdp")
         self.fsdp_group = self.group(("fsdp",))
@@ -112,12 +126,14 @@ class MeshSync:
         self.pp_group = self.group(("pp",))
         self.pp_index = mesh.local_rank("pp")
         self.tp_group = _coll.TPGroup(mesh) if self.tp > 1 else None
+        self.sp_group = _coll.SPGroup(mesh) if self.sp > 1 else None
         self.world = self.group(mesh.axis_names)
         # fsdp: name -> (dim, full shape); name -> this rank's shard
         self.sharded: Dict[str, Tuple[int, torch.Size]] = {}
         self.shards: Dict[str, torch.Tensor] = {}
         # tp / pp: name -> {"tp": (dim, permutation), "pp": dim}
         self.pieces: Dict[str, dict] = {}
+        self.row_groups = 1   # the microbatches the data axes split
         self.full_shapes: Dict[str, torch.Size] = {}
         self._params: Dict[str, torch.nn.Parameter] = {}
         self._set_up = False
@@ -141,14 +157,16 @@ class MeshSync:
 
     # -- set-up ---------------------------------------------------------
     def setup(self, params: Dict[str, torch.nn.Parameter],
-              network=None) -> None:
+              network=None, loss=None) -> None:
         """Once, before the first step: every rank takes the mesh's first
         rank's values; given the ``network`` (a Model's: its parameters'
         logical axes), its tp- and pp-split parameters become this rank's
         pieces, and under fsdp each sharded parameter this rank's
-        shard."""
+        shard; under sp its layers and the ``loss`` learn the sp
+        group."""
         if self._set_up:
             return
+        check_sequence_parallel(network, self.mesh)
         self._set_up = True
         self._params = dict(params)
         if not self.active:
@@ -167,6 +185,10 @@ class MeshSync:
         meta = network.param_meta()
         if self.tp > 1 or self.pp > 1:
             self._split(network, meta)
+        if self.sp_group is not None:
+            for m in [*network.modules(), loss]:
+                if hasattr(m, "attach_sp"):
+                    m.attach_sp(self.sp_group)
         if self.fsdp_group is None:
             return
         for name, p in params.items():
@@ -175,6 +197,7 @@ class MeshSync:
                                self.rules).get("fsdp")
             if dim is not None:
                 self.sharded[name] = (dim, p.shape)
+                p._full_shape = shape
                 self.shards[name] = local_piece(
                     p.detach(), dim, self.fsdp, self.fsdp_index)
         self.reshard()
@@ -191,6 +214,7 @@ class MeshSync:
                 "trunk, e.g. models.gpt.GPTForCausalLMPipe)")
         for pipe in pipes:
             pipe.attach_mesh(self.mesh)
+        self.row_groups = row_groups(network, self.mesh)
         with torch.no_grad():
             for name, p in network.named_parameters():
                 lay = param_layout(name, p.shape, meta, self.mesh,
@@ -209,6 +233,7 @@ class MeshSync:
                     continue
                 self.full_shapes[name] = p.shape
                 self.pieces[name] = piece
+                p._full_shape = p.shape   # what the planner counts
                 p.data = self._local(name, p.detach())
         if self.tp_group is not None:
             for m in list(network.modules()):
@@ -292,6 +317,32 @@ class MeshSync:
             p.data = torch.empty(0, dtype=p.dtype, device=p.device)
             p.grad = None
 
+    def release(self, network, *others) -> None:
+        """Give ``network`` its whole parameters back (fsdp shards
+        gathered, tp slices and pp stages joined: collectives on every
+        rank) and take it and ``others`` (a loss) off the mesh's groups,
+        so that the Model can go on another mesh."""
+        with torch.no_grad():
+            self.unshard()
+            params = dict(network.named_parameters())
+            full = self.full_tree({k: p.detach() for k, p in params.items()},
+                                  fsdp=False)
+            for k, t in full.items():
+                params[k].data = t
+        for p in params.values():
+            p.__dict__.pop("_full_shape", None)
+        self.shards.clear()
+        self.sharded.clear()
+        self.pieces.clear()
+        from .pipeline import PipelineParallel
+        for m in [*network.modules(), *others]:
+            if hasattr(m, "attach_tp"):
+                m._tp = None
+            if hasattr(m, "attach_sp"):
+                m._sp = None
+            if isinstance(m, PipelineParallel):
+                m.attach_mesh(None)
+
     def chunk(self, name: str, full: torch.Tensor) -> torch.Tensor:
         dim = self.sharded[name][0]
         return local_piece(full, dim, self.fsdp, self.fsdp_index)
@@ -341,9 +392,9 @@ class MeshSync:
 
     def _reduce_axes(self, name: str) -> Tuple[str, ...]:
         """The axes over which a (non-fsdp) gradient is summed: the data
-        axes, and pp unless it is a pipeline stage."""
+        axes, sp, and pp unless it is a pipeline stage."""
         pp = () if "pp" in self.pieces.get(name, ()) else ("pp",)
-        return _axes(*self.mesh.data_axes, *pp)
+        return _axes(*self.mesh.data_axes, "sp", *pp)
 
     def reduce(self, grads: Dict[str, torch.Tensor], loss: torch.Tensor,
                weighted: bool):
@@ -430,6 +481,15 @@ class MeshSync:
             x.div_(self.rows)
         return x.reshape(())
 
+    def gather_seq(self, x):
+        """The whole sequence (dim 1) of a per-position output (logits),
+        from the sp ranks' slices, in rank order."""
+        if self.sp_group is None or not isinstance(x, torch.Tensor) \
+                or x.dim() < 2:
+            return x
+        return torch.cat(_coll.all_gather_list(x, self.sp_group.group),
+                         dim=1)
+
     def gather_rows(self, x, split: bool = True):
         """The global batch's rows of a per-row output (metric outputs,
         predictions), in rank order: the pp ranks' rows of their data
@@ -438,10 +498,18 @@ class MeshSync:
         if self.rows_group is None or not isinstance(x, torch.Tensor) \
                 or x.dim() == 0:
             return x
-        for g in (self.pp_group, self.data_group if split else None):
-            if g is not None:
-                x = torch.cat(_coll.all_gather_list(x, g), dim=0)
-        return x
+        if self.pp_group is not None:
+            x = torch.cat(_coll.all_gather_list(x, self.pp_group), dim=0)
+        if self.data_group is None or not split:
+            return x
+        parts = _coll.all_gather_list(x, self.data_group)
+        g = self.row_groups
+        if g > 1 and x.shape[0] % g == 0:
+            # each data rank's rows are its slice of every microbatch
+            # (sharding.shard_batch): put the microbatches back together
+            parts = [p.reshape(g, -1, *p.shape[1:]) for p in parts]
+            return torch.cat(parts, dim=1).reshape(-1, *x.shape[1:])
+        return torch.cat(parts, dim=0)
 
     def norm_context(self):
         """Norms and finiteness over the pieces: each sharded name with
@@ -469,7 +537,7 @@ class MeshSync:
         from ..core import rng
         if not (self.n > 1 and split):
             return contextlib.nullcontext()
-        return rng.batch_rows(self.data_index, self.n)
+        return rng.batch_rows(self.data_index, self.n, self.row_groups)
 
     def barrier(self) -> None:
         if self.active:

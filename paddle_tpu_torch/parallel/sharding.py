@@ -16,11 +16,14 @@ the port gives each rank its piece: :func:`shard_spec` is the
 ``torch.distributed.tensor`` placements of a parameter on the mesh,
 :func:`shard_params` the ``DTensor`` of this rank's shard (sliced from
 the full value every rank holds, no communication), :func:`shard_batch`
-this rank's rows of the global batch. ``dp``, ``fsdp``, ``tp`` and
-``pp`` run: a Model on the mesh holds its tp slices and pp stages as
+this rank's rows of the global batch. ``dp``, ``fsdp``, ``tp``, ``pp``
+and ``sp`` run: a Model on the mesh holds its tp slices and pp stages as
 plain tensors (:func:`param_layout`, :func:`local_piece`,
-:func:`full_from_pieces`); ``sp`` and ``ep`` resolve like the JAX
-package's but raise where they would execute (ROADMAP A6.5, A7.1).
+:func:`full_from_pieces`); under ``sp`` every rank of a data slice holds
+the same rows and the sequence-parallel GPT keeps its slice of the
+sequence (:func:`with_logical_constraint`, :func:`seq_slice`). ``ep``
+resolves like the JAX package's but raises where it would execute
+(ROADMAP A7.1).
 
 Tensor parallelism and the fused qkv weight: the JAX GPT declares it as
 one ``heads`` dim of width ``h + 2 * kv * hd``, which GSPMD splits
@@ -56,9 +59,8 @@ DEFAULT_RULES: Tuple[Tuple[str, str], ...] = (
 )
 
 # live mesh axes whose execution waits for its ROADMAP item (dp, fsdp,
-# tp and pp run)
-NOT_PORTED = {"sp": "A6.5 (ring attention)",
-              "ep": "A7.1 (the MoE layers)"}
+# tp, pp and sp run)
+NOT_PORTED = {"ep": "A7.1 (the MoE layers)"}
 
 
 def check_runnable(mesh: DeviceMesh) -> None:
@@ -67,7 +69,23 @@ def check_runnable(mesh: DeviceMesh) -> None:
         if mesh.has_axis(axis):
             raise NotImplementedError(
                 f"a live {axis!r} mesh axis is not ported yet (ROADMAP "
-                f"{item}); the port runs dp, fsdp, tp and pp")
+                f"{item}); the port runs dp, fsdp, tp, pp and sp")
+
+
+def check_sequence_parallel(network, mesh: DeviceMesh) -> None:
+    """Raise for a live ``sp`` axis under a network that does not compute
+    on its slice of the sequence (the port slices the sequence in the
+    sequence-parallel GPT, ``GPTConfig(sequence_parallel=True)``; the JAX
+    package's GSPMD would shard any network's activations)."""
+    if not mesh.has_axis("sp"):
+        return
+    mods = network.modules() if network is not None else ()
+    if not any(getattr(getattr(m, "cfg", None), "sequence_parallel", False)
+               for m in mods):
+        raise NotImplementedError(
+            "a live 'sp' mesh axis runs a network that computes on its "
+            "slice of the sequence: models.gpt with "
+            "GPTConfig(sequence_parallel=True) (ring attention)")
 
 
 class LogicalRules:
@@ -166,36 +184,56 @@ def shard_params(params: Dict[str, torch.Tensor], meta: Dict[str, Any],
     return out
 
 
-def _rows(x, dim: int, mesh: DeviceMesh):
+def _rows(x, dim: int, mesh: DeviceMesh, groups: int = 1):
     """This rank's slice of dim ``dim`` over the data axes, or x itself
-    where the dim does not divide (replicated)."""
+    where the dim does not divide (replicated). With ``groups`` (a
+    pipeline's microbatches) the dim is ``groups`` equal blocks and the
+    rank takes its slice of each, in block order."""
     n = mesh.data_size
     shape = getattr(x, "shape", ())
     if n <= 1 or len(shape) <= dim or shape[dim] % n:
         return x
-    b = shape[dim] // n
     i = mesh.index(mesh.data_axes)
+    if groups > 1 and shape[dim] % (n * groups) == 0:
+        b = shape[dim] // (n * groups)
+        idx = [(g * n + i) * b + r for g in range(groups) for r in range(b)]
+        return x[tuple([slice(None)] * dim + [idx])]
+    b = shape[dim] // n
     sl = [slice(None)] * dim + [slice(i * b, (i + 1) * b)]
     return x[tuple(sl)]
 
 
-def shard_batch(batch, mesh: Optional[DeviceMesh] = None):
+def shard_batch(batch, mesh: Optional[DeviceMesh] = None, groups: int = 1):
     """This rank's rows of the global batch: the leading dim split over
     the data axes (dp, then fsdp), as the JAX package places it. A
     scalar, or a final partial batch whose leading dim does not divide
     the data ranks, stays whole (replicated — correct, just unsharded
-    for that one step); non-array leaves pass through."""
+    for that one step); non-array leaves pass through. ``groups``: a
+    pipeline's microbatches on a pp mesh, each split over the data axes
+    (the rank's rows are its slice of each microbatch, as the JAX
+    package shards the microbatches)."""
     mesh = mesh or get_mesh()
-    return _tree_map(lambda x: _rows(x, 0, mesh), batch)
+    return _tree_map(lambda x: _rows(x, 0, mesh, groups), batch)
 
 
-def shard_superbatch(batch, mesh: Optional[DeviceMesh] = None):
+def shard_superbatch(batch, mesh: Optional[DeviceMesh] = None,
+                     groups: int = 1):
     """``shard_batch`` for the fused train loop's [K, batch, ...]
     superbatches: dim 0 is the per-slab step axis (whole on every rank),
     dim 1 the batch axis split over the data axes; a dim 1 that does
     not divide stays whole."""
     mesh = mesh or get_mesh()
-    return _tree_map(lambda x: _rows(x, 1, mesh), batch)
+    return _tree_map(lambda x: _rows(x, 1, mesh, groups), batch)
+
+
+def row_groups(network, mesh: DeviceMesh) -> int:
+    """The blocks of a batch the data axes split one by one: a pipelined
+    network's microbatches on a mesh with a live pp axis, else 1."""
+    from .pipeline import PipelineParallel
+    if not mesh.has_axis("pp"):
+        return 1
+    pipes = [m for m in network.modules() if isinstance(m, PipelineParallel)]
+    return pipes[0].num_microbatches if pipes else 1
 
 
 def is_split(x, dim: int = 0, mesh: Optional[DeviceMesh] = None) -> bool:
@@ -222,22 +260,35 @@ def replicate(tree, mesh: Optional[DeviceMesh] = None):
     return _tree_map(put, tree)
 
 
+def seq_slice(x, dim: int, size: int, index: int):
+    """Piece ``index`` of ``size`` equal pieces of the sequence dim
+    ``dim`` of ``x`` (a sequence-parallel rank's positions); raises the
+    JAX package's error where the sequence does not divide."""
+    s = x.shape[dim]
+    if s % size:
+        raise ValueError(f"sequence {s} not divisible by sp={size}")
+    n = s // size
+    return x.narrow(dim, index * n, n)
+
+
 def with_logical_constraint(x, logical: Tuple[Optional[str], ...],
                             mesh: Optional[DeviceMesh] = None,
                             rules: Optional[LogicalRules] = None):
-    """In-graph activation sharding hint (the ``shard_op`` analog): an
-    identity, since a port rank's activations already have the layout
-    its layers compute (tp-replicated between blocks). A live ``sp``
-    axis raises: its activation layout is not ported yet."""
+    """In-graph activation sharding hint (the ``shard_op`` analog). A
+    port rank's activations already have the layout its layers compute
+    (rows over the data axes, tp-replicated between blocks), except for
+    a dim whose logical name ``rules`` map to a live ``sp`` axis (``seq``
+    under the default rules): ``x`` is then taken as the whole sequence
+    and the result is this rank's slice of it (the layout the JAX
+    package's ``("seq", "sp")`` rule gives)."""
     mesh = mesh or get_mesh(required=False)
-    if mesh is None:
+    if mesh is None or not mesh.has_axis("sp"):
         return x
     rules = rules or LogicalRules()
-    spec = rules.mesh_axes(logical, tuple(x.shape), mesh)
-    live = {a for e in spec for a in ((e,) if isinstance(e, str)
-                                      else (e or ()))}
-    if "sp" in live:
-        check_runnable(mesh)
+    for dim, name in enumerate(logical):
+        if name is not None and (name, "sp") in rules.rules:
+            return seq_slice(x, dim, mesh.axis_size("sp"),
+                             mesh.local_rank("sp"))
     return x
 
 

@@ -529,6 +529,33 @@ def test_backward_shares_delta_on_card():
                                                True)
     for a, b in zip(shared, alone):
         assert torch.equal(a, b)
+    # B2 reading that delta (delta_ready, as the ring's blocks share
+    # one) gives what B2 computing it gives
+    ready = tfa.flash_attention_bwd_dq_kernel(q, k, v, o, lse, do, 0.125,
+                                              True, delta=delta,
+                                              delta_ready=True)
+    assert torch.equal(ready, tfa.flash_attention_bwd_dq_kernel(
+        q, k, v, o, lse, do, 0.125, True))
+
+
+@pytest.mark.cuda
+def test_b1_lse_of_two_halves_merges_into_the_whole_on_card():
+    """B1's lse is natural-log, the twin's base: the ring's merge of the
+    (o, lse) of two key halves gives the whole's."""
+    if not torch.cuda.is_available():
+        pytest.skip("kernels B1-B3 run only on a CUDA card")
+    from paddle_tpu_torch.ops.ring_attention import _merge
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = [torch.randn(2, 256, 4, 64, generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3)]
+    o, lse = tfa.flash_attention_fwd_kernel(q, k, v, 0.125, False)
+    o1, l1 = tfa.flash_attention_fwd_kernel(q, k[:, :128], v[:, :128],
+                                            0.125, False)
+    o2, l2 = tfa.flash_attention_fwd_kernel(q, k[:, 128:], v[:, 128:],
+                                            0.125, False)
+    om, lm = _merge(o1.float(), l1, o2.float(), l2)
+    torch.testing.assert_close(lm, lse, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(om, o.float(), rtol=2 ** -6, atol=2 ** -7)
 
 
 @pytest.mark.cuda

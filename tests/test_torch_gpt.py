@@ -116,13 +116,15 @@ def test_load_reference_state_raises_on_mismatch():
 @pytest.mark.parametrize("flag", ["sequence_parallel", "scan_layers",
                                   "remat"])
 def test_unported_config_flags_raise(flag):
-    """sequence_parallel still raises naming its ROADMAP item;
-    scan_layers and remat are ported and build."""
+    """sequence_parallel, scan_layers and remat are ported and build;
+    the pipelined GPT refuses sequence_parallel with the JAX package's
+    error."""
+    assert getattr(tgpt.gpt_config("gpt2-small", **{flag: True}), flag)
     if flag == "sequence_parallel":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tgpt.gpt_config("gpt2-small", **{flag: True})
-    else:
-        assert getattr(tgpt.gpt_config("gpt2-small", **{flag: True}), flag)
+        with pytest.raises(ValueError, match="cannot compose with the "
+                                             "pipelined"):
+            tgpt.GPTForCausalLMPipe(tgpt.gpt_config(
+                "gpt2-small", num_layers=2, **{flag: True}), device="cpu")
 
 
 def test_entry_point_needs_a_card_or_an_explicit_cpu():

@@ -46,11 +46,11 @@ from paddle_tpu_torch.observability import tracing as ttrace  # noqa: E402
 SEQ, VOCAB = 128, 97
 
 
-def _tiny(m):
+def _tiny(m, **over):
     return m.gpt_config("gpt2-small", num_layers=2, hidden_size=128,
                         num_heads=2, vocab_size=VOCAB,
                         max_position_embeddings=SEQ, hidden_dropout=0.0,
-                        attention_dropout=0.0, fused_loss=True)
+                        attention_dropout=0.0, fused_loss=True, **over)
 
 
 def _jax_gpt_state():
@@ -481,19 +481,25 @@ def test_summary_counts_match_jax(capsys):
 
 def test_entry_points_raise_what_is_not_there(tmp_path):
     """No card: a network or a device DataLoader with no ``device``
-    raises; what is still not ported raises naming its ROADMAP item (a
-    live sp axis, A6.5). The multi-node launcher, fit's checkpointing,
-    the fused loop, the numeric guard and the auto-parallel planner,
-    each once raising too, now run."""
+    raises. A live sp axis, the multi-node launcher, fit's
+    checkpointing, the fused loop, the numeric guard and the
+    auto-parallel planner, each once raising, now run (an sp mesh takes
+    the sequence-parallel GPT and refuses a network that does not slice
+    the sequence)."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tgpt.GPTForCausalLM(_tiny(tgpt))
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tpt.io.DataLoader(tpt.io.TensorDataset([np.zeros((2, 2))]))
     from paddle_tpu_torch import parallel as tpar
-    with pytest.raises(NotImplementedError, match="ROADMAP A6.5"):
+    with pytest.raises(NotImplementedError, match="sequence_parallel"):
         tpar.distributed_model(tpt.Model(_TNet()),
                                mesh=tpar.DeviceMesh(devices=2, sp=2))
+    sp_net = tgpt.GPTForCausalLM(_tiny(tgpt, sequence_parallel=True),
+                                 device="cpu")
+    assert tpar.distributed_model(
+        tpt.Model(sp_net), mesh=tpar.DeviceMesh(devices=2, sp=2))._mesh \
+        .axis_size("sp") == 2
     try:
         planned = tpar.distributed_model(tpt.Model(_TNet()), global_batch=8)
         assert planned._plan.axes == {"dp": 1, "fsdp": 1, "tp": 1}

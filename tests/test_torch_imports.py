@@ -47,6 +47,7 @@ def test_scan_covers_the_package():
                  "paddle_tpu_torch/ops/paged_attention.py",
                  "paddle_tpu_torch/ops/flash_attention.py",
                  "paddle_tpu_torch/ops/fused_xent.py",
+                 "paddle_tpu_torch/ops/ring_attention.py",
                  "paddle_tpu_torch/amp/__init__.py",
                  "paddle_tpu_torch/nn/clip.py",
                  "paddle_tpu_torch/optimizer/lr.py",

@@ -180,28 +180,50 @@ def test_shard_batch_rows_and_partial_replication():
 
 
 def test_with_logical_constraint_is_identity_without_tp():
-    """An identity wherever the port runs the layout (dp, tp: a rank's
-    activations already have it); a live sp axis raises, naming its
-    ROADMAP item."""
+    """An identity wherever a rank's activations already have the layout
+    (dp, tp); on a live sp axis a ``seq`` dim is this rank's slice of the
+    sequence (a layout mesh of four sp ranks: this process is rank 0),
+    unless the rules map no dim to sp, and a sequence that does not
+    divide raises the JAX package's error."""
     x = torch.randn(4, 8)
     for m in (tpar.DeviceMesh(devices=2, dp=2),
               tpar.DeviceMesh(devices=2, tp=2)):
         assert tpar.with_logical_constraint(x, ("batch", "mlp"), m) is x
-    with pytest.raises(NotImplementedError, match="A6.5"):
-        tpar.with_logical_constraint(torch.randn(4, 8), (None, "seq"),
-                                     tpar.DeviceMesh(devices=2, sp=2))
+    sp = tpar.DeviceMesh(devices=4, sp=4)
+    assert torch.equal(tpar.with_logical_constraint(x, (None, "seq"), sp),
+                       x[:, :2])
+    assert tpar.with_logical_constraint(x, ("batch", "mlp"), sp) is x
+    no_seq = tpar.LogicalRules([r for r in tpar.DEFAULT_RULES
+                                if r != ("seq", "sp")])
+    assert tpar.with_logical_constraint(x, (None, "seq"), sp,
+                                        no_seq) is x
+    with pytest.raises(ValueError, match="not divisible by sp=4"):
+        tpar.with_logical_constraint(torch.randn(4, 6), (None, "seq"), sp)
 
 
-@pytest.mark.parametrize("axis, item", [("sp", "A6.5"), ("ep", "A7.1")])
+@pytest.mark.parametrize("axis, item", [("sp", None), ("ep", "A7.1")])
 def test_sp_and_ep_still_raise_naming_their_items(axis, item):
     """tp and pp run (tests/test_torch_tensor_parallel.py,
-    test_torch_pipeline.py, test_torch_planner.py); a live sp or ep axis
+    test_torch_pipeline.py, test_torch_planner.py); a live sp axis runs
+    the sequence-parallel GPT (tests/test_torch_ring_attention.py) and
+    refuses a network that does not slice the sequence; a live ep axis
     raises at distributed_model, naming the ROADMAP item it waits for."""
     from paddle_tpu_torch.hapi.model import Model
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.nn import Linear
-    with pytest.raises(NotImplementedError, match=f"'{axis}'.*{item}"):
-        tpar.distributed_model(Model(Linear(4, 4)),
-                               mesh=tpar.DeviceMesh(devices=2, **{axis: 2}))
+    mesh = tpar.DeviceMesh(devices=2, **{axis: 2})
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"'{axis}'.*{item}"):
+            tpar.distributed_model(Model(Linear(4, 4)), mesh=mesh)
+        return
+    with pytest.raises(NotImplementedError, match="sequence_parallel"):
+        tpar.distributed_model(Model(Linear(4, 4)), mesh=mesh)
+    net = GPTForCausalLM(GPTConfig(vocab_size=64, hidden_size=32,
+                                   num_layers=1, num_heads=4,
+                                   max_position_embeddings=16,
+                                   sequence_parallel=True), device="cpu")
+    m = tpar.distributed_model(Model(net), mesh=mesh)
+    assert m._mesh.axis_size("sp") == 2
 
 
 # ---------------------------------------------------------------------------

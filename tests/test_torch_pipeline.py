@@ -28,6 +28,7 @@ import torch_mp_workers as MW
 WORKERS = MW.__file__
 RTOL, ATOL = 2e-4, 2e-5
 PP2 = (("pp", 2),)
+DPPP = (("pp", 2), ("dp", 2))
 
 
 def _dump(path, obj):
@@ -55,10 +56,13 @@ def runs(tmp_path_factory):
             "lsgd_params": {k: v.tolist() for k, v in p.items()},
             "lsgd_x": x.tolist(), "lsgd_y": y.tolist()}
     two = W.start_ranks("pp2", 2, d / "two", args, script=WORKERS)
+    four = W.start_ranks("dppp", 4, d / "four", args, script=WORKERS)
     jax_side = {(m, v, p_): R.run(PP2, p_, pipe=(m, v))
                 for m, v, p_ in MW.PP_RUNS}
+    jax_side["dppp"] = R.run(DPPP, MW.DPPP_DROPOUT, pipe=(2, 1))
     jax_side["lsgd"] = _jax_local_sgd()
-    return {"two": W.collect(two, timeout=400), "jax": jax_side,
+    return {"two": W.collect(two, timeout=400),
+            "four": W.collect(four, timeout=400), "jax": jax_side,
             "dir": d / "two"}
 
 
@@ -81,6 +85,26 @@ def test_pp2_losses_and_state_match_jax(runs, m, v, dropout):
         _close(got_state, state, f"pp=2 m {m} v {v} dropout {dropout}")
     if dropout:
         assert losses != runs["jax"][(2, 2, 0.0)][0]   # the masks acted
+
+
+def test_dp2_pp2_dropout_draws_the_jax_rows(runs):
+    """dp=2 x pp=2 at dropout 0.1: each data rank holds its slice of each
+    microbatch (the JAX package shards the microbatches over dp), so
+    its chunks draw those rows of the JAX masks: the losses and the
+    trained state agree, every rank's equal; predictions come back in
+    the global batch's row order."""
+    losses, state = runs["jax"]["dppp"]
+    for r in runs["four"]:
+        np.testing.assert_allclose(r["losses"], losses, rtol=RTOL,
+                                   atol=ATOL)
+        _close(r["state"], state, "dp=2 x pp=2 dropout 0.1")
+        assert r["losses"] == runs["four"][0]["losses"]
+    net = _one_process_pipe(state)
+    net.eval()
+    with torch.no_grad():
+        want = net(torch.from_numpy(np.asarray(R.ids()[0]))).numpy()
+    for r in runs["four"]:
+        np.testing.assert_allclose(r["predict"], want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("m, v, dropout", MW.PP_RUNS)

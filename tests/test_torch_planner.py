@@ -2,8 +2,10 @@
 (``tests/test_planner.py``'s counterparts): the same plan for the same
 net, rank count, batch and ``ChipSpec`` fields (read from the JAX
 object), ``evaluate``'s numbers and breakdown, shape-only models on the
-meta device, the H100 defaults, and ``distributed_model(global_batch=)``
-planning and training on two gloo ranks."""
+meta device, the H100 defaults, ``distributed_model(global_batch=)``
+planning and training on two gloo ranks, and ``verify_plan`` re-planning
+a Model already split over the planner's mesh against the JAX
+package's re-plan."""
 
 import dataclasses
 import pickle
@@ -150,3 +152,65 @@ def test_distributed_model_plans_the_mesh_on_two_ranks(planned):
             {k: v for k, v in want.axes.items() if v > 1}
         assert all(np.isfinite(r["losses"]))
     assert r0["losses"] == r1["losses"]
+
+
+REPLAN_RATIO = 8.0
+
+
+def _replan_chip():
+    """A ChipSpec (the port's H100 fields) whose budget, at the measured
+    REPLAN_RATIO, holds fsdp=2 and not the first plan's tp=2."""
+    net = MW.dense_net(R.weights(layers=2), layers=2)
+    base = tplan.ChipSpec()
+    _, cands = tplan.plan(net, 2, 4, seq_len=16, return_all=True,
+                          hbm_scale=REPLAN_RATIO)
+    by = {tuple(sorted(c.axes.items())): c.hbm_bytes for c in cands}
+    lo = by[(("dp", 1), ("fsdp", 2), ("tp", 1))]
+    hi = by[(("dp", 1), ("fsdp", 1), ("tp", 2))]
+    assert lo < hi
+    return dataclasses.replace(
+        base, hbm_bytes=(lo + hi) / 2 / base.hbm_headroom)
+
+
+@pytest.fixture(scope="module")
+def replanned(tmp_path_factory):
+    d = tmp_path_factory.mktemp("replan")
+    with open(d / "w.pkl", "wb") as f:
+        pickle.dump(R.weights(layers=2), f)
+    chip = dataclasses.asdict(_replan_chip())
+    handle = W.start_ranks(
+        "replan2", 2, d / "two",
+        {"weights": str(d / "w.pkl"), "ids": R.ids(n=3).tolist(),
+         "ratio": REPLAN_RATIO, "chip": chip}, script=MW.__file__)
+    first = tplan.plan(MW.dense_net(R.weights(layers=2), layers=2), 2, 4,
+                       seq_len=16)
+    jax_side = R.replan(REPLAN_RATIO, tuple(sorted(chip.items())),
+                        tuple(sorted(dataclasses.asdict(
+                            tplan.ChipSpec()).items())),
+                        tuple(sorted(first.axes.items())))
+    return W.collect(handle, timeout=300), jax_side
+
+
+def test_verify_plan_replans_a_model_split_over_a_mesh(replanned):
+    """A Model split over the planner's tp=2 mesh, whose measured step is
+    8x the prediction, re-plans as the JAX package does (the same new
+    axes and report), gathers its whole state, drops the optimizer
+    state and goes on over fsdp=2: the three losses and the trained
+    state agree with the JAX re-plan's, the ranks bit for bit."""
+    ranks, (losses, axes, installed, report, state) = replanned
+    assert installed == [axes]
+    for r in ranks:
+        assert r["first_axes"] == {"dp": 1, "fsdp": 1, "tp": 2}
+        assert r["axes"] == axes and axes["fsdp"] == 2
+        assert r["mesh"] == {"fsdp": 2}
+        assert r["sharded"]   # the state is split over the new mesh
+        assert {k: r["report"][k] for k in ("replanned", "new_axes")} == \
+            {k: report[k] for k in ("replanned", "new_axes")}
+        np.testing.assert_allclose(r["report"]["ratio"], report["ratio"],
+                                   rtol=1e-6)
+        np.testing.assert_allclose(r["losses"], losses, rtol=2e-4,
+                                   atol=2e-5)
+        for k, v in state.items():
+            np.testing.assert_allclose(r["state"][k], v, rtol=2e-4,
+                                       atol=2e-5, err_msg=k)
+    assert ranks[0]["losses"] == ranks[1]["losses"]

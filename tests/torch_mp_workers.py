@@ -259,6 +259,26 @@ def dptp(rank, world, d, args):
 # ---------------------------------------------------------------------------
 
 PP_RUNS = ((1, 1, 0.0), (4, 1, 0.0), (2, 2, 0.0), (2, 1, 0.1), (4, 2, 0.1))
+DPPP_DROPOUT = 0.1   # the dp=2 x pp=2 run: 2 microbatches, v 1
+
+
+def dppp(rank, world, d, args):
+    """dp=2 x pp=2 at dropout 0.1 on four ranks: each data rank's rows
+    are its slice of each microbatch, and so are its rows of the
+    chunks' masks."""
+    import torch
+    parallel = W._init(rank, world, d)
+    w = _load(args["weights_v1"])
+    ids = np.asarray(args["ids"])
+    mesh = parallel.DeviceMesh(pp=2, dp=2)
+    m = model_of(pipe_net(w, mesh, 2, 1, dropout=DPPP_DROPOUT))
+    parallel.distributed_model(m, mesh=mesh)
+    res = {"losses": steps(m, ids), "state": full_state(m)}
+    # predictions come back in the global batch's row order
+    m.network.eval()
+    res["predict"] = m.predict_batch([ids[0]]).detach().numpy()
+    torch.distributed.barrier()
+    return res
 
 
 def pp2(rank, world, d, args):
@@ -351,6 +371,38 @@ def planner2(rank, world, d, args):
                                seq_len=ids.shape[2])
     res = {"axes": dict(m._plan.axes), "fits": m._plan.fits,
            "mesh": dict(m._mesh.axis_sizes), "losses": steps(m, ids)}
+    parallel.set_mesh(None)
+    torch.distributed.barrier()
+    return res
+
+
+def replan2(rank, world, d, args):
+    """verify_plan re-planning a Model already split over the planner's
+    mesh: a step, the measured step (its bytes given: ``ratio`` x the
+    prediction), the re-plan onto the new mesh, a step there."""
+    import torch
+    from paddle_tpu_torch.parallel import planner
+    parallel = W._init(rank, world, d)
+    w = _load(args["weights"])
+    ids = np.asarray(args["ids"])
+    m = model_of(dense_net(w, layers=2))
+    parallel.distributed_model(m, global_batch=ids.shape[1],
+                               seq_len=ids.shape[2])
+    res = {"first_axes": dict(m._plan.axes)}
+    losses = [float(m.train_batch([ids[0]], [ids[0]])["loss"])]
+    predicted = m._plan.hbm_bytes
+
+    def measured(model, inputs, labels=()):
+        losses.append(float(model.train_batch(list(inputs),
+                                               list(labels))["loss"]))
+        return args["ratio"] * predicted
+    planner.measured_step_bytes = measured
+    report, new = planner.verify_plan(
+        m, [ids[1]], [ids[1]], chip=planner.ChipSpec(**args["chip"]))
+    losses.append(float(m.train_batch([ids[2]], [ids[2]])["loss"]))
+    res.update(axes=dict(new.axes), report=report, losses=losses,
+               mesh={k: v for k, v in m._mesh.axis_sizes.items() if v > 1},
+               sharded=sorted(m._sync.sharded), state=full_state(m))
     parallel.set_mesh(None)
     torch.distributed.barrier()
     return res

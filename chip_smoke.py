@@ -32,8 +32,10 @@ the result line:
    shapes (gpt2-small bf16 and f32, llama-style GQA, cross-length, head
    dim 80, head dims 256 f32, 320 bf16 and 264 f16 in the split-d
    kernels, the train shape in f16 (GradScaler's training), head dim
-   192 (B1, B2 and B3 on ``mma.sync``), and lengths 97 and 200 / 136 that
-   end in a partial tile), each case naming the route of each kernel
+   192 (B1, B2 and B3 on ``mma.sync``), lengths 97 and 200 / 136 that
+   end in a partial tile, the ring blocks of the sequence_parallel
+   phase, and the nn phase's 8-head shapes: encoder 512, causal decoder
+   256, cross 256 over 512), each case naming the route of each kernel
    and holding two launches of B1, of B2 and of B3 bit-identical, each
    kernel's device time (``torch.profiler``) taken in turns with its
    twin's and SDPA's (median of 3 windows of 20 calls);
@@ -172,7 +174,26 @@ the result line:
    (finite, equal on the ranks, another loss than the unmasked
    step's); each mesh's step wall over one process's and the ring's
    exchange seconds a step;
-15. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
+15. nn: transformer-base (``nn.Transformer`` at its defaults, dropout 0:
+   d_model 512, 8 heads, 6 + 6 layers, FFN 2048) in a seq2seq wrapper
+   (a shared 37000-token embedding, a vocabulary head,
+   ``nn.CrossEntropyLoss``; batch 8, source 512 and target 256 tokens,
+   AMP O1, AdamW 1e-4) through ``Model.fit``, 2 epochs of 4 steps and
+   one eval pass: B1, B2 and B3 launched 18 times a train step (6
+   encoder self-attentions, 6 causal decoder self-attentions, 6
+   cross-attentions of 256 queries over 512 keys) and B1 18 times an
+   eval step, counted over the fit and for one step of each alone; the
+   step time, tokens/s and B1-B3's device-time share
+   (``torch.profiler``); 3 steps on B1-B3 against 3 on the twins
+   (losses, and the attention projections' gradient); a step at the
+   defaults' dropout 0.1 (finite, B1-B3 not launched: attention dropout
+   takes the plain path); then one forward and backward of every layer
+   and function ported in the nn slice on the card against the port on
+   the CPU (f32, TF32 off; within 1e-5 + 1e-4 |cpu|, BatchNorm's
+   running statistics and spectral norm's ``u`` bit for bit), and a
+   Switch MoE at d_model 768, FFN 3072, 8 experts over 8 x 512 tokens
+   (dispatch positions and dropped tokens equal);
+16. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
    ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -2144,6 +2165,12 @@ def phase_flash_kernels() -> dict:
         ("sp ring block bf16", 8, 512, 512, 12, 12, 64, torch.bfloat16,
          False),
         ("sp ring diagonal bf16", 8, 512, 512, 12, 12, 64, torch.bfloat16),
+        # the nn phase's transformer-base at 8 heads: the encoder's
+        # self-attention, the decoder's (causal) and the cross-attention
+        ("nn encoder bf16", 8, 512, 512, 8, 8, 64, torch.bfloat16, False),
+        ("nn decoder causal bf16", 8, 256, 256, 8, 8, 64, torch.bfloat16),
+        ("nn cross q256 k512 bf16", 8, 256, 512, 8, 8, 64, torch.bfloat16,
+         False),
     ]
     cases, heads = [], {}
     for name, b, sq, sk, hq, hkv, d, dt, *causal in shapes:
@@ -4860,6 +4887,545 @@ def _summary(name, source, replaces, launches, case):
             "library_ms": case["library_ms"]}
 
 
+
+# ---------------------------------------------------------------------------
+# transformer-base through nn.Transformer; the nn layers on the card
+# ---------------------------------------------------------------------------
+
+NN_VOCAB, NN_BATCH, NN_SRC, NN_TGT = 37000, 8, 512, 256
+NN_STEPS, NN_EPOCHS, NN_PARITY_STEPS, NN_TIMED_STEPS = 4, 2, 3, 5
+NN_TRANSFORMER = {}     # nn.Transformer's defaults: transformer-base
+NN_MOE = dict(d_model=768, d_hidden=3072, num_experts=8, gate="switch",
+              capacity_factor=1.25)
+NN_MOE_TOKENS = (8, 512)
+NN_LAYER_ATOL, NN_LAYER_RTOL = 1e-5, 1e-4
+# transformer-base's attention gradient at init under O1 is ~5% from the
+# float32 one on the twins and on the kernels alike (bf16 GEMMs through
+# 12 post-LN layers): under O1 the kernels are held to the twins'
+# distance from float32 (within 10%), and in float32 to the twins
+# within QKV_GRAD_RTOL
+NN_GRAD_ERR_RATIO = 1.1
+
+
+def _nn_seq2seq(dropout, dev):
+    """transformer-base (Vaswani et al. 2017, Table 3: d_model 512, 8
+    heads, 6 + 6 layers, FFN 2048, ReLU, post-LN) in a seq2seq wrapper:
+    one embedding of a shared ~37000-token vocabulary (§3.4, §5.1) for
+    source and target, the transformer, a vocabulary head. No position
+    encoding: the run checks the path's numbers, not translation."""
+    import paddle_tpu_torch as pt
+    nn = pt.nn
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(NN_VOCAB, 512)
+            self.transformer = nn.Transformer(
+                **{**NN_TRANSFORMER, "dropout": dropout})
+            self.head = nn.Linear(512, NN_VOCAB)
+
+        def forward(self, src, tgt):
+            return self.head(self.transformer(self.embed(src),
+                                              self.embed(tgt)))
+    pt.seed(0)
+    return Seq2Seq().to(dev)
+
+
+def _nn_data(n, seed):
+    """``n`` rows of (source ids, target input ids, target labels): the
+    labels are the target shifted by one."""
+    rs = np.random.RandomState(seed)
+    src = rs.randint(0, NN_VOCAB, (n, NN_SRC))
+    y = rs.randint(0, NN_VOCAB, (n, NN_TGT + 1))
+    return src, y[:, :-1], y[:, 1:]
+
+
+def _nn_model(net):
+    import paddle_tpu_torch as pt
+    model = pt.Model(net)
+    model.prepare(pt.optimizer.AdamW(learning_rate=1e-4, parameters=net,
+                                     weight_decay=0.01),
+                  pt.nn.CrossEntropyLoss(), amp_configs="O1")
+    return model
+
+
+def _nn_attn_grad(net, init, batch, impl, o1=True):
+    """The gradient of every attention projection (q, k and v of the
+    encoder's, the decoder's and the cross attentions) after one fwd+bwd
+    from the initial weights, under O1 (or in float32), on B1-B3 or on
+    their twins: it flows through dQ, dK and dV."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops import flash_attention as fa
+    net.load_state_dict(init)
+    net.train()
+    net.zero_grad(set_to_none=True)
+    dev = next(net.parameters()).device
+    src, tgt, lab = (torch.as_tensor(a, device=dev) for a in batch)
+    fa.impl = impl
+    try:
+        with amp.auto_cast(enable=o1, level="O1"):
+            logits = net(src, tgt)
+        torch.nn.functional.cross_entropy(
+            logits.float().flatten(0, 1), lab.flatten()).backward()
+    finally:
+        fa.impl = "kernel"
+    g = torch.cat([p.grad.flatten() for n, p in net.named_parameters()
+                   if n.endswith(("q_proj.weight", "k_proj.weight",
+                                  "v_proj.weight"))])
+    net.zero_grad(set_to_none=True)
+    return g
+
+
+def _nn_flat(out):
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _nn_flat(o)]
+    return [out]
+
+
+def _nn_cases(nn, F, IF, U):
+    """(label, build() -> module, inputs as numpy arrays) of every class
+    and function ported to nn in this slice, at the JAX tests' sizes."""
+    rs = np.random.RandomState(0)
+
+    def x(*s, scale=1.0):
+        return (rs.randn(*s) * scale).astype(np.float32)
+
+    def ints(hi, *s):
+        return rs.randint(0, hi, s)
+
+    class Fn(nn.Layer):
+        """A function of the inputs and of its own parameters."""
+
+        def __init__(self, fn, **params):
+            super().__init__()
+            self.fn = fn
+            for k, v in params.items():
+                setattr(self, k, nn.Parameter(v))
+
+        def forward(self, *xs):
+            return self.fn(self, *xs)
+
+    def wn(layer):
+        U.weight_norm(layer)
+        return layer
+
+    def sn(layer):
+        U.spectral_norm(layer)
+        return layer
+
+    img = (2, 3, 8, 8)
+    acts = ["ReLU", "ReLU6", "Sigmoid", "Tanh", "GELU", "SiLU", "Swish",
+            "Mish", "Hardswish", "Hardsigmoid", "Softplus", "Softsign",
+            "ELU", "SELU", "LeakyReLU", "Softmax", "LogSoftmax",
+            "Identity", "Flatten", "CELU", "ThresholdedReLU",
+            "Tanhshrink", "Hardshrink", "Softshrink", "Hardtanh", "GLU",
+            "LocalResponseNorm"]
+    cases = [(a, lambda a=a: getattr(nn, a)(), [x(*img, scale=2)])
+             for a in acts]
+    cases += [
+        ("PReLU", lambda: nn.PReLU(3), [x(*img)]),
+        ("Pad2D", lambda: nn.Pad2D([1, 2, 2, 1], "reflect"), [x(*img)]),
+        ("Pad1D", lambda: nn.Pad1D([2, 1], "replicate"), [x(2, 3, 6)]),
+        ("Pad3D", lambda: nn.Pad3D([1] * 6, "circular"),
+         [x(1, 2, 3, 4, 5)]),
+        ("ZeroPad2D", lambda: nn.ZeroPad2D([1, 1, 2, 2]), [x(*img)]),
+        ("Upsample", lambda: nn.Upsample((13, 6), mode="bicubic"),
+         [x(*img)]),
+        ("UpsamplingBilinear2D", lambda: nn.UpsamplingBilinear2D(
+            scale_factor=2), [x(*img)]),
+        ("UpsamplingNearest2D", lambda: nn.UpsamplingNearest2D((5, 11)),
+         [x(*img)]),
+        ("Conv1D", lambda: nn.Conv1D(3, 4, 3, stride=2, padding=1),
+         [x(2, 3, 11)]),
+        ("Conv2D", lambda: nn.Conv2D(3, 8, 3, stride=2, padding=1),
+         [x(2, 3, 16, 16)]),
+        ("Conv2D groups NHWC", lambda: nn.Conv2D(
+            4, 6, 3, groups=2, data_format="NHWC"), [x(2, 9, 9, 4)]),
+        ("Conv3D", lambda: nn.Conv3D(2, 4, 3, padding=1),
+         [x(1, 2, 5, 6, 5)]),
+        ("Conv2DTranspose", lambda: nn.Conv2DTranspose(
+            4, 6, 3, stride=2, padding=1, output_padding=1),
+         [x(2, 4, 8, 8)]),
+        ("MaxPool1D", lambda: nn.MaxPool1D(3, 2, 1), [x(2, 3, 10)]),
+        ("AvgPool1D", lambda: nn.AvgPool1D(3, 2, 1), [x(2, 3, 10)]),
+        ("MaxPool2D", lambda: nn.MaxPool2D(3, 2, 1), [x(*img)]),
+        ("AvgPool2D", lambda: nn.AvgPool2D(3, 2, 1, False), [x(*img)]),
+        ("MaxPool3D", lambda: nn.MaxPool3D(2), [x(1, 2, 4, 8, 8)]),
+        ("AvgPool3D", lambda: nn.AvgPool3D(2), [x(1, 2, 4, 8, 8)]),
+        ("AdaptiveAvgPool1D", lambda: nn.AdaptiveAvgPool1D(4),
+         [x(2, 3, 12)]),
+        ("AdaptiveMaxPool1D", lambda: nn.AdaptiveMaxPool1D(3),
+         [x(2, 3, 12)]),
+        ("AdaptiveAvgPool2D", lambda: nn.AdaptiveAvgPool2D((3, 5)),
+         [x(2, 3, 7, 9)]),
+        ("AdaptiveMaxPool2D", lambda: nn.AdaptiveMaxPool2D(2), [x(*img)]),
+        ("AdaptiveAvgPool3D", lambda: nn.AdaptiveAvgPool3D(2),
+         [x(1, 2, 4, 8, 8)]),
+        ("BatchNorm1D", lambda: nn.BatchNorm1D(5), [x(16, 5) * 3 + 1]),
+        ("BatchNorm2D", lambda: nn.BatchNorm2D(4),
+         [x(8, 4, 5, 5) * 3 + 1]),
+        ("BatchNorm3D", lambda: nn.BatchNorm3D(2),
+         [x(2, 2, 3, 4, 3) * 3 + 1]),
+        ("SyncBatchNorm", lambda: nn.SyncBatchNorm(3), [x(*img) * 2 + 1]),
+        ("GroupNorm", lambda: nn.GroupNorm(2, 4), [x(2, 4, 5, 5)]),
+        ("InstanceNorm2D", lambda: nn.InstanceNorm2D(3), [x(*img)]),
+        ("CrossEntropyLoss", lambda: nn.CrossEntropyLoss(),
+         [x(6, 10), ints(10, 6)]),
+        ("NLLLoss", lambda: nn.NLLLoss(),
+         [np.log(np.full((6, 5), 0.2, np.float32)) + x(6, 5) * 0.1,
+          ints(5, 6)]),
+        ("MSELoss", lambda: nn.MSELoss(), [x(6, 5), x(6, 5)]),
+        ("L1Loss", lambda: nn.L1Loss(), [x(6, 5), x(6, 5)]),
+        ("SmoothL1Loss", lambda: nn.SmoothL1Loss(), [x(6, 5), x(6, 5)]),
+        ("KLDivLoss", lambda: nn.KLDivLoss(),
+         [x(6, 5), np.full((6, 5), 0.2, np.float32)]),
+        ("BCELoss", lambda: nn.BCELoss(),
+         [1 / (1 + np.exp(-x(6, 5))), (x(6, 5) > 0).astype(np.float32)]),
+        ("BCEWithLogitsLoss", lambda: nn.BCEWithLogitsLoss(),
+         [x(6, 5), (x(6, 5) > 0).astype(np.float32)]),
+        ("RReLU", lambda: nn.RReLU(0.1, 0.3), [x(64)]),
+        ("AlphaDropout", lambda: nn.AlphaDropout(0.3), [x(2000)]),
+        ("Maxout", lambda: nn.Maxout(3), [x(2, 6, 4, 4)]),
+        ("PixelShuffle", lambda: nn.PixelShuffle(2), [x(2, 8, 3, 3)]),
+        ("PixelUnshuffle", lambda: nn.PixelUnshuffle(2), [x(2, 2, 6, 4)]),
+        ("Unfold", lambda: nn.Unfold(3, 2, 1), [x(2, 3, 7, 7)]),
+        ("Fold", lambda: nn.Fold((7, 7), 2, 2, 0, 2), [x(1, 8, 9)]),
+        ("Bilinear", lambda: nn.Bilinear(5, 6, 7), [x(8, 5), x(8, 6)]),
+        ("CosineSimilarity", lambda: nn.CosineSimilarity(1),
+         [x(6, 5), x(6, 5)]),
+        ("PairwiseDistance", lambda: nn.PairwiseDistance(),
+         [x(6, 5), x(6, 5)]),
+        ("SimpleRNNCell", lambda: nn.SimpleRNNCell(4, 6), [x(3, 4)]),
+        ("LSTMCell", lambda: nn.LSTMCell(4, 6), [x(3, 4)]),
+        ("GRUCell", lambda: nn.GRUCell(4, 6), [x(3, 4)]),
+        ("RNN", lambda: nn.RNN(nn.GRUCell(4, 6), is_reverse=True),
+         [x(3, 5, 4)]),
+        ("BiRNN", lambda: nn.BiRNN(nn.LSTMCell(4, 6), nn.LSTMCell(4, 6)),
+         [x(3, 5, 4)]),
+        ("SimpleRNN", lambda: nn.SimpleRNN(4, 6, num_layers=2),
+         [x(3, 5, 4)]),
+        ("LSTM", lambda: nn.LSTM(4, 6, 2, "bidirect"), [x(3, 5, 4)]),
+        ("GRU", lambda: nn.GRU(4, 6, 2, "bidirect"), [x(3, 5, 4)]),
+        ("MultiHeadAttention", lambda: nn.MultiHeadAttention(32, 4),
+         [x(2, 9, 32), x(2, 12, 32)]),
+        ("TransformerEncoderLayer", lambda: nn.TransformerEncoderLayer(
+            32, 4, 64, 0.0), [x(2, 9, 32)]),
+        ("TransformerEncoder", lambda: nn.TransformerEncoder(
+            nn.TransformerEncoderLayer(32, 4, 64, 0.0), 2), [x(2, 9, 32)]),
+        ("TransformerDecoderLayer", lambda: nn.TransformerDecoderLayer(
+            32, 4, 64, 0.0), [x(2, 7, 32), x(2, 9, 32)]),
+        ("TransformerDecoder", lambda: nn.TransformerDecoder(
+            nn.TransformerDecoderLayer(32, 4, 64, 0.0), 2),
+         [x(2, 7, 32), x(2, 9, 32)]),
+        ("Transformer", lambda: nn.Transformer(32, 4, 2, 2, 64, 0.1),
+         [x(2, 9, 32), x(2, 7, 32)]),
+        ("NaiveGate", lambda: nn.NaiveGate(8, 4), [x(2, 16, 8)]),
+        ("GShardGate", lambda: nn.GShardGate(8, 4), [x(2, 16, 8)]),
+        ("SwitchGate", lambda: nn.SwitchGate(8, 4), [x(2, 16, 8)]),
+        ("MoELayer gshard", lambda: nn.MoELayer(8, 16, 4),
+         [x(2, 16, 8)]),
+        ("weight_norm", lambda: wn(nn.Linear(6, 4)), [x(3, 6)]),
+        ("spectral_norm", lambda: sn(nn.Linear(5, 7)), [x(4, 5)]),
+        ("parameters_to_vector", lambda: Fn(
+            lambda m, v: U.parameters_to_vector([m.w, v]) * 2,
+            w=x(3, 4)), [x(5)]),
+        ("fused_linear", lambda: Fn(
+            lambda m, v: IF.fused_linear(v, m.w, m.b), w=x(4, 3),
+            b=x(3)), [x(2, 4)]),
+        ("fused_feedforward", lambda: Fn(
+            lambda m, v: IF.fused_feedforward(
+                v, m.w1, m.w2, dropout1_rate=0.1, dropout2_rate=0.1,
+                training=True), w1=x(8, 16), w2=x(16, 8)), [x(2, 4, 8)]),
+        ("fused_multi_head_attention", lambda: Fn(
+            lambda m, v: IF.fused_multi_head_attention(
+                v, m.qkv, m.wo, dropout_rate=0.0, attn_dropout_rate=0.0,
+                qkv_bias=m.bias), qkv=x(3, 2, 4, 8, scale=0.3),
+            wo=x(8, 8, scale=0.3), bias=x(3, 2, 4, scale=0.1)),
+         [x(2, 6, 8)]),
+        ("gumbel_softmax", lambda: Fn(
+            lambda m, v: F.gumbel_softmax(v * m.s, 0.5, True), s=x(7)),
+         [x(4, 7)]),
+        ("grid_sample", lambda: Fn(
+            lambda m, v, g: F.grid_sample(v * m.s, g), s=x(1)),
+         [x(2, 3, 6, 7), np.clip(x(2, 5, 4, 2), -1.2, 1.2)]),
+    ]
+    return cases
+
+
+# buffers a card and the CPU must hold bit for bit
+_NN_EXACT_BUFFERS = ("_mean", "_variance", "weight_u")
+
+
+def _nn_layer_check(build, inputs, dev):
+    """One forward (and backward, where there are parameters) of
+    ``build()`` on the card and on the CPU from the same weights and
+    draws: the largest output / gradient error over the limit, and
+    whether the exact buffers are equal."""
+    import copy
+    import paddle_tpu_torch as pt
+    pt.seed(0)
+    cpu = build()
+    card = copy.deepcopy(cpu).to(dev)
+    outs = []
+    for m, d in ((cpu, "cpu"), (card, dev)):
+        xs = [torch.as_tensor(a, device=d) for a in inputs]
+        pt.seed(1)
+        out = [o for o in _nn_flat(m(*xs)) if o.is_floating_point()]
+        params = [p for p in m.parameters() if p.requires_grad]
+        if params:
+            g = torch.Generator().manual_seed(2)
+            sum((o * torch.randn(o.shape, generator=g).to(d)).sum()
+                for o in out).backward()
+        outs.append(([o.detach().cpu() for o in out],
+                     [p.grad.cpu() if p.grad is not None else None
+                      for p in params],
+                     {k: b.cpu() for k, b in m.named_buffers()}))
+    worst, exact = 0.0, True
+    (oc, gc, bc), (og, gg, bg) = outs
+    for a, b in zip(oc + [g for g in gc if g is not None],
+                    og + [g for g in gg if g is not None]):
+        lim = NN_LAYER_ATOL + NN_LAYER_RTOL * a.abs()
+        worst = max(worst, float(((b - a).abs() / lim).max())
+                    if a.numel() else 0.0)
+    for k, v in bc.items():
+        if k.split(".")[-1] in _NN_EXACT_BUFFERS:
+            exact = exact and torch.equal(v, bg[k])
+        else:
+            lim = NN_LAYER_ATOL + NN_LAYER_RTOL * v.abs()
+            worst = max(worst, float(((bg[k] - v).abs() / lim).max()))
+    return worst, exact, len(oc), sum(g is not None for g in gc)
+
+
+def _nn_moe_check(dev):
+    """The Switch MoE at its paper's widths on 8 x 512 tokens: dispatch
+    positions and dropped tokens equal on the card and the CPU, the
+    output, the aux loss and the gradients within the layer limit."""
+    import copy
+    import paddle_tpu_torch as pt
+    pt.seed(0)
+    cpu = pt.nn.MoELayer(**NN_MOE)
+    card = copy.deepcopy(cpu).to(dev)
+    x = np.random.RandomState(3).randn(*NN_MOE_TOKENS, NN_MOE["d_model"]) \
+        .astype(np.float32)
+    res = []
+    for m, d in ((cpu, "cpu"), (card, dev)):
+        xs = torch.as_tensor(x, device=d)
+        dispatch, _, _ = m.route(xs)
+        out, aux = m.forward_with_aux(xs)
+        (out.square().mean() + aux).backward()
+        res.append((dispatch.cpu(), out.detach().cpu(), aux.detach().cpu(),
+                    [p.grad.cpu() for p in m.parameters()]))
+    (dc, oc, ac, gc), (dg, og, ag, gg) = res
+    worst = 0.0
+    for a, b in zip([oc, ac] + gc, [og, ag] + gg):
+        lim = NN_LAYER_ATOL + NN_LAYER_RTOL * a.abs()
+        worst = max(worst, float(((b - a).abs() / lim).max()))
+    tokens = NN_MOE_TOKENS[0] * NN_MOE_TOKENS[1] * cpu.top_k
+    return {"dispatch_equal": torch.equal(dc, dg),
+            "dropped_cpu": tokens - int(dc.sum()),
+            "dropped_card": tokens - int(dg.sum()),
+            "capacity": cpu._capacity(NN_MOE_TOKENS[1]),
+            "aux_cpu": float(ac), "aux_card": float(ag),
+            "err_over_limit": worst}
+
+
+def phase_nn(info, dev="cuda") -> dict:
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.io import Dataset
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn import utils as U
+    from paddle_tpu_torch.ops import flash_attention as fa
+    t_phase = time.perf_counter()
+    layers = (NN_TRANSFORMER.get("num_encoder_layers", 6),
+              NN_TRANSFORMER.get("num_decoder_layers", 6))
+    per_train = layers[0] + 2 * layers[1]     # B1, B2, B3 a train step
+    net = _nn_seq2seq(0.0, dev)
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    n_params = sum(p.numel() for p in net.parameters())
+    n_train = NN_BATCH * NN_STEPS
+    src, tgt, lab = _nn_data(n_train + NN_BATCH, 0)
+
+    class Rows(Dataset):
+        def __init__(self, lo, hi):
+            self.lo, self.hi = lo, hi
+
+        def __len__(self):
+            return self.hi - self.lo
+
+        def __getitem__(self, i):
+            i += self.lo
+            return src[i], tgt[i], lab[i]
+
+    losses = []
+
+    class Tap(pt.callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            losses.append(logs["loss"])
+
+    # the main path: Model.fit, 2 epochs of 4 steps and one eval pass,
+    # with the counts from 0
+    model = _nn_model(net)
+    _reset_flash_counts()
+    t0 = time.perf_counter()
+    model.fit(Rows(0, n_train), Rows(n_train, n_train + NN_BATCH),
+              batch_size=NN_BATCH, epochs=NN_EPOCHS, eval_freq=NN_EPOCHS,
+              shuffle=False, verbose=0, callbacks=[Tap()])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = _flash_counts()
+    losses = [float(v) for v in losses]
+    one_batch = (src[:NN_BATCH], tgt[:NN_BATCH], lab[:NN_BATCH])
+
+    # one train step and one eval step, each counted alone; then the
+    # timed steps and a profiled window
+    _reset_flash_counts()
+    model.train_batch(list(one_batch[:2]), [one_batch[2]])
+    torch.cuda.synchronize()
+    step_launches = _flash_counts()
+    _reset_flash_counts()
+    model.eval_batch(list(one_batch[:2]), [one_batch[2]])
+    torch.cuda.synchronize()
+    eval_launches = _flash_counts()
+    t0 = time.perf_counter()
+    for _ in range(NN_TIMED_STEPS):
+        model.train_batch(list(one_batch[:2]), [one_batch[2]])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / NN_TIMED_STEPS * 1e3
+    tokens = NN_BATCH * (NN_SRC + NN_TGT)
+
+    def work():
+        for _ in range(2):
+            model.train_batch(list(one_batch[:2]), [one_batch[2]])
+    prof = _profile(work, 2, "step", phase="nn", run="profile", steps=2)
+    emit(prof)
+    emit({"phase": "nn", "run": "main", "model": "transformer-base",
+          "card": info["nvidia_smi"], "params": n_params,
+          "batch": NN_BATCH, "src": NN_SRC, "tgt": NN_TGT,
+          "vocab": NN_VOCAB, "amp": "O1", "optimizer": "AdamW 1e-4",
+          "fit_s": fit_s, "fit_losses": losses,
+          "fit_launches": fit_launches, "step_launches": step_launches,
+          "eval_launches": eval_launches, "step_ms": step_ms,
+          "tokens_per_s": tokens / step_ms * 1e3,
+          "target_tokens_per_s": NN_BATCH * NN_TGT / step_ms * 1e3,
+          "flash_share": prof["flash_share"],
+          "idle_share": prof["idle_share"]})
+    del model
+
+    # B1-B3 against their twins from the same weights
+    k_losses, k_counts = _nn_parity(net, init, one_batch, "kernel")
+    p_losses, p_counts = _nn_parity(net, init, one_batch, "plain")
+    rel = [abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses)]
+    # the gradient under O1 on the kernels and on the twins, each held
+    # against the twins in float32; and in float32 on the kernels (their
+    # f32 route) against the twins
+    g_k = _nn_attn_grad(net, init, one_batch, "kernel")
+    g_p = _nn_attn_grad(net, init, one_batch, "plain")
+    g_32 = _nn_attn_grad(net, init, one_batch, "plain", o1=False)
+    g_k32 = _nn_attn_grad(net, init, one_batch, "kernel", o1=False)
+
+    def rel_norm(a, b):
+        return float((a - b).norm() / b.norm())
+    grad_rel = rel_norm(g_k, g_p)
+    grad_err_k, grad_err_p = rel_norm(g_k, g_32), rel_norm(g_p, g_32)
+    grad_rel_f32 = rel_norm(g_k32, g_32)
+    del g_k, g_p, g_32, g_k32
+
+    # the defaults' dropout 0.1: attention dropout in training takes the
+    # plain path, as in the JAX package
+    drop = _nn_seq2seq(0.1, dev)
+    drop.load_state_dict(init)
+    drop_model = _nn_model(drop)
+    _reset_flash_counts()
+    drop_loss = float(drop_model.train_batch(list(one_batch[:2]),
+                                             [one_batch[2]])["loss"])
+    torch.cuda.synchronize()
+    drop_launches = _flash_counts()
+    del drop, drop_model, net
+    torch.cuda.empty_cache()
+    emit({"phase": "nn", "run": "kernels vs twins",
+          "steps": NN_PARITY_STEPS, "kernel_losses": k_losses,
+          "plain_losses": p_losses, "rel_diff": rel,
+          "rtol": TRAIN_LOSS_RTOL, "kernel_launches": k_counts,
+          "plain_launches": p_counts, "attn_grad_rel_diff_o1": grad_rel,
+          "attn_grad_err_vs_f32_kernel_o1": grad_err_k,
+          "attn_grad_err_vs_f32_plain_o1": grad_err_p,
+          "attn_grad_rel_diff_f32": grad_rel_f32,
+          "grad_rtol": QKV_GRAD_RTOL,
+          "grad_err_ratio_limit": NN_GRAD_ERR_RATIO,
+          "dropout_0.1_loss": drop_loss,
+          "dropout_0.1_launches": drop_launches})
+
+    # every ported layer on the card against the port on the CPU (f32,
+    # TF32 off)
+    t0 = time.perf_counter()
+    layer_rows = []
+    for label, build, inputs in _nn_cases(pt.nn, F, IF, U):
+        worst, exact, n_out, n_grad = _nn_layer_check(build, inputs, dev)
+        layer_rows.append({"layer": label, "err_over_limit": worst,
+                           "exact_buffers": exact, "outputs": n_out,
+                           "grads": n_grad})
+    moe = _nn_moe_check(dev)
+    emit({"phase": "nn", "run": "layers card vs cpu",
+          "limit": f"|card - cpu| <= {NN_LAYER_ATOL} + {NN_LAYER_RTOL} "
+                   f"|cpu|", "seconds": time.perf_counter() - t0,
+          "cases": layer_rows, "moe_switch": moe})
+
+    want = {k: per_train * NN_STEPS * NN_EPOCHS for k in fit_launches}
+    want["flash_attention_fwd"] += per_train   # the eval pass's step
+    bad_layers = [r["layer"] for r in layer_rows
+                  if not (r["err_over_limit"] <= 1.0 and r["exact_buffers"])]
+    checks = {
+        "fit_launches": fit_launches == want,
+        "train_step_launches": all(v == per_train
+                                   for v in step_launches.values()),
+        "eval_step_launches": eval_launches == {
+            "flash_attention_fwd": per_train,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0},
+        "parity_launches": all(v == per_train * NN_PARITY_STEPS
+                               for v in k_counts.values()),
+        "plain_launches": all(v == 0 for v in p_counts.values()),
+        "dropout_0.1_launches": all(v == 0 for v in drop_launches.values()),
+        "dropout_0.1_finite": math.isfinite(drop_loss),
+        "losses_finite": all(math.isfinite(v) for v in
+                             losses + k_losses + p_losses),
+        "eighth_loss_below_first": losses[-1] < losses[0],
+        "kernel_losses_match_twins": max(rel) <= TRAIN_LOSS_RTOL,
+        "kernel_attn_grad_f32_matches_twins": grad_rel_f32 <= QKV_GRAD_RTOL,
+        "kernel_attn_grad_o1_as_close_to_f32_as_twins":
+            grad_err_k <= NN_GRAD_ERR_RATIO * grad_err_p,
+        "layers_card_vs_cpu": not bad_layers,
+        "moe_dispatch_equal": moe["dispatch_equal"],
+        "moe_dropped_equal": moe["dropped_cpu"] == moe["dropped_card"],
+        "moe_within_limit": moe["err_over_limit"] <= 1.0,
+    }
+    emit({"phase": "nn_checks", "expected_fit_launches": want,
+          "bad_layers": bad_layers, "seconds":
+          time.perf_counter() - t_phase, "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"nn checks failed: {failed}")
+    return fit_launches
+
+
+def _nn_parity(net, init, batch, impl):
+    """NN_PARITY_STEPS train steps from the initial weights on B1-B3 or
+    on their twins: the losses and the launch counts."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    net.load_state_dict(init)
+    model = _nn_model(net)
+    fa.impl = impl
+    try:
+        _reset_flash_counts()
+        losses = [model.train_batch(list(batch[:2]), [batch[2]])["loss"]
+                  for _ in range(NN_PARITY_STEPS)]
+        torch.cuda.synchronize()
+        counts = _flash_counts()
+    finally:
+        fa.impl = "kernel"
+    return [float(v) for v in losses], counts
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_s = {}
@@ -4891,7 +5457,9 @@ def main() -> None:
     dist_launches = timed("distributed", phase_distributed, info)
     mp_launches = timed("model_parallel", phase_model_parallel, info)
     sp_launches = timed("sequence_parallel", phase_sequence_parallel, info)
-    for launches_of in (dist_launches, mp_launches, sp_launches):
+    nn_launches = timed("nn", phase_nn, info)
+    for launches_of in (dist_launches, mp_launches, sp_launches,
+                        nn_launches):
         for k, v in launches_of.items():
             train_launches[k] += v
     emit({"phase": "timing", "seconds": phase_s,

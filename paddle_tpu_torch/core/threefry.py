@@ -151,6 +151,13 @@ def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
+def normal(key, shape, device=None):
+    """``jax.random.normal`` in float32: ``sqrt(2) erfinv(u)`` for ``u``
+    uniform in ``[nextafter(-1, 0), 1)``."""
+    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
+    return math.sqrt(2) * torch.erfinv(uniform(key, shape, lo, 1.0, device))
+
+
 def gumbel(key, shape):
     """``jax.random.gumbel`` in float32, ``mode="low"``."""
     return -torch.log(-torch.log(uniform(key, shape, _F32_TINY, 1.0)))

@@ -5,9 +5,10 @@ sharding and collectives of :mod:`paddle_tpu_torch.parallel` under their
 (``comm``); the fleet facade; ``LocalFS``; the launcher (``python -m
 paddle_tpu_torch.distributed.launch``, one node or several through
 ``multinode.NodeAgent``), ``spawn``, elastic restarts and preemption;
-and the socket store behind the serving fleet's membership and the tcp
-rendezvous. The datasets of the JAX package's ``distributed``
-(``dataset``, ``index_dataset``) are not ported yet (ROADMAP A6.3)."""
+the socket store behind the serving fleet's membership and the tcp
+rendezvous; and the parameter-server datasets (``dataset``:
+``QueueDataset``, ``InMemoryDataset``, the admission entries) and the
+tree index of ``index_dataset``."""
 
 from ..parallel import (AXIS_ORDER, DataParallel, DeviceMesh,  # noqa: F401
                         DistributedStrategy, GradientMerge, LogicalRules,
@@ -16,7 +17,8 @@ from ..parallel import (AXIS_ORDER, DataParallel, DeviceMesh,  # noqa: F401
                         get_rank, get_world_size, init_mesh,
                         init_parallel_env, named_sharding, recompute,
                         replicate, set_mesh, shard_batch, shard_params)
-from . import elastic, fleet, fs, launch, multinode  # noqa: F401
+from . import elastic, fleet, fs, index_dataset, launch  # noqa: F401
+from . import multinode  # noqa: F401
 from .comm import (Group, ParallelEnv, ParallelMode,  # noqa: F401
                    ReduceOp, alltoall, get_group, gloo_barrier,
                    gloo_init_parallel_env, gloo_release, irecv,
@@ -29,3 +31,5 @@ from .multinode import FileRendezvous, NodeAgent  # noqa: F401
 from .spawn import ProcessContext, spawn  # noqa: F401
 from .tcp_store import (StoreUnavailable, TCPMembership,  # noqa: F401
                         TCPRendezvous, TCPStoreClient, TCPStoreServer)
+from .dataset import (CountFilterEntry, InMemoryDataset,  # noqa: F401
+                      ProbabilityEntry, QueueDataset, ShowClickEntry)

@@ -1,0 +1,12 @@
+"""The port's ``incubate`` namespace: the MoE layers and the fused-layer
+names under the reference's paths, and ``incubate.nn``. The rest of the
+JAX package's ``incubate`` (``autograd``, the sparse embeddings,
+``asp``, ``autotune``, ``data_generator``) is not ported yet (ROADMAP
+A7)."""
+
+from ..nn.layers.moe import (GShardGate, MoELayer, NaiveGate,  # noqa: F401
+                             SwitchGate)
+from ..nn.layers.transformer import (  # noqa: F401
+    MultiHeadAttention as FusedMultiHeadAttention,
+    TransformerEncoderLayer as FusedTransformerEncoderLayer)
+from . import nn  # noqa: F401

@@ -36,8 +36,11 @@ both packages write the same digest map — keys are
 hashes the numpy dtype name, the shape as a tuple of ints and the raw
 bytes, and a host ``int`` hashes as the 0-d int32 the JAX optimizer
 keeps — and each package's :func:`latest_manifest_step` reads the
-other's directory. Restoring a step that the JAX package wrote (an orbax
-data directory) is not supported and raises ``NotImplementedError``.
+other's directory. A step that the JAX package wrote (an orbax data
+directory) restores once ``tools/torch_orbax_to_port.py`` has written
+the port's files beside orbax's (the port never reads orbax itself);
+until then restoring it raises ``NotImplementedError`` naming that
+command.
 """
 
 from __future__ import annotations
@@ -404,8 +407,9 @@ def _read_step_dir(path: str) -> Any:
             os.path.exists(os.path.join(path, m)) for m in _ORBAX_MARKERS):
         raise NotImplementedError(
             f"{path} is an orbax step directory written by the JAX "
-            f"package; restoring it in the port is not supported "
-            f"(ROADMAP A6.3)")
+            f"package; convert it to the port's format first (ROADMAP "
+            f"A6.3's converter): python3 tools/torch_orbax_to_port.py "
+            f"{os.path.dirname(path)} --step {os.path.basename(path)}")
     with open(index) as f:
         doc = json.load(f)
     if doc.get("format") != _TREE_FORMAT:

@@ -33,6 +33,8 @@ groups take the CUDA tensor itself.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from typing import Optional, Sequence, Union
 
@@ -43,6 +45,30 @@ import torch.distributed as dist
 from .mesh import DeviceMesh, get_mesh
 
 AxisName = Union[str, Sequence[str]]
+
+
+# -- the data ranks' rows of a global batch ----------------------------------
+
+_rows = threading.local()
+
+
+@contextlib.contextmanager
+def data_rows(group):
+    """In scope, a forward's leading dim is this rank's rows of a global
+    batch split over the data ranks of ``group``: a layer whose result
+    depends on the whole batch (BatchNorm's statistics) reduces over it,
+    as GSPMD does for the JAX package."""
+    prev = getattr(_rows, "group", None)
+    _rows.group = group
+    try:
+        yield
+    finally:
+        _rows.group = prev
+
+
+def data_rows_group():
+    """The data ranks' group of :func:`data_rows` in scope, else None."""
+    return getattr(_rows, "group", None)
 
 
 # -- the wire: staging through pinned host memory for gloo ------------------

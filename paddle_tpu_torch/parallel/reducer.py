@@ -534,10 +534,18 @@ class MeshSync:
         return _clip.sharded_norms(spec, self.world)
 
     def rows_context(self, split: bool):
+        """The scope of a forward on this rank's rows of the global batch:
+        the rows of the dropout masks (``rng.batch_rows``) and the data
+        group a batch statistic reduces over
+        (``collective.data_rows``)."""
         from ..core import rng
         if not (self.n > 1 and split):
             return contextlib.nullcontext()
-        return rng.batch_rows(self.data_index, self.n, self.row_groups)
+        stack = contextlib.ExitStack()
+        stack.enter_context(rng.batch_rows(self.data_index, self.n,
+                                           self.row_groups))
+        stack.enter_context(_coll.data_rows(self.data_group))
+        return stack
 
     def barrier(self) -> None:
         if self.active:

@@ -22,8 +22,9 @@ plain tensors (:func:`param_layout`, :func:`local_piece`,
 :func:`full_from_pieces`); under ``sp`` every rank of a data slice holds
 the same rows and the sequence-parallel GPT keeps its slice of the
 sequence (:func:`with_logical_constraint`, :func:`seq_slice`). ``ep``
-resolves like the JAX package's but raises where it would execute
-(ROADMAP A7.1).
+resolves like the JAX package's but raises where it would execute: the
+MoE layers run under dp / fsdp, and the expert-parallel all-to-all is
+the next part of ROADMAP A7.1.
 
 Tensor parallelism and the fused qkv weight: the JAX GPT declares it as
 one ``heads`` dim of width ``h + 2 * kv * hd``, which GSPMD splits
@@ -60,7 +61,7 @@ DEFAULT_RULES: Tuple[Tuple[str, str], ...] = (
 
 # live mesh axes whose execution waits for its ROADMAP item (dp, fsdp,
 # tp, pp and sp run)
-NOT_PORTED = {"ep": "A7.1 (the MoE layers)"}
+NOT_PORTED = {"ep": "A7.1 part 2 (the ep axis: the MoE all-to-all)"}
 
 
 def check_runnable(mesh: DeviceMesh) -> None:

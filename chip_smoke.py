@@ -4042,6 +4042,10 @@ def dist_rank(scenario: str, outdir: str, t_launch: float) -> None:
         _mp_rank(scenario, outdir, rank, res, t_launch)
     elif scenario in ("sp2", "sp4"):
         _sp_rank(scenario, outdir, rank, res, t_launch)
+    elif scenario == "ep2":
+        _moe_rank(outdir, rank, res, t_launch)
+    elif scenario == "ctr2":
+        _ctr_rank(outdir, rank, res)
     else:
         net = _dist_net()
         init = {k: v.detach().clone() for k, v in net.state_dict().items()}
@@ -4373,7 +4377,7 @@ def phase_distributed(info) -> dict:
 # model_parallel: tensor and pipeline parallelism on torch.distributed
 # ---------------------------------------------------------------------------
 
-MP_STEPS, MP_PPTP_STEPS, MP_MICRO = 3, 2, 4
+MP_STEPS, MP_PPTP_STEPS, MP_MICRO = 3, 1, 4
 MP_TP_SHAPES = {   # the tp=2 rank's slices of the split weights
     "gpt.layers.0.attn.qkv_proj.weight": [768, 1152],
     "gpt.layers.0.attn.out_proj.weight": [384, 768],
@@ -4620,7 +4624,7 @@ def phase_model_parallel(info) -> dict:
 # sequence_parallel: ring attention and the sp mesh on torch.distributed
 # ---------------------------------------------------------------------------
 
-SP_STEPS, SP_DP_STEPS = 3, 2
+SP_STEPS, SP_DP_STEPS = 3, 1
 SP_MEM_SEQS = (4096, 8192)      # one ring fwd + bwd's peak at each length
 SP_MEM_RATIO = 2.6              # the JAX package's test's bound
 SP_PAD_FROM = 960               # the padded tail of the dropout step's rows
@@ -5152,6 +5156,182 @@ def _nn_cases(nn, F, IF, U):
     return cases
 
 
+def _nn_fill_cases(nn, F):
+    """(label, build, inputs) of every function of
+    ``nn/functional_fill.py`` with a float output and every class of
+    ``nn/layers/fill_r4.py``, at the JAX tests' sizes (as ``_nn_cases``;
+    a function's module scales its first input by a parameter, so the
+    backward runs)."""
+    rs = np.random.RandomState(1)
+
+    def x(*s, scale=1.0):
+        return (rs.randn(*s) * scale).astype(np.float32)
+
+    def ints(lo, hi, *s):
+        return rs.randint(lo, hi, s)
+
+    def pm1(*s):
+        return np.where(rs.rand(*s) > 0.5, 1.0, -1.0).astype(np.float32)
+
+    class Fn(nn.Layer):
+        def __init__(self, fn):
+            super().__init__()
+            self.fn = fn
+            self.s = nn.Parameter(torch.ones(1) * 1.1)
+
+        def forward(self, v, *rest):
+            return self.fn(v * self.s, *rest)
+
+    def fn(label, f, inputs):
+        return (label, lambda: Fn(f), inputs)
+
+    offs = np.array([[[0, 2, 3, 5, 6, 8]] * 2] * 2, np.int32)
+    cols = np.array([[[0, 1, 1, 0, 2, 3, 0, 4]] * 2] * 2, np.int32)
+    return [
+        fn("conv1d_transpose", lambda v, w, b: F.conv1d_transpose(
+            v, w, b, stride=2, padding=1, output_padding=1),
+           [x(2, 3, 7), x(3, 4, 3), x(4)]),
+        fn("diag_embed", lambda v: F.diag_embed(v, 1, 0, 2), [x(2, 3, 4)]),
+        fn("zeropad2d", lambda v: F.zeropad2d(v, [1, 2, 0, 3]),
+           [x(1, 2, 3, 4)]),
+        fn("bilinear", lambda v, b, w: F.bilinear(v, b, w),
+           [x(6, 3), x(6, 4), x(5, 3, 4)]),
+        fn("dropout3d", lambda v: F.dropout3d(v, 0.4), [x(4, 6, 2, 3, 3)]),
+        fn("rrelu", lambda v: F.rrelu(v, 0.1, 0.3), [x(4, 64)]),
+        fn("adaptive_max_pool3d", lambda v: F.adaptive_max_pool3d(
+            v, (2, 2, 3)), [x(2, 3, 4, 4, 6)]),
+        fn("max_pool2d mask values", lambda v: F.max_pool2d(
+            v, 3, 2, 1, return_mask=True)[0], [x(2, 2, 7, 5)]),
+        fn("cosine_embedding_loss", lambda v, b, y:
+           F.cosine_embedding_loss(v, b, y, 0.2), [x(8, 5), x(8, 5),
+                                                   pm1(8)]),
+        fn("hinge_embedding_loss", lambda v, y: F.hinge_embedding_loss(
+            v, y, 0.5), [x(4, 6), pm1(4, 6)]),
+        fn("margin_ranking_loss", lambda v, b, y: F.margin_ranking_loss(
+            v, b, y, 0.1, "sum"), [x(10), x(10), pm1(10)]),
+        fn("multi_label_soft_margin_loss", lambda v, y:
+           F.multi_label_soft_margin_loss(v, y),
+           [x(4, 6), (x(4, 6) > 0).astype(np.float32)]),
+        fn("triplet_margin_loss", lambda v, p, n: F.triplet_margin_loss(
+            v, p, n, p=1.5, swap=True), [x(6, 4), x(6, 4), x(6, 4)]),
+        fn("triplet_margin_with_distance_loss", lambda v, p, n:
+           F.triplet_margin_with_distance_loss(v, p, n, swap=True),
+           [x(6, 4), x(6, 4), x(6, 4)]),
+        fn("dice_loss", lambda v, y: F.dice_loss(torch.softmax(v, -1), y),
+           [x(4, 5, 3), ints(0, 3, 4, 5, 1)]),
+        fn("npair_loss", lambda v, p, y: F.npair_loss(v, p, y),
+           [x(6, 4), x(6, 4), np.array([0, 1, 0, 2, 1, 2])]),
+        fn("sigmoid_focal_loss", lambda v, y: F.sigmoid_focal_loss(v, y),
+           [x(5, 3), (x(5, 3) > 0).astype(np.float32)]),
+        fn("hsigmoid_loss", lambda v, y, w, b: F.hsigmoid_loss(
+            v, y, 7, w, b), [x(5, 4), ints(0, 7, 5), x(6, 4), x(6)]),
+        fn("margin_cross_entropy", lambda v, y: F.margin_cross_entropy(
+            torch.tanh(v), y, scale=8.0, return_softmax=True),
+           [x(4, 6), ints(0, 6, 4)]),
+        fn("ctc_loss", lambda v, lab, il, ll: F.ctc_loss(v, lab, il, ll),
+           [x(9, 3, 5), ints(1, 5, 3, 4), np.array([9, 7, 8]),
+            np.array([4, 2, 3])]),
+        fn("sparse_attention", lambda q, k, v, o, c: F.sparse_attention(
+            q, k, v, o, c), [x(2, 2, 5, 4), x(2, 2, 5, 4), x(2, 2, 5, 4),
+                             offs, cols]),
+        fn("relu_ elu_ softmax_ tanh_", lambda v: (
+            F.relu_(v), F.elu_(v, 0.7), F.softmax_(v, 0), F.tanh_(v)),
+           [x(3, 4)]),
+        ("LogSigmoid", lambda: nn.LogSigmoid(), [x(2, 5)]),
+        ("Silu", lambda: nn.Silu(), [x(2, 5)]),
+        ("Softmax2D", lambda: nn.Softmax2D(), [x(2, 3, 4, 4)]),
+        ("ChannelShuffle", lambda: nn.ChannelShuffle(3, "NHWC"),
+         [x(2, 3, 3, 6)]),
+        ("Dropout3D", lambda: nn.Dropout3D(0.4), [x(4, 6, 2, 3, 3)]),
+        ("Conv1DTranspose", lambda: nn.Conv1DTranspose(3, 4, 3, 2, 1, 1),
+         [x(2, 3, 6)]),
+        ("Conv3DTranspose", lambda: nn.Conv3DTranspose(2, 4, 3, 1, 1),
+         [x(1, 2, 4, 3, 3)]),
+        ("InstanceNorm1D", lambda: nn.InstanceNorm1D(3), [x(2, 3, 7)]),
+        ("InstanceNorm3D", lambda: nn.InstanceNorm3D(2),
+         [x(2, 2, 3, 4, 5)]),
+        ("AdaptiveMaxPool3D", lambda: nn.AdaptiveMaxPool3D(2),
+         [x(1, 2, 4, 4, 4)]),
+        ("CosineEmbeddingLoss", lambda: nn.CosineEmbeddingLoss(0.1),
+         [x(6, 4), x(6, 4), pm1(6)]),
+        ("HingeEmbeddingLoss", lambda: nn.HingeEmbeddingLoss(0.7, "sum"),
+         [x(5), pm1(5)]),
+        ("MarginRankingLoss", lambda: nn.MarginRankingLoss(0.2),
+         [x(5), x(5), pm1(5)]),
+        ("MultiLabelSoftMarginLoss", lambda: nn.MultiLabelSoftMarginLoss(),
+         [x(3, 4), (x(3, 4) > 0).astype(np.float32)]),
+        ("TripletMarginLoss", lambda: nn.TripletMarginLoss(0.5, 3.0),
+         [x(4, 3), x(4, 3), x(4, 3)]),
+        ("TripletMarginWithDistanceLoss",
+         lambda: nn.TripletMarginWithDistanceLoss(None, 0.3, True),
+         [x(4, 3), x(4, 3), x(4, 3)]),
+        ("HSigmoidLoss", lambda: nn.HSigmoidLoss(4, 6),
+         [x(5, 4), ints(0, 6, 5)]),
+        ("CTCLoss", lambda: nn.CTCLoss(0, "sum"),
+         [x(7, 2, 4), np.array([[1, 2, 2], [3, 1, 0]]), np.array([7, 6]),
+          np.array([3, 2])]),
+        ("SpectralNorm", lambda: nn.SpectralNorm((3, 4, 5), 1, 3),
+         [x(3, 4, 5)]),
+    ]
+
+
+def _nn_fill_exact(nn, F, dev):
+    """The integer results of the fill on the card against the CPU,
+    exactly: max-pool masks and the unpooled maps (1-D, 2-D, 3-D, with
+    overlapping windows), ``gather_tree``, ``class_center_sample`` and
+    beam search (``dynamic_decode`` over a GRU cell: ids and lengths)."""
+    import copy
+    import paddle_tpu_torch as pt
+    rs = np.random.RandomState(2)
+    out = {}
+    for nd, shape in ((1, (2, 3, 9)), (2, (2, 2, 7, 5)),
+                      (3, (1, 2, 5, 4, 6))):
+        x = rs.randn(*shape).astype(np.float32)
+        pool = getattr(F, f"max_pool{nd}d")
+        unpool = getattr(F, f"max_unpool{nd}d")
+        got = []
+        for d in ("cpu", dev):
+            v, m = pool(torch.as_tensor(x, device=d), 3, 2, 1,
+                        return_mask=True)
+            u = unpool(v, m, 3, 2, 1, output_size=shape)
+            unp = getattr(nn, f"MaxUnPool{nd}D")(3, 2, 1,
+                                                 output_size=shape)(v, m)
+            got.append([t.cpu() for t in (v, m, u, unp)])
+        out[f"max_pool{nd}d mask, unpool"] = all(
+            torch.equal(a, b) for a, b in zip(*got))
+    ids = rs.randint(0, 9, (5, 2, 3))
+    par = rs.randint(0, 3, (5, 2, 3))
+    out["gather_tree"] = torch.equal(
+        F.gather_tree(torch.as_tensor(ids), torch.as_tensor(par)),
+        F.gather_tree(torch.as_tensor(ids, device=dev),
+                      torch.as_tensor(par, device=dev)).cpu())
+    y = np.array([3, 17, 3, 42, 8, 17])
+    got = []
+    for d in ("cpu", dev):
+        pt.seed(7)
+        got.append([t.cpu() for t in F.class_center_sample(
+            torch.as_tensor(y, device=d), 64, 12)])
+    out["class_center_sample"] = all(torch.equal(a, b)
+                                     for a, b in zip(*got))
+    pt.seed(0)
+    cell, emb, head = nn.GRUCell(6, 8), nn.Embedding(7, 6), \
+        nn.Linear(8, 7)
+    with torch.no_grad():
+        head.weight.mul_(4.0)
+    got = []
+    for d in ("cpu", dev):
+        c, e, h = (copy.deepcopy(m).to(d) for m in (cell, emb, head))
+        dec = nn.BeamSearchDecoder(c, 1, 2, 3, embedding_fn=e, output_fn=h)
+        with torch.no_grad():
+            ids, lengths = nn.dynamic_decode(
+                dec, inits=c.get_initial_states(2, device=d),
+                max_step_num=8)
+        got.append((ids.cpu(), lengths.cpu()))
+    out["beam_search ids, lengths"] = all(
+        torch.equal(a, b) for a, b in zip(*got))
+    return out
+
+
 # buffers a card and the CPU must hold bit for bit
 _NN_EXACT_BUFFERS = ("_mean", "_variance", "weight_u")
 
@@ -5360,16 +5540,18 @@ def phase_nn(info, dev="cuda") -> dict:
     # TF32 off)
     t0 = time.perf_counter()
     layer_rows = []
-    for label, build, inputs in _nn_cases(pt.nn, F, IF, U):
+    for label, build, inputs in _nn_cases(pt.nn, F, IF, U) + \
+            _nn_fill_cases(pt.nn, F):
         worst, exact, n_out, n_grad = _nn_layer_check(build, inputs, dev)
         layer_rows.append({"layer": label, "err_over_limit": worst,
                            "exact_buffers": exact, "outputs": n_out,
                            "grads": n_grad})
     moe = _nn_moe_check(dev)
+    exact = _nn_fill_exact(pt.nn, F, dev)
     emit({"phase": "nn", "run": "layers card vs cpu",
           "limit": f"|card - cpu| <= {NN_LAYER_ATOL} + {NN_LAYER_RTOL} "
                    f"|cpu|", "seconds": time.perf_counter() - t0,
-          "cases": layer_rows, "moe_switch": moe})
+          "cases": layer_rows, "moe_switch": moe, "fill_exact": exact})
 
     want = {k: per_train * NN_STEPS * NN_EPOCHS for k in fit_launches}
     want["flash_attention_fwd"] += per_train   # the eval pass's step
@@ -5398,6 +5580,7 @@ def phase_nn(info, dev="cuda") -> dict:
         "moe_dispatch_equal": moe["dispatch_equal"],
         "moe_dropped_equal": moe["dropped_cpu"] == moe["dropped_card"],
         "moe_within_limit": moe["err_over_limit"] <= 1.0,
+        "fill_exact": all(exact.values()),
     }
     emit({"phase": "nn_checks", "expected_fit_launches": want,
           "bad_layers": bad_layers, "seconds":
@@ -5424,6 +5607,559 @@ def _nn_parity(net, init, batch, impl):
     finally:
         fa.impl = "kernel"
     return [float(v) for v in losses], counts
+
+
+# ---------------------------------------------------------------------------
+# a Switch-Base-8 encoder on an ep=2 mesh
+# ---------------------------------------------------------------------------
+
+# Switch-Base (Fedus, Zoph and Shazeer 2021, arXiv:2101.03961): T5-Base
+# widths, every other FFN a Switch layer; google/switch-base-8's 8
+# experts and 32128-token vocabulary. Encoder only, no relative position
+# bias, LayerNorm for T5's RMSNorm (PERF.md section 4).
+SWITCH = dict(vocab=32128, layers=12, d_model=768, heads=12, d_ff=3072,
+              experts=8, capacity_factor=1.25)
+SWITCH_BATCH, SWITCH_SEQ, SWITCH_STEPS, SWITCH_PROFILE_STEPS = 8, 512, 3, 2
+SWITCH_PARAM_RTOL = 1e-4        # gathered parameters vs one process, norm
+SWITCH_EXPERT_BYTES_RATIO = 0.55  # a rank's expert bytes over one process's
+SWITCH_TIMEOUT_S = 240
+
+
+def _switch_net(dev):
+    """The Switch-Base-8 encoder from the port's layers, its weights from
+    ``seed(0)`` (built on the CPU, then moved to ``dev``)."""
+    import paddle_tpu_torch as pt
+    nn, F = pt.nn, pt.nn.functional
+    c = SWITCH
+
+    class Block(nn.Layer):
+        def __init__(self, moe):
+            super().__init__()
+            self.norm1 = nn.LayerNorm(c["d_model"])
+            self.attn = nn.MultiHeadAttention(c["d_model"], c["heads"])
+            self.norm2 = nn.LayerNorm(c["d_model"])
+            self.ffn = nn.MoELayer(
+                c["d_model"], c["d_ff"], c["experts"], gate="switch",
+                capacity_factor=c["capacity_factor"], activation="relu") \
+                if moe else nn.Sequential(
+                    nn.Linear(c["d_model"], c["d_ff"]), nn.ReLU(),
+                    nn.Linear(c["d_ff"], c["d_model"]))
+
+        def forward(self, x):
+            h = self.norm1(x)
+            x = x + self.attn(h, h, h)
+            return x + self.ffn(self.norm2(x))
+
+    class SwitchEncoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(c["vocab"], c["d_model"])
+            self.blocks = nn.LayerList(
+                [Block(i % 2 == 1) for i in range(c["layers"])])
+            self.norm = nn.LayerNorm(c["d_model"])
+
+        def forward(self, ids):
+            with nn.collect_aux_losses() as get_aux:
+                x = self.embed(ids)
+                for b in self.blocks:
+                    x = b(x)
+                # the head tied to the embedding, its input scaled by
+                # d_model^-0.5 as T5's is
+                logits = F.linear(self.norm(x) * c["d_model"] ** -0.5,
+                                  self.embed.weight.t())
+            return logits, get_aux()
+    pt.seed(0)
+    return SwitchEncoder().to(dev)
+
+
+def _switch_model(net):
+    """Per-token cross-entropy plus the gates' aux losses; AdamW 1e-4,
+    O1."""
+    import paddle_tpu_torch as pt
+
+    class Loss(pt.nn.Layer):
+        def forward(self, logits, aux, labels):
+            return torch.nn.functional.cross_entropy(
+                logits.float().flatten(0, 1), labels.flatten()) + aux
+    model = pt.Model(net)
+    model.prepare(pt.optimizer.AdamW(learning_rate=1e-4, parameters=net),
+                  Loss(), amp_configs="O1")
+    return model
+
+
+def _switch_data():
+    rs = np.random.RandomState(7)
+    shape = (SWITCH_STEPS, SWITCH_BATCH, SWITCH_SEQ)
+    return rs.randint(0, SWITCH["vocab"], shape), \
+        rs.randint(0, SWITCH["vocab"], shape)
+
+
+def _switch_routing(net):
+    """Record each MoE layer's routing on its next forward: a digest of
+    every token's (expert, slot) or drop, the dropped count and the aux
+    loss. Returns the list the records go into."""
+    import hashlib
+    from paddle_tpu_torch.nn import MoELayer
+    out = []
+    for name, m in net.named_modules():
+        if not isinstance(m, MoELayer):
+            continue
+
+        def route(x, m=m, name=name, inner=m.route):
+            dispatch, combine, aux = inner(x)
+            if len(out) < sum(isinstance(k, MoELayer)
+                              for k in net.modules()):
+                flat = dispatch.flatten(2)
+                slot = torch.where(flat.sum(-1) > 0, flat.argmax(-1), -1)
+                out.append({"layer": name, "digest": hashlib.sha256(
+                    slot.cpu().numpy().tobytes()).hexdigest()[:16],
+                    "dropped": int(x.shape[0] * x.shape[1] * m.top_k
+                                   - dispatch.float().sum()),
+                    "aux": float(aux.detach())})
+            return dispatch, combine, aux
+        m.route = route
+    return out
+
+
+def _switch_expert_bytes(model):
+    """Bytes of the experts' parameters and their AdamW moments."""
+    names = [k for k in model._trainable() if ".experts." in k]
+    params = dict(model.network.named_parameters())
+    opt = model._opt_state or {}
+    return sum(_tree_bytes(params[k]) + sum(
+        _tree_bytes(opt[s][k]) for s in ("m", "v") if k in opt.get(s, {}))
+        for k in names)
+
+
+def _switch_run(model, ids, labels):
+    """SWITCH_STEPS train steps: losses, walls, the step-1 routing, B1-B3
+    launches, the ep exchange's host seconds a step, expert bytes."""
+    from paddle_tpu_torch.parallel import collective as coll
+    routing = _switch_routing(model.network)
+    _reset_flash_counts()
+    coll.ep_seconds = 0.0
+    losses, walls = [], []
+    for i in range(SWITCH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(model.train_batch([ids[i]], [labels[i]])["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    run = {"losses": losses, "step_s": walls, "launches": _flash_counts(),
+           "routing_step1": routing,
+           "ep_exchange_s_per_step": coll.ep_seconds / SWITCH_STEPS,
+           "expert_bytes": _switch_expert_bytes(model),
+           "params": sum(p.numel() for p in model.network.parameters())}
+    if model._sync is not None:
+        run["reduce_s_per_step"] = model._sync.reduce_seconds / SWITCH_STEPS
+    # an evaluation of the trained weights, for the reload check
+    run["eval_loss"] = float(model.eval_batch([ids[0]], [labels[0]])["loss"])
+    return run
+
+
+def _moe_rank(outdir, rank, res, t_launch):
+    """The moe_ep phase's rank body (``--dist-rank ep2``): the encoder on
+    an ep=2 mesh, 3 steps, the rank's expert shapes, a save."""
+    from paddle_tpu_torch import parallel
+    res["first_step_s"] = time.time() - t_launch
+    mesh = parallel.DeviceMesh(ep=2)
+    model = _switch_model(_switch_net(f"cuda:{torch.cuda.current_device()}"))
+    parallel.distributed_model(model, mesh=mesh)
+    res["ep_index"] = mesh.local_rank("ep")
+    res["mesh"] = repr(mesh)
+    ids, labels = _switch_data()
+    res["run"] = _switch_run(model, ids, labels)
+    net = model.network
+    res["expert_shapes"] = {
+        k: list(p.shape) for k, p in net.named_parameters()
+        if k.startswith("blocks.1.ffn.experts.w_")}
+    model.save(os.path.join(outdir, "ep2_saved"), training=False)
+
+
+def phase_moe_ep(info, dev="cuda") -> dict:
+    """The Switch-Base-8 encoder: 3 steps in this process, then 3 on an
+    ep=2 mesh of two ranks of this script (``--dist-rank ep2``) sharing
+    the card over gloo, both from the same weights; the save of the mesh
+    reloaded here. Returns the B1-B3 launches of the two runs."""
+    import shutil
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "moe_ep")
+    shutil.rmtree(root, ignore_errors=True)
+    outdir = os.path.join(root, "ep2")
+    os.makedirs(outdir)
+    me = os.path.basename(os.path.abspath(__file__))
+    ids, labels = _switch_data()
+    model = _switch_model(_switch_net(dev))
+    one = _switch_run(model, ids, labels)
+    trained = {k: v.detach().float().cpu().clone()
+               for k, v in model.network.state_dict().items()}
+    prof = _profile(lambda: [model.train_batch([ids[0]], [labels[0]])
+                             for _ in range(SWITCH_PROFILE_STEPS)],
+                    SWITCH_PROFILE_STEPS, "step", phase="moe_ep",
+                    run="profile one process", steps=SWITCH_PROFILE_STEPS)
+    emit(prof)
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    proc = _launch(["--nproc_per_node", "2", me, "--dist-rank", "ep2",
+                    outdir, repr(t0)], os.path.join(outdir, "logs"))
+    _finish([proc], "ep2", os.path.join(outdir, "logs"))
+    job_s = time.time() - t0
+    ranks = _read_ranks(outdir, 2)
+    runs = [r["run"] for r in ranks]
+
+    # the ep=2 save reloaded into one process: its parameters against the
+    # one-process run's, and its evaluation against the ranks'
+    net = _switch_net(dev)
+    model = _switch_model(net)
+    model.load(os.path.join(outdir, "ep2_saved"), reset_optimizer=True)
+    reload_eval = float(model.eval_batch([ids[0]], [labels[0]])["loss"])
+    param_rel = {}
+    for k, v in net.state_dict().items():
+        a, b = v.detach().float().cpu(), trained[k]
+        param_rel[k] = float((a - b).norm() / b.norm()) if b.norm() else \
+            float((a - b).norm())
+    del model, net, trained
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    per_step = 12 * SWITCH_STEPS
+    flash = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    n_exp, d, f = SWITCH["experts"] // 2, SWITCH["d_model"], SWITCH["d_ff"]
+    checks = {
+        "ranks_losses_bit_equal": runs[0]["losses"] == runs[1]["losses"],
+        "ep_losses_within_rtol": rel(runs[0]["losses"], one["losses"])
+        <= TRAIN_LOSS_RTOL,
+        "params_within_rtol": max(param_rel.values()) <= SWITCH_PARAM_RTOL,
+        "gate_params_within_rtol": max(
+            v for k, v in param_rel.items() if ".gate." in k)
+        <= SWITCH_PARAM_RTOL,
+        "step1_routing_equal": all(r["routing_step1"] == one["routing_step1"]
+                                   for r in runs),
+        "launches_one_process": all(one["launches"][k] == per_step
+                                    for k in flash),
+        "launches_each_rank": all(r["launches"][k] == per_step
+                                  for r in runs for k in flash),
+        "expert_shapes": all(r["expert_shapes"] == {
+            "blocks.1.ffn.experts.w_in": [n_exp, d, f],
+            "blocks.1.ffn.experts.w_out": [n_exp, f, d]} for r in ranks),
+        "expert_bytes_ratio": all(
+            r["expert_bytes"] <= SWITCH_EXPERT_BYTES_RATIO
+            * one["expert_bytes"] for r in runs),
+        "reload_eval_within_rtol": abs(reload_eval - runs[0]["eval_loss"])
+        <= TRAIN_LOSS_RTOL * abs(runs[0]["eval_loss"]),
+        "losses_finite": all(math.isfinite(v) for r in runs + [one]
+                             for v in r["losses"]),
+    }
+
+    def mean(xs):   # the steps after the first (which warms up)
+        return sum(xs[1:]) / len(xs[1:])
+    emit({"phase": "moe_ep", "model": "switch-base-8 encoder",
+          "card": info["nvidia_smi"], "params": one["params"],
+          "batch": SWITCH_BATCH, "seq": SWITCH_SEQ, "amp": "O1",
+          "one_process": {k: one[k] for k in (
+              "losses", "step_s", "launches", "expert_bytes", "eval_loss")},
+          "ep2": [{k: r[k] for k in (
+              "losses", "step_s", "launches", "expert_bytes",
+              "ep_exchange_s_per_step", "reduce_s_per_step", "eval_loss")}
+                  for r in runs],
+          "routing_step1": one["routing_step1"],
+          "ep2_step_over_one": mean(runs[0]["step_s"]) / mean(one["step_s"]),
+          "flash_share_one_process": prof["flash_share"],
+          "idle_share_one_process": prof["idle_share"],
+          "max_param_rel": max(param_rel.values()),
+          "reload_eval_loss": reload_eval, "job_s": job_s,
+          "spawn_to_first_step_s": [r["first_step_s"] for r in ranks],
+          "phase_s": time.perf_counter() - t_phase})
+    emit({"phase": "moe_ep_checks", **checks})
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise SystemExit(f"moe_ep phase failed: {bad}")
+    launches = {k: one["launches"][k] + sum(r["launches"][k] for r in runs)
+                for k in flash}
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# the CTR path: host-RAM tables, the device tables, the key-sharded table
+# ---------------------------------------------------------------------------
+
+CTR_N, CTR_BATCH, CTR_STEPS, CTR_VOCAB = 10240, 512, 20, 10 ** 8
+CTR_DEVICE_VOCAB = 10 ** 6      # WideDeep / DeepFM's MultiSlotEmbedding
+CTR_LOSS_RTOL = 1e-4            # card vs CPU, each step
+CTR_ROW_ATOL, CTR_ROW_RTOL = 1e-5, 1e-4
+CTR_PEAK_SLACK = 2 ** 20        # peak step bytes, 10^6 vs 10^8 ids
+CTR_SHARD_STEPS, CTR_SHARD_BATCH, CTR_SHARD_TOL = 3, 64, 1e-6
+
+
+def _ctr_batches(vocab=CTR_VOCAB):
+    from paddle_tpu_torch.models.widedeep import synthetic_criteo
+    d, s, y = synthetic_criteo(n=CTR_N, vocab_size=vocab, seed=0)
+    return [(d[i:i + CTR_BATCH], s[i:i + CTR_BATCH], y[i:i + CTR_BATCH])
+            for i in range(0, CTR_N, CTR_BATCH)][:CTR_STEPS]
+
+
+def _ctr_model(net, lr):
+    import paddle_tpu_torch as pt
+    model = pt.Model(net)
+    model.prepare(pt.optimizer.Adam(learning_rate=lr, parameters=net),
+                  pt.nn.BCEWithLogitsLoss())
+    return model
+
+
+def _ctr_train(net, batches, dev, lr, timers=None):
+    """Train steps over ``batches`` on ``dev``: the losses and the wall."""
+    model = _ctr_model(net, lr)
+    losses = []
+    _sync(dev)
+    t0 = time.perf_counter()
+    for d, s, y in batches:
+        out = model.train_batch(
+            [torch.as_tensor(d, device=dev), torch.as_tensor(s)],
+            [torch.as_tensor(y, device=dev)])
+        losses.append(float(out["loss"]))
+    _sync(dev)
+    return losses, time.perf_counter() - t0
+
+
+def _timed_tables(net):
+    """Host seconds each table spends in its pull and push."""
+    acc = {"pull": 0.0, "push": 0.0}
+    for t in (net.wide, net.embedding):
+        for kind in ("pull", "push"):
+            inner = getattr(t, f"_{kind}")
+
+            def timed(*a, inner=inner, kind=kind):
+                t0 = time.perf_counter()
+                out = inner(*a)
+                acc[kind] += time.perf_counter() - t0
+                return out
+            setattr(t, f"_{kind}", timed)
+    return acc
+
+
+def _auc(net, batch, dev):
+    from paddle_tpu_torch.metric import Auc
+    d, s, y = batch
+    net.eval()
+    with torch.no_grad():
+        p = torch.sigmoid(net(torch.as_tensor(d, device=dev),
+                              torch.as_tensor(s))).cpu().numpy()
+    net.train()
+    a = Auc()
+    a.update(p, y)
+    return float(a.accumulate())
+
+
+def _ctr_peak_bytes(vocab, batch, dev):
+    """Peak device bytes above the model of one WideDeepHostTable train
+    step at a ``vocab``-id space."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.widedeep import WideDeepHostTable
+    pt.seed(0)
+    net = WideDeepHostTable(vocab_size=vocab).to(dev)
+    model = _ctr_model(net, 1e-3)
+    d, s, y = batch
+    args = ([torch.as_tensor(d, device=dev), torch.as_tensor(s)],
+            [torch.as_tensor(y, device=dev)])
+    model.train_batch(*args)        # the optimizer state exists now
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model.train_batch(*args)
+    _sync(dev)
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _ctr_rank(outdir, rank, res):
+    """The ctr phase's rank body (``--dist-rank ctr2``): a key-sharded
+    table on a dp=2 mesh, CTR_SHARD_STEPS lookups of the rank's rows and
+    pushes, then a shard snapshot."""
+    from paddle_tpu_torch import parallel
+    from paddle_tpu_torch.nn import ShardedHostEmbedding
+    dev = f"cuda:{torch.cuda.current_device()}"
+    parallel.init_mesh(dp=2)
+    ids, r = _ctr_shard_data()
+    n = CTR_SHARD_BATCH // 2
+    mine = slice(rank * n, (rank + 1) * n)
+    sh = ShardedHostEmbedding(CTR_VOCAB, 16, hash_ids=True).to(dev)
+    weight = torch.as_tensor(r[mine], device=dev)
+    pulled = []
+    t0 = time.perf_counter()
+    for _ in range(CTR_SHARD_STEPS):
+        out = sh(torch.as_tensor(ids[mine]))
+        pulled.append(out.detach().cpu().numpy())
+        (out * weight).sum().backward()
+    torch.cuda.synchronize()
+    res["step_s"] = (time.perf_counter() - t0) / CTR_SHARD_STEPS
+    np.save(os.path.join(outdir, f"pulled{rank}.npy"), np.stack(pulled))
+    res["touched_local"] = sh.touched_rows_local
+    res["shard"] = sh.snapshot_shard(os.path.join(outdir, "table"))
+    parallel.set_mesh(None)
+
+
+def _ctr_shard_data():
+    rs = np.random.RandomState(5)
+    ids = rs.randint(1, 2 ** 31 - 1, (CTR_SHARD_BATCH, 26))
+    ids[:, :3] = ids[:1, :3]       # ids both ranks look up
+    return ids, rs.randn(CTR_SHARD_BATCH, 16).astype(np.float32)
+
+
+def phase_ctr(info, dev="cuda") -> None:
+    """WideDeepHostTable at its defaults, card against CPU; WideDeep and
+    DeepFM on their device tables, card against CPU; the key-sharded
+    table on two ranks of this script (``--dist-rank ctr2``) sharing the
+    card over gloo, against one process's table."""
+    import shutil
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import widedeep as wd
+    from paddle_tpu_torch.nn import HostOffloadedEmbedding
+    from paddle_tpu_torch.nn.layers import native_accessor as na
+    t_phase = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "build", "ctr")
+    shutil.rmtree(root, ignore_errors=True)
+    outdir = os.path.join(root, "ctr2")
+    os.makedirs(outdir)
+    me = os.path.basename(os.path.abspath(__file__))
+    t_job = time.time()
+    proc = _launch(["--nproc_per_node", "2", me, "--dist-rank", "ctr2",
+                    outdir, repr(t_job)], os.path.join(outdir, "logs"))
+
+    # WideDeepHostTable: the same dense weights (seed) and lazy rows
+    batches = _ctr_batches()
+    host = {}
+    pushes = dict(na.counts)
+    for where in (dev, "cpu"):
+        pt.seed(0)
+        net = wd.WideDeepHostTable().to(where)
+        acc = _timed_tables(net)
+        losses, wall = _ctr_train(net, batches, where, 1e-3)
+        host[where] = {"net": net, "losses": losses, "wall": wall,
+                       "pull_s_per_step": acc["pull"] / CTR_STEPS,
+                       "push_s_per_step": acc["push"] / CTR_STEPS}
+    native = {k: na.counts[k] - pushes[k] for k in pushes}
+    card, cpu = host[dev], host["cpu"]
+    row_worst, touched = 0.0, {}
+    for t in ("wide", "embedding"):
+        a, b = getattr(card["net"], t), getattr(cpu["net"], t)
+        touched[t] = (a.touched_rows, b.touched_rows)
+        ids = np.sort(np.asarray(list(b._rows)))
+        ra, rb = a._pull(ids), b._pull(ids)
+        lim = CTR_ROW_ATOL + CTR_ROW_RTOL * np.abs(rb)
+        row_worst = max(row_worst, float((np.abs(ra - rb) / lim).max()))
+    # a snapshot / restore round trip of the card run's table
+    table = card["net"].embedding
+    snap = os.path.join(root, "embedding.npz")
+    table.snapshot(snap)
+    fresh = HostOffloadedEmbedding(CTR_VOCAB, 16, hash_ids=True,
+                                   learning_rate=0.05)
+    fresh.restore(snap)
+    probe = np.sort(np.asarray(list(table._rows)))
+    snap_equal = bool(np.array_equal(fresh._pull(probe),
+                                     table._pull(probe)))
+    del host
+    peak = {v: _ctr_peak_bytes(v, batches[0], dev)
+            for v in (10 ** 6, CTR_VOCAB)}
+
+    # WideDeep and DeepFM on their device tables
+    dense_models = {}
+    for name in ("WideDeep", "DeepFM"):
+        dev_batches = _ctr_batches(CTR_DEVICE_VOCAB)
+        runs = {}
+        for where in (dev, "cpu"):
+            pt.seed(0)
+            net = getattr(wd, name)(vocab_size=CTR_DEVICE_VOCAB).to(where)
+            first = _auc(net, dev_batches[0], where)
+            losses, wall = _ctr_train(net, dev_batches, where, 1e-2)
+            runs[where] = {"losses": losses, "wall": wall,
+                           "auc_first": first,
+                           "auc_last": _auc(net, dev_batches[0], where)}
+            del net
+        dense_models[name] = runs
+
+    # the key-sharded table against one process's table on the card
+    _finish([proc], "ctr2", os.path.join(outdir, "logs"))
+    job_s = time.time() - t_job
+    ranks = _read_ranks(outdir, 2)
+    ids, r = _ctr_shard_data()
+    one = HostOffloadedEmbedding(CTR_VOCAB, 16, hash_ids=True).to(dev)
+    weight = torch.as_tensor(r, device=dev)
+    one_pulled = []
+    for _ in range(CTR_SHARD_STEPS):
+        out = one(torch.as_tensor(ids))
+        one_pulled.append(out.detach().cpu().numpy())
+        (out * weight).sum().backward()
+    one_pulled = np.stack(one_pulled)
+    got = np.concatenate([np.load(os.path.join(outdir, f"pulled{k}.npy"))
+                          for k in range(2)], axis=1)
+    from paddle_tpu_torch.nn import ShardedHostEmbedding
+    back = ShardedHostEmbedding(CTR_VOCAB, 16, hash_ids=True)
+    back.restore_shards([k["shard"] for k in ranks])
+    keys = np.sort(np.asarray(list(one._rows)))
+    shard_err = float(np.abs(back._local._pull(keys) - one._pull(keys)).max())
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    checks = {
+        "host_losses_within_rtol": rel(card["losses"], cpu["losses"])
+        <= CTR_LOSS_RTOL,
+        "host_touched_equal": all(a == b and a > 0
+                                  for a, b in touched.values()),
+        "host_rows_within_limit": row_worst <= 1.0,
+        "native_rule_every_push": native == {"native": 4 * CTR_STEPS,
+                                             "numpy": 0},
+        "peak_independent_of_vocab": abs(peak[CTR_VOCAB] - peak[10 ** 6])
+        < CTR_PEAK_SLACK,
+        "snapshot_roundtrip_bit_equal": snap_equal,
+        "sharded_step0_rows_bit_equal": bool(np.array_equal(
+            got[0], one_pulled[0])),
+        "sharded_rows_after_pushes": float(np.abs(
+            got - one_pulled).max()) <= CTR_SHARD_TOL,
+        "sharded_restore_rekeys_every_row":
+            back.touched_rows_local == one.touched_rows
+            and shard_err <= CTR_SHARD_TOL,
+        "sharded_ranks_split_rows": sum(k["touched_local"] for k in ranks)
+        == one.touched_rows,
+    }
+    for name, runs in dense_models.items():
+        checks[f"{name}_losses_within_rtol"] = rel(
+            runs[dev]["losses"], runs["cpu"]["losses"]) <= CTR_LOSS_RTOL
+        checks[f"{name}_auc_improves"] = \
+            runs[dev]["auc_last"] > runs[dev]["auc_first"]
+    checks["losses_finite"] = all(
+        math.isfinite(v) for v in card["losses"] + cpu["losses"])
+    emit({"phase": "ctr", "card": info["nvidia_smi"],
+          "host_table": {
+              "vocab": CTR_VOCAB, "dim": 16, "slots": 26,
+              "batch": CTR_BATCH, "steps": CTR_STEPS,
+              "losses_card": card["losses"], "losses_cpu": cpu["losses"],
+              "max_rel_loss": rel(card["losses"], cpu["losses"]),
+              "touched": touched, "row_err_over_limit": row_worst,
+              "steps_per_s_card": CTR_STEPS / card["wall"],
+              "pull_s_per_step_card": card["pull_s_per_step"],
+              "push_s_per_step_card": card["push_s_per_step"],
+              "pull_s_per_step_cpu": cpu["pull_s_per_step"],
+              "push_s_per_step_cpu": cpu["push_s_per_step"],
+              "native_pushes": native, "peak_step_bytes": peak},
+          "device_tables": {name: {w: {k: v for k, v in run.items()}
+                                   for w, run in runs.items()}
+                            for name, runs in dense_models.items()},
+          "sharded": {"ranks": 2, "steps": CTR_SHARD_STEPS,
+                      "step_s": [k["step_s"] for k in ranks],
+                      "touched_local": [k["touched_local"] for k in ranks],
+                      "one_process_rows": one.touched_rows,
+                      "max_err_vs_one": float(np.abs(
+                          got - one_pulled).max()),
+                      "restore_max_err": shard_err, "job_s": job_s},
+          "phase_s": time.perf_counter() - t_phase})
+    emit({"phase": "ctr_checks", **checks})
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise SystemExit(f"ctr phase failed: {bad}")
 
 
 def main() -> None:
@@ -5458,8 +6194,10 @@ def main() -> None:
     mp_launches = timed("model_parallel", phase_model_parallel, info)
     sp_launches = timed("sequence_parallel", phase_sequence_parallel, info)
     nn_launches = timed("nn", phase_nn, info)
+    moe_launches = timed("moe_ep", phase_moe_ep, info)
+    timed("ctr", phase_ctr, info)
     for launches_of in (dist_launches, mp_launches, sp_launches,
-                        nn_launches):
+                        nn_launches, moe_launches):
         for k, v in launches_of.items():
             train_launches[k] += v
     emit({"phase": "timing", "seconds": phase_s,

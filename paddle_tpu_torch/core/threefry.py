@@ -151,6 +151,20 @@ def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 
+def randint(key, shape, minval: int, maxval: int, device=None):
+    """``jax.random.randint`` in int32 for ``minval < maxval`` within
+    int32: two 32-bit draws on the key's two halves, the high one's
+    remainder times ``2**32 % span`` plus the low one's, modulo the span,
+    in wrapping uint32 arithmetic."""
+    k1, k2 = split(key)
+    span = (int(maxval) - int(minval)) & _MASK
+    hi = random_bits(k1, shape, device)
+    lo = random_bits(k2, shape, device)
+    mult = (2 ** 16 % span) * (2 ** 16 % span) % 2 ** 32 % span
+    off = ((hi % span) * mult & _MASK) + (lo % span) & _MASK
+    return (int(minval) + off % span).to(torch.int32)
+
+
 def normal(key, shape, device=None):
     """``jax.random.normal`` in float32: ``sqrt(2) erfinv(u)`` for ``u``
     uniform in ``[nextafter(-1, 0), 1)``."""

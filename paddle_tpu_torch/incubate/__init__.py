@@ -1,11 +1,13 @@
-"""The port's ``incubate`` namespace: the MoE layers and the fused-layer
-names under the reference's paths, and ``incubate.nn``. The rest of the
-JAX package's ``incubate`` (``autograd``, the sparse embeddings,
-``asp``, ``autotune``, ``data_generator``) is not ported yet (ROADMAP
-A7)."""
+"""The port's ``incubate`` namespace: the MoE layers, the sparse
+embeddings and the fused-layer names under the reference's paths, and
+``incubate.nn``. The rest of the JAX package's ``incubate``
+(``autograd``, ``asp``, ``autotune``, ``data_generator``) is not ported
+yet (ROADMAP A7)."""
 
 from ..nn.layers.moe import (GShardGate, MoELayer, NaiveGate,  # noqa: F401
                              SwitchGate)
+from ..nn.layers.sparse_embedding import (  # noqa: F401
+    MultiSlotEmbedding, SparseEmbedding)
 from ..nn.layers.transformer import (  # noqa: F401
     MultiHeadAttention as FusedMultiHeadAttention,
     TransformerEncoderLayer as FusedTransformerEncoderLayer)

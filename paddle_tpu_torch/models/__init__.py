@@ -1,4 +1,5 @@
-"""Model zoo of the port (GPT in this slice)."""
+"""Model zoo of the port: GPT here; the CTR models in
+``models.widedeep``."""
 
 from .gpt import (PRESETS, GPTConfig, GPTForCausalLM,  # noqa: F401
                   GPTFusedPretrainingCriterion, GPTGreedyDecoder, GPTModel,

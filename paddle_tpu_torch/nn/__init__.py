@@ -1,7 +1,5 @@
 """The port's ``nn``: layers and functional ops, named as in
-``paddle_tpu/nn/__init__.py`` and in its order. Not ported yet (ROADMAP
-A7.1): ``functional_fill.py`` and ``layers/fill_r4.py``, and the host,
-sparse and sharded embeddings."""
+``paddle_tpu/nn/__init__.py`` and in its order."""
 
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
@@ -38,6 +36,10 @@ from .layers.pooling import (AdaptiveAvgPool2D, AdaptiveMaxPool2D,  # noqa
                              AvgPool1D, AvgPool2D, MaxPool1D, MaxPool2D)
 from .layers.moe import (GShardGate, MoELayer, NaiveGate,  # noqa
                          SwitchGate, collect_aux_losses)
+from .layers.sparse_embedding import (MultiSlotEmbedding,  # noqa
+                                      SparseEmbedding)
+from .layers.host_embedding import HostOffloadedEmbedding  # noqa
+from .layers.sharded_embedding import ShardedHostEmbedding  # noqa
 from .layers.rnn import (GRU, LSTM, RNN, BiRNN, GRUCell, LSTMCell,  # noqa
                          SimpleRNN, SimpleRNNCell)
 from .layers.transformer import (MultiHeadAttention, Transformer,  # noqa
@@ -45,3 +47,11 @@ from .layers.transformer import (MultiHeadAttention, Transformer,  # noqa
                                  TransformerEncoder, TransformerEncoderLayer)
 
 from . import utils  # noqa: F401
+from .layers.fill_r4 import (  # noqa: E402,F401
+    AdaptiveMaxPool3D, BeamSearchDecoder, ChannelShuffle, CTCLoss,
+    Conv1DTranspose, Conv3DTranspose, CosineEmbeddingLoss, Dropout3D,
+    HSigmoidLoss, HingeEmbeddingLoss, InstanceNorm1D, InstanceNorm3D,
+    LogSigmoid, MarginRankingLoss, MaxUnPool1D, MaxUnPool2D,
+    MaxUnPool3D, MultiLabelSoftMarginLoss, ParameterList, RNNCellBase,
+    Silu, Softmax2D, SpectralNorm, TripletMarginLoss,
+    TripletMarginWithDistanceLoss, dynamic_decode)

@@ -7,8 +7,8 @@ attention takes ``[batch, seq, heads, head_dim]``; convolutions take
 call sites as in the JAX package. Random draws (dropout, Gumbel noise,
 alpha dropout) use JAX's threefry on the key stream
 (``core.threefry``), so that a seeded draw equals the JAX package's.
-The functions of ``nn/functional_fill.py`` are not ported yet (ROADMAP
-A7.1)."""
+The rest of the surface comes from ``functional_fill`` (star-imported
+at the end, as the JAX package does)."""
 
 from __future__ import annotations
 
@@ -357,16 +357,23 @@ def _pool(x, kind, kernel, stride, padding, data_format,
     return _from_channels_first(out, channels_last)
 
 
-def _no_mask(return_mask: bool):
-    if return_mask:
-        raise NotImplementedError(
-            "max pooling with return_mask needs nn/functional_fill.py, "
-            "not ported yet (ROADMAP A7.1)")
+def _pool_with_mask(x, nd, layout, data_format, kernel_size, stride,
+                    padding):
+    """``(pooled, mask)``: ``functional_fill.max_pool_with_mask`` for the
+    channels-first layout only, as in the JAX package."""
+    from .functional_fill import max_pool_with_mask
+    if data_format != layout:
+        raise ValueError(f"return_mask supports {layout} only")
+    k = _norm_tuple(kernel_size, nd)
+    return max_pool_with_mask(x, k, _norm_tuple(stride or k, nd),
+                              _norm_tuple(padding, nd))
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0,
                return_mask=False, data_format="NCHW"):
-    _no_mask(return_mask)
+    if return_mask:
+        return _pool_with_mask(x, 2, "NCHW", data_format, kernel_size,
+                               stride, padding)
     return _pool(x, "max", kernel_size, stride, padding, data_format)
 
 
@@ -378,7 +385,9 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0,
 
 def max_pool1d(x, kernel_size, stride=None, padding=0,
                return_mask=False, data_format="NCL"):
-    _no_mask(return_mask)
+    if return_mask:
+        return _pool_with_mask(x, 1, "NCL", data_format, kernel_size,
+                               stride, padding)
     return _pool(x, "max", kernel_size, stride, padding,
                  "NLC" if data_format == "NLC" else "NCHW")
 
@@ -392,7 +401,9 @@ def avg_pool1d(x, kernel_size, stride=None, padding=0,
 
 def max_pool3d(x, kernel_size, stride=None, padding=0,
                return_mask=False, data_format="NCDHW"):
-    _no_mask(return_mask)
+    if return_mask:
+        return _pool_with_mask(x, 3, "NCDHW", data_format, kernel_size,
+                               stride, padding)
     return _pool(x, "max", kernel_size, stride, padding,
                  "NDHWC" if data_format == "NDHWC" else "NCHW")
 
@@ -1097,3 +1108,6 @@ from .layers.extra import (alpha_dropout, celu, fold,  # noqa: E402,F401
                            local_response_norm, maxout, pairwise_distance,
                            pixel_shuffle, pixel_unshuffle,
                            thresholded_relu)
+
+# the rest of the functional surface
+from .functional_fill import *  # noqa: E402,F401,F403

@@ -8,10 +8,24 @@ row of the batch), one-hot dispatch ``[g, s, e, c]`` and combine
 tensors, and einsums. A token past its expert's capacity is dropped
 (dispatched nowhere, its output zero). ``argmax`` ties take the first
 expert, in both packages. The expert weights are stacked ``[e, d, f]``
-parameters with the logical ``expert`` axis; a live ``ep`` mesh axis
-(the all-to-all between expert ranks) is not ported yet
-(``parallel/sharding.py``'s ``NOT_PORTED``), and under ``dp`` / ``fsdp``
-the layer runs as any other.
+parameters with the logical ``expert`` axis.
+
+On a live ``ep`` mesh axis (``parallel.distributed_model``) ep rank r
+holds experts ``[r e/ep, (r + 1) e/ep)`` as ``[e/ep, d, f]`` /
+``[e/ep, f, d]`` tensors. The JAX rules do not split the rows over ep,
+so every ep rank of a data slice holds the same tokens; GSPMD then
+partitions the dispatch einsum by expert and gathers what the combine
+einsum needs. A port rank does that by hand: it computes the gate, the
+capacity, ``dispatch`` and ``combine`` as one process does (the same
+rows and the same gate weights, so the same positions, drops and aux
+loss, bit for bit), runs its own experts on its slice of ``dispatch``,
+and gathers the experts' outputs over ep (``collective.gather_from_ep``)
+before the combine, which every rank computes whole: the forward equals
+one process's, and the combine's gradient (the gate's included) is
+whole on every rank. Backward, a rank keeps its experts' slice of the
+output gradient, and the input's gradient through the dispatch (its
+experts' share) is summed over ep (``collective.copy_to_ep``); the aux
+loss is counted once, on every rank alike.
 """
 
 from __future__ import annotations
@@ -103,7 +117,10 @@ class SwitchGate(GShardGate):
 
 class ExpertFFN(Layer):
     """Every expert's FFN as stacked weights ``[e, d, f]`` /
-    ``[e, f, d]``."""
+    ``[e, f, d]`` (on an ep mesh, this rank's experts: ``ep_params``
+    are split over ep by ``parallel.reducer.MeshSync``)."""
+
+    ep_params = ("w_in", "b_in", "w_out", "b_out")
 
     def __init__(self, num_experts: int, d_model: int, d_hidden: int,
                  activation: str = "gelu"):
@@ -158,6 +175,15 @@ class MoELayer(Layer):
         else:
             raise ValueError(f"unknown gate {gate!r}")
         self.experts = ExpertFFN(num_experts, d_model, d_hidden, activation)
+        self._ep = None
+
+    def attach_ep(self, ep) -> None:
+        """Run on this ep rank's experts (``collective.EPGroup``); the
+        experts' parameters are already its slice."""
+        if self.num_experts % ep.size:
+            raise ValueError(f"{self.num_experts} experts do not split "
+                             f"over ep={ep.size}")
+        self._ep = ep
 
     def _capacity(self, tokens_per_group: int) -> int:
         f = self.capacity_factor if self.training else \
@@ -200,8 +226,17 @@ class MoELayer(Layer):
     def forward_with_aux(self, x):
         b, s, d = x.shape
         dispatch, combine, aux = self.route(x)
-        expert_in = torch.einsum("gsec,gsd->egcd", dispatch, x)
-        expert_out = self.experts(expert_in)
+        ep = self._ep
+        if ep is None:
+            expert_in = torch.einsum("gsec,gsd->egcd", dispatch, x)
+            expert_out = self.experts(expert_in)
+        else:
+            from ...parallel.collective import copy_to_ep, gather_from_ep
+            n = self.num_experts // ep.size
+            mine = dispatch[:, :, ep.index * n:(ep.index + 1) * n]
+            expert_in = torch.einsum("gsec,gsd->egcd", mine,
+                                     copy_to_ep(x, ep))
+            expert_out = gather_from_ep(self.experts(expert_in), ep, 0)
         out = torch.einsum("gsec,egcd->gsd",
                            combine.to(expert_out.dtype), expert_out)
         return out.reshape(b, s, d), aux

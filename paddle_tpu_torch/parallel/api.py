@@ -25,9 +25,9 @@ import torch.distributed as dist
 
 from ..nn.layer import Layer
 from .mesh import DeviceMesh, get_mesh, init_mesh
-from .sharding import (LogicalRules, check_runnable,
-                       check_sequence_parallel, is_split, row_groups,
-                       shard_batch, shard_params, shard_superbatch)
+from .sharding import (LogicalRules, check_sequence_parallel, is_split,
+                       row_groups, shard_batch, shard_params,
+                       shard_superbatch)
 from .strategy import DistributedStrategy
 
 _state = {"initialized": False, "device": None}
@@ -256,8 +256,9 @@ def distributed_model(model, strategy: Optional[DistributedStrategy] = None,
     as ``model._plan``; else ``dp`` over every rank. ``seq_len``
     defaults to the model's ``max_position_embeddings`` hint. A live
     ``sp`` axis runs a sequence-parallel GPT (ring attention; every sp
-    rank passes the same global batch); a live ``ep`` axis raises: it is
-    not ported yet."""
+    rank passes the same global batch); a live ``ep`` axis runs the MoE
+    layers on their ranks' experts (every ep rank passes the same global
+    batch too)."""
     if strategy is not None and global_batch is not None:
         raise ValueError(
             "pass either strategy (manual layout) or global_batch "
@@ -296,7 +297,6 @@ def distributed_model(model, strategy: Optional[DistributedStrategy] = None,
             else:
                 axes = strategy.mesh_axes() if strategy else {"dp": -1}
                 mesh = init_mesh(**(axes or {"dp": -1}))
-    check_runnable(mesh)
     check_sequence_parallel(model.network, mesh)
     rules = rules or LogicalRules()
     meta = model.network.param_meta()

@@ -20,7 +20,11 @@ Two registers, as in the JAX package:
    group (:class:`TPGroup`): :func:`copy_to_tp` at a column-parallel
    input (identity forward, all-reduce backward), :func:`reduce_from_tp`
    after a row-parallel output (all-reduce forward, identity backward),
-   :func:`gather_from_tp` for vocab-sharded logits.
+   :func:`gather_from_tp` for vocab-sharded logits. The same pair over
+   the ``ep`` group (:class:`EPGroup`: :func:`copy_to_ep`,
+   :func:`reduce_from_ep`, :func:`gather_from_ep`) carries the MoE
+   layers' expert slices, where GSPMD partitions the dispatch einsum by
+   expert.
 4. **Point to point** (:func:`exchange`): the pipeline's activations and
    their gradients, rank to rank over the ``pp`` group.
 
@@ -332,19 +336,37 @@ class SPGroup(AxisGroup):
     axis = "sp"
 
 
-# host seconds the tp pair spent in its collectives (a staged gloo
-# collective waits for the card anyway, so the clock starts after a sync)
+class EPGroup(AxisGroup):
+    """The ``ep`` axis: the MoE layers' expert slices. Every ep rank of a
+    data slice holds the same rows (the rules map ``batch`` to the data
+    axes only) and its own experts."""
+    axis = "ep"
+
+
+# host seconds the tp and ep pairs spent in their collectives (a staged
+# gloo collective waits for the card anyway, so the clock starts after a
+# sync)
 tp_seconds = 0.0
+ep_seconds = 0.0
 
 
-def _tp_all_reduce(x: torch.Tensor, tp: TPGroup) -> torch.Tensor:
-    global tp_seconds
-    if _staged(x, tp.group):
+def _timed(fn, x, grp):
+    global tp_seconds, ep_seconds
+    if _staged(x, grp.group):
         torch.cuda.synchronize(x.device)
     t0 = time.perf_counter()
-    out = all_reduce_(x.contiguous().clone(), tp.group)
-    tp_seconds += time.perf_counter() - t0
+    out = fn()
+    dt = time.perf_counter() - t0
+    if grp.axis == "ep":
+        ep_seconds += dt
+    else:
+        tp_seconds += dt
     return out
+
+
+def _tp_all_reduce(x: torch.Tensor, tp: AxisGroup) -> torch.Tensor:
+    return _timed(lambda: all_reduce_(x.contiguous().clone(), tp.group),
+                  x, tp)
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -372,7 +394,8 @@ class _GatherFromTP(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp, dim):
         ctx.tp, ctx.dim, ctx.n = tp, dim, x.shape[dim]
-        return torch.cat(all_gather_list(x, tp.group), dim=dim)
+        return _timed(lambda: torch.cat(all_gather_list(x, tp.group),
+                                        dim=dim), x, tp)
 
     @staticmethod
     def backward(ctx, g):
@@ -396,6 +419,25 @@ def gather_from_tp(x: torch.Tensor, tp: TPGroup, dim: int = -1):
     """The tp ranks' slices of ``dim`` concatenated (every rank computes
     the same downstream, so the backward keeps this rank's slice)."""
     return _GatherFromTP.apply(x, tp, dim % x.dim())
+
+
+def copy_to_ep(x: torch.Tensor, ep: EPGroup) -> torch.Tensor:
+    """The pair's identity over ``ep``: ``x`` itself, its gradient
+    summed over the ep ranks (each rank's experts' share of it)."""
+    return _CopyToTP.apply(x, ep)
+
+
+def reduce_from_ep(x: torch.Tensor, ep: EPGroup) -> torch.Tensor:
+    """The pair's sum over ``ep``: the ep ranks' partial results summed,
+    the gradient passed through."""
+    return _ReduceFromTP.apply(x, ep)
+
+
+def gather_from_ep(x: torch.Tensor, ep: EPGroup, dim: int = 0):
+    """The ep ranks' expert slices of ``dim`` concatenated in rank order
+    (every rank computes the same downstream, so the backward keeps this
+    rank's slice)."""
+    return _GatherFromTP.apply(x, ep, dim % x.dim())
 
 
 # -- register 4: point to point ---------------------------------------------

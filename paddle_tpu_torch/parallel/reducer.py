@@ -47,6 +47,16 @@ and before the update:
   nothing), so the loss is count-weighted over the data ranks, pp and
   sp, and the gradients of parameters (replicated over sp: partial sums
   over the rank's tokens) are summed over sp as well.
+- **ep.** Every ep rank of a data slice takes the same rows. A
+  parameter the rules split over ``ep`` (an MoE layer's stacked experts,
+  logical axis ``expert``) is this rank's slice of experts, in the
+  network itself, as a tp slice is; the MoE layers learn the ep group
+  (``attach_ep``) and run their own experts, gathering the experts'
+  outputs over ep and summing the input's gradient over it
+  (``nn.layers.moe``). Every ep rank computes the same loss and the same
+  gradients of the parameters it holds whole, so no gradient is reduced
+  over ep; the experts' gradients are reduced over the data ranks of
+  their ep index.
 
 Norms (the numeric guard, ``ClipGradByGlobalNorm``, ``ClipGradByNorm``,
 Lamb, LarsMomentum, Adafactor) sum each piece's squares across the ranks
@@ -60,6 +70,7 @@ so a ``dp=1`` step equals the unsharded step bit for bit.
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -69,8 +80,7 @@ import torch.distributed as dist
 from ..nn import clip as _clip
 from . import collective as _coll
 from .mesh import AXIS_ORDER, DeviceMesh
-from .sharding import (LogicalRules, check_runnable,
-                       check_sequence_parallel, full_from_pieces,
+from .sharding import (LogicalRules, check_sequence_parallel, full_from_pieces,
                        local_piece, param_layout, row_groups,
                        tp_permutation)
 
@@ -102,13 +112,13 @@ class MeshSync:
 
     def __init__(self, mesh: DeviceMesh,
                  rules: Optional[LogicalRules] = None):
-        check_runnable(mesh)
         self.mesh = mesh
         self.rules = rules or LogicalRules()
         self.n = mesh.data_size
         self.pp = mesh.axis_size("pp")
         self.tp = mesh.axis_size("tp")
         self.sp = mesh.axis_size("sp")
+        self.ep = mesh.axis_size("ep")
         # the ranks whose rows (and sequence slices) of the global batch
         # make the loss
         self.rows = self.n * self.pp * self.sp
@@ -127,11 +137,13 @@ class MeshSync:
         self.pp_index = mesh.local_rank("pp")
         self.tp_group = _coll.TPGroup(mesh) if self.tp > 1 else None
         self.sp_group = _coll.SPGroup(mesh) if self.sp > 1 else None
+        self.ep_group = _coll.EPGroup(mesh) if self.ep > 1 else None
         self.world = self.group(mesh.axis_names)
         # fsdp: name -> (dim, full shape); name -> this rank's shard
         self.sharded: Dict[str, Tuple[int, torch.Size]] = {}
         self.shards: Dict[str, torch.Tensor] = {}
-        # tp / pp: name -> {"tp": (dim, permutation), "pp": dim}
+        # tp / pp / ep: name -> {"tp": (dim, permutation), "pp": dim,
+        # "ep": dim}
         self.pieces: Dict[str, dict] = {}
         self.row_groups = 1   # the microbatches the data axes split
         self.full_shapes: Dict[str, torch.Size] = {}
@@ -183,7 +195,7 @@ class MeshSync:
         if network is None:
             return
         meta = network.param_meta()
-        if self.tp > 1 or self.pp > 1:
+        if self.tp > 1 or self.pp > 1 or self.ep > 1:
             self._split(network, meta)
         if self.sp_group is not None:
             for m in [*network.modules(), loss]:
@@ -203,8 +215,9 @@ class MeshSync:
         self.reshard()
 
     def _split(self, network, meta) -> None:
-        """This rank's tp slices and pp stages of ``network``'s
-        parameters, in place; the layers learn their tp group."""
+        """This rank's tp slices, pp stages and ep expert slices of
+        ``network``'s parameters, in place; the layers learn their tp and
+        ep groups."""
         from .pipeline import PipelineParallel
         pipes = [m for m in network.modules()
                  if isinstance(m, PipelineParallel)]
@@ -229,16 +242,22 @@ class MeshSync:
                     _check_tp_owner(network, name)
                     perm = tp_permutation(network, name, self.tp)
                     piece["tp"] = (lay["tp"], perm)
+                if "ep" in lay:
+                    _check_ep_owner(network, name)
+                    piece["ep"] = lay["ep"]
                 if not piece:
                     continue
                 self.full_shapes[name] = p.shape
                 self.pieces[name] = piece
                 p._full_shape = p.shape   # what the planner counts
+                p._local_of = functools.partial(self._local, name)
                 p.data = self._local(name, p.detach())
-        if self.tp_group is not None:
-            for m in list(network.modules()):
-                if hasattr(m, "attach_tp"):
-                    m.attach_tp(self.tp_group)
+        for group, attach in ((self.tp_group, "attach_tp"),
+                              (self.ep_group, "attach_ep")):
+            if group is not None:
+                for m in list(network.modules()):
+                    if hasattr(m, attach):
+                        getattr(m, attach)(group)
 
     def _local(self, name, full, dim_of=lambda d: d):
         piece = self.pieces[name]
@@ -250,6 +269,9 @@ class MeshSync:
             if dim_of(d) is not None:
                 x = local_piece(x, dim_of(d), self.tp, self.tp_group.index,
                                 perm)
+        if "ep" in piece and dim_of(piece["ep"]) is not None:
+            x = local_piece(x, dim_of(piece["ep"]), self.ep,
+                            self.ep_group.index)
         return x
 
     def opt_params(self, params: Dict[str, torch.Tensor]):
@@ -331,6 +353,7 @@ class MeshSync:
                 params[k].data = t
         for p in params.values():
             p.__dict__.pop("_full_shape", None)
+            p.__dict__.pop("_local_of", None)
         self.shards.clear()
         self.sharded.clear()
         self.pieces.clear()
@@ -340,6 +363,8 @@ class MeshSync:
                 m._tp = None
             if hasattr(m, "attach_sp"):
                 m._sp = None
+            if hasattr(m, "attach_ep"):
+                m._ep = None
             if isinstance(m, PipelineParallel):
                 m.attach_mesh(None)
 
@@ -420,7 +445,7 @@ class MeshSync:
             with_loss = axes == self.rows_axes and dt == str(torch.float32)
             if with_loss:
                 parts = parts + [loss.detach().reshape(1)]
-            if not parts or (group is None and weighted):
+            if not parts or (group is None and (weighted or self.rows == 1)):
                 continue
             flat = _flat(parts)
             if group is not None:
@@ -527,6 +552,9 @@ class MeshSync:
             if "tp" in piece:
                 axes.append("tp")
                 dims[piece["tp"][0]] = self.tp
+            if "ep" in piece:
+                axes.append("ep")
+                dims[piece["ep"]] = self.ep
             axes = _axes(*axes)
             spec[k] = (axes, self.group(axes), dims)
         if not spec:
@@ -629,10 +657,16 @@ class MeshSync:
         return put(keyed)
 
     def _join(self, path, name, x):
-        """A leaf's tp slices and pp stages gathered."""
+        """A leaf's ep expert slices, tp slices and pp stages
+        gathered."""
         piece = self.pieces.get(name)
         if not piece:
             return x
+        if "ep" in piece:
+            ld = self._leaf_dim(path, name, x, piece["ep"])
+            if ld is not None:
+                x = torch.cat(_coll.all_gather_list(
+                    x, self.ep_group.group), dim=ld)
         if "tp" in piece:
             d, perm = piece["tp"]
             ld = self._leaf_dim(path, name, x, d)
@@ -660,6 +694,19 @@ class MeshSync:
                     v = local_piece(v, d, self.fsdp, self.fsdp_index)
             return v
         return self._map_split(tree, cut)
+
+
+def _check_ep_owner(network, name: str) -> None:
+    """An ep-split parameter needs the layer that owns it to be an
+    expert stack whose MoE layer runs on its rank's experts
+    (``ep_params``, and ``attach_ep`` on the MoE layer above it)."""
+    owner, _, leaf = name.rpartition(".")
+    mod = network.get_submodule(owner) if owner else network
+    if leaf not in getattr(mod, "ep_params", ()):
+        raise NotImplementedError(
+            f"{name} is split over ep by the rules, but the layer that owns "
+            f"it does not compute on its rank's experts (ep_params: "
+            f"nn.layers.moe.ExpertFFN under an MoELayer)")
 
 
 def _check_tp_owner(network, name: str) -> None:

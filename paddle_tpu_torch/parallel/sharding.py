@@ -16,15 +16,15 @@ the port gives each rank its piece: :func:`shard_spec` is the
 ``torch.distributed.tensor`` placements of a parameter on the mesh,
 :func:`shard_params` the ``DTensor`` of this rank's shard (sliced from
 the full value every rank holds, no communication), :func:`shard_batch`
-this rank's rows of the global batch. ``dp``, ``fsdp``, ``tp``, ``pp``
-and ``sp`` run: a Model on the mesh holds its tp slices and pp stages as
-plain tensors (:func:`param_layout`, :func:`local_piece`,
+this rank's rows of the global batch. Every axis
+runs: a Model on the mesh holds its tp slices, pp stages and ep expert
+slices as plain tensors (:func:`param_layout`, :func:`local_piece`,
 :func:`full_from_pieces`); under ``sp`` every rank of a data slice holds
 the same rows and the sequence-parallel GPT keeps its slice of the
-sequence (:func:`with_logical_constraint`, :func:`seq_slice`). ``ep``
-resolves like the JAX package's but raises where it would execute: the
-MoE layers run under dp / fsdp, and the expert-parallel all-to-all is
-the next part of ROADMAP A7.1.
+sequence (:func:`with_logical_constraint`, :func:`seq_slice`); under
+``ep`` too every rank of a data slice holds the same rows (``batch``
+maps to the data axes only), and each MoE layer runs its own experts
+(``nn.layers.moe``).
 
 Tensor parallelism and the fused qkv weight: the JAX GPT declares it as
 one ``heads`` dim of width ``h + 2 * kv * hd``, which GSPMD splits
@@ -58,20 +58,6 @@ DEFAULT_RULES: Tuple[Tuple[str, str], ...] = (
     ("embed", "fsdp"),
     ("seq", "sp"),
 )
-
-# live mesh axes whose execution waits for its ROADMAP item (dp, fsdp,
-# tp, pp and sp run)
-NOT_PORTED = {"ep": "A7.1 part 2 (the ep axis: the MoE all-to-all)"}
-
-
-def check_runnable(mesh: DeviceMesh) -> None:
-    """Raise for a live mesh axis whose execution is not ported."""
-    for axis, item in NOT_PORTED.items():
-        if mesh.has_axis(axis):
-            raise NotImplementedError(
-                f"a live {axis!r} mesh axis is not ported yet (ROADMAP "
-                f"{item}); the port runs dp, fsdp, tp, pp and sp")
-
 
 def check_sequence_parallel(network, mesh: DeviceMesh) -> None:
     """Raise for a live ``sp`` axis under a network that does not compute

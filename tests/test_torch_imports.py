@@ -48,6 +48,14 @@ def test_scan_covers_the_package():
                  "paddle_tpu_torch/ops/flash_attention.py",
                  "paddle_tpu_torch/ops/fused_xent.py",
                  "paddle_tpu_torch/ops/ring_attention.py",
+                 "paddle_tpu_torch/nn/functional_fill.py",
+                 "paddle_tpu_torch/nn/layers/fill_r4.py",
+                 "paddle_tpu_torch/nn/layers/sparse_embedding.py",
+                 "paddle_tpu_torch/nn/layers/host_embedding.py",
+                 "paddle_tpu_torch/nn/layers/sharded_embedding.py",
+                 "paddle_tpu_torch/nn/layers/native_accessor.py",
+                 "paddle_tpu_torch/core/native_build.py",
+                 "paddle_tpu_torch/models/widedeep.py",
                  "paddle_tpu_torch/amp/__init__.py",
                  "paddle_tpu_torch/nn/clip.py",
                  "paddle_tpu_torch/optimizer/lr.py",

@@ -202,19 +202,43 @@ def test_with_logical_constraint_is_identity_without_tp():
 
 
 @pytest.mark.parametrize("axis, item", [("sp", None), ("ep", "A7.1")])
-def test_sp_and_ep_still_raise_naming_their_items(axis, item):
+def test_sp_and_ep_still_raise_naming_their_items(axis, item, tmp_path):
     """tp and pp run (tests/test_torch_tensor_parallel.py,
     test_torch_pipeline.py, test_torch_planner.py); a live sp axis runs
     the sequence-parallel GPT (tests/test_torch_ring_attention.py) and
     refuses a network that does not slice the sequence; a live ep axis
-    raises at distributed_model, naming the ROADMAP item it waits for."""
+    (ROADMAP A7.1) no longer raises: distributed_model on an ep=2 mesh
+    of two gloo ranks runs an MoE network, each rank on its half of the
+    experts, with one process's outputs (tests/test_torch_moe_ep.py
+    holds it to the JAX package)."""
     from paddle_tpu_torch.hapi.model import Model
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
     from paddle_tpu_torch.nn import Linear
     mesh = tpar.DeviceMesh(devices=2, **{axis: 2})
     if item is not None:
-        with pytest.raises(NotImplementedError, match=f"'{axis}'.*{item}"):
-            tpar.distributed_model(Model(Linear(4, 4)), mesh=mesh)
+        import torch_nn_workers as NW
+        from paddle_tpu_torch import nn as tnn
+        torch.manual_seed(0)
+        layer = tnn.MoELayer(8, 16, 4, gate="naive", capacity_factor=4.0)
+        net = NW.moe_net(tnn)
+        x = np.random.RandomState(5).randn(4, 4, 8).astype(np.float32)
+        ids = np.random.RandomState(13).randint(0, 32, (4, 8))
+        args = {"naive_weights": {k: v.tolist() for k, v in
+                                  layer.state_dict().items()},
+                "moe_weights": {k: v.tolist() for k, v in
+                                net.state_dict().items()},
+                "x": x.tolist(), "ids": ids.tolist(), "dp": False}
+        ranks = W.collect(W.start_ranks("moe_ep", 2, tmp_path, args,
+                                        script=NW.__file__))
+        layer.eval()
+        want = layer(torch.from_numpy(x)).detach().numpy()
+        for r in ranks:
+            assert r["mesh_repr"] == "DeviceMesh({'ep': 2}, 2 devices)"
+            assert r["expert_shapes"]["w_in"] == (2, 8, 16)
+            np.testing.assert_allclose(r["naive_out"], want, atol=1e-6)
+            assert np.all(np.isfinite(r["mesh"][0]))
+        m = tpar.distributed_model(Model(Linear(4, 4)), mesh=mesh)
+        assert m._mesh.axis_size("ep") == 2
         return
     with pytest.raises(NotImplementedError, match="sequence_parallel"):
         tpar.distributed_model(Model(Linear(4, 4)), mesh=mesh)

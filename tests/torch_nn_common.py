@@ -18,8 +18,8 @@ TOL = 1e-5
 
 
 def rand(*shape, seed=0, scale=1.0):
-    return (np.random.RandomState(seed).randn(*shape) * scale).astype(
-        np.float32)
+    return np.asarray(np.random.RandomState(seed).randn(*shape) * scale,
+                      np.float32)
 
 
 def carry(jl, tl, perturb=True, scale=0.5):

@@ -96,6 +96,110 @@ def bn_dp(rank, world, d, args):
     return res
 
 
+def _full_grads(model, record):
+    """Wrap the Model's optimizer so that each step records the whole
+    gradients it was given (ep slices gathered: a collective)."""
+    opt = model._optimizer
+    inner = opt.apply_in_place
+
+    def apply(params, grads, state, step):
+        full = model._sync.full_tree(dict(grads), fsdp=False) \
+            if model._sync is not None else grads
+        record.append({k: v.detach().numpy().copy() for k, v in
+                       full.items()})
+        return inner(params, grads, state, step)
+    opt.apply_in_place = apply
+
+
+def moe_ep(rank, world, d, args):
+    """MoE layers on an ep mesh (``ep=world``, or ``dp=2 x ep=2`` with
+    ``args["dp"]``, reached through a fleet strategy whose ``moe``
+    degree is 2): the naive-gate layer's eval forward through
+    ``predict_batch`` (the JAX test's ``dp=2, ep=4`` case), the rank's
+    expert shapes, two AdamW ``train_batch`` steps of ``moe_net`` with
+    every gradient and parameter, the same steps in one process, and a
+    save of the mesh model."""
+    import os
+
+    import torch
+    parallel = W._init(rank, world, d)
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.hapi.model import Model
+    from paddle_tpu_torch.interop import load_reference_state
+
+    def f32(tree):
+        return {k: np.asarray(v, np.float32) for k, v in tree.items()}
+
+    if args["dp"]:
+        from paddle_tpu_torch.parallel.strategy import DistributedStrategy
+        strategy = DistributedStrategy()
+        strategy.hybrid_configs.dp_degree = 2
+        strategy.moe.enable = True
+        strategy.moe.degree = 2
+        fleet.init(is_collective=True, strategy=strategy, backend="gloo",
+                   device="cpu")
+
+        def attach(m):
+            return fleet.distributed_model(m)
+    else:
+        def attach(m):
+            return parallel.distributed_model(
+                m, mesh=parallel.DeviceMesh(ep=world))
+    res = {}
+    layer = nn.MoELayer(8, 16, 4, gate="naive", capacity_factor=4.0)
+    m = Model(layer)
+    m.prepare()
+    attach(m)
+    load_reference_state(layer, f32(args["naive_weights"]))
+    res["naive_out"] = m.predict_batch(
+        [torch.tensor(args["x"], dtype=torch.float32)]).detach().numpy()
+    res["mesh_repr"] = repr(m._mesh)
+    res["ep_index"] = m._mesh.local_rank("ep")
+    res["data_axes"] = m._mesh.data_axes
+    from paddle_tpu_torch.parallel import collective as coll
+    x = torch.full((3,), res["ep_index"] + 1.0, requires_grad=True)
+    ep_sum = coll.reduce_from_ep(x, coll.EPGroup(m._mesh))
+    ep_sum.sum().backward()
+    res["ep_sum"] = (ep_sum.detach().tolist(), x.grad.tolist())
+    res["expert_shapes"] = {k: tuple(p.shape) for k, p in
+                            layer.experts.named_parameters()}
+
+    ids = np.asarray(args["ids"])
+    for name in ("mesh", "one"):
+        net = moe_net(nn)
+        m = Model(net)
+        m.prepare(optimizer.AdamW(1e-3, parameters=net),
+                  nn.CrossEntropyLoss())
+        if name == "mesh":
+            attach(m)
+            m._mesh_sync()
+        load_reference_state(net, f32(args["moe_weights"]))
+        grads = []
+        _full_grads(m, grads)
+        losses = [float(m.train_batch([ids], [ids])["loss"])
+                  for _ in range(2)]
+        if name == "mesh":
+            path = os.path.join(d, "moe_ep_saved")
+            m.save(path)
+            state = m._sync.full_tree(
+                {k: v.detach() for k, v in net.state_dict().items()},
+                fsdp=False)
+        else:
+            state = net.state_dict()
+        res[name] = (losses, grads, {k: v.detach().numpy().copy()
+                                     for k, v in state.items()})
+    parallel.barrier()
+    if rank == 0:
+        net = moe_net(nn)
+        m = Model(net)
+        m.prepare(optimizer.AdamW(1e-3, parameters=net),
+                  nn.CrossEntropyLoss())
+        m.load(os.path.join(d, "moe_ep_saved"))
+        res["reloaded"] = _state(net)
+    return res
+
+
 if __name__ == "__main__":
     W.main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
            namespace=globals())

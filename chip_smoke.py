@@ -38,7 +38,10 @@ the result line:
    256, cross 256 over 512), each case naming the route of each kernel
    and holding two launches of B1, of B2 and of B3 bit-identical, each
    kernel's device time (``torch.profiler``) taken in turns with its
-   twin's and SDPA's (median of 3 windows of 20 calls);
+   twin's and SDPA's (median of 3 windows of 20 calls; a window in
+   which the profiler records no device time is taken again; after three
+   such in a row this and every later window is timed by CUDA events,
+   counted in the case's ``event_timed_windows``);
 5. serve: GPT-2-small at full width (random weights from ``seed(0)``)
    serving eight requests through ``LLMEngine`` with its defaults
    (prefix cache, mixed tick) on kernel B4, then on the plain twin
@@ -193,7 +196,28 @@ the result line:
    running statistics and spectral norm's ``u`` bit for bit), and a
    Switch MoE at d_model 768, FFN 3072, 8 experts over 8 x 512 tokens
    (dispatch positions and dropped tokens equal);
-16. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
+16. moe_ep and ctr (PR 18): a Switch-Base-8 encoder on two ranks of
+   this script sharing the card (``--dist-rank ep2``), and the CTR
+   embeddings and WideDeep / DeepFM card against CPU (``--dist-rank
+   ctr2`` for the key-sharded table);
+17. tensor (run while the kernels build in phase 2: it launches none of
+   them): the tensor and math API (``tensor``, ``linalg``, ``fft``,
+   ``signal``, ``sparse``, ``distribution``, ``autograd``,
+   ``regularizer``, ``device``) on the card against the port on the
+   CPU, every ported function at the CPU tests' sizes (within 1e-5 +
+   1e-4 |cpu|; integer, index and sort results and the closed-form
+   draws bit for bit); then at users' sizes, each timed with CUDA
+   events: float32 linalg at 4096 x 4096 (cholesky + cholesky_solve,
+   solve, qr, svd, eigh, lstsq, lu + lu_unpack; relative residual at
+   most 1e-3), rfft / irfft of 2^24 samples and fft2 of 4096^2,
+   Whisper's log-mel front end on 8 x 30 s clips and its istft round
+   trip, a graph with ogbn-arxiv's counts through SpMM, segment_sum, the
+   row softmax and an SpMM gradient (against ``torch.segment_reduce``
+   over the edges sorted by row), 10^7 draws of each closed-form
+   sampler (row 0 bit-equal to the CPU's draw, moments within 5 sigma;
+   Beta, Dirichlet and Poisson: the share of equal draws) and a 2-layer
+   MLP's Jacobian and Hessian; the phase within 60 s;
+18. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
    ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -210,7 +234,9 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -244,8 +270,13 @@ REPS = 5
 FLASH_REPS, FLASH_WINDOWS = 20, 3
 
 
+_EMIT = threading.Lock()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    with _EMIT:       # the build thread emits beside the tensor phase
+        print(line, flush=True)
 
 
 def phase_device() -> dict:
@@ -617,6 +648,7 @@ def phase_kernels() -> dict:
                 return pa.paged_attention_torch(q, a[0], a[1], tables,
                                                 lens, k_scales=a[2],
                                                 v_scales=a[3])
+            fell_back = PROFILER_MISSES["fallbacks"]
             ms, ms_events = _time_ms(kern)
             plain_ms, _ = _time_ms(plain)
             library_ms, _ = _time_ms(_library_fn(pools, tables, lens, q,
@@ -636,6 +668,8 @@ def phase_kernels() -> dict:
                     "plain_ms": plain_ms, "library_ms": library_ms,
                     "timing": f"device time (torch.profiler) of "
                               f"{REPS * LAYERS} calls over {LAYERS} pools",
+                    "event_timed_windows":
+                        PROFILER_MISSES["fallbacks"] - fell_back,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "bytes": nbytes, "ops": ops}
             emit(case)
@@ -1963,6 +1997,11 @@ def phase_fleet(dev, ctx) -> None:
 # kernels B1, B2, B3 against their plain twins
 # ---------------------------------------------------------------------------
 
+# torch.profiler windows that came back without device time, and the
+# calls of ``_device_ms`` that fell back to CUDA events (``timing`` line)
+PROFILER_MISSES = {"windows": 0, "fallbacks": 0}
+
+
 def _device_ms(fn, reps, attempts=3) -> float:
     """Device ms of one call of ``fn``: the time its kernels run on the
     card over ``reps`` calls, from ``torch.profiler``. CUDA events around
@@ -1970,10 +2009,14 @@ def _device_ms(fn, reps, attempts=3) -> float:
     host: SDPA's autograd backward takes more host time to launch than
     its kernels take on the card. Now and then a profiler window comes
     back without device events; such a window is run again, up to
-    ``attempts`` windows in all."""
+    ``attempts`` windows in all. If no window has device time, CUDA
+    events around ``reps`` calls time them instead (an upper bound: they
+    count the host's gaps too), here and in every later call, so that a
+    profiler that stays empty costs no more windows. ``PROFILER_MISSES``
+    counts the empty windows and the calls timed by events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(attempts):
+    for _ in range(0 if PROFILER_MISSES["fallbacks"] else attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -1982,8 +2025,16 @@ def _device_ms(fn, reps, attempts=3) -> float:
                    if e.device_type == DeviceType.CUDA)
         if busy > 0:
             return busy / 1e3 / reps
-    raise SystemExit(f"torch.profiler recorded no device time in "
-                     f"{attempts} windows")
+        PROFILER_MISSES["windows"] += 1
+    PROFILER_MISSES["fallbacks"] += 1
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _time_interleaved(fns, reps=FLASH_REPS, windows=FLASH_WINDOWS):
@@ -2217,6 +2268,7 @@ def phase_flash_kernels() -> dict:
             "flash_attention_bwd_dkv": [err(dk, want_dk),
                                         err(dv, want_dv)]}
         lib_fwd, lib_bwd = _sdpa_calls(q, k, v, do, causal)
+        fell_back = PROFILER_MISSES["fallbacks"]
         # every kernel in turns with its twin and SDPA; the backward twin
         # and SDPA's backward compute dQ, dK and dV together, so one time
         # of each stands in the B2 and the B3 row
@@ -2235,6 +2287,7 @@ def phase_flash_kernels() -> dict:
             "bwd_plain": lambda: fa.flash_attention_bwd_torch(
                 q, k, v, o, lse, do, scale, causal),
             "bwd_library": lib_bwd})
+        fell_back = PROFILER_MISSES["fallbacks"] - fell_back
         for kernel in checks:
             errs = checks[kernel]
             side = "fwd" if kernel == "flash_attention_fwd" else "bwd"
@@ -2255,6 +2308,7 @@ def phase_flash_kernels() -> dict:
                     "library_ms": ms[f"{side}_library"],
                     "timing": f"device time, median of {FLASH_WINDOWS} "
                               f"windows of {FLASH_REPS} calls, in turns",
+                    "event_timed_windows": fell_back,
                     "bound_ms": bound_ms,
                     "bound_by": bound_by, "bytes": nbytes, "ops": ops}
             emit(case)
@@ -2347,15 +2401,14 @@ def _qkv_grad(net, init, ids, impl):
 
 def _profile(work, per, unit, **fields):
     """Device time by kernel of ``work()``, per ``unit`` (``per`` of them
-    in the window), from ``torch.profiler``: the kernels' own device time
-    (the host ops that launched them carry the same time and are left
-    out), against the host wall of the same window (profiling inflates
-    the wall, so the idle share is an upper bound)."""
+    in the window), from ``torch.profiler``: the kernels' own device time,
+    against the host wall of the same window (profiling inflates the
+    wall, so the idle share is an upper bound). Only the card's activity
+    is recorded: nothing here reads the host ops' events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         work()
         torch.cuda.synchronize()
@@ -6162,6 +6215,766 @@ def phase_ctr(info, dev="cuda") -> None:
         raise SystemExit(f"ctr phase failed: {bad}")
 
 
+# -- the tensor and math API (ROADMAP A7.2) -----------------------------------
+
+TENSOR_ATOL, TENSOR_RTOL = 1e-5, 1e-4  # card vs CPU: the nn phase's limit
+TENSOR_LINALG_N = 4096
+TENSOR_LINALG_RESIDUAL = 1e-3          # relative residual of each factorization
+TENSOR_RFFT_N = 2 ** 24
+TENSOR_FFT2_N = 4096
+TENSOR_FFT_REL = 1e-5                  # relative L2 error
+# openai/whisper whisper/audio.py: SAMPLE_RATE, N_FFT, HOP_LENGTH, 80 mels,
+# 30 s chunks; a batch of 8 clips
+WHISPER = dict(rate=16000, n_fft=400, hop=160, n_mels=80, clips=8,
+               seconds=30)
+WHISPER_ROUNDTRIP_REL = 1e-5           # istft(stft(x)) against x, L2
+WHISPER_LOGMEL_ATOL = 1e-3             # card vs CPU log-mel, absolute
+# ogbn-arxiv's counts (OGB node property prediction); the graph is drawn
+ARXIV = dict(nodes=169343, edges=1166243, features=128)
+TENSOR_DRAWS = (100, 100000)           # 10^7 draws; row 0 checked on the CPU
+TENSOR_REJECTION_DRAWS = 100000        # Beta / Dirichlet / Poisson, both sides
+TENSOR_MOMENT_SIGMA = 5.0
+# the JAX package's Laplace maps u = -0.5 of its uniform draw (one in
+# 2^23, ~1.2 in 10^7) to -inf, and the port keeps its bits (ROADMAP
+# Queue C); every other sampler draws none
+TENSOR_NONFINITE_MAX = 10
+TENSOR_PHASE_BUDGET_S = 60.0
+
+
+def _tensor_cases():
+    """``(name, fn(pt, *tensors), numpy inputs, is_draw)`` for every
+    ported function of the slice at the CPU tests' sizes: ``fn`` runs
+    after ``pt.seed(3)`` on the device ``set_device`` chose."""
+    rs = np.random.RandomState(0)
+    f32 = np.float32
+
+    def u(*shape, lo=-1.0, hi=1.0):
+        return rs.uniform(lo, hi, shape).astype(f32)
+
+    def pos(*shape):
+        return rs.uniform(1.1, 3.0, shape).astype(f32)
+
+    def ints(*shape, hi=5):
+        return rs.randint(0, hi, shape).astype(np.int64)
+
+    def spd(n):
+        a = u(n, n)
+        return (a @ a.T + n * np.eye(n, dtype=f32)).astype(f32)
+
+    ties = np.array([[3, 1, 3, 2, 1, 3], [0, 0, 5, 5, 0, 1]], f32)
+    unary = ["exp", "expm1", "sin", "cos", "tan", "asin", "acos", "atan",
+             "sinh", "cosh", "tanh", "asinh", "atanh", "abs", "sign",
+             "floor", "ceil", "round", "trunc", "square", "erf",
+             "reciprocal", "erfinv", "neg", "frac", "deg2rad", "rad2deg",
+             "stanh", "rsqrt_", "exp_", "tanh_", "erfinv_", "round_",
+             "ceil_", "floor_", "reciprocal_", "flatten_", "isnan",
+             "isinf", "isfinite", "logit", "conj", "real", "imag",
+             "angle", "clone", "assign", "numel", "shape", "t", "squeeze",
+             "squeeze_", "median", "mean", "std", "var", "prod", "max",
+             "min", "amax", "amin", "logsumexp", "cumsum", "logcumsumexp",
+             "sum", "argmax", "argmin", "argsort", "sort", "mode",
+             "unique", "nonzero", "flatten", "diag", "tril", "triu",
+             "diagonal", "diag_embed", "diagflat", "nansum", "nanmean",
+             "nanmedian", "norm", "frobenius_norm", "rank", "is_empty"]
+    positive = ["log", "log2", "log10", "log1p", "sqrt", "rsqrt",
+                "lgamma", "digamma", "acosh", "cumprod", "sqrt_"]
+    binary = ["add", "subtract", "multiply", "divide", "maximum",
+              "minimum", "fmax", "fmin", "logaddexp", "hypot", "atan2",
+              "pow", "floor_divide", "mod", "remainder", "floor_mod",
+              "equal", "not_equal", "greater_than", "greater_equal",
+              "less_than", "less_equal", "matmul", "mm", "bmm", "dot",
+              "kron", "inner", "dist", "isclose", "allclose", "equal_all",
+              "add_", "subtract_", "cross"]
+    cases = []
+    for f in unary:
+        cases.append((f, lambda pt, x, f=f: getattr(pt.tensor, f)(x),
+                      [u(3, 3, lo=-0.9, hi=0.9)], False))
+    for f in positive:
+        cases.append((f, lambda pt, x, f=f: getattr(pt.tensor, f)(x),
+                      [pos(3, 4)], False))
+    for f in binary:
+        cases.append((f, lambda pt, x, y, f=f: getattr(pt.tensor, f)(x, y),
+                      [pos(3, 3), pos(3, 3)], False))
+    for f in ("logical_and", "logical_or", "logical_xor", "bitwise_and",
+              "bitwise_or", "bitwise_xor", "gcd", "lcm"):
+        cases.append((f, lambda pt, x, y, f=f: getattr(pt.tensor, f)(x, y),
+                      [ints(8, hi=16) + 1, ints(8, hi=16) + 1], False))
+    cases += [
+        ("creation", lambda pt: [
+            pt.zeros([2, 3]), pt.ones([2], "int32"), pt.full([2], 1.5),
+            pt.arange(2, 11, 3), pt.linspace(-1, 2, 7), pt.eye(3, 4),
+            pt.empty([2]), pt.tril_indices(4, 5, 1), pt.triu_indices(4),
+            pt.tensor.logspace(0, 2, 5), pt.to_tensor([[1.0, 2.0]]),
+            pt.meshgrid(pt.arange(3), pt.arange(2)),
+            pt.fft.fftfreq(8, 0.5), pt.fft.rfftfreq(9)], [], False),
+        ("like", lambda pt, x: [pt.zeros_like(x), pt.ones_like(x, "int32"),
+                                pt.full_like(x, 2.0), pt.empty_like(x),
+                                pt.logical_not(x > 0),
+                                pt.bitwise_not(pt.cast(x, "int32"))],
+         [u(2, 3)], False),
+        ("reductions", lambda pt, x: [
+            pt.sum(x, [0, 2], keepdim=True), pt.mean(x, 1),
+            pt.prod(x, [0, 2]), pt.max(x, 0), pt.std(x, 1, False),
+            pt.var(x, 0, True, True), pt.median(x, 1),
+            pt.quantile(x, 0.3, 1), pt.all(x > -2, 1), pt.any(x > 0.9, 0),
+            pt.tensor.nanquantile(x, 0.25), pt.logsumexp(x, [1, 2])],
+         [u(2, 3, 4)], False),
+        ("manipulation", lambda pt, x: [
+            pt.reshape(x, [8, -1]), pt.transpose(x, [1, 0]),
+            pt.moveaxis(x, 0, 1), pt.swapaxes(x, 0, 1),
+            pt.concat([x, x], 1), pt.stack([x, x], 2), pt.unstack(x, 1),
+            pt.unbind(x), pt.split(x, 2, 1), pt.split(x, [1, 3], 1),
+            pt.chunk(x, 3), pt.unsqueeze(x, [0, -1]), pt.unsqueeze_(x, 0),
+            pt.reshape_(x, [2, 8]), pt.tile(x, [2, 1]),
+            pt.expand(x[:1], [4, 4]), pt.broadcast_to(x[0], [2, 4]),
+            pt.broadcast_tensors([x[:1], x]), pt.expand_as(x[:1], x),
+            pt.flip(x, [0, 1]), pt.tensor.reverse(x, 1), pt.roll(x, 2, 1),
+            pt.roll(x, 3), pt.rot90(x, 3), pt.repeat_interleave(x, 2, 1),
+            pt.as_real(pt.as_complex(x[:, :2])), pt.increment(x, 2.0),
+            pt.slice(x, [0, 1], [1, -3], [3, 100]),
+            pt.strided_slice(x, [0, 1], [2, 3], [0, 0], [-1, -2]),
+            pt.tensor.crop(x, [2, -1], [1, 2]), pt.clip(x, -0.3, 0.4),
+            pt.clip_(x, -0.3, 0.4), pt.scale(x, 2.0, 0.5, False),
+            pt.scale_(x, 2.0), pt.masked_select(x, x > 0),
+            pt.masked_fill(x, x > 0, -1.0), pt.where(x > 0, x, -x),
+            pt.where(x > 0), pt.nonzero(x > 0, True), pt.trace(x, 1),
+            pt.diff(x, 2), pt.tensor.renorm(x, 2, 0, 0.5), pt.add_n([x, x]),
+            pt.kthvalue(x, 2), pt.topk(x, 2), pt.topk(x, 2, 0, False),
+            pt.einsum("ij,kj->ik", x, x), pt.outer(x[0], x[1]),
+            pt.mv(x, x[0]), pt.addmm(x, x, pt.t(x)[:, :4] * 0 + 1),
+            pt.tensor.tensordot(x, x, [[1], [1]]),
+            pt.nan_to_num(pt.log(x)), pt.heaviside(x, 0.5),
+            pt.lerp(x, x * 2, 0.25), pt.lerp_(x, -x, x),
+            pt.clip_by_norm(x, 0.5)],
+         [u(4, 4)], False),
+        ("indexing", lambda pt, x, i, j: [
+            pt.gather(x, i[:, 0], 0), pt.gather(x, j, 1), pt.gather_nd(x, j),
+            pt.take_along_axis(x, j, 1), pt.put_along_axis(x, j, 9.0, 1),
+            pt.put_along_axis_(x, j, 9.0, 1), pt.index_select(x, i[:, 0], 1),
+            pt.index_sample(x, j), pt.scatter(x, i[:2, 0], x[:2] * 0),
+            pt.scatter_(x, pt.arange(2), x[:2]),
+            pt.scatter(x, i[:, 0], x, overwrite=False),
+            pt.scatter_nd_add(x, j, x[:, 0]),
+            pt.tensor.scatter_nd(j, x[:, 0], [4, 4]),
+            pt.multiplex([x, -x], i[:, :1] % 2), pt.shard_index(i, 8, 2, 1),
+            pt.searchsorted(pt.sort(x[0]), x[1]),
+            pt.bincount(i[:, 0], minlength=8), pt.histogram(x, 7),
+            pt.histogram(x, 5, -0.5, 0.5), pt.unique(i, True, True, True),
+            pt.unique(j, return_index=True, axis=0),
+            pt.unique_consecutive(pt.sort(i[:, 0]), True, True),
+            pt.gather_tree(i[:, :2, None].expand(4, 2, 3) % 3,
+                           j[:, :, None].expand(4, 2, 3) % 3)],
+         [u(4, 4), ints(4, 2, hi=4), ints(4, 2, hi=4)], False),
+        ("ties", lambda pt, x: [
+            pt.argsort(x, descending=True), pt.sort(x, 0, True),
+            pt.topk(x, 3), pt.topk(x, 3, largest=False), pt.kthvalue(x, 2),
+            pt.mode(x), pt.mode(pt.t(x), 0, True), pt.argmax(x, 1),
+            pt.argmax(x, keepdim=True)], [ties], False),
+        ("segment", lambda pt, d, s: [
+            pt.segment_sum(d, s), pt.segment_mean(d, s),
+            pt.segment_max(d, s), pt.segment_min(d, s, 6)],
+         [u(6, 3), np.array([0, 0, 1, 3, 3, 3])], False),
+        ("draws", lambda pt: [
+            pt.rand([64]), pt.randn([512]), pt.uniform([64], min=-2., max=3.),
+            pt.normal(1.0, 2.0, [64]), pt.tensor.standard_normal([64]),
+            pt.randint(-5, 17, [64]), pt.randperm(1000),
+            pt.randperm(70000), pt.bernoulli(pt.full([64], 0.3)),
+            pt.multinomial(pt.to_tensor(np.array([[.1, .2, .3, .4]], f32)),
+                           50, True),
+            pt.multinomial(pt.to_tensor(np.array([[.1, .2, .3, .4]] * 2,
+                                                 f32)), 3),
+            pt.multinomial(pt.to_tensor(np.array([[.1, .2, .7]], f32))),
+            pt.tensor.exponential_(pt.zeros([64]), 2.0),
+            pt.tensor.uniform_(pt.zeros([64]), -1.0, 4.0),
+            pt.tensor.randint_like(pt.zeros([64]), 3, 9),
+            pt.poisson(pt.to_tensor(np.array([0., .5, 9.9, 10., 250.] * 8,
+                                             f32)))], [], True),
+        ("linalg", lambda pt, a, b, m: [
+            pt.linalg.cholesky(a), pt.linalg.cholesky(a, upper=True),
+            pt.linalg.det(a), list(pt.linalg.slogdet(m)), pt.linalg.inv(a),
+            pt.linalg.pinv(m[:, :3]), pt.linalg.matrix_power(m, 3),
+            pt.linalg.matrix_rank(m), pt.linalg.multi_dot([m, a, m]),
+            pt.linalg.solve(a, b), pt.linalg.cond(a),
+            pt.linalg.norm(m, "fro"), pt.linalg.norm(m, 2, 1),
+            pt.linalg.cov(m), pt.linalg.corrcoef(m),
+            pt.linalg.cholesky_solve(b, pt.linalg.cholesky(a)),
+            pt.linalg.triangular_solve(pt.triu(a), b),
+            pt.linalg.eigvalsh(a), pt.linalg.svdvals(m),
+            pt.abs(pt.linalg.qr(m)[1]), pt.linalg.lu(m),
+            list(pt.linalg.lu_unpack(*pt.linalg.lu(m)[:2])),
+            pt.linalg.lstsq(m, b), pt.linalg.householder_product(
+                m[:, :3], b[:3, 0]), pt.linalg.pca_lowrank(a, 2)[1],
+            pt.inverse(a), pt.p_norm(m, 1.5, 1)],
+         [spd(4), u(4, 2), u(4, 4)], False),
+        ("fft", lambda pt, x, z: [
+            pt.fft.fft(z), pt.fft.ifft(z, norm="ortho"), pt.fft.fft2(z),
+            pt.fft.ifft2(z), pt.fft.fftn(z), pt.fft.ifftn(z, norm="forward"),
+            pt.fft.rfft(x), pt.fft.irfft(z), pt.fft.rfft2(x),
+            pt.fft.irfft2(z), pt.fft.rfftn(x), pt.fft.irfftn(z),
+            pt.fft.hfft(z), pt.fft.ihfft(x), pt.fft.hfft2(z),
+            pt.fft.ihfft2(x), pt.fft.hfftn(z), pt.fft.ihfftn(x),
+            pt.fft.fftshift(x), pt.fft.ifftshift(x, [1])],
+         [u(4, 8), (u(4, 5) + 1j * u(4, 5)).astype(np.complex64)], False),
+        ("signal", lambda pt, x: [
+            pt.signal.frame(x, 6, 3), pt.signal.frame(pt.t(x), 6, 4, 0),
+            pt.signal.stft(x, 16), pt.signal.stft(x, 16, 5, 10),
+            pt.signal.istft(pt.signal.stft(x, 16, 4), 16, 4, length=70),
+            pt.signal.istft(pt.signal.stft(x, 16, center=False,
+                                           onesided=False), 16,
+                            center=False, onesided=False)],
+         [u(2, 80)], False),
+        ("sparse", lambda pt, i, v, d: _tensor_sparse_case(pt, i, v, d),
+         [np.array([[0, 1, 1, 3, 0], [2, 0, 4, 5, 2]]), u(5), u(6, 4)],
+         False),
+        ("distribution", lambda pt, v: _tensor_dist_case(pt, v),
+         [u(3, lo=0.1, hi=0.9)], False),
+        ("distribution_draws", lambda pt, v: [
+            d.sample([64]) for d in _tensor_dists(pt, v)], [u(3, lo=0.1,
+                                                              hi=0.9)],
+         True),
+        ("autograd", lambda pt, x: _tensor_autograd_case(pt, x),
+         [u(6)], False),
+    ]
+    return cases
+
+
+def _tensor_dists(pt, v):
+    D = pt.distribution
+    return [D.Normal(v, v + 1), D.Uniform(-v, v + 1),
+            D.Categorical(logits=v), D.Bernoulli(v), D.Laplace(v, 1.5),
+            D.Exponential(v + 0.5), D.Gumbel(v, 2.0),
+            D.Multinomial(5, v / v.sum()), D.Beta(v, v + 1.0),
+            D.Dirichlet(v + 0.2)]
+
+
+def _tensor_dist_case(pt, v):
+    D = pt.distribution
+    out = []
+    base = D.Distribution
+    for d in _tensor_dists(pt, v):
+        x = d.sample([4])
+        out += [d.log_prob(x), d.prob(x)]
+        # the moments and the entropy each class defines
+        out += [getattr(d, a) for a in ("mean", "variance")
+                if getattr(type(d), a) is not getattr(base, a)]
+        if type(d).entropy is not base.entropy:
+            out.append(d.entropy())
+    n = D.Normal(v, v + 1)
+    out += [D.kl_divergence(n, D.Normal(v * 2, v + 2)),
+            D.kl_divergence(D.Uniform(-v, v + 1), n),
+            D.kl_divergence(D.Categorical(logits=v),
+                            D.Categorical(logits=-v))]
+    y = pt.tanh(v)
+    for t in (D.AbsTransform(), D.AffineTransform(0.5, 2.0),
+              D.ExpTransform(), D.PowerTransform(3.0),
+              D.SigmoidTransform(), D.TanhTransform(),
+              D.StickBreakingTransform(), D.ReshapeTransform((3,), (3, 1)),
+              D.ChainTransform([D.ExpTransform(), D.TanhTransform()]),
+              D.IndependentTransform(D.ExpTransform(), 1),
+              D.StackTransform([D.ExpTransform()] * 3)):
+        out += [t.forward(y), t.inverse(t.forward(y)),
+                t.forward_log_det_jacobian(y)]
+    out += [D.SoftmaxTransform().forward(y),
+            D.TransformedDistribution(n, [D.ExpTransform()]).log_prob(
+                v + 1),
+            D.Independent(n, 1).log_prob(v), D.Independent(n, 1).entropy()]
+    return out
+
+
+def _tensor_sparse_case(pt, i, v, d):
+    S = pt.sparse
+    a = S.sparse_coo_tensor(i, v, [5, 6])
+    w = v.clone().requires_grad_(True)
+    dd = d.clone().requires_grad_(True)
+    y = S.matmul(S.sparse_coo_tensor(i, w, [5, 6]), dd)
+    (y * y).sum().backward()
+    out = [y, w.grad, dd.grad, S.coalesce(a).indices(),
+           S.coalesce(a).values(), S.softmax(a).to_dense(),
+           S.mv(a, d[:, 0]), S.addmm(d[:5, :3], a, d[:, :3], 0.5, 2.0),
+           S.masked_matmul(d[:5], pt.t(d), a).to_dense(),
+           (a + a).to_dense(), S.subtract(a, S.scale(a, 3.0)).to_dense(),
+           S.multiply(a, 2.5).to_dense(),
+           S.divide(a, 4.0).to_dense(), S.transpose(a, [1, 0]).to_dense(),
+           S.to_sparse_coo(a.to_dense()).values(),
+           list(S.to_sparse_csr(a.to_dense())), S.pow(a, 2).to_dense(),
+           S.segment_softmax(v, i[0], 5)]
+    for f in ("relu", "tanh", "sin", "square", "abs", "neg", "expm1",
+              "cos", "atan", "sinh", "tan", "relu6", "leaky_relu", "asinh",
+              "deg2rad", "rad2deg", "asin", "atanh", "acos"):
+        out.append(getattr(S, f)(S.scale(a, 0.5)).to_dense())
+    q = d[None, None, :, :].expand(2, 2, 6, 4).contiguous()
+    rows, cols = np.nonzero(np.abs(np.subtract.outer(np.arange(6),
+                                                     np.arange(6))) <= 1)
+    mask = S.sparse_coo_tensor(pt.to_tensor(np.stack([rows, cols])),
+                               pt.ones([len(rows)]), [6, 6])
+    out.append(S.nn.functional.attention(q, q, q, mask))
+    return out
+
+
+def _tensor_autograd_case(pt, x):
+    w = pt.tanh(pt.reshape(pt.arange(48, dtype="float32"), [6, 8]) / 10)
+
+    def f(a):
+        return pt.tanh(pt.matmul(a, w))
+
+    def s(a):
+        return pt.sum(f(a) ** 2)
+    out = [pt.autograd.Jacobian(f, x)[:], pt.autograd.Hessian(s, x)[:],
+           pt.grad(s)(x), list(pt.value_and_grad(s)(x)),
+           list(pt.autograd.vjp(f, x)), list(pt.autograd.jvp(f, x))]
+    tape_net = pt.nn.Linear(6, 3, weight_attr=pt.nn.initializer.Constant(
+        0.1)).to(x.device)
+    tape = pt.autograd.record(tape_net)
+    tape.run(lambda: pt.sum(tape_net(x[None]) ** 2))
+    out += [tape.grads["weight"], tape.grads["bias"],
+            pt.regularizer.L2Decay(0.1).penalty(dict(
+                tape_net.named_parameters()))]
+    return out
+
+
+def _flat_outputs(obj):
+    if isinstance(obj, (list, tuple)):
+        return [t for o in obj for t in _flat_outputs(o)]
+    if hasattr(obj, "to_dense"):
+        return [obj.to_dense().detach().cpu()]
+    if isinstance(obj, torch.Tensor):
+        return [obj.detach().cpu().resolve_conj()]
+    return [torch.as_tensor(obj)]
+
+
+def _tensor_sweep(pt, dev):
+    """Every case on the card and on the CPU: the worst float error over
+    the limit, the cases that broke an exact or a shape check."""
+    worst, bad, n_out = 0.0, [], 0
+    for name, fn, arrs, draw in _tensor_cases():
+        outs = []
+        for d in ("cpu", dev):
+            pt.set_device(d)
+            ts = [pt.to_tensor(a) for a in arrs]
+            pt.seed(3)
+            outs.append(_flat_outputs(fn(pt, *ts)))
+        cpu, card = outs
+        if len(cpu) != len(card):
+            bad.append(name)
+            continue
+        for a, b in zip(cpu, card):
+            n_out += 1
+            if a.shape != b.shape or a.dtype != b.dtype:
+                bad.append(name)
+            elif (a.is_floating_point() or a.is_complex()) and not draw:
+                err = ((b - a).abs() / (TENSOR_ATOL + TENSOR_RTOL
+                                        * a.abs())).nan_to_num(0.0)
+                ok = torch.equal(torch.isnan(a), torch.isnan(b))
+                worst = max(worst, float(err.max()) if a.numel() else 0.0)
+                if not ok:
+                    bad.append(name)
+            elif not torch.equal(a, b):
+                bad.append(name)
+    pt.set_device(dev)
+    return worst, sorted(set(bad)), n_out
+
+
+def _warm_timed(fn):
+    """``fn()`` run once to set up (cuFFT plans, cuSOLVER workspaces,
+    first kernel loads), then again timed: the second result and its
+    milliseconds."""
+    fn()
+    torch.cuda.synchronize()
+    return _cuda_timed(fn)
+
+
+def _cuda_timed(fn):
+    """``fn()`` and its milliseconds by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _tensor_linalg(pt):
+    """The factorizations at 4096 x 4096 float32, each timed and held to a
+    relative residual (``||A x - b|| / (||A|| ||x|| + ||b||)`` for a
+    solve, ``||A - factors|| / ||A||`` for a factorization). ``A`` is a
+    Gaussian matrix over sqrt(n) plus 2 I (singular values in about
+    [1, 3], so full rank under numpy's tolerance; a plain Gaussian square
+    matrix has singular values down to ~1 / sqrt(n), below it), the SPD
+    matrix ``G G^T / n + I``."""
+    n = TENSOR_LINALG_N
+    pt.seed(0)
+    g = pt.randn([n, n])
+    a = g / math.sqrt(n) + 2 * pt.eye(n)
+    spd = g @ pt.t(g) / n + pt.eye(n)
+    b = pt.randn([n, 4])
+    fro = torch.linalg.matrix_norm
+
+    def solve_res(m, x):
+        return float(fro(m @ x - b) / (fro(m) * fro(x) + fro(b)))
+
+    def fact_res(m, r):
+        return float(fro(m - r) / fro(m))
+    res, ms = {}, {}
+
+    def chol():
+        low = pt.linalg.cholesky(spd)
+        return low, pt.linalg.cholesky_solve(b, low)
+    (lo, x), ms["cholesky_solve"] = _warm_timed(chol)
+    res["cholesky_solve"] = solve_res(spd, x)
+    res["cholesky"] = fact_res(spd, lo @ pt.t(lo))
+    x, ms["solve"] = _warm_timed(lambda: pt.linalg.solve(a, b))
+    res["solve"] = solve_res(a, x)
+    (q, r), ms["qr"] = _warm_timed(lambda: pt.linalg.qr(a))
+    res["qr"] = fact_res(a, q @ r)
+    (uu, s, vt), ms["svd"] = _warm_timed(lambda: pt.linalg.svd(a))
+    res["svd"] = fact_res(a, (uu * s) @ vt)
+    (w, v), ms["eigh"] = _warm_timed(lambda: pt.linalg.eigh(spd))
+    res["eigh"] = float(fro(spd @ v - v * w) / fro(spd))
+    (x, _, rank, _), ms["lstsq"] = _warm_timed(
+        lambda: pt.linalg.lstsq(a, b))
+    res["lstsq"] = solve_res(a, x)
+    (p, l, uu), ms["lu_lu_unpack"] = _warm_timed(
+        lambda: pt.linalg.lu_unpack(*pt.linalg.lu(a)[:2]))
+    res["lu_lu_unpack"] = fact_res(a, p @ l @ uu)
+    del g, a, spd, q, r, uu, vt, v, p, l
+    return res, ms, int(rank)
+
+
+def _tensor_fft(pt):
+    pt.seed(1)
+    x = pt.randn([TENSOR_RFFT_N])
+    y, ms_r = _warm_timed(lambda: pt.fft.irfft(pt.fft.rfft(x),
+                                               n=TENSOR_RFFT_N))
+    rt = float(torch.linalg.vector_norm(y - x) / torch.linalg.vector_norm(x))
+    z = pt.randn([TENSOR_FFT2_N, TENSOR_FFT2_N])
+    f, ms_2 = _warm_timed(lambda: pt.fft.fft2(z))
+    fc = pt.fft.fft2(z.cpu())
+    card_cpu = float(torch.linalg.vector_norm(f.cpu() - fc)
+                     / torch.linalg.vector_norm(fc))
+    return {"rfft_irfft_roundtrip_rel": rt, "fft2_card_vs_cpu_rel": card_cpu,
+            "rfft_irfft_ms": ms_r, "fft2_ms": ms_2}
+
+
+def _mel_filters(rate, n_fft, n_mels):
+    """librosa.filters.mel(sr=rate, n_fft=n_fft, n_mels=n_mels) (Slaney
+    scale and norm), the filterbank whisper ships in mel_filters.npz."""
+    def hz_to_mel(f):
+        f = np.asarray(f, np.float64)
+        mel = f / (200.0 / 3)
+        log = f >= 1000.0
+        return np.where(log, 15.0 + np.log(np.maximum(f, 1e-10) / 1000.0)
+                        / (np.log(6.4) / 27.0), mel)
+
+    def mel_to_hz(m):
+        m = np.asarray(m, np.float64)
+        f = m * (200.0 / 3)
+        log = m >= 15.0
+        return np.where(log, 1000.0 * np.exp((np.log(6.4) / 27.0)
+                                             * (m - 15.0)), f)
+    fftfreqs = np.linspace(0, rate / 2, 1 + n_fft // 2)
+    mel_f = mel_to_hz(np.linspace(hz_to_mel(0.0), hz_to_mel(rate / 2.0),
+                                  n_mels + 2))
+    fdiff = np.diff(mel_f)
+    ramps = mel_f[:, None] - fftfreqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0, np.minimum(lower, upper))
+    weights *= (2.0 / (mel_f[2:n_mels + 2] - mel_f[:n_mels]))[:, None]
+    return weights.astype(np.float32)
+
+
+def _log_mel(pt, spec, filters):
+    """whisper.audio.log_mel_spectrogram after its stft."""
+    mags = pt.abs(spec[..., :-1]) ** 2
+    mel = pt.matmul(filters, mags)
+    log_spec = pt.log10(pt.clip(mel, min=1e-10))
+    log_spec = pt.maximum(log_spec, pt.amax(log_spec) - 8.0)
+    return (log_spec + 4.0) / 4.0
+
+
+def _tensor_whisper(pt, dev):
+    w = WHISPER
+    n = w["rate"] * w["seconds"]
+    window = np.float32(0.5) - np.float32(0.5) * np.cos(
+        2 * np.pi * np.arange(w["n_fft"]) / w["n_fft"]).astype(np.float32)
+    filters = _mel_filters(w["rate"], w["n_fft"], w["n_mels"])
+    out = {}
+    for side, d in (("card", dev), ("cpu", "cpu")):
+        pt.set_device(d)
+        pt.seed(2)
+        audio = pt.randn([w["clips"], n]) * 0.1
+        win, fil = pt.to_tensor(window), pt.to_tensor(filters)
+
+        def front():
+            spec = pt.signal.stft(audio, w["n_fft"], w["hop"], window=win)
+            return spec, _log_mel(pt, spec, fil)
+        if side == "card":
+            (spec, logmel), ms_stft = _warm_timed(front)
+            back, ms_istft = _warm_timed(lambda: pt.signal.istft(
+                spec, w["n_fft"], w["hop"], window=win, length=n))
+            out["roundtrip_rel"] = float(
+                torch.linalg.vector_norm(back - audio)
+                / torch.linalg.vector_norm(audio))
+            out["stft_logmel_ms"], out["istft_ms"] = ms_stft, ms_istft
+            out["frames"] = int(spec.shape[-1])
+            card = logmel.cpu()
+        else:
+            _, cpu = front()
+    pt.set_device(dev)
+    out["logmel_card_vs_cpu_max_abs"] = float((card - cpu).abs().max())
+    out["logmel_shape"] = list(card.shape)
+    return out
+
+
+def _tensor_graph(pt):
+    """SpMM, segment_sum, the row softmax and one SpMM gradient on a
+    graph with ogbn-arxiv's counts, each against a recomputation through
+    ``torch.segment_reduce`` over the edges sorted by row."""
+    g = ARXIV
+    n, e, f = g["nodes"], g["edges"], g["features"]
+    pt.seed(4)
+    src = pt.randint(0, n, [e])
+    dst = pt.randint(0, n, [e])
+    w = pt.rand([e]).requires_grad_(True)
+    x = pt.randn([n, f]).requires_grad_(True)
+    gout = pt.randn([n, f])
+    idx = pt.stack([dst, src])
+    a = pt.sparse.sparse_coo_tensor(idx, w, [n, n])
+
+    def by_row(vals, rows):
+        order = torch.argsort(rows, stable=True)
+        return torch.segment_reduce(vals[order], "sum", lengths=torch.
+                                    bincount(rows, minlength=n))
+
+    def close(got, want):
+        lim = TENSOR_ATOL + TENSOR_RTOL * want.abs()
+        return float(((got - want).abs() / lim).max())
+    y, ms = {}, {}
+    out, ms["spmm"] = _warm_timed(lambda: pt.sparse.matmul(a, x))
+    with torch.no_grad():
+        msgs = w[:, None] * x[src]
+        ref = by_row(msgs, dst)
+        seg, ms["segment_sum"] = _warm_timed(
+            lambda: pt.segment_sum(msgs, dst, n))
+        y["spmm_err_over_limit"] = close(out.detach(), ref)
+        y["segment_sum_err_over_limit"] = close(seg, ref)
+        sm, ms["softmax"] = _warm_timed(lambda: pt.sparse.softmax(a))
+        c = pt.sparse.coalesce(a)
+        rows, v = c.indices()[0], c.values()
+        lengths = torch.bincount(rows, minlength=n)
+        mx = torch.segment_reduce(v, "max", lengths=lengths)
+        ex = torch.exp(v - mx[rows])
+        ref_sm = ex / torch.segment_reduce(ex, "sum", lengths=lengths)[rows]
+        y["softmax_err_over_limit"] = close(sm.values(), ref_sm)
+        y["softmax_same_pattern"] = bool(torch.equal(sm.indices(),
+                                                     c.indices()))
+    _, ms["spmm_backward"] = _cuda_timed(
+        lambda: (out * gout).sum().backward())
+    with torch.no_grad():
+        y["spmm_grad_x_err_over_limit"] = close(
+            x.grad, by_row(w[:, None] * gout[dst], src))
+        y["spmm_grad_w_err_over_limit"] = close(
+            w.grad, (gout[dst] * x[src]).sum(-1))
+    y["ms"] = ms
+    y["duplicate_edges"] = int(e - c.nnz())
+    return y
+
+
+def _moment_check(draws, mean, var):
+    """How many standard errors the mean and variance of the finite
+    ``draws`` (samples along the leading dims) are from the
+    distribution's (the mean's error var / n, the variance's
+    (m4 - var^2) / n with m4 the sample's fourth central moment), and the
+    count of samples left out as not finite."""
+    x = draws.double().reshape((-1,) + tuple(draws.shape[2:]))
+    finite = torch.isfinite(x).reshape(x.shape[0], -1).all(1)
+    x = x[finite]
+    n = x.shape[0]
+    m = x.mean(0)
+    c = x - m
+    v = (c * c).mean(0)
+    m4 = (c ** 4).mean(0)
+    mean = torch.as_tensor(mean, dtype=torch.float64, device=x.device)
+    var = torch.as_tensor(var, dtype=torch.float64, device=x.device)
+    z_mean = float(((m - mean).abs() / torch.sqrt(var / n)).max())
+    z_var = float(((v - var).abs() / torch.sqrt((m4 - v * v) / n)).max())
+    return max(z_mean, z_var), int((~finite).sum())
+
+
+def _moments(draws, mean, var):
+    sigmas, nonfinite = _moment_check(draws, mean, var)
+    return {"moment_sigmas": sigmas, "nonfinite": nonfinite}
+
+
+def _tensor_draws(pt, dev):
+    """10^7 draws of each closed-form sampler on the card: row 0 of the
+    ``[100, 10^5]`` draw against the CPU's ``[1, 10^5]`` draw from the
+    same key (threefry hashes each element's flat index, so the rows are
+    the same draw), and the moments of all 10^7. Beta, Dirichlet and
+    Poisson draw 10^5 on both devices: the share of exactly equal draws
+    and their moments."""
+    D = pt.distribution
+    p4 = np.array([0.1, 0.2, 0.3, 0.4], np.float32)
+    gamma = 0.5772156649015329
+    spec = {
+        "Normal": (lambda: D.Normal(0.5, 2.0), 0.5, 4.0),
+        "Uniform": (lambda: D.Uniform(-1.0, 3.0), 1.0, 16.0 / 12),
+        "Laplace": (lambda: D.Laplace(0.5, 1.5), 0.5, 2 * 1.5 ** 2),
+        "Exponential": (lambda: D.Exponential(2.0), 0.5, 0.25),
+        "Gumbel": (lambda: D.Gumbel(0.0, 1.0), gamma, math.pi ** 2 / 6),
+        "Bernoulli": (lambda: D.Bernoulli(0.3), 0.3, 0.21),
+        "Categorical": (lambda: D.Categorical(probs=p4), 2.0, 1.0),
+        "Multinomial": (lambda: D.Multinomial(4, p4), 4 * p4,
+                        4 * p4 * (1 - p4)),
+    }
+    res, ms = {}, {}
+    for name, (build, mean, var) in spec.items():
+        rows, cols = TENSOR_DRAWS
+        if name == "Multinomial":    # 4 categorical draws a sample
+            cols //= 4
+        pt.set_device(dev)
+        pt.seed(5)
+        card, ms[name] = _warm_timed(     # each call from the same key
+            lambda: (pt.seed(5), build().sample([rows, cols]))[1])
+        pt.set_device("cpu")
+        pt.seed(5)
+        cpu = build().sample([1, cols])
+        res[name] = {"row0_bit_equal": bool(torch.equal(card[:1].cpu(),
+                                                        cpu)),
+                     **_moments(card, mean, var)}
+    rej = {
+        "Beta": (lambda: D.Beta(2.0, 3.0), 0.4, 6.0 / 150),
+        "Dirichlet": (lambda: D.Dirichlet(np.array([0.3, 1.0, 4.0],
+                                                   np.float32)),
+                      np.array([0.3, 1.0, 4.0]) / 5.3,
+                      np.array([0.3, 1.0, 4.0]) * (5.3 - np.array(
+                          [0.3, 1.0, 4.0])) / (5.3 ** 2 * 6.3)),
+    }
+    for name, (build, mean, var) in rej.items():
+        got = {}
+        for side, d in (("card", dev), ("cpu", "cpu")):
+            pt.set_device(d)
+            pt.seed(6)
+            got[side], t = _cuda_timed(lambda: build().sample(
+                [1, TENSOR_REJECTION_DRAWS]))
+            if side == "card":
+                ms[name] = t
+        res[name] = {"equal_share": float((got["card"].cpu() == got["cpu"])
+                                          .double().mean()),
+                     **_moments(got["card"], mean, var)}
+    got = {}
+    lam = np.full(TENSOR_REJECTION_DRAWS, 4.0, np.float32)
+    lam[::2] = 30.0                    # Knuth below 10, rejection above
+    for side, d in (("card", dev), ("cpu", "cpu")):
+        pt.set_device(d)
+        pt.seed(7)
+        got[side], t = _cuda_timed(lambda: pt.poisson(pt.to_tensor(lam)))
+        if side == "card":
+            ms["poisson"] = t
+    pt.set_device(dev)
+    pois = got["card"].reshape(-1, 2)
+    res["Poisson"] = {
+        "equal_share": float((got["card"].cpu() == got["cpu"]).double()
+                             .mean()),
+        **_moments(pois[None], [30.0, 4.0], [30.0, 4.0])}
+    return res, ms
+
+
+def _tensor_autograd_mlp(pt, dev):
+    """Jacobian and Hessian of a 2-layer MLP (64 -> 256 -> 16, tanh) with
+    respect to its input, card against CPU."""
+    rs = np.random.RandomState(8)
+    w1 = rs.normal(0, 0.1, (64, 256)).astype(np.float32)
+    w2 = rs.normal(0, 0.1, (256, 16)).astype(np.float32)
+    x = rs.normal(0, 1, (64,)).astype(np.float32)
+    outs, ms = [], 0.0
+    for side, d in (("card", dev), ("cpu", "cpu")):
+        pt.set_device(d)
+        a, b, xx = pt.to_tensor(w1), pt.to_tensor(w2), pt.to_tensor(x)
+
+        def f(v):
+            return pt.tanh(pt.matmul(pt.tanh(pt.matmul(v, a)), b))
+
+        def work():
+            return (pt.autograd.Jacobian(f, xx)[:],
+                    pt.autograd.Hessian(lambda v: pt.sum(f(v) ** 2), xx)[:])
+        if side == "card":
+            (jac, hes), ms = _cuda_timed(work)
+        else:
+            jac, hes = work()
+        outs.append((jac.cpu(), hes.cpu()))
+    pt.set_device(dev)
+    worst = max(float(((c - g).abs() / (TENSOR_ATOL + TENSOR_RTOL
+                                        * c.abs())).max())
+                for g, c in zip(outs[0], outs[1]))
+    return worst, ms, [list(t.shape) for t in outs[0]]
+
+
+def phase_tensor(info, dev="cuda") -> None:
+    """The tensor and math API on the card: every ported function against
+    the port on the CPU at the CPU tests' sizes, then linalg at 4096,
+    FFTs of 2^24 and 4096^2, Whisper's log-mel front end on 8 x 30 s
+    clips, an ogbn-arxiv-sized graph through the sparse API, 10^7 draws
+    of each closed-form sampler and an MLP's Jacobian and Hessian."""
+    import paddle_tpu_torch as pt
+    t_phase = time.perf_counter()
+    pt.set_device(dev)
+    worst, bad, n_out = _tensor_sweep(pt, dev)
+    t_sweep = time.perf_counter() - t_phase
+    lin_res, lin_ms, rank = _tensor_linalg(pt)
+    fft = _tensor_fft(pt)
+    whisper = _tensor_whisper(pt, dev)
+    graph = _tensor_graph(pt)
+    draws, draw_ms = _tensor_draws(pt, dev)
+    ag_worst, ag_ms, ag_shapes = _tensor_autograd_mlp(pt, dev)
+    phase_s = time.perf_counter() - t_phase
+    checks = {
+        "sweep_exact_and_shapes": not bad,
+        "sweep_within_limit": worst <= 1.0,
+        "linalg_residuals": all(r <= TENSOR_LINALG_RESIDUAL
+                                for r in lin_res.values()),
+        "lstsq_full_rank": rank == TENSOR_LINALG_N,
+        "rfft_roundtrip": fft["rfft_irfft_roundtrip_rel"] <= TENSOR_FFT_REL,
+        "fft2_card_vs_cpu": fft["fft2_card_vs_cpu_rel"] <= TENSOR_FFT_REL,
+        "whisper_roundtrip": whisper["roundtrip_rel"]
+        <= WHISPER_ROUNDTRIP_REL,
+        "whisper_logmel_card_vs_cpu": whisper["logmel_card_vs_cpu_max_abs"]
+        <= WHISPER_LOGMEL_ATOL,
+        "graph_within_limit": all(
+            graph[k] <= 1.0 for k in graph if k.endswith("over_limit")),
+        "graph_softmax_pattern": graph["softmax_same_pattern"],
+        "draws_row0_bit_equal": all(
+            v["row0_bit_equal"] for v in draws.values()
+            if "row0_bit_equal" in v),
+        "draws_moments": all(v["moment_sigmas"] <= TENSOR_MOMENT_SIGMA
+                             for v in draws.values()),
+        "draws_nonfinite": all(v["nonfinite"] <= TENSOR_NONFINITE_MAX
+                               for v in draws.values()),
+        "autograd_mlp_within_limit": ag_worst <= 1.0,
+        "phase_within_budget": phase_s <= TENSOR_PHASE_BUDGET_S,
+    }
+    emit({"phase": "tensor", "card": info["nvidia_smi"],
+          "sweep": {"cases": len(_tensor_cases()), "outputs": n_out,
+                    "worst_err_over_limit": worst, "failed": bad,
+                    "s": t_sweep},
+          "linalg": {"n": TENSOR_LINALG_N, "dtype": "float32",
+                     "residuals": lin_res, "ms": lin_ms,
+                     "lstsq_rank": rank},
+          "fft": fft, "whisper": {**WHISPER, **whisper},
+          "graph": {**ARXIV, **graph},
+          "draws": {"shape": list(TENSOR_DRAWS), "samplers": draws,
+                    "ms": draw_ms},
+          "autograd_mlp": {"err_over_limit": ag_worst, "ms": ag_ms,
+                           "shapes": ag_shapes},
+          "phase_s": phase_s})
+    emit({"phase": "tensor_checks", **checks})
+    torch.cuda.empty_cache()          # the later phases' memory to them
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"tensor phase failed: {failed}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_s = {}
@@ -6179,7 +6992,12 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
-    timed("build", phase_build)
+    # the kernels build on the host (nvcc) while the tensor phase, which
+    # launches none of them, runs on the card
+    with ThreadPoolExecutor(1) as pool:
+        build = pool.submit(timed, "build", phase_build)
+        timed("tensor", phase_tensor, info)
+        build.result()
     head = timed("kernels", phase_kernels)
     flash_heads = timed("flash_kernels", phase_flash_kernels)
     launches, serve_ctx = timed("serve", phase_serve)
@@ -6201,7 +7019,8 @@ def main() -> None:
         for k, v in launches_of.items():
             train_launches[k] += v
     emit({"phase": "timing", "seconds": phase_s,
-          "total_s": time.perf_counter() - t_start})
+          "total_s": time.perf_counter() - t_start,
+          "profiler_misses": PROFILER_MISSES})
     flash_src = "paddle_tpu_torch/csrc/flash_attention.cu"
     emit({"kernels": [
         _summary("paged_attention",

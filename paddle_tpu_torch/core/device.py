@@ -19,3 +19,28 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on "
             "the CPU")
     return torch.device("cuda")
+
+
+_current = None   # the device set_device chose; None: the card
+
+
+def set_current(device) -> None:
+    """Make ``device`` (a ``torch.device``, or None for the card) the
+    device of the flat tensor API's creation calls."""
+    global _current
+    _current = None if device is None else torch.device(device)
+
+
+def current_device() -> torch.device:
+    """The device on which a function that takes no tensor (``zeros``,
+    ``arange``, ``randn``) creates its result: the one
+    ``paddle_tpu_torch.set_device`` chose, else the card; with neither a
+    choice nor a card it raises."""
+    if _current is not None:
+        return _current
+    return resolve_device(None)
+
+
+def explicit_device():
+    """The device ``set_device`` chose, or None."""
+    return _current

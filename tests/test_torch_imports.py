@@ -119,6 +119,26 @@ def test_scan_covers_the_package():
                  "paddle_tpu_torch/distributed/fleet.py",
                  "paddle_tpu_torch/distributed/fs.py",
                  "paddle_tpu_torch/distributed/multinode.py",
+                 "paddle_tpu_torch/core/dtype.py",
+                 "paddle_tpu_torch/core/device.py",
+                 "paddle_tpu_torch/core/threefry.py",
+                 "paddle_tpu_torch/core/xla_math.py",
+                 "paddle_tpu_torch/device/__init__.py",
+                 "paddle_tpu_torch/device/fill_r4.py",
+                 "paddle_tpu_torch/tensor/__init__.py",
+                 "paddle_tpu_torch/tensor/extra.py",
+                 "paddle_tpu_torch/linalg.py",
+                 "paddle_tpu_torch/fft.py",
+                 "paddle_tpu_torch/signal.py",
+                 "paddle_tpu_torch/framework.py",
+                 "paddle_tpu_torch/compat_fill.py",
+                 "paddle_tpu_torch/autograd/__init__.py",
+                 "paddle_tpu_torch/regularizer.py",
+                 "paddle_tpu_torch/distribution/__init__.py",
+                 "paddle_tpu_torch/distribution/transform.py",
+                 "paddle_tpu_torch/sparse/__init__.py",
+                 "paddle_tpu_torch/sparse/nn/__init__.py",
+                 "paddle_tpu_torch/sparse/nn/functional.py",
                  "chip_smoke.py"):
         assert must in names
 

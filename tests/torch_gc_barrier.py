@@ -13,7 +13,12 @@ those each test leaves, and those the files run before the module in
 the same worker left. What a collection that starts inside one test
 finds (a JAX object dropped in a cycle and another registered later in
 the same test) is not covered. A port test module opts in by importing
-:func:`collect_cycles`.
+:func:`collect_cycles`. A module whose tests build no JAX ``Model``,
+``LLMEngine`` or ``CheckpointManager`` (JAX ops and small layers only)
+imports :func:`collect_around_module` instead: one collection before its
+first test and one after its last, so the next module starts as clean
+as after :func:`collect_cycles`, without a full collection (~0.15 s) a
+test.
 """
 
 import gc
@@ -29,5 +34,12 @@ def collect_cycles(request):
     if module not in _modules_seen:
         _modules_seen.add(module)
         gc.collect()
+    yield
+    gc.collect()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def collect_around_module():
+    gc.collect()
     yield
     gc.collect()

@@ -134,7 +134,9 @@ the result line:
    other optimizers on the card against the CPU, over the embeddings
    and the first two blocks;
 12. distributed: multi-rank training of the train cell through the
-   port's launcher, ranks of this script (``--dist-rank``): a dp=1 mesh
+   port's launcher, ranks of this script (``--dist-rank``; the NCCL job
+   and the first gloo job run at once, and so do each later phase's two
+   jobs: their step times are reported, never checked): a dp=1 mesh
    on NCCL against no mesh (A B B A, bit for bit, B1-B3 12 launches a
    step), dp=2 and fsdp=2 with two gloo ranks sharing the card (4 rows a
    rank; the ranks' losses and parameter digests equal, within
@@ -217,7 +219,26 @@ the result line:
    sampler (row 0 bit-equal to the CPU's draw, moments within 5 sigma;
    Beta, Dirichlet and Poisson: the share of equal draws) and a 2-layer
    MLP's Jacobian and Hessian; the phase within 60 s;
-18. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
+18. models (last): BERT-base pretraining at ``bench.py``'s
+   configuration (batch 64 x 128, fused loss, AdamW, O1) through
+   ``Model.train_batch``: B1-B3 exactly 12 a step over 10 timed steps,
+   samples/s, MFU, B1-B3's share and the idle share (2 profiled steps),
+   3 steps on the kernels against 3 on the twins (5e-4), the attention
+   projections' gradient (the nn phase's O1 rule; the twins in float32),
+   the fused loss's peak against the dense head's, an eval batch (12 B1,
+   no B2 / B3); BERT classification in eval (a padded batch: no launch,
+   card against CPU; unpadded: 12 B1); ResNet-50 (batch 128 at 224^2,
+   Momentum, O1): 10 steps on the in-memory batch (finite, the 10th loss
+   below the first, BatchNorm statistics moved), the first float32 step
+   at batch 4 against the CPU, ``Model.fit`` for 8 steps over a
+   ``DatasetFolder`` of 256^2 ``.npy`` images through the ImageNet
+   training transforms on 4 fork workers (images/s, MFU,
+   ``io.next_wait``); every vision zoo constructor's eval forward card
+   against CPU and a squeezenet step; nms over 5000 boxes (kept indices
+   equal), roi_align, roi_pool and deform_conv2d at an FPN level-2 map,
+   viterbi over [64, 128, 50] (paths equal), each timed by CUDA events;
+   the three HF converters; the phase within 90 s;
+19. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
    ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -2021,10 +2042,10 @@ def _device_ms(fn, reps, attempts=3) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
+        busy = sum(ms for ms, _ in
+                   _device_totals(prof, DeviceType.CUDA).values())
         if busy > 0:
-            return busy / 1e3 / reps
+            return busy / reps
         PROFILER_MISSES["windows"] += 1
     PROFILER_MISSES["fallbacks"] += 1
     start = torch.cuda.Event(enable_timing=True)
@@ -2222,6 +2243,9 @@ def phase_flash_kernels() -> dict:
         ("nn decoder causal bf16", 8, 256, 256, 8, 8, 64, torch.bfloat16),
         ("nn cross q256 k512 bf16", 8, 256, 512, 8, 8, 64, torch.bfloat16,
          False),
+        # the models phase's BERT-base pretraining (bench.py's batch 64 x
+        # 128, 12 heads), not causal
+        ("bert-base bf16", 64, 128, 128, 12, 12, 64, torch.bfloat16, False),
     ]
     cases, heads = [], {}
     for name, b, sq, sk, hq, hkv, d, dt, *causal in shapes:
@@ -2399,6 +2423,22 @@ def _qkv_grad(net, init, ids, impl):
     return g
 
 
+def _device_totals(prof, device_type):
+    """{kernel name: (device ms, launches)} over the profiler's device
+    events: what ``key_averages()`` gives for them, summed straight from
+    the profiler's raw (kineto) events. ``key_averages`` first builds
+    the host-side call tree of every event (~14 s a profiled serve run)
+    and ``events()`` the event list itself (~3.5 s); neither is needed
+    for the card's own kernels."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != device_type:
+            continue
+        ms, n = out.get(e.name(), (0.0, 0))
+        out[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    return out
+
+
 def _profile(work, per, unit, **fields):
     """Device time by kernel of ``work()``, per ``unit`` (``per`` of them
     in the window), from ``torch.profiler``: the kernels' own device time,
@@ -2413,10 +2453,9 @@ def _profile(work, per, unit, **fields):
         work()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / per * 1e3
-    rows = sorted(((e.self_device_time_total / 1e3 / per, e.count / per,
-                    e.key) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and
-                   e.self_device_time_total > 0), reverse=True)
+    rows = sorted(((ms / per, n / per, k) for k, (ms, n) in
+                   _device_totals(prof, DeviceType.CUDA).items()
+                   if ms > 0), reverse=True)
     busy = sum(r[0] for r in rows)
 
     def share(*words):
@@ -4268,6 +4307,25 @@ def _finish(procs, what, logdir):
                          f"{[o[-2000:] for o in outs]}\n{logs}")
 
 
+def _finish_together(jobs):
+    """Wait for launcher jobs started at once, ``[(tag, outdir, t0,
+    proc)]``, in order: each one's ``(outdir, seconds)``. A job that fails
+    kills the groups of those not yet waited for before its error."""
+    import signal
+    out = []
+    for i, (tag, outdir, t0, proc) in enumerate(jobs):
+        try:
+            _finish([proc], tag, os.path.join(outdir, "logs"))
+        except BaseException:
+            for *_, other in jobs[i + 1:]:
+                if other.poll() is None:
+                    os.killpg(other.pid, signal.SIGKILL)
+                    other.wait()
+            raise
+        out.append((outdir, time.time() - t0))
+    return out
+
+
 def _read_ranks(outdir, n):
     out = []
     for r in range(n):
@@ -4310,19 +4368,20 @@ def phase_distributed(info) -> dict:
     del model, net
     torch.cuda.empty_cache()
 
-    def job(tag, nproc, scenario):
+    def start(tag, nproc, scenario):
         outdir = os.path.join(root, tag)
         os.makedirs(outdir)
         t0 = time.time()
         p = _launch(["--nproc_per_node", str(nproc), me, "--dist-rank",
                      scenario, outdir, repr(t0)], os.path.join(outdir,
                                                                "logs"))
-        _finish([p], tag, os.path.join(outdir, "logs"))
-        return outdir, time.time() - t0
+        return tag, outdir, t0, p
 
-    d_nccl, s_nccl = job("nccl1", 1, "nccl1")
+    # the NCCL job and the two gloo ranks run at once, sharing the card
+    # and the host's cores (their step times are reported, not checked)
+    (d_nccl, s_nccl), (d_two, s_two) = _finish_together(
+        [start("nccl1", 1, "nccl1"), start("dp_fsdp", 2, "dpfsdp")])
     nccl = _read_ranks(d_nccl, 1)[0]
-    d_two, s_two = job("dp_fsdp", 2, "dpfsdp")
     two = _read_ranks(d_two, 2)
     ref_losses = _read_losses(os.path.join(d_two, "fit", "losses.txt"))
     # the 2-node job: one agent a node, the leader hosting the tcp store
@@ -4571,17 +4630,18 @@ def phase_model_parallel(info) -> dict:
         del model
         torch.cuda.empty_cache()
 
-    def job(tag, nproc):
+    def start(tag, nproc):
         outdir = os.path.join(root, tag)
         os.makedirs(outdir)
         t0 = time.time()
         p = _launch(["--nproc_per_node", str(nproc), me, "--dist-rank",
                      tag, outdir, repr(t0)], os.path.join(outdir, "logs"))
-        _finish([p], tag, os.path.join(outdir, "logs"))
-        return outdir, time.time() - t0
+        return tag, outdir, t0, p
 
-    d2, s2 = job("mp2", 2)
-    d4, s4 = job("mp4", 4)
+    # both jobs at once, sharing the card and the host's cores (their
+    # step times are reported, not checked)
+    (d2, s2), (d4, s4) = _finish_together([start("mp2", 2),
+                                           start("mp4", 4)])
     two, four = _read_ranks(d2, 2), _read_ranks(d4, 4)
 
     def runs(ranks, label):
@@ -4849,17 +4909,18 @@ def phase_sequence_parallel(info) -> dict:
         del model
         torch.cuda.empty_cache()
 
-    def job(tag, nproc):
+    def start(tag, nproc):
         outdir = os.path.join(root, tag)
         os.makedirs(outdir)
         t0 = time.time()
         p = _launch(["--nproc_per_node", str(nproc), me, "--dist-rank",
                      tag, outdir, repr(t0)], os.path.join(outdir, "logs"))
-        _finish([p], tag, os.path.join(outdir, "logs"))
-        return outdir, time.time() - t0
+        return tag, outdir, t0, p
 
-    d2, s2 = job("sp2", 2)
-    d4, s4 = job("sp4", 4)
+    # both jobs at once, sharing the card and the host's cores (their
+    # step times are reported, not checked)
+    (d2, s2), (d4, s4) = _finish_together([start("sp2", 2),
+                                           start("sp4", 4)])
     two, four = _read_ranks(d2, 2), _read_ranks(d4, 4)
 
     # the sp=2 save reloaded into one process (this one)
@@ -6975,6 +7036,696 @@ def phase_tensor(info, dev="cuda") -> None:
         raise SystemExit(f"tensor phase failed: {failed}")
 
 
+# ---------------------------------------------------------------------------
+# models and data: BERT-base pretraining on B1-B3, ResNet-50 training, the
+# vision zoo, the detection ops and the converters on the card
+# ---------------------------------------------------------------------------
+
+MODELS_PHASE_BUDGET_S = 90.0
+# bench.py:432-470 (the JAX package's configuration 3): BERT-base, batch
+# 64 x 128, fused loss, AdamW 1e-4 / wd 0.01, O1
+BERT_BATCH, BERT_SEQ = 64, 128
+BERT_TIMED_STEPS = 10
+# bench.py:398-425 (configuration 2): ResNet-50, batch 128 at 224^2,
+# Momentum 0.1 / 0.9, cross entropy, O1
+RESNET_BATCH, RESNET_SIZE, RESNET_STEPS = 128, 224, 10
+RESNET_FIT_STEPS, RESNET_FIT_WORKERS, RESNET_FOLDER_SIZE = 8, 4, 256
+RESNET50_FWD_FLOPS = 4.09e9    # bench.py: per 224^2 image, 2 x MACs
+# the first float32 step at batch 4, card against CPU: the loss within
+# 1e-4 relative; the gradient norm within 1e-3 (cuDNN's and oneDNN's
+# float32 convolution algorithms through 53 layers of backward: 1.18e-4
+# apart on an H100, the loss 8.3e-7)
+RESNET_CPU_BATCH, RESNET_CPU_RTOL, RESNET_CPU_GRAD_RTOL = 4, 1e-4, 1e-3
+MODELS_LAYER_ATOL, MODELS_LAYER_RTOL = 1e-5, 1e-4
+# every constructor of tests/test_models_vision.py:106-118 and the
+# resnet / vgg / mobilenet / LeNet tests, at their input sizes
+ZOO = [("resnet18", {}, 64), ("resnet34", {}, 64), ("resnet50", {}, 64),
+       ("vgg11", {}, 224), ("mobilenet_v1", {"scale": 0.25}, 64),
+       ("mobilenet_v2", {"scale": 0.5}, 64), ("LeNet", {}, 28),
+       ("alexnet", {}, 224), ("squeezenet1_1", {}, 64),
+       ("densenet121", {}, 64), ("googlenet", {}, 64),
+       ("shufflenet_v2_x0_5", {}, 64), ("resnext50_32x4d", {}, 64),
+       ("wide_resnet50_2", {}, 64), ("mobilenet_v3_small", {}, 64),
+       ("mobilenet_v3_large", {}, 64), ("shufflenet_v2_x0_25", {}, 64),
+       ("shufflenet_v2_swish", {}, 64), ("densenet169", {}, 64),
+       ("inception_v3", {}, 75)]
+# detection sizes: FPN level 2 (stride 4) of an 800 x 1088 image, 512
+# rois of 16-112 pixels; a detector's 5000 raw boxes over 80 classes
+DET_FEATURE, DET_ROIS, DET_BOXES, DET_CLASSES = (2, 256, 50, 68), 512, 5000, 80
+VITERBI_SHAPE = (64, 128, 50)
+
+
+def _bert_batch(rs, n, seq, vocab):
+    """Ids, 15% MLM labels and NSP labels, drawn as bench.py draws them."""
+    ids = rs.randint(0, vocab, (n, seq))
+    mlm = np.where(rs.rand(n, seq) < 0.15, ids, -100)
+    nsp = rs.randint(0, 2, (n,))
+    return ids, mlm, nsp
+
+
+def _bert_model(net):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.bert import BertFusedPretrainingCriterion
+    model = pt.Model(net, labels=["mlm", "nsp"])
+    model.prepare(pt.optimizer.AdamW(learning_rate=1e-4, parameters=net,
+                                     weight_decay=0.01),
+                  BertFusedPretrainingCriterion(), amp_configs="O1")
+    return model
+
+
+def _bert_parity(net, init, batch, impl):
+    """PARITY_STEPS train steps from the initial weights on B1-B3 or on
+    their twins: the losses and the launch counts."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    net.load_state_dict(init)
+    model = _bert_model(net)
+    fa.impl = impl
+    try:
+        _reset_flash_counts()
+        losses = [model.train_batch([batch[0]], list(batch[1:]))["loss"]
+                  for _ in range(PARITY_STEPS)]
+        torch.cuda.synchronize()
+        counts = _flash_counts()
+    finally:
+        fa.impl = "kernel"
+    return [float(v) for v in losses], counts
+
+
+def _bert_attn_grad(net, init, batch, impl, o1=True):
+    """The gradient of every attention projection (q, k, v) after one
+    fwd+bwd of the fused pretraining loss from the initial weights, under
+    O1 (or in float32), on B1-B3 or on their twins."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.bert import BertFusedPretrainingCriterion
+    from paddle_tpu_torch.ops import flash_attention as fa
+    net.load_state_dict(init)
+    net.train()
+    net.zero_grad(set_to_none=True)
+    ids, mlm, nsp = (torch.as_tensor(a, device="cuda") for a in batch)
+    fa.impl = impl
+    try:
+        with amp.auto_cast(enable=o1, level="O1"):
+            out = net(ids)
+        BertFusedPretrainingCriterion()(*out, mlm, nsp).float().backward()
+    finally:
+        fa.impl = "kernel"
+    g = torch.cat([p.grad.flatten() for n, p in net.named_parameters()
+                   if n.endswith(("q_proj.weight", "k_proj.weight",
+                                  "v_proj.weight"))])
+    net.zero_grad(set_to_none=True)
+    return g
+
+
+def _bert_peak(net, batch, fused):
+    """Peak device bytes of one O1 forward + backward with the fused
+    vocab loss or the dense head."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.bert import (BertFusedPretrainingCriterion,
+                                              BertPretrainingCriterion)
+    ids, mlm, nsp = (torch.as_tensor(a, device="cuda") for a in batch)
+    net.cfg.fused_loss = fused
+    crit = BertFusedPretrainingCriterion() if fused else \
+        BertPretrainingCriterion()
+    net.train()
+    net.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with amp.auto_cast(level="O1"):
+            out = net(ids)
+        crit(*out, mlm, nsp).float().backward()
+        torch.cuda.synchronize()
+    finally:
+        net.cfg.fused_loss = True
+    net.zero_grad(set_to_none=True)
+    return torch.cuda.max_memory_allocated()
+
+
+def _models_bert(info):
+    """BERT-base pretraining at bench.py's configuration on B1-B3."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.bert import BertForPretraining, bert_config
+    cfg = bert_config("bert-base", hidden_dropout=0.0, attention_dropout=0.0,
+                      fused_loss=True)
+    pt.seed(0)
+    net = BertForPretraining(cfg, device="cuda")
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    n_params = sum(p.numel() for p in net.parameters())
+    batch = _bert_batch(np.random.RandomState(0), BERT_BATCH, BERT_SEQ,
+                        cfg.vocab_size)
+    model = _bert_model(net)
+    model.train_batch([batch[0]], list(batch[1:]))     # first-call set-up
+    torch.cuda.synchronize()
+    # the main path: the timed steps, with the counts from 0
+    _reset_flash_counts()
+    t0 = time.perf_counter()
+    losses = [model.train_batch([batch[0]], list(batch[1:]))["loss"]
+              for _ in range(BERT_TIMED_STEPS)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / BERT_TIMED_STEPS
+    launches = _flash_counts()
+    losses = [float(v) for v in losses]
+    sps = BERT_BATCH / step_s
+    flops_tok = 6 * n_params + 12 * cfg.num_layers * BERT_SEQ * \
+        cfg.hidden_size
+    mfu = sps * BERT_SEQ * flops_tok / PEAK_OPS_PER_S[torch.bfloat16]
+
+    def work():
+        for _ in range(2):
+            model.train_batch([batch[0]], list(batch[1:]))
+    prof = _profile(work, 2, "step", phase="models", run="bert profile",
+                    steps=2)
+    emit(prof)
+    # an eval batch goes through the dense criterion: B1 only
+    _reset_flash_counts()
+    ev = model.eval_batch([batch[0]], list(batch[1:]))
+    torch.cuda.synchronize()
+    eval_launches = _flash_counts()
+    eval_loss = ev["loss"]
+    while isinstance(eval_loss, (list, tuple)):
+        eval_loss = eval_loss[0]
+    eval_loss = float(torch.as_tensor(eval_loss).reshape(-1)[0])
+    del model
+    k_losses, k_counts = _bert_parity(net, init, batch, "kernel")
+    p_losses, p_counts = _bert_parity(net, init, batch, "plain")
+    rel = [abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses)]
+    g_k = _bert_attn_grad(net, init, batch, "kernel")
+    g_p = _bert_attn_grad(net, init, batch, "plain")
+    g_32 = _bert_attn_grad(net, init, batch, "plain", o1=False)
+    g_k32 = _bert_attn_grad(net, init, batch, "kernel", o1=False)
+
+    def rel_norm(a, b):
+        return float((a - b).norm() / b.norm())
+    grad = {"o1_kernel_vs_f32": rel_norm(g_k, g_32),
+            "o1_plain_vs_f32": rel_norm(g_p, g_32),
+            "o1_kernel_vs_plain": rel_norm(g_k, g_p),
+            "f32_kernel_vs_plain": rel_norm(g_k32, g_32)}
+    del g_k, g_p, g_32, g_k32
+    net.load_state_dict(init)
+    peak_fused = _bert_peak(net, batch, True)
+    peak_dense = _bert_peak(net, batch, False)
+    layers = cfg.num_layers
+    out = {"phase": "models", "run": "bert-base pretraining",
+           "card": info["nvidia_smi"], "params": n_params,
+           "batch": BERT_BATCH, "seq": BERT_SEQ, "vocab": cfg.vocab_size,
+           "amp": "O1", "optimizer": "AdamW 1e-4 wd 0.01",
+           "step_ms": step_s * 1e3, "samples_per_s": sps,
+           "tokens_per_s": sps * BERT_SEQ, "mfu": mfu,
+           "mfu_flops_per_token": flops_tok, "losses": losses,
+           "launches": launches, "eval_launches": eval_launches,
+           "eval_loss": eval_loss, "flash_share": prof["flash_share"],
+           "idle_share": prof["idle_share"], "kernel_losses": k_losses,
+           "plain_losses": p_losses, "rel_diff": rel,
+           "kernel_launches": k_counts, "plain_launches": p_counts,
+           "attn_grad": grad, "peak_bytes_fused": peak_fused,
+           "peak_bytes_dense": peak_dense,
+           "peak_saving_min": BERT_BATCH * BERT_SEQ * cfg.vocab_size * 4}
+    emit(out)
+    del net, init
+    torch.cuda.empty_cache()
+    checks = {
+        "bert_timed_launches": all(v == layers * BERT_TIMED_STEPS
+                                   for v in launches.values()),
+        "bert_eval_launches": eval_launches == {
+            "flash_attention_fwd": layers, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0},
+        "bert_parity_launches": all(v == layers * PARITY_STEPS
+                                    for v in k_counts.values()),
+        "bert_plain_launches": all(v == 0 for v in p_counts.values()),
+        "bert_losses_finite": all(math.isfinite(v) for v in
+                                  losses + k_losses + p_losses
+                                  + [eval_loss]),
+        "bert_tenth_loss_below_first": losses[-1] < losses[0],
+        "bert_kernel_losses_match_twins": max(rel) <= TRAIN_LOSS_RTOL,
+        "bert_attn_grad_o1_as_close_to_f32_as_twins":
+            grad["o1_kernel_vs_f32"] <= NN_GRAD_ERR_RATIO
+            * grad["o1_plain_vs_f32"],
+        "bert_attn_grad_f32_matches_twins":
+            grad["f32_kernel_vs_plain"] <= QKV_GRAD_RTOL,
+        "bert_fused_peak_lower": peak_dense - peak_fused
+        >= out["peak_saving_min"],
+    }
+    return checks, launches
+
+
+def _close_over_limit(got, want):
+    """max |got - want| / (atol + rtol |want|), the layer limit."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    lim = MODELS_LAYER_ATOL + MODELS_LAYER_RTOL * want.abs()
+    return float(((got - want).abs() / lim).max()) if want.numel() else 0.0
+
+
+def _models_bert_cls(info):
+    """BertForSequenceClassification in eval: a padded batch takes the
+    masked plain path (0 launches), card against the CPU; the unpadded
+    batch at length 128 launches B1 once a layer."""
+    import copy
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.bert import (BertForSequenceClassification,
+                                              BertModel, bert_config)
+    cfg = bert_config("bert-base", hidden_dropout=0.0,
+                      attention_dropout=0.0)
+    pt.seed(0)
+    cpu = BertForSequenceClassification(cfg, num_classes=2, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    cpu.eval()
+    card.eval()
+    rs = np.random.RandomState(1)
+    ids = rs.randint(1, cfg.vocab_size, (2, BERT_SEQ))
+    ids[0, 90:] = cfg.pad_token_id
+    ids[1, 40:] = cfg.pad_token_id
+    with torch.no_grad():
+        want = cpu(torch.as_tensor(ids), attn_mask=BertModel
+                   .attention_mask_from_ids(torch.as_tensor(ids), 0))
+        t_ids = torch.as_tensor(ids, device="cuda")
+        _reset_flash_counts()
+        got = card(t_ids, attn_mask=BertModel.attention_mask_from_ids(
+            t_ids, 0))
+        torch.cuda.synchronize()
+        padded_launches = _flash_counts()
+        full = torch.as_tensor(rs.randint(1, cfg.vocab_size,
+                                          (BERT_BATCH, BERT_SEQ)),
+                               device="cuda")
+        _reset_flash_counts()
+        logits = card(full)
+        torch.cuda.synchronize()
+        full_launches = _flash_counts()
+    over = _close_over_limit(got, want)
+    emit({"phase": "models", "run": "bert-base classification eval",
+          "padded_rows": 2, "padded_launches": padded_launches,
+          "padded_err_over_limit": over, "unpadded_batch": BERT_BATCH,
+          "unpadded_launches": full_launches,
+          "limit": f"|card - cpu| <= {MODELS_LAYER_ATOL} + "
+                   f"{MODELS_LAYER_RTOL} |cpu|"})
+    del cpu, card
+    torch.cuda.empty_cache()
+    return {
+        "cls_padded_no_launch": all(v == 0 for v in
+                                    padded_launches.values()),
+        "cls_padded_card_vs_cpu": over <= 1.0,
+        "cls_unpadded_b1_launches": full_launches == {
+            "flash_attention_fwd": cfg.num_layers,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0},
+        "cls_unpadded_finite": bool(torch.isfinite(logits).all()),
+    }
+
+
+def _resnet_model(net):
+    import paddle_tpu_torch as pt
+    model = pt.Model(net)
+    model.prepare(pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                        parameters=net),
+                  pt.nn.CrossEntropyLoss(), amp_configs="O1")
+    return model
+
+
+def _resnet_first_step(init, dev, x, y):
+    """The first step's loss and gradient norm in float32 at batch
+    ``RESNET_CPU_BATCH`` from ``init``, on ``dev``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import resnet50
+    net = resnet50(device=dev)
+    net.load_state_dict(init)
+    net.train()
+    logits = net(torch.as_tensor(x, device=dev))
+    loss = pt.nn.CrossEntropyLoss()(logits, torch.as_tensor(y, device=dev))
+    loss.backward()
+    gnorm = torch.sqrt(sum((p.grad.double() ** 2).sum()
+                           for p in net.parameters()))
+    return float(loss.detach()), float(gnorm)
+
+
+def _image_folder(root, n, classes, seed):
+    """``n`` uint8 HWC images of RESNET_FOLDER_SIZE^2 drawn from ``seed``
+    as ``.npy`` files, one directory a class."""
+    rs = np.random.RandomState(seed)
+    for c in range(classes):
+        os.makedirs(os.path.join(root, f"n{c:08d}"), exist_ok=True)
+    for i in range(n):
+        img = rs.randint(0, 256, (RESNET_FOLDER_SIZE, RESNET_FOLDER_SIZE, 3),
+                         dtype=np.uint8)
+        np.save(os.path.join(root, f"n{i % classes:08d}", f"{i:05d}.npy"),
+                img)
+
+
+def _models_resnet(info):
+    """ResNet-50 at bench.py's configuration: timed train steps on the
+    in-memory batch, the first step against the CPU, then Model.fit over
+    the ImageNet training pipeline (DatasetFolder, numpy transforms, 4
+    fork workers)."""
+    import tempfile
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import resnet50
+    from paddle_tpu_torch.observability import tracing
+    from paddle_tpu_torch.vision import datasets, transforms as T
+    pt.seed(0)
+    net = resnet50(device="cuda")
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    rs = np.random.RandomState(0)
+    imgs = rs.randn(RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE) \
+        .astype(np.float32)
+    labels = rs.randint(0, 1000, (RESNET_BATCH, 1))
+    model = _resnet_model(net)
+    mean_before = net.bn1._mean.detach().clone()
+    losses, stamps = [], []
+    torch.cuda.synchronize()
+    for _ in range(RESNET_STEPS):
+        losses.append(model.train_batch([imgs], [labels])["loss"])
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    losses = [float(v) for v in losses]
+    # images/s over the steps after the first two (cuDNN's algorithm
+    # search and the first allocations)
+    step_s = (stamps[-1] - stamps[1]) / (RESNET_STEPS - 2)
+    ips = RESNET_BATCH / step_s
+    flops_img = 3 * RESNET50_FWD_FLOPS
+    stats_moved = not torch.equal(mean_before, net.bn1._mean)
+    del model
+    # the first step in float32, card against CPU, from the same weights
+    xs, ys = imgs[:RESNET_CPU_BATCH], labels[:RESNET_CPU_BATCH, 0]
+    init_cpu = {k: v.cpu() for k, v in init.items()}
+    loss_card, g_card = _resnet_first_step(init, "cuda", xs, ys)
+    loss_cpu, g_cpu = _resnet_first_step(init_cpu, "cpu", xs, ys)
+    first = {"loss_card": loss_card, "loss_cpu": loss_cpu,
+             "grad_norm_card": g_card, "grad_norm_cpu": g_cpu,
+             "loss_rel": abs(loss_card - loss_cpu) / abs(loss_cpu),
+             "grad_norm_rel": abs(g_card - g_cpu) / abs(g_cpu)}
+    # Model.fit over the ImageNet training pipeline
+    n_img = RESNET_BATCH * RESNET_FIT_STEPS
+    os.makedirs("build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir="build") as tmp:
+        t0 = time.perf_counter()
+        _image_folder(tmp, n_img, 16, seed=1)
+        write_s = time.perf_counter() - t0
+        ds = datasets.DatasetFolder(tmp, transform=T.Compose([
+            T.RandomResizedCrop(RESNET_SIZE), T.RandomHorizontalFlip(),
+            T.ToTensor(), T.Normalize([0.485, 0.456, 0.406],
+                                      [0.229, 0.224, 0.225])]))
+        net.load_state_dict(init)
+        model = _resnet_model(net)
+        fit_losses = []
+
+        class Tap(pt.callbacks.Callback):
+            def on_train_batch_end(self, step, logs=None):
+                fit_losses.append(logs["loss"])
+        tracing.clear()
+        tracing.enable()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit(ds, batch_size=RESNET_BATCH, epochs=1, shuffle=True,
+                  verbose=0, num_workers=RESNET_FIT_WORKERS,
+                  callbacks=[Tap()])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        spans = tracing.rollup("io.")
+        tracing.disable()
+        tracing.clear()
+    fit_losses = [float(v) for v in fit_losses]
+    wait = spans.get("io.next_wait", {"count": 0, "total_s": 0.0})
+    out = {"phase": "models", "run": "resnet-50 training",
+           "card": info["nvidia_smi"],
+           "params": sum(p.numel() for p in net.parameters()),
+           "batch": RESNET_BATCH, "image": RESNET_SIZE, "amp": "O1",
+           "optimizer": "Momentum 0.1 / 0.9", "losses": losses,
+           "step_ms": step_s * 1e3, "images_per_s": ips,
+           "mfu": ips * flops_img / PEAK_OPS_PER_S[torch.bfloat16],
+           "bn_stats_moved": stats_moved, "first_step_f32": first,
+           "fit": {"images": n_img, "steps": len(fit_losses),
+                   "workers": RESNET_FIT_WORKERS,
+                   "folder_write_s": write_s, "fit_s": fit_s,
+                   "images_per_s": n_img / fit_s,
+                   "mfu": n_img / fit_s * flops_img
+                   / PEAK_OPS_PER_S[torch.bfloat16],
+                   "losses": fit_losses,
+                   "io_next_wait_s": wait["total_s"],
+                   "io_next_wait_per_step_s":
+                       wait["total_s"] / max(wait["count"], 1),
+                   "io_next_waits": wait["count"]}}
+    emit(out)
+    del net, init, model
+    torch.cuda.empty_cache()
+    return {
+        "resnet_losses_finite": all(math.isfinite(v) for v in
+                                    losses + fit_losses),
+        "resnet_tenth_loss_below_first": losses[-1] < losses[0],
+        "resnet_bn_stats_moved": stats_moved,
+        "resnet_first_step_loss_vs_cpu": first["loss_rel"]
+        <= RESNET_CPU_RTOL,
+        "resnet_first_step_grad_norm_vs_cpu": first["grad_norm_rel"]
+        <= RESNET_CPU_GRAD_RTOL,
+        "resnet_fit_steps": len(fit_losses) == RESNET_FIT_STEPS,
+        "resnet_fit_io_waits": wait["count"] >= RESNET_FIT_STEPS,
+    }
+
+
+def _models_zoo(info):
+    """Every zoo constructor's eval forward on the card against the port
+    on the CPU at the JAX tests' sizes, float32, TF32 off; one SGD step
+    of squeezenet1_1 (tests/test_models_vision.py:119's model)."""
+    import copy
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import models
+    rows, t0 = [], time.perf_counter()
+    for name, kw, size in ZOO:
+        pt.seed(0)
+        cpu = getattr(models, name)(num_classes=10, device="cpu", **kw)
+        card = copy.deepcopy(cpu).to("cuda")
+        cpu.eval()
+        card.eval()
+        ch = 1 if name == "LeNet" else 3
+        x = np.random.RandomState(0).randn(2, ch, size, size) \
+            .astype(np.float32)
+        with torch.no_grad():
+            want = cpu(torch.as_tensor(x))
+            got = card(torch.as_tensor(x, device="cuda"))
+        rows.append({"model": name, "input": [2, ch, size, size],
+                     "err_over_limit": _close_over_limit(got, want)})
+        del cpu, card
+    # one train step (SGD 0.01) on each side from the same weights
+    pt.seed(0)
+    cpu = models.squeezenet1_1(num_classes=4, device="cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    x = np.random.RandomState(0).randn(4, 3, 64, 64).astype(np.float32)
+    y = np.array([0, 1, 2, 3])
+    step = []
+    for net in (cpu, card):
+        m = pt.Model(net)
+        m.prepare(optimizer=pt.optimizer.SGD(learning_rate=0.01,
+                                             parameters=net),
+                  loss=pt.nn.CrossEntropyLoss())
+        step.append((float(m.train_batch([x], [y])["loss"]),
+                     {k: v.detach().cpu() for k, v in
+                      net.state_dict().items()}))
+    step_over = max([_close_over_limit(torch.tensor(step[1][0]),
+                                       torch.tensor(step[0][0]))] +
+                    [_close_over_limit(step[1][1][k], v)
+                     for k, v in step[0][1].items()])
+    emit({"phase": "models", "run": "vision zoo card vs cpu",
+          "limit": f"|card - cpu| <= {MODELS_LAYER_ATOL} + "
+                   f"{MODELS_LAYER_RTOL} |cpu|", "models": rows,
+          "squeezenet_step_err_over_limit": step_over,
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    return {"zoo_card_vs_cpu": all(r["err_over_limit"] <= 1.0
+                                   for r in rows),
+            "zoo_train_step_card_vs_cpu": step_over <= 1.0}, \
+        [r["model"] for r in rows if not r["err_over_limit"] <= 1.0]
+
+
+def _detector_boxes(rs):
+    """A detector's raw output: DET_BOXES boxes jittered around 60
+    objects of 1088 x 800, DET_CLASSES classes, uniform scores."""
+    obj_xy = rs.uniform(0, 900, (60, 2))
+    obj_wh = rs.uniform(30, 250, (60, 2))
+    obj_cls = rs.randint(0, DET_CLASSES, 60)
+    which = rs.randint(0, 60, DET_BOXES)
+    xy = obj_xy[which] + rs.randn(DET_BOXES, 2) * 0.1 * obj_wh[which]
+    wh = obj_wh[which] * np.exp(rs.randn(DET_BOXES, 2) * 0.1)
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    return boxes, rs.rand(DET_BOXES).astype(np.float32), obj_cls[which]
+
+
+def _models_ops(info):
+    """The detection ops and Viterbi decoding at detection sizes, card
+    against the port on the CPU, each timed by CUDA events."""
+    from paddle_tpu_torch import text
+    from paddle_tpu_torch.vision import ops
+    rs = np.random.RandomState(4)
+    boxes, scores, cls = _detector_boxes(rs)
+    feat = rs.randn(*DET_FEATURE).astype(np.float32)
+    wh = np.exp(rs.uniform(np.log(16), np.log(112), (DET_ROIS, 2)))
+    xy = rs.uniform(0, 1, (DET_ROIS, 2)) * (np.array([1088, 800]) - wh)
+    rois = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    num = np.array([DET_ROIS // 2, DET_ROIS - DET_ROIS // 2])
+    off = (rs.randn(DET_FEATURE[0], 18, *DET_FEATURE[2:]) * 2) \
+        .astype(np.float32)
+    c = DET_FEATURE[1]
+    w = (rs.randn(c, c, 3, 3) * 0.02).astype(np.float32)
+    bias = rs.randn(c).astype(np.float32)
+    pot = rs.randn(*VITERBI_SHAPE).astype(np.float32)
+    trans = rs.randn(VITERBI_SHAPE[2], VITERBI_SHAPE[2]).astype(np.float32)
+
+    host = {"boxes": boxes, "scores": scores, "cls": cls, "feat": feat,
+            "rois": rois, "num": num, "off": off, "w": w, "bias": bias,
+            "pot": pot, "trans": trans}
+    calls = {
+        "nms": lambda t: ops.nms(t["boxes"], 0.5, t["scores"], t["cls"],
+                                 list(range(DET_CLASSES))),
+        "roi_align_adaptive": lambda t: ops.roi_align(
+            t["feat"], t["rois"], t["num"], 7, 0.25, -1),
+        "roi_align_ratio2": lambda t: ops.roi_align(
+            t["feat"], t["rois"], t["num"], 7, 0.25, 2),
+        "roi_pool": lambda t: ops.roi_pool(t["feat"], t["rois"], t["num"],
+                                           7, 0.25),
+        "deform_conv2d": lambda t: ops.deform_conv2d(
+            t["feat"], t["off"], t["w"], t["bias"], 1, 1),
+        "viterbi_decode": lambda t: text.viterbi_decode(t["pot"],
+                                                        t["trans"]),
+    }
+    cpu = {k: torch.as_tensor(v) for k, v in host.items()}
+    card = {k: v.to("cuda") for k, v in cpu.items()}
+    rows, ok = {}, {}
+    for name, call in calls.items():
+        want = call(cpu)
+        got, ms = _warm_timed(lambda: call(card))
+        if name == "nms":
+            equal = torch.equal(got.cpu(), want)
+            rows[name] = {"ms": ms, "kept": int(want.numel()),
+                          "kept_equal": equal, "boxes": DET_BOXES,
+                          "classes": DET_CLASSES}
+            ok[name] = equal
+        elif name == "viterbi_decode":
+            equal = torch.equal(got[1].cpu(), want[1])
+            over = _close_over_limit(got[0], want[0])
+            rows[name] = {"ms": ms, "shape": list(VITERBI_SHAPE),
+                          "paths_equal": equal, "score_err_over_limit": over}
+            ok[name] = equal and over <= 1.0
+        else:
+            over = _close_over_limit(got, want)
+            rows[name] = {"ms": ms, "err_over_limit": over,
+                          "shape": list(got.shape)}
+            ok[name] = over <= 1.0
+    emit({"phase": "models", "run": "vision ops card vs cpu",
+          "feature": list(DET_FEATURE), "rois": DET_ROIS,
+          "timing": "CUDA events, the second of two calls",
+          "limit": f"|card - cpu| <= {MODELS_LAYER_ATOL} + "
+                   f"{MODELS_LAYER_RTOL} |cpu|; nms and paths exact",
+          "card": info["nvidia_smi"], "ops": rows})
+    return {f"op_{k}": v for k, v in ok.items()}
+
+
+def _hf_state_dicts(rs, v=96, h=64, layers=2, pos=32, kv=2, heads=4):
+    """GPT-2-, BERT- and LLaMA-layout state dicts in HF names at the CPU
+    tests' widths, drawn from ``rs``."""
+    def r(*shape):
+        return torch.as_tensor((rs.randn(*shape) * 0.05).astype(np.float32))
+    gpt = {"transformer.wte.weight": r(v, h),
+           "transformer.wpe.weight": r(pos, h),
+           "transformer.ln_f.weight": 1 + r(h),
+           "transformer.ln_f.bias": r(h)}
+    bert = {"bert.embeddings.word_embeddings.weight": r(v, h),
+            "bert.embeddings.position_embeddings.weight": r(pos, h),
+            "bert.embeddings.token_type_embeddings.weight": r(2, h),
+            "bert.embeddings.LayerNorm.weight": 1 + r(h),
+            "bert.embeddings.LayerNorm.bias": r(h),
+            "bert.pooler.dense.weight": r(h, h),
+            "bert.pooler.dense.bias": r(h)}
+    hd = h // heads
+    llama = {"model.embed_tokens.weight": r(v, h),
+             "model.norm.weight": 1 + r(h), "lm_head.weight": r(v, h)}
+    for i in range(layers):
+        p = f"transformer.h.{i}"
+        gpt.update({f"{p}.ln_1.weight": 1 + r(h), f"{p}.ln_1.bias": r(h),
+                    f"{p}.attn.c_attn.weight": r(h, 3 * h),
+                    f"{p}.attn.c_attn.bias": r(3 * h),
+                    f"{p}.attn.c_proj.weight": r(h, h),
+                    f"{p}.attn.c_proj.bias": r(h),
+                    f"{p}.ln_2.weight": 1 + r(h), f"{p}.ln_2.bias": r(h),
+                    f"{p}.mlp.c_fc.weight": r(h, 4 * h),
+                    f"{p}.mlp.c_fc.bias": r(4 * h),
+                    f"{p}.mlp.c_proj.weight": r(4 * h, h),
+                    f"{p}.mlp.c_proj.bias": r(h)})
+        p = f"bert.encoder.layer.{i}"
+        for n, o, k in (("attention.self.query", h, h),
+                        ("attention.self.key", h, h),
+                        ("attention.self.value", h, h),
+                        ("attention.output.dense", h, h),
+                        ("intermediate.dense", 2 * h, h),
+                        ("output.dense", h, 2 * h)):
+            bert[f"{p}.{n}.weight"] = r(o, k)
+            bert[f"{p}.{n}.bias"] = r(o)
+        for n in ("attention.output.LayerNorm", "output.LayerNorm"):
+            bert[f"{p}.{n}.weight"] = 1 + r(h)
+            bert[f"{p}.{n}.bias"] = r(h)
+        p = f"model.layers.{i}"
+        llama.update({f"{p}.input_layernorm.weight": 1 + r(h),
+                      f"{p}.post_attention_layernorm.weight": 1 + r(h),
+                      f"{p}.self_attn.q_proj.weight": r(h, h),
+                      f"{p}.self_attn.k_proj.weight": r(kv * hd, h),
+                      f"{p}.self_attn.v_proj.weight": r(kv * hd, h),
+                      f"{p}.self_attn.o_proj.weight": r(h, h),
+                      f"{p}.mlp.gate_proj.weight": r(96, h),
+                      f"{p}.mlp.up_proj.weight": r(96, h),
+                      f"{p}.mlp.down_proj.weight": r(h, 96)})
+    return gpt, bert, llama
+
+
+def _models_convert(info):
+    """The three converters on the card against the port on the CPU."""
+    from paddle_tpu_torch.models import convert
+    gpt, bert, llama = _hf_state_dicts(np.random.RandomState(5))
+    ids = np.random.RandomState(6).randint(0, 96, (2, 16))
+    nodrop = {"hidden_dropout": 0.0, "attention_dropout": 0.0}
+    runs = {
+        "gpt2": lambda d: convert.gpt2_from_huggingface(
+            gpt, config={"num_heads": 2, **nodrop}, device=d),
+        "bert": lambda d: convert.bert_from_huggingface(
+            bert, config={"num_heads": 2, **nodrop}, device=d),
+        "llama": lambda d: convert.llama_from_huggingface(
+            llama, config={"num_heads": 4, "num_kv_heads": 2}, device=d),
+    }
+    rows = {}
+    for name, build in runs.items():
+        outs = []
+        for d in ("cpu", "cuda"):
+            net = build(d)
+            net.eval()
+            with torch.no_grad():
+                out = net(torch.as_tensor(ids, device=d))
+            outs.append(out[0] if isinstance(out, tuple) else out)
+        rows[name] = _close_over_limit(outs[1], outs[0])
+    emit({"phase": "models", "run": "converters card vs cpu",
+          "err_over_limit": rows})
+    return {f"convert_{k}": v <= 1.0 for k, v in rows.items()}
+
+
+def phase_models(info) -> dict:
+    """Models and data on the card: BERT-base pretraining at bench.py's
+    configuration on B1-B3 (against the twins), BERT classification
+    eval, ResNet-50 training (in-memory batch and the ImageNet folder
+    pipeline through Model.fit), the vision zoo, the detection ops and
+    the HF converters against the port on the CPU."""
+    t_phase = time.perf_counter()
+    checks, launches = _models_bert(info)
+    checks.update(_models_bert_cls(info))
+    checks.update(_models_resnet(info))
+    zoo_checks, bad_zoo = _models_zoo(info)
+    checks.update(zoo_checks)
+    checks.update(_models_ops(info))
+    checks.update(_models_convert(info))
+    phase_s = time.perf_counter() - t_phase
+    checks["phase_within_budget"] = phase_s <= MODELS_PHASE_BUDGET_S
+    checks = {k: bool(v) for k, v in checks.items()}
+    emit({"phase": "models_checks", "card": info["nvidia_smi"],
+          "phase_s": phase_s, "budget_s": MODELS_PHASE_BUDGET_S,
+          "bad_zoo": bad_zoo, "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"models checks failed: {failed}")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_s = {}
@@ -7014,8 +7765,9 @@ def main() -> None:
     nn_launches = timed("nn", phase_nn, info)
     moe_launches = timed("moe_ep", phase_moe_ep, info)
     timed("ctr", phase_ctr, info)
+    models_launches = timed("models", phase_models, info)
     for launches_of in (dist_launches, mp_launches, sp_launches,
-                        nn_launches, moe_launches):
+                        nn_launches, moe_launches, models_launches):
         for k, v in launches_of.items():
             train_launches[k] += v
     emit({"phase": "timing", "seconds": phase_s,

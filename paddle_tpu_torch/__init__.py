@@ -11,9 +11,11 @@ The top level carries the flat ``paddle.*`` API as the JAX package's
 does: the tensor functions (``to_tensor``, ``zeros``, ``randn``,
 ``matmul``, ...), the dtype aliases, ``grad`` / ``no_grad`` / ``save`` /
 ``load``, the math namespaces (``linalg``, ``fft``, ``signal``,
-``sparse``, ``distribution``, ``autograd``, ``regularizer``) and
-``device``. Functions that take no tensor create on the device
-``set_device`` chose, the card by default.
+``sparse``, ``distribution``, ``autograd``, ``regularizer``),
+``device``, and the data side: ``vision`` (datasets, transforms,
+detection ops), ``text`` (readers, Viterbi decoding) and ``hub``.
+Functions that take no tensor create on the device ``set_device``
+chose, the card by default.
 """
 
 from .core import dtype as _dtype_mod
@@ -54,6 +56,9 @@ from . import linalg  # noqa: F401,E402
 from . import regularizer  # noqa: F401,E402
 from . import signal  # noqa: F401,E402
 from . import sparse  # noqa: F401,E402
+from . import hub  # noqa: F401,E402
+from . import text  # noqa: F401,E402
+from . import vision  # noqa: F401,E402
 from .device import (device_count, is_compiled_with_cuda,  # noqa: E402,F401
                      set_device)
 

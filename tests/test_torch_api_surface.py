@@ -1,8 +1,10 @@
 """Every public name of the JAX package's tensor and math namespaces is in
 the port: ``tensor``, ``linalg``, ``fft``, ``signal``, ``sparse``,
 ``sparse.nn.functional``, ``distribution`` (and its ``transform``),
-``autograd``, ``regularizer``, ``device``, and the top-level names these
-modules give ``paddle_tpu``. A public name is one without a leading
+``autograd``, ``regularizer``, ``device``, the models and data side
+(``models`` and its modules, ``vision`` with ``ops``, ``transforms`` and
+``datasets``, ``text``, ``hub``), and the top-level names these modules
+give ``paddle_tpu``. A public name is one without a leading
 underscore that is not a module, a ``typing`` object or a ``__future__``
 feature. A name the port leaves out sits in ``DECLINED`` with its reason
 (more than 30 characters); the list is empty."""
@@ -24,7 +26,12 @@ NAMESPACES = ["tensor", "tensor.extra", "linalg", "fft", "signal",
               "sparse", "sparse.nn", "sparse.nn.functional",
               "distribution", "distribution.transform", "autograd",
               "regularizer", "device", "device.fill_r4", "framework",
-              "compat_fill", "core.dtype"]
+              "compat_fill", "core.dtype", "models", "models.bert",
+              "models.resnet", "models.vgg", "models.mobilenet",
+              "models.lenet", "models.vision_extra", "models.convert",
+              "vision", "vision.ops", "vision.ops_fill",
+              "vision.transforms", "vision.transforms_fill",
+              "vision.datasets", "text", "hub"]
 
 # (namespace, name) -> why the port leaves it out
 DECLINED: dict = {}
@@ -35,7 +42,8 @@ TOP_LEVEL_EXTRA = ["get_flags", "set_flags", "seed", "compile", "iinfo",
                    "finfo", "set_device", "device_count",
                    "is_compiled_with_tpu", "is_compiled_with_cuda",
                    "tensor", "linalg", "fft", "signal", "sparse",
-                   "distribution", "autograd", "regularizer", "device"]
+                   "distribution", "autograd", "regularizer", "device",
+                   "models", "vision", "text", "hub"]
 
 
 def _public(mod):

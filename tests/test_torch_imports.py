@@ -139,6 +139,21 @@ def test_scan_covers_the_package():
                  "paddle_tpu_torch/sparse/__init__.py",
                  "paddle_tpu_torch/sparse/nn/__init__.py",
                  "paddle_tpu_torch/sparse/nn/functional.py",
+                 "paddle_tpu_torch/models/bert.py",
+                 "paddle_tpu_torch/models/resnet.py",
+                 "paddle_tpu_torch/models/vgg.py",
+                 "paddle_tpu_torch/models/mobilenet.py",
+                 "paddle_tpu_torch/models/lenet.py",
+                 "paddle_tpu_torch/models/vision_extra.py",
+                 "paddle_tpu_torch/models/convert.py",
+                 "paddle_tpu_torch/vision/__init__.py",
+                 "paddle_tpu_torch/vision/datasets.py",
+                 "paddle_tpu_torch/vision/transforms.py",
+                 "paddle_tpu_torch/vision/transforms_fill.py",
+                 "paddle_tpu_torch/vision/ops.py",
+                 "paddle_tpu_torch/vision/ops_fill.py",
+                 "paddle_tpu_torch/text/__init__.py",
+                 "paddle_tpu_torch/hub.py",
                  "chip_smoke.py"):
         assert must in names
 
@@ -188,3 +203,22 @@ def test_parallel_and_distributed_export_their_names():
                  "barrier_worker", "get_strategy", "init_worker",
                  "PaddleCloudRoleMaker", "UserDefinedRoleMaker", "utils"):
         assert hasattr(d.fleet, name), name
+
+
+def test_models_and_data_import_without_optional_packages():
+    """``models``, ``vision``, ``text`` and ``hub`` import where neither
+    ``transformers`` nor PIL nor cv2 can be imported: each is reached only
+    inside the function that needs it."""
+    import subprocess
+    import sys
+    code = ("import sys\n"
+            "for m in ('transformers', 'PIL', 'cv2'):\n"
+            "    sys.modules[m] = None\n"
+            "import paddle_tpu_torch as pt\n"
+            "from paddle_tpu_torch import hub, models, text, vision\n"
+            "import paddle_tpu_torch.vision.ops\n"
+            "assert pt.vision is vision and pt.text is text\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -76,8 +76,12 @@ the result line:
    failover verdicts), a 32-page KV migration of the 512-token system
    prompt between two engines (7 x 512 cached tokens, identical
    streams), the control plane's cost (the audit, goodput, memory and
-   perf ledgers on against off, in turns A B B A), a profiled HTTP run
-   and a cProfile of the engine's worker thread;
+   perf ledgers on against off, in turns A B B A), a turn of its own
+   with ``POST /profilez`` arming a 5 s profiler window over the main
+   traffic (200, then 409 for a second arm; streams equal to the
+   unprofiled run's; the window's trace names B4; the window disarms on
+   its own), a profiled HTTP run and a cProfile of the engine's worker
+   thread;
 7. fleet: the serve traffic through ``paddle_tpu_torch.serving``'s
    ``Router`` over replica processes on the card (``spawn_replica``,
    TCPStore membership), each an engine on kernel B4: two replicas in
@@ -219,7 +223,7 @@ the result line:
    sampler (row 0 bit-equal to the CPU's draw, moments within 5 sigma;
    Beta, Dirichlet and Poisson: the share of equal draws) and a 2-layer
    MLP's Jacobian and Hessian; the phase within 60 s;
-18. models (last): BERT-base pretraining at ``bench.py``'s
+18. models: BERT-base pretraining at ``bench.py``'s
    configuration (batch 64 x 128, fused loss, AdamW, O1) through
    ``Model.train_batch``: B1-B3 exactly 12 a step over 10 timed steps,
    samples/s, MFU, B1-B3's share and the idle share (2 profiled steps),
@@ -238,7 +242,25 @@ the result line:
    equal), roi_align, roi_pool and deform_conv2d at an FPN level-2 map,
    viterbi over [64, 128, 50] (paths equal), each timed by CUDA events;
    the three HF converters; the phase within 90 s;
-19. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
+19. tooling (last): the train cell's model and trainer through the
+   tooling: ``Model.fit`` of 6 steps under ``profiler.Profiler`` with
+   ``make_scheduler(closed=1, ready=1, record=3)`` (summary rows
+   TrainStep 6, Callbacks 6, Dataloader 7; the RECORD window's trace
+   names B1, B2 and B3 36 times each, a window without device events
+   taken again; ``export_chrome_tracing`` inside the window; B1-B3 12 a
+   step); ``cost_model.CostModel.profile_measure`` of a train step on the
+   kernels against ``profile`` on the twins (FLOPs within 1%), FLOPs over
+   6 N T + 6 L s H T within [1.0, 1.30], ``memory_profile`` beside
+   ``max_memory_allocated``, ``flops`` card against CPU; ``jit.save`` of
+   the eval forward with ``InputSpec([None, None], "int64")`` and
+   ``jit.load`` on the card (logits at [8, 1024] and [2, 100] within
+   ``1e-5 + 1e-4 |eager|``, B1 12 a loaded forward), weight-only
+   ``quantize_post_training`` (48 Linears as on the CPU, B1 12 a
+   forward) saved encrypted (loads with its key, refused without, its
+   state smaller than the f32 one's); a static program,
+   ``testing.OpSpec`` cases and the int8 activation paths card against
+   CPU (int32 sums equal); the phase within 60 s;
+20. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
    ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -1425,6 +1447,45 @@ def _worker_profile(net, ctx):
                            "cumtime_s": v[3]} for k, v in top]})
 
 
+def _profilez_turn(net, ctx, dbase) -> dict:
+    """A turn of its own: POST /profilez arms a timed profiler window
+    over the main traffic; a second arm answers 409; the streams equal
+    the unprofiled run's; the window's trace names B4; the window
+    disarms on its own."""
+    import glob
+    import shutil
+    log_dir = _tooling_dir("profilez")
+    try:
+        st1, _, body1 = _post(dbase, "/profilez",
+                              {"duration_s": PROFILEZ_WINDOW_S,
+                               "log_dir": log_dir})
+        st2, _, _ = _post(dbase, "/profilez",
+                          {"duration_s": 1.0, "log_dir": log_dir})
+        run = _serve_http_run(net, ctx, "profilez window", dbase)
+        t0 = time.monotonic()
+        while json.loads(_get(dbase, "/profilez"))["armed"] is not None:
+            if time.monotonic() - t0 > PROFILEZ_WINDOW_S + 120:
+                break
+            time.sleep(0.05)
+        disarmed = json.loads(_get(dbase, "/profilez"))["armed"] is None
+        files = sorted(glob.glob(os.path.join(log_dir, "trace_*.json")))
+        kernels = _trace_kernels(files[0]) if files else {}
+        b4 = _count_named(kernels, "paged_attention")
+        emit({"phase": "serve_http", "run": "profilez",
+              "arm_status": st1, "second_arm_status": st2,
+              "window_s": PROFILEZ_WINDOW_S, "trace_files": len(files),
+              "window_b4_kernels": b4,
+              "window_kernel_kinds": len(kernels),
+              "disarm_wait_s": time.monotonic() - t0})
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    return {"armed_200": st1 == 200 and body1.get("armed") is not None,
+            "second_arm_409": st2 == 409,
+            "streams_eq_unprofiled": run["checks"]["streams_eq_direct"],
+            "window_names_b4": b4 > 0, "one_trace": len(files) == 1,
+            "disarmed": disarmed}
+
+
 def phase_serve_http(ctx) -> None:
     """GPT-2-small's main serve cell behind ``serve_llm`` with the debug
     server up: the main traffic over HTTP in turns with direct submit
@@ -1468,6 +1529,8 @@ def phase_serve_http(ctx) -> None:
                        for k, v in _migration_run(net, cfg).items()})
         checks.update({f"control_plane_{k}": v for k, v in
                        _control_plane_cost(net, ctx).items()})
+        checks.update({f"profilez_{k}": v for k, v in
+                       _profilez_turn(net, ctx, dbase).items()})
         emit(_profile(lambda: _serve_http_run(net, ctx, "profiled"), 1,
                       "run", phase="serve_http", run="profile",
                       requests=len(ctx["prompts"])))
@@ -7726,6 +7789,445 @@ def phase_models(info) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the tooling: profiler, cost model, jit, static / testing / quant
+# ---------------------------------------------------------------------------
+
+TOOLING_BUDGET_S = 60.0
+TOOLING_FIT_STEPS = 6           # Model.fit steps under the profiler
+TOOLING_RECORD_STEPS = 3        # make_scheduler(closed=1, ready=1, record=3)
+TOOLING_JIT_SHAPES = ((8, 1024), (2, 100))
+TOOLING_FLOPS_RTOL = 0.01       # a step's FLOPs on the kernels vs the twins
+TOOLING_FLOPS_RATIO = (1.0, 1.30)   # tests/test_perf_gate.py's bound
+TOOLING_KEY = bytes(range(32))
+PROFILEZ_WINDOW_S = 5.0
+
+
+def _tooling_dir(name):
+    import tempfile
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(out, exist_ok=True)
+    return tempfile.mkdtemp(prefix=f"{name}_", dir=out)
+
+
+def _trace_kernels(path) -> dict:
+    """{kernel name: count} of the card's kernels in a chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            out[e["name"]] = out.get(e["name"], 0) + 1
+    return out
+
+
+def _count_named(kernels, word) -> int:
+    return sum(n for k, n in kernels.items() if word in k)
+
+
+def _summary_calls(text) -> dict:
+    """{event: calls} of a profiler summary()'s model-perspective rows."""
+    out = {}
+    for line in text.splitlines():
+        name = line[:40].strip()
+        if name in ("Dataloader", "TrainStep", "Callbacks", "Eval"):
+            out.setdefault(name, int(line[40:48]))
+    return out
+
+
+def _tooling_profiler(net, ids, root) -> tuple:
+    """Model.fit of 6 steps under Profiler(make_scheduler(closed=1,
+    ready=1, record=3)): the summary's buckets, the RECORD window's
+    trace (B1-B3 12 a step), export_chrome_tracing inside the window and
+    the launch counters. A window without device events is taken again
+    (up to 3 fits), counted in PROFILER_MISSES."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import observability, profiler
+    from paddle_tpu_torch.callbacks import Callback
+    ds = pt.io.TensorDataset([ids[:, :-1], ids[:, 1:]])
+    for attempt in range(3):
+        prof = profiler.Profiler(
+            scheduler=profiler.make_scheduler(closed=1, ready=1,
+                                              record=TOOLING_RECORD_STEPS),
+            log_dir=os.path.join(root, f"prof{attempt}"))
+
+        class Step(Callback):
+            def on_train_batch_end(self, step, logs=None):
+                prof.step()
+
+        model = _train_model(net)
+        torch.cuda.synchronize()
+        _reset_flash_counts()
+        t0 = time.perf_counter()
+        prof.start()
+        try:
+            model.fit(ds, batch_size=TRAIN_BATCH, epochs=1, verbose=0,
+                      shuffle=False, callbacks=[Step()])
+        finally:
+            prof.stop()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _flash_counts()
+        files = prof.trace_files
+        if files and files[0]["device_events"]:
+            break
+        PROFILER_MISSES["windows"] += 1
+    kernels = _trace_kernels(files[0]["path"]) if files else {}
+    calls = _summary_calls(prof.summary())
+    exported = observability.export_chrome_tracing(
+        prof, os.path.join(root, "host_trace.json"))
+    with open(exported) as f:
+        host = [e for e in json.load(f)["traceEvents"]
+                if e.get("cat") == "host"]
+    w0, w1 = prof.recording_windows()[0]
+    inside = all(e["ts"] <= w1 * 1e6 + 1 and w0 * 1e6 - 1 <=
+                 e["ts"] + e["dur"] for e in host)
+    per = {k: _count_named(kernels, w) for k, w in (
+        ("flash_attention_fwd", "flash_fwd"),
+        ("flash_attention_bwd_dq", "flash_bwd_dq"),
+        ("flash_attention_bwd_dkv", "flash_bwd_dkv"))}
+    want = LAYERS * TOOLING_RECORD_STEPS
+    run = {"phase": "tooling", "run": "profiled fit",
+           "steps": TOOLING_FIT_STEPS, "wall_s": wall,
+           "attempts": attempt + 1, "windows": len(files),
+           "device_events": files[0]["device_events"] if files else None,
+           "summary_calls": calls, "window_kernels": per,
+           "host_events_exported": len(host),
+           "train_steps_exported": sum(1 for e in host
+                                       if e["name"] == "TrainStep"),
+           "launches": counts}
+    emit(run)
+    checks = {
+        "summary_train_steps": calls.get("TrainStep") == TOOLING_FIT_STEPS,
+        # the pass's closing next() is timed too, as in the JAX package
+        "summary_dataloader": calls.get("Dataloader") ==
+        TOOLING_FIT_STEPS + 1,
+        "summary_callbacks": calls.get("Callbacks") == TOOLING_FIT_STEPS,
+        "one_window": len(files) == 1,
+        "window_has_device_events": bool(files and
+                                         files[0]["device_events"]),
+        "window_names_b1_b2_b3": all(v == want for v in per.values()),
+        "export_inside_window": inside and bool(host),
+        "export_train_steps": run["train_steps_exported"] ==
+        TOOLING_RECORD_STEPS,
+        "launches_12_a_step": all(v == LAYERS * TOOLING_FIT_STEPS
+                                  for v in counts.values()),
+    }
+    return checks, counts
+
+
+def _tooling_cost(net, cfg, ids_np, cpu_net) -> dict:
+    """CostModel.profile_measure of one train step on the kernels and
+    profile on the twins; the FLOPs against 6NT + 6LsHT; memory_profile
+    beside the allocator's peak; flops() card against CPU."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import cost_model
+    from paddle_tpu_torch.ops import flash_attention as fa
+    model = _train_model(net)
+
+    def step():
+        return model.train_batch([ids_np], [ids_np])["loss"]
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    cm = cost_model.CostModel()
+    _reset_flash_counts()
+    kc = cm.profile_measure(step, (), warmup=1, iters=3)
+    counts = _flash_counts()
+    fa.impl = "plain"
+    try:
+        pc = cm.profile(step, ())
+    finally:
+        fa.impl = "kernel"
+    mem = cost_model.memory_profile(step, ())
+    n = sum(p.numel() for p in net.parameters())
+    tokens = ids_np.size
+    analytic = 6 * n * tokens + 6 * cfg.num_layers * TRAIN_SEQ * \
+        cfg.hidden_size * tokens
+    ratio = kc.flops / analytic
+    rel = abs(kc.flops - pc.flops) / pc.flops
+    f_card = pt.flops(net, (1, TRAIN_SEQ), dtypes=["int64"])
+    f_cpu = pt.flops(cpu_net, (1, TRAIN_SEQ), dtypes=["int64"])
+    emit({"phase": "tooling", "run": "cost model", "flops_kernels":
+          kc.flops, "flops_twins": pc.flops, "flops_rel_diff": rel,
+          "analytic_6NT_6LsHT": analytic, "flops_over_analytic": ratio,
+          "bytes_accessed": kc.bytes_accessed, "raw": kc.raw,
+          "measured_ms": kc.measured_seconds * 1e3,
+          "host_step_ms": step_ms,
+          "memory_profile": {"temp_bytes": mem.temp_bytes,
+                             "argument_bytes": mem.argument_bytes,
+                             "output_bytes": mem.output_bytes},
+          "max_memory_allocated": mem.device_peak_bytes,
+          "flops_fn_card": f_card, "flops_fn_cpu": f_cpu,
+          "launches_counted_run": counts})
+    return {
+        "kernel_flops_eq_twin_flops": rel <= TOOLING_FLOPS_RTOL,
+        "flops_ratio_in_bound": TOOLING_FLOPS_RATIO[0] <= ratio <=
+        TOOLING_FLOPS_RATIO[1],
+        "kernels_reported": kc.raw["kernel_launches"] == 3 * LAYERS,
+        "measured": kc.measured_seconds is not None and
+        kc.measured_seconds > 0,
+        "memory_profile_positive": mem.temp_bytes > 0 and
+        mem.device_peak_bytes > 0,
+        "flops_fn_card_eq_cpu": f_card == f_cpu and f_card > 0,
+    }
+
+
+def _artifact_bytes(d) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def _tooling_jit(net, cfg, root, cpu_net) -> dict:
+    """jit.save of the eval forward with InputSpec([None, None], int64),
+    jit.load on the card, the logits at two shapes against the eager
+    model's, B1 12 a loaded forward; then weight-only
+    quantize_post_training of the same model, saved encrypted: loaded
+    with its key, refused without it, its state's bytes against the f32
+    artifact's."""
+    from paddle_tpu_torch import jit, quant
+    net.eval()
+    spec = [jit.InputSpec([None, None], "int64")]
+    rs = np.random.RandomState(3)
+    d_f32 = os.path.join(root, "jit_f32")
+    t0 = time.perf_counter()
+    jit.save(net, d_f32, input_spec=spec)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = jit.load(d_f32, device="cuda")
+    load_s = time.perf_counter() - t0
+    checks, runs = {}, []
+    for shape in TOOLING_JIT_SHAPES:
+        ids = torch.as_tensor(rs.randint(0, cfg.vocab_size, shape),
+                              device="cuda")
+        with torch.no_grad():
+            eager = net(ids)
+        _reset_flash_counts()
+        got = loaded(ids)
+        torch.cuda.synchronize()
+        b1 = _flash_counts()["flash_attention_fwd"]
+        err = (got - eager).abs()
+        key = "x".join(map(str, shape))
+        runs.append({"shape": list(shape), "b1_launches": b1,
+                     "max_abs_err": float(err.max()),
+                     "bit_equal": bool(torch.equal(got, eager))})
+        checks[f"logits_{key}"] = bool(
+            (err <= 1e-5 + 1e-4 * eager.abs()).all())
+        checks[f"b1_12_{key}"] = b1 == LAYERS
+    del loaded
+    big = torch.as_tensor(rs.randint(0, cfg.vocab_size,
+                                     (TRAIN_BATCH, TRAIN_SEQ)),
+                          device="cuda")
+    with torch.no_grad():
+        ref = net(big)
+    swapped = quant.quantize_post_training(net)
+    swapped_cpu = quant.quantize_post_training(cpu_net)
+    with torch.no_grad():
+        _reset_flash_counts()
+        q = net(big)
+    torch.cuda.synchronize()
+    qb1 = _flash_counts()["flash_attention_fwd"]
+    d_q = os.path.join(root, "jit_int8")
+    t0 = time.perf_counter()
+    jit.save(net, d_q, input_spec=spec, encrypt_key=TOOLING_KEY)
+    enc_save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q_loaded = jit.load(d_q, decrypt_key=TOOLING_KEY, device="cuda")
+    enc_load_s = time.perf_counter() - t0
+    _reset_flash_counts()
+    q_prog = q_loaded(big)
+    torch.cuda.synchronize()
+    q_prog_b1 = _flash_counts()["flash_attention_fwd"]
+    try:
+        jit.load(d_q, device="cuda")
+        checks["encrypted_refused_without_key"] = False
+    except ValueError:
+        checks["encrypted_refused_without_key"] = True
+    q_err = float((q - ref).abs().max())
+    pkl_f32 = os.path.getsize(os.path.join(d_f32, "params.pkl"))
+    pkl_int8 = os.path.getsize(os.path.join(d_q, "params.pkl"))
+    emit({"phase": "tooling", "run": "jit", "runs": runs,
+          "save_s": save_s, "load_s": load_s,
+          "artifact_bytes": _artifact_bytes(d_f32),
+          "files": sorted(os.listdir(d_f32)),
+          "int8_swapped": swapped, "int8_swapped_cpu": swapped_cpu,
+          "int8_logits_max_abs_err": q_err,
+          "int8_logits_rel_err": q_err / float(ref.abs().max()),
+          "int8_b1_launches": qb1, "int8_program_b1_launches": q_prog_b1,
+          "int8_program_bit_equal": bool(torch.equal(q_prog, q)),
+          "int8_encrypted_save_s": enc_save_s,
+          "int8_encrypted_load_s": enc_load_s,
+          "int8_artifact_bytes": _artifact_bytes(d_q),
+          "params_pkl_bytes_f32": pkl_f32, "params_pkl_bytes_int8": pkl_int8})
+    checks.update({
+        "encrypted_loads_with_key": bool(
+            ((q_prog - q).abs() <= 1e-5 + 1e-4 * q.abs()).all()),
+        "int8_program_b1_12": q_prog_b1 == LAYERS,
+        "int8_swapped_eq_cpu": swapped == swapped_cpu == 4 * LAYERS,
+        "int8_b1_12": qb1 == LAYERS,
+        "int8_logits_finite": bool(torch.isfinite(q).all()),
+        "int8_state_smaller": pkl_int8 < pkl_f32,
+    })
+    return checks
+
+
+def _close(a, b) -> bool:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return a.shape == b.shape and bool(
+        (np.abs(a - b) <= 1e-5 + 1e-4 * np.abs(b)).all())
+
+
+def _tooling_card_vs_cpu() -> dict:
+    """A static program (fc, softmax, append_backward), testing OpSpecs
+    and the int8 activation paths, on the card against the CPU."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn, quant, static, testing
+    from paddle_tpu_torch.core import device as core_device
+    from paddle_tpu_torch.nn import functional as F
+
+    def np_softmax(x):
+        e = np.exp(x - x.max(-1, keepdims=True))
+        return e / e.sum(-1, keepdims=True)
+
+    x_np = np.random.RandomState(4).randn(4, 16).astype(np.float32)
+    specs = [
+        testing.OpSpec("tanh", pt.tanh, np.tanh,
+                       (testing.arr((8, 16)),)),
+        testing.OpSpec("matmul", pt.matmul, np.matmul,
+                       (testing.arr((8, 16)), testing.arr((16, 4), seed=1)),
+                       grad_wrt=(0, 1)),
+        testing.OpSpec("softmax", F.softmax, np_softmax,
+                       (testing.arr((4, 10), seed=2),)),
+    ]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pt.set_device(dev)
+        try:
+            pt.seed(0)
+            main = static.Program()
+            with static.program_guard(main):
+                x = static.data("x", [4, 16])
+                h = static.nn.fc(x, 8, activation="tanh")
+                p = static.nn.sequence_softmax(h)
+                y = static.nn.sequence_pool(p, "max")
+                grads = static.append_backward(y)
+            fetched = static.Executor().run(
+                main, feed={"x": x_np},
+                fetch_list=[h, p, y] + [g for _, g in grads])
+            spec_ok, spec_out = True, []
+            for s in specs:
+                try:
+                    testing.run_spec(s)
+                except AssertionError:
+                    spec_ok = False
+                with torch.no_grad():
+                    spec_out.append(s.fn(*[torch.as_tensor(i, device=dev)
+                                          for i in s.inputs]).cpu())
+            pt.seed(0)
+            lin = nn.Linear(768, 3072).to(dev)
+            conv = nn.Conv2D(512, 512, 3, padding=1).to(dev)
+            rs = np.random.RandomState(5)
+            xl = torch.as_tensor(rs.randn(64, 768).astype(np.float32),
+                                 device=dev)
+            xc = torch.as_tensor(rs.randn(2, 512, 14, 14)
+                                 .astype(np.float32), device=dev)
+            ql = quant.QuantizedLinear.from_linear(lin, act_scale=float(
+                xl.abs().max()) / 127)
+            qc = quant.QuantizedConv2D(conv, act_scale=float(
+                xc.abs().max()) / 127)
+            with torch.no_grad():
+                acc_l = quant._int8_matmul_i32(
+                    quant._quantize_act(xl, ql.act_scale, 8), ql.qweight)
+                acc_c = F.conv_nd(quant._quantize_act(xc, qc.act_scale, 8),
+                                  qc.qweight, None, 1, 1,
+                                  preferred_element_type=torch.int32)
+                y_l, y_c = ql(xl), qc(xc)
+            out[dev] = {"static": fetched, "spec_ok": spec_ok,
+                        "spec_out": spec_out, "acc_l": acc_l.cpu(),
+                        "acc_c": acc_c.cpu(), "y_l": y_l.cpu(),
+                        "y_c": y_c.cpu()}
+        finally:
+            core_device.set_current(None)
+    g, c = out["cuda"], out["cpu"]
+    checks = {
+        "static_fetches_card_eq_cpu": all(
+            _close(a, b) for a, b in zip(g["static"], c["static"])),
+        "static_grads_nonzero": all(np.abs(a).sum() > 0
+                                    for a in c["static"][3:]),
+        "opspecs_pass_card": g["spec_ok"], "opspecs_pass_cpu": c["spec_ok"],
+        "opspecs_card_eq_cpu": all(_close(a, b) for a, b in
+                                   zip(g["spec_out"], c["spec_out"])),
+        "int8_linear_int32_equal": torch.equal(g["acc_l"], c["acc_l"]),
+        "int8_conv_int32_equal": torch.equal(g["acc_c"], c["acc_c"]),
+        "int8_linear_out": _close(g["y_l"], c["y_l"]),
+        "int8_conv_out": _close(g["y_c"], c["y_c"]),
+    }
+    emit({"phase": "tooling", "run": "card vs cpu",
+          "int8_conv_max_abs_acc": int(c["acc_c"].abs().max()),
+          "int8_linear_max_abs_acc": int(c["acc_l"].abs().max()),
+          "static_fetches": len(g["static"])})
+    return checks
+
+
+def phase_tooling(info) -> dict:
+    """The tooling at gpt2-small full width (the train phase's model and
+    trainer): a profiled Model.fit, the cost model of a train step, the
+    eval forward through jit.save / jit.load on B1, int8 PTQ, and the
+    static, testing and quant modules card against CPU; within 60 s."""
+    import shutil
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_config
+    t_phase = time.perf_counter()
+    cfg = gpt_config("gpt2-small", max_position_embeddings=TRAIN_SEQ,
+                     hidden_dropout=0.0, attention_dropout=0.0,
+                     fused_loss=True)
+    pt.seed(0)
+    net = GPTForCausalLM(cfg, device="cuda")
+    init = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    cpu_net = GPTForCausalLM(cfg, device="cpu")
+    cpu_net.load_state_dict({k: v.cpu() for k, v in init.items()})
+    rs = np.random.RandomState(7)
+    fit_ids = rs.randint(0, cfg.vocab_size,
+                         (TRAIN_BATCH * TOOLING_FIT_STEPS, TRAIN_SEQ + 1))
+    step_ids = rs.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    root = _tooling_dir("tooling")
+    times = {}
+    try:
+        t0 = time.perf_counter()
+        checks, launches = _tooling_profiler(net, fit_ids, root)
+        times["profiler"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checks.update({f"cost_{k}": v for k, v in
+                       _tooling_cost(net, cfg, step_ids, cpu_net).items()})
+        times["cost_model"] = time.perf_counter() - t0
+        net.load_state_dict(init)
+        t0 = time.perf_counter()
+        checks.update({f"jit_{k}": v for k, v in
+                       _tooling_jit(net, cfg, root, cpu_net).items()})
+        times["jit"] = time.perf_counter() - t0
+        del cpu_net
+        t0 = time.perf_counter()
+        checks.update({f"card_vs_cpu_{k}": v for k, v in
+                       _tooling_card_vs_cpu().items()})
+        times["card_vs_cpu"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    checks["phase_within_budget"] = phase_s <= TOOLING_BUDGET_S
+    checks = {k: bool(v) for k, v in checks.items()}
+    emit({"phase": "tooling_checks", "card": info["nvidia_smi"],
+          "phase_s": phase_s, "budget_s": TOOLING_BUDGET_S,
+          "part_s": times, "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"tooling checks failed: {failed}")
+    return launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_s = {}
@@ -7766,8 +8268,10 @@ def main() -> None:
     moe_launches = timed("moe_ep", phase_moe_ep, info)
     timed("ctr", phase_ctr, info)
     models_launches = timed("models", phase_models, info)
+    tooling_launches = timed("tooling", phase_tooling, info)
     for launches_of in (dist_launches, mp_launches, sp_launches,
-                        nn_launches, moe_launches, models_launches):
+                        nn_launches, moe_launches, models_launches,
+                        tooling_launches):
         for k, v in launches_of.items():
             train_launches[k] += v
     emit({"phase": "timing", "seconds": phase_s,

@@ -12,11 +12,17 @@ does: the tensor functions (``to_tensor``, ``zeros``, ``randn``,
 ``matmul``, ...), the dtype aliases, ``grad`` / ``no_grad`` / ``save`` /
 ``load``, the math namespaces (``linalg``, ``fft``, ``signal``,
 ``sparse``, ``distribution``, ``autograd``, ``regularizer``),
-``device``, and the data side: ``vision`` (datasets, transforms,
-detection ops), ``text`` (readers, Viterbi decoding) and ``hub``.
+``device``, the data side: ``vision`` (datasets, transforms,
+detection ops), ``text`` (readers, Viterbi decoding) and ``hub``, and
+the tooling: ``profiler``, ``cost_model``, ``jit`` (to_static, and
+``save`` / ``load`` of programs exported with ``torch.export``),
+``static``, ``quant``, ``incubate``, ``testing``, ``sysconfig`` and
+``version`` (``__version__``).
 Functions that take no tensor create on the device ``set_device``
 chose, the card by default.
 """
+
+from .version import full_version as __version__  # noqa: E402,F401
 
 from .core import dtype as _dtype_mod
 from .core import flags as _flags_mod
@@ -47,6 +53,7 @@ from .inference import LLMEngine  # noqa: F401,E402
 from .framework import (grad, no_grad, save, load,  # noqa: F401,E402
                         value_and_grad)
 from .framework import jit as compile  # noqa: F401,E402
+from . import jit  # noqa: F401,E402  (paddle.jit: to_static/save/load)
 from . import autograd  # noqa: F401,E402
 from . import device  # noqa: F401,E402
 from . import distribution  # noqa: F401,E402
@@ -59,6 +66,18 @@ from . import sparse  # noqa: F401,E402
 from . import hub  # noqa: F401,E402
 from . import text  # noqa: F401,E402
 from . import vision  # noqa: F401,E402
+from . import distributed  # noqa: F401,E402
+from . import observability  # noqa: F401,E402
+from . import parallel  # noqa: F401,E402
+from . import reliability  # noqa: F401,E402
+from . import profiler  # noqa: F401,E402
+from . import quant  # noqa: F401,E402
+from . import cost_model  # noqa: F401,E402
+from . import sysconfig  # noqa: F401,E402
+from . import static  # noqa: F401,E402
+from . import testing  # noqa: F401,E402
+from . import version  # noqa: F401,E402
+from .parallel import DataParallel  # noqa: F401,E402
 from .device import (device_count, is_compiled_with_cuda,  # noqa: E402,F401
                      set_device)
 

@@ -68,6 +68,15 @@ def fma(a, b, c):
     return (a * b + c).float()
 
 
+def div(a, n):
+    """``a / n`` for a Python number ``n``, divided as the CPU and XLA
+    divide: given a Python divisor, CUDA multiplies by its reciprocal,
+    which can differ in the last bit (a quantization scale an ulp off
+    moves the weights on a rounding boundary; a sample coordinate of a
+    few hundred pixels moves by its ulp)."""
+    return a / torch.tensor(float(n), dtype=a.dtype, device=a.device)
+
+
 def sqrt(x):
     """The correctly rounded float32 square root (torch's vectorized CPU
     ``sqrt`` is not, for some inputs), through float64."""

@@ -65,8 +65,9 @@ outputs are gathered to the global batch's rows, and dropout draws the
 rank's rows of the global mask.
 
 The K-step slab runs eagerly; as a CUDA graph it waits for a benchmark
-cell (A1 (a)). The profiler's model-perspective buckets record nothing:
-the port has no profiler yet (A7).
+cell (A1 (a)). While a ``profiler.Profiler`` records, ``fit`` times its
+model-perspective buckets (Dataloader, TrainStep, Callbacks, Eval) as
+the JAX package's does.
 """
 
 from __future__ import annotations
@@ -1480,6 +1481,15 @@ class Model:
                         self._drain_metric_updates()
                         for m in self._metrics:
                             m.reset()
+                    # model-perspective buckets for profiler.summary():
+                    # no-ops unless a Profiler is active (ref:
+                    # profiler_statistic.py model perspective; the step
+                    # runs forward, backward and update in one call, so
+                    # the split is Dataloader / TrainStep / Callbacks)
+                    from ..profiler import _events as _prof_events
+                    from ..profiler import RecordEvent as _Rec
+                    rec = _Rec if _prof_events.active \
+                        else contextlib.nullcontext
                     while True:
                         # one epoch pass; restarts after a numeric-guard
                         # ROLLBACK (the newest verified checkpoint is
@@ -1488,18 +1498,26 @@ class Model:
                         it = loader.superbatches(k_loop) if k_loop > 1 \
                             else iter(loader)
                         try:
-                            for batch in it:
+                            while True:
+                                with rec("Dataloader"):
+                                    batch = next(it, None)
+                                if batch is None:
+                                    break
                                 inputs, labels = self._split_batch(batch)
                                 if k_loop > 1:
                                     k = int(np.shape(inputs[0])[0])
                                     if k == k_loop:
-                                        for logs in self.train_loop_batch(
-                                                inputs, labels):
-                                            cbks.on_train_batch_begin(
-                                                step)
-                                            cbks.on_train_batch_end(
-                                                step, logs)
-                                            step += 1
+                                        with rec("TrainStep"):
+                                            step_logs = \
+                                                self.train_loop_batch(
+                                                    inputs, labels)
+                                        with rec("Callbacks"):
+                                            for logs in step_logs:
+                                                cbks.on_train_batch_begin(
+                                                    step)
+                                                cbks.on_train_batch_end(
+                                                    step, logs)
+                                                step += 1
                                         ckpt_tick(epoch)
                                         continue
                                     # a ragged tail slab (< K steps) runs
@@ -1511,8 +1529,10 @@ class Model:
                                     sub = [(inputs, labels)]
                                 for inp, lab in sub:
                                     cbks.on_train_batch_begin(step)
-                                    logs = self.train_batch(inp, lab)
-                                    cbks.on_train_batch_end(step, logs)
+                                    with rec("TrainStep"):
+                                        logs = self.train_batch(inp, lab)
+                                    with rec("Callbacks"):
+                                        cbks.on_train_batch_end(step, logs)
                                     step += 1
                                 ckpt_tick(epoch)
                             # the tail drain inside the rollback scope: a
@@ -1534,8 +1554,9 @@ class Model:
                         v, (_LazyMetricValue, _SlabScalar)) else v
                         for n, v in logs.items()}
                     if eval_loader is not None and epoch % eval_freq == 0:
-                        eval_logs = self.evaluate(eval_loader, verbose=0,
-                                                  _callbacks=cbks)
+                        with rec("Eval"):
+                            eval_logs = self.evaluate(
+                                eval_loader, verbose=0, _callbacks=cbks)
                         logs.update({f"eval_{k}": v
                                      for k, v in eval_logs.items()})
                     cbks.on_epoch_end(epoch, logs)

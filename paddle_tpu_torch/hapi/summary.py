@@ -1,18 +1,20 @@
-"""Model summary (the port's counterpart of
+"""Model summary and FLOPs (the port's counterpart of
 ``paddle_tpu/hapi/summary.py``): the per-layer table and parameter
-counts of ``paddle.summary``.
+counts of ``paddle.summary`` and the analytic count of ``paddle.flops``.
 
 The JAX package traces its probe forward under ``jax.eval_shape``; here
 one forward of zeros at ``input_size`` runs under ``torch.no_grad`` on
 the network's device, and forward hooks on the leaf layers record each
-output shape. ``flops`` reads XLA's cost analysis in the JAX package and
-waits here for the port's ``cost_model`` (ROADMAP A7).
+output shape. ``flops`` counts over the same probe, layer by layer, as
+the JAX package's does (conv, Linear and the norms; batch included), so
+both return the same integer for the same network and ``input_size``.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
+import numpy as np
 import torch
 
 
@@ -104,8 +106,49 @@ def summary(net: torch.nn.Module, input_size=None, dtypes=None,
     return {"total_params": total, "trainable_params": trainable}
 
 
+# -- FLOP counters (ref: hapi/dynamic_flops.py register_hooks table) -------
+
+def _conv_flops(layer, in_shape, out_shape) -> float:
+    """Any conv rank: 2 * N * prod(spatial_out) * Cout * Cin *
+    prod(kernel) / groups (NC... layout)."""
+    k = layer.kernel_size
+    k = k if isinstance(k, (tuple, list)) else (k,)
+    n, cout = out_shape[0], out_shape[1]
+    spatial = out_shape[2:]
+    return 2.0 * n * float(np.prod(spatial)) * cout * \
+        layer.in_channels * float(np.prod(k)) / layer.groups
+
+
+def _linear_flops(layer, in_shape, out_shape) -> float:
+    return 2.0 * float(np.prod(in_shape[:-1])) * layer.in_features * \
+        layer.out_features
+
+
 def flops(net: torch.nn.Module, input_size, dtypes=None,
           print_detail: bool = False) -> int:
-    """Not ported yet: the JAX package reads XLA's cost analysis."""
-    raise NotImplementedError(
-        "hapi.summary.flops is not ported yet (ROADMAP A7: cost_model)")
+    """ref: paddle.flops(net, input_size) — analytic multiply-add count
+    over conv/linear/norm layers (one fwd pass, batch included)."""
+    from ..nn.layers import norm as norm_mod
+    from ..nn.layers.common import Linear
+    from ..nn.layers.conv import _ConvNd
+
+    total = 0.0
+    for r in _probe(net, input_size, dtypes):
+        layer = r["layer"]
+        out0 = r["out_shapes"][0] if r["out_shapes"] else ()
+        f = 0.0
+        if isinstance(layer, _ConvNd) and len(out0) >= 3:
+            f = _conv_flops(layer, r["in_shape"], out0)
+        elif isinstance(layer, Linear):
+            f = _linear_flops(layer, r["in_shape"], out0)
+        elif isinstance(layer, (norm_mod._BatchNormBase,
+                                norm_mod.LayerNorm, norm_mod.RMSNorm,
+                                norm_mod.GroupNorm,
+                                norm_mod.InstanceNorm2D)):
+            f = 2.0 * float(np.prod(out0)) if out0 else 0.0
+        if print_detail and f:
+            print(f"{r['name']:<40}{f / 1e6:>12.2f} MFLOPs")
+        total += f
+    if print_detail:
+        print(f"Total FLOPs: {total / 1e9:.3f} GFLOPs")
+    return int(total)

@@ -536,9 +536,9 @@ class DataLoader:
         self.dataset = dataset
         self.collate_fn = collate_fn or default_collate_fn
         if num_workers == "auto":
-            raise NotImplementedError(
-                "num_workers='auto' needs incubate.autotune, which is not "
-                "ported yet (ROADMAP A7)")
+            # ref: incubate/autotune.py dataloader tuner
+            from ..incubate.autotune import suggested_num_workers
+            num_workers = suggested_num_workers()
         self.num_workers = num_workers
         self.prefetch_factor = prefetch_factor
         self.to_device = to_device

@@ -250,8 +250,8 @@ def conv_nd(x, weight, bias=None, stride=1, padding=0, dilation=1,
     """N-d convolution of ``x`` (``[N, C, *spatial]``, or channels last
     for ``NHWC`` / ``NDHWC`` / ``NLC`` / ``NWC``). ``padding`` is an int
     or tuple (symmetric) or ``"SAME"`` / ``"VALID"``. Integer operands
-    (quantized serving) accumulate exactly, in float64 here, and return
-    ``preferred_element_type``."""
+    (quantized serving) accumulate exactly, in float64 outside cuDNN,
+    and return ``preferred_element_type``."""
     x, weight = amp.white_cast(x, weight, op="conv2d")
     ndim = x.dim() - 2
     stride = _norm_tuple(stride, ndim)
@@ -268,13 +268,24 @@ def conv_nd(x, weight, bias=None, stride=1, padding=0, dilation=1,
     else:
         pad = _norm_tuple(padding, ndim)
     out_dtype = preferred_element_type
-    if not xc.is_floating_point():
+    exact = not xc.is_floating_point()
+    if exact:
         xc, weight = xc.double(), weight.double()
         out_dtype = out_dtype or torch.int32
     elif weight.dtype != xc.dtype:
         dt = torch.promote_types(xc.dtype, weight.dtype)
         xc, weight = xc.to(dt), weight.to(dt)
-    out = _CONV[ndim](xc, weight, None, stride, pad, dilation, groups)
+    if exact:
+        # integer sums are exact in float64 only along a direct
+        # summation: cuDNN may pick an FFT or Winograd algorithm, so the
+        # integer path takes torch's own (im2col + GEMM) convolution.
+        # ``flags`` sets every cuDNN flag (TF32 on) until it exits: only
+        # the float64 convolution runs inside it
+        with torch.backends.cudnn.flags(enabled=False):
+            out = _CONV[ndim](xc, weight, None, stride, pad, dilation,
+                              groups)
+    else:
+        out = _CONV[ndim](xc, weight, None, stride, pad, dilation, groups)
     if out_dtype is not None:
         out = out.to(out_dtype)
     if bias is not None:

@@ -22,16 +22,18 @@ in place of XLA's cost analysis).
 - slo: ``SLOTracker``, error-budget burn rates over the fleet router's
   request outcomes (``/sloz``).
 
-Not here yet: ``export_chrome_tracing`` and ``POST /profilez`` wait for
-the profiler (ROADMAP Queue A7).
+- ``export_chrome_tracing``: the profiler's host events and the spans
+  in one chrome://tracing file; ``POST /profilez`` arms a timed
+  ``profiler.Profiler`` window over a live process.
 """
 
 from .metrics import (BYTE_BUCKETS, DEFAULT_BUCKETS,  # noqa: F401
                       RATE_BUCKETS, RATIO_BUCKETS, CounterChild,
                       GaugeChild, HistogramChild, MetricFamily,
                       MetricRegistry, default_registry)
-from .exporters import (JSONLReporter, prometheus_text,  # noqa: F401
-                        sample_device_memory, write_prometheus)
+from .exporters import (JSONLReporter, export_chrome_tracing,  # noqa: F401
+                        prometheus_text, sample_device_memory,
+                        write_prometheus)
 from . import audit  # noqa: F401
 from . import goodput  # noqa: F401
 from . import memory  # noqa: F401
@@ -57,7 +59,7 @@ __all__ = [
     "BYTE_BUCKETS", "DEFAULT_BUCKETS", "RATE_BUCKETS", "RATIO_BUCKETS",
     "CounterChild", "GaugeChild", "HistogramChild",
     "MetricFamily", "MetricRegistry", "default_registry",
-    "JSONLReporter", "prometheus_text",
+    "JSONLReporter", "export_chrome_tracing", "prometheus_text",
     "sample_device_memory", "write_prometheus",
     "goodput", "memory", "perf",
     "tracing", "Span", "SpanContext", "start_span", "trace_span",

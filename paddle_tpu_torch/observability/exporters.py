@@ -16,8 +16,10 @@ same two sinks are first-class:
 - ``sample_device_memory()`` — ``torch.cuda.memory_stats()`` into
   per-device gauges, the HBM-leak detector.
 
-The chrome://tracing export of the JAX package waits for the port of
-the profiler, whose host-event tables it merges.
+- ``export_chrome_tracing()`` — the profiler's host events and the
+  span table in one chrome://tracing file, filtered to a profiler's
+  RECORD windows (the card's kernels are in the profiler's own
+  torch.profiler traces under its ``log_dir``).
 """
 
 from __future__ import annotations
@@ -93,6 +95,117 @@ def write_prometheus(path: str,
     os.makedirs(d, exist_ok=True)
     with open(path, "w") as f:
         f.write(text)
+    return path
+
+
+# ---------------------------------------------------------------------------
+# Chrome trace (ref: ChromeTracingLogger)
+# ---------------------------------------------------------------------------
+
+
+def _overlaps_window(t0: float, t1: float, windows) -> bool:
+    """Interval overlap, not point-in-window: a long-lived span (an
+    llm.request root, a train.epoch) that STARTED before a RECORD
+    window but runs through it must export, or its children would
+    carry dangling parent_ids."""
+    return any(t0 <= e and s <= t1 for s, e in windows)
+
+
+def export_chrome_tracing(profiler=None, path: str = "trace.json",
+                          include_spans: bool = True) -> str:
+    """Dump the profiler facade's recorded host annotations AND the
+    tracing span table as ONE chrome://tracing-loadable JSON file:
+    complete ("ph": "X") events with microsecond timestamps, one row
+    (tid) per recording thread, ``process_name``/``thread_name``
+    metadata records (ph "M") so Perfetto labels rows instead of
+    showing bare tids, and span events as instants (ph "i").
+
+    ``profiler``: when a Profiler instance is passed, output is
+    filtered to that profiler's RECORD windows (``make_scheduler``
+    cycles: events from CLOSED/READY phases are dropped); ``None``
+    exports everything in the process-wide tables. Spans carry their
+    ids in ``args`` ({trace_id, span_id, parent_id, ...attributes}),
+    so parent links survive the export.
+    """
+    from ..profiler import _events
+    from . import tracing as _tracing
+    with _events.lock:
+        events = list(_events.trace)
+    spans = _tracing.finished_spans() if include_spans else []
+    windows = None
+    if profiler is not None and hasattr(profiler, "recording_windows"):
+        # a profiler that never reached a RECORD phase has no windows;
+        # fall back to exporting everything it recorded rather than
+        # silently producing an empty trace
+        windows = profiler.recording_windows() or None
+    if windows is not None:
+        events = [ev for ev in events
+                  if _overlaps_window(ev["ts"], ev["ts"] + ev["dur"],
+                                      windows)]
+        spans = [sp for sp in spans
+                 if _overlaps_window(sp["ts"],
+                                     sp["ts"] + (sp["dur"] or 0.0),
+                                     windows)]
+    pid = os.getpid()
+    trace_events = [{
+        "name": "process_name", "ph": "M", "pid": pid,
+        "args": {"name": f"paddle_tpu_torch[{pid}]"},
+    }]
+    tnames = {}
+    for ev in events:
+        tnames.setdefault(ev["tid"], ev.get("tname"))
+    for sp in spans:
+        tnames.setdefault(sp["tid"], sp.get("tname"))
+    for tid, tname in sorted(tnames.items(), key=lambda kv: kv[0] or 0):
+        trace_events.append({
+            "name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+            "args": {"name": tname or f"thread-{tid}"},
+        })
+    trace_events += [{
+        "name": ev["name"],
+        "ph": "X",
+        "cat": "host",
+        "ts": round(ev["ts"] * 1e6, 3),       # seconds → microseconds
+        "dur": round(ev["dur"] * 1e6, 3),
+        "pid": pid,
+        "tid": ev["tid"],
+    } for ev in events]
+    for sp in spans:
+        trace_events.append({
+            "name": sp["name"],
+            "ph": "X",
+            "cat": "span",
+            "ts": round(sp["ts"] * 1e6, 3),
+            "dur": round((sp["dur"] or 0.0) * 1e6, 3),
+            "pid": pid,
+            "tid": sp["tid"],
+            "args": {"trace_id": sp["trace_id"],
+                     "span_id": sp["span_id"],
+                     "parent_id": sp["parent_id"],
+                     "status": sp["status"],
+                     **sp["attrs"]},
+        })
+        for ev in sp["events"]:
+            trace_events.append({
+                "name": f"{sp['name']}:{ev['name']}",
+                "ph": "i",
+                "s": "t",                     # thread-scoped instant
+                "cat": "span_event",
+                "ts": round(ev["ts"] * 1e6, 3),
+                "pid": pid,
+                "tid": sp["tid"],
+                "args": {"span_id": sp["span_id"],
+                         **(ev.get("attrs") or {})},
+            })
+    payload = {
+        "traceEvents": trace_events,
+        "displayTimeUnit": "ms",
+        "otherData": {"producer": "paddle_tpu_torch.observability"},
+    }
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(payload, f)
     return path
 
 

@@ -3,7 +3,8 @@
 The reference's PS-mode jobs were scraped ad hoc (monitor.h stats read
 out-of-band); serving/training jobs here get a first-class surface — a
 stdlib ``http.server`` on a daemon thread, safe to leave on in
-production (read-mostly; the one mutating endpoint resets health):
+production (read-mostly; the mutating endpoints arm a bounded
+profiler window and reset health):
 
 - ``GET /metrics``  — Prometheus text exposition 0.0.4 (the scrape).
 - ``GET /healthz``  — liveness: ``{"status": "ok", "uptime_s": ...}``.
@@ -45,8 +46,12 @@ production (read-mostly; the one mutating endpoint resets health):
   by a Router constructed with ``overload=``): ladder level + bounded
   transition log, AIMD per-replica limits, estimator state, shed
   counts by reason; 404 when none.
-- ``POST /profilez`` — answers 501 until the profiler is ported
-  (ROADMAP Queue A7).
+- ``POST /profilez`` — arm an on-demand profiler window:
+  ``{"duration_s": 5, "log_dir": "/tmp/prof"}`` starts a
+  ``profiler.Profiler`` on a thread of its own (the card's kernels of
+  the whole process in one torch.profiler trace under ``log_dir``) and
+  stops it after the window; 409 while one is armed or while the job's
+  own Profiler records. ``GET /profilez`` shows the armed window.
 - ``POST /reset_health`` — invoke registered reset handlers (an
   engine's ``reset_health()``, the fleet router's breaker reset);
   body ``{"name": ...}`` targets one, empty body resets all; 404
@@ -301,13 +306,63 @@ def _collect_status() -> Dict[str, dict]:
     return out
 
 
-# /profilez arms the package profiler, which the port does not have
-# yet: the endpoint answers 501 naming the ROADMAP item that ports it
-_PROFILEZ_MISSING = {
-    "error": "POST /profilez needs the profiler, which is not ported "
-             "yet (ROADMAP Queue A7, profiler); time the card with "
-             "torch.profiler in the meantime",
-    "roadmap": "A7"}
+class _ProfilerArm:
+    """One on-demand profiler window at a time. A torch.profiler session
+    must stop on the thread that started it, so each window runs on a
+    thread of its own: start, wait out the window, stop."""
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._active: Optional[dict] = None
+
+    def arm(self, duration_s: float, log_dir: str) -> Optional[dict]:
+        from .. import profiler as prof_mod
+        with self._mu:
+            if self._active is not None:
+                return None
+            if prof_mod._events.active:
+                # the job already has its own Profiler recording;
+                # starting another would CLEAR the process-wide event
+                # tables (Profiler.start) and then disable them on the
+                # window's stop — silently emptying the user's trace
+                return None
+            prof = prof_mod.Profiler(log_dir=log_dir)
+            started = threading.Event()
+            ok = []
+
+            def window():
+                try:
+                    prof.start()
+                except RuntimeError:
+                    # another torch.profiler session holds the
+                    # process's one kineto slot: refuse like an armed
+                    # window
+                    prof.stop()
+                    started.set()
+                    return
+                ok.append(True)
+                started.set()
+                time.sleep(max(float(duration_s), 0.01))
+                try:
+                    prof.stop()
+                finally:
+                    with self._mu:
+                        self._active = None
+
+            threading.Thread(target=window, name="profilez-window",
+                             daemon=True).start()
+            started.wait()
+            if not ok:
+                return None
+            info = {"armed_at": time.time(),
+                    "duration_s": float(duration_s),
+                    "log_dir": os.path.abspath(log_dir)}
+            self._active = info
+            return dict(info)
+
+    def status(self) -> Optional[dict]:
+        with self._mu:
+            return dict(self._active) if self._active else None
 
 
 class DebugServer:
@@ -318,6 +373,7 @@ class DebugServer:
                  registry: Optional[MetricRegistry] = None):
         self.registry = registry or default_registry()
         self.t_start = time.time()
+        self._arm = _ProfilerArm()
         # /statusz device-memory sample cache: a scrape storm must not
         # hammer memory_stats() on every request (1s TTL; errors are
         # cached too — a raising backend hurts just as much).
@@ -477,7 +533,8 @@ class DebugServer:
                 "device_memory": devmem,
                 "perf": perf_row,
                 "memory": mem_row,
-                "goodput": goodput_row})
+                "goodput": goodput_row,
+                "profilez": self._arm.status()})
         elif url.path == "/tracez":
             # ?limit=N caps the finished spans returned (0 = no cap);
             # ?trace_id= pulls ONE request's spans out of a busy
@@ -572,7 +629,7 @@ class DebugServer:
             else:
                 h._reply_json(200, {"drift": drift})
         elif url.path == "/profilez":
-            h._reply_json(501, _PROFILEZ_MISSING)
+            h._reply_json(200, {"armed": self._arm.status()})
         else:
             h._reply_json(404, {
                 "error": f"unknown path {url.path}",
@@ -591,7 +648,23 @@ class DebugServer:
         if url.path != "/profilez":
             h._reply_json(404, {"error": f"unknown path {url.path}"})
             return
-        h._reply_json(501, _PROFILEZ_MISSING)
+        n = int(h.headers.get("Content-Length", 0))
+        try:
+            body = json.loads(h.rfile.read(n) or b"{}")
+        except ValueError:
+            h._reply_json(400, {"error": "malformed JSON body"})
+            return
+        duration = float(body.get("duration_s", 5.0))
+        log_dir = body.get("log_dir") or os.path.join(
+            ".", "paddle_tpu_profile_ondemand")
+        info = self._arm.arm(duration, log_dir)
+        if info is None:
+            h._reply_json(409, {"error": "a profiler is already "
+                                "recording (on-demand window or the "
+                                "job's own Profiler)",
+                                "armed": self._arm.status()})
+        else:
+            h._reply_json(200, {"armed": info})
 
     def _post_reset_health(self, h) -> None:
         """Operator escape hatch over HTTP: invoke the registered

@@ -39,6 +39,17 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # shared-memory report, from -Xptxas=-v)
 build_logs: Dict[str, str] = {}
 
+# callables (name, flops, nbytes) that ``cost_model`` registers while it
+# counts one run: a ctypes launch dispatches no aten op, so each kernel
+# wrapper reports its launch's work here (nothing is registered
+# otherwise, and a report then costs one empty loop)
+cost_sinks: list = []
+
+
+def report_cost(name: str, flops: float, nbytes: float) -> None:
+    for sink in cost_sinks:
+        sink(name, flops, nbytes)
+
 
 def nvcc_path() -> str:
     cands = [os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc")

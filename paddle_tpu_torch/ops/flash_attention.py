@@ -39,6 +39,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.utils.flop_counter
 
 from . import _kernels
 
@@ -236,13 +237,20 @@ def _launch(which, q, k, v, o, do, lse, delta, dq, dk, dv, sm_scale,
                            f"cudaError {err}")
 
 
-def flash_attention_fwd_kernel(q, k, v, sm_scale: float, causal: bool):
-    """Kernel B1: ``(o, lse)``, the contract of
-    :func:`flash_attention_fwd_torch`. A CUDA tensor launches the kernel
-    (raising on what it does not take, or on a failed launch); a CPU
-    tensor runs the plain twin."""
-    if not q.is_cuda:
-        return flash_attention_fwd_torch(q, k, v, sm_scale, causal)
+def _matmul_flops(q_shape, k_shape, matmuls: int) -> float:
+    """FLOPs of ``matmuls`` products of [sq, d] by [d, sk] for every
+    batch row and query head: the count of torch's SDPA formulas (the
+    causal mask is not discounted)."""
+    b, sq, hq, d = q_shape
+    return 2.0 * matmuls * b * hq * sq * k_shape[1] * d
+
+
+def _nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs if x is not None)
+
+
+def _fwd_launch(q, k, v, sm_scale: float, causal: bool):
+    """B1 on CUDA tensors: checks, launch, count."""
     _check_cuda_args(q, k, v)
     b, sq, hq, d = q.shape
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
@@ -250,6 +258,21 @@ def flash_attention_fwd_kernel(q, k, v, sm_scale: float, causal: bool):
     _launch(_FWD, q, k, v, o, None, lse, None, None, None, None, sm_scale,
             causal)
     launches["flash_attention_fwd"] += 1
+    return o, lse
+
+
+def flash_attention_fwd_kernel(q, k, v, sm_scale: float, causal: bool):
+    """Kernel B1: ``(o, lse)``, the contract of
+    :func:`flash_attention_fwd_torch`. A CUDA tensor launches the kernel
+    (raising on what it does not take, or on a failed launch) and
+    reports its work to a counting ``cost_model``; a CPU tensor runs the
+    plain twin."""
+    if not q.is_cuda:
+        return flash_attention_fwd_torch(q, k, v, sm_scale, causal)
+    o, lse = _fwd_launch(q, k, v, sm_scale, causal)
+    _kernels.report_cost("flash_attention_fwd",
+                         _matmul_flops(q.shape, k.shape, 2),
+                         _nbytes(q, k, v, o, lse))
     return o, lse
 
 
@@ -296,6 +319,10 @@ def flash_attention_bwd_dq_kernel(q, k, v, o, lse, do, sm_scale: float,
     _launch(_BWD_DQ, q, k, v, o, do, lse, delta, dq, None, None, sm_scale,
             causal, delta_ready=delta_ready)
     launches["flash_attention_bwd_dq"] += 1
+    # S recomputed, dP = dO V^T and dQ = dS K: three products
+    _kernels.report_cost("flash_attention_bwd_dq",
+                         _matmul_flops(q.shape, k.shape, 3),
+                         _nbytes(q, k, v, o, lse, do, delta, dq))
     return dq
 
 
@@ -317,6 +344,11 @@ def flash_attention_bwd_dkv_kernel(q, k, v, o, lse, do, sm_scale: float,
     _launch(_BWD_DKV, q, k, v, o, do, lse, delta, None, dk, dv, sm_scale,
             causal, delta_ready=ready)
     launches["flash_attention_bwd_dkv"] += 1
+    # dK = dS^T Q and dV = P^T dO; the S and dP it recomputes are
+    # counted once, in B2, as the plain backward computes them once
+    _kernels.report_cost("flash_attention_bwd_dkv",
+                         _matmul_flops(q.shape, k.shape, 2),
+                         _nbytes(q, k, v, o, lse, do, delta, dk, dv))
     return dk, dv
 
 
@@ -350,13 +382,56 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+# ---------------------------------------------------------------------------
+# kernel B1 as a registered op (what torch.export records)
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cpu")
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, sm_scale: float,
+                           causal: bool) -> tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """Kernel B1 as the op ``torch.ops.paddle_tpu_torch.
+    flash_attention_fwd``: ``(o, lse)``. A program that
+    ``torch.export`` traced through :func:`flash_attention` records this
+    op, not the twin's math, so the loaded program launches B1 on the
+    card (and adds to ``launches`` each call); on the CPU it runs the
+    twin, as the wrappers do. ``impl = "plain"`` runs the twin on the
+    card too."""
+    return flash_attention_fwd_torch(q, k, v, sm_scale, causal)
+
+
+@flash_attention_fwd_op.register_kernel("cuda")
+def _flash_attention_fwd_cuda(q, k, v, sm_scale, causal):
+    if impl == "plain":
+        return flash_attention_fwd_torch(q, k, v, sm_scale, causal)
+    return _fwd_launch(q, k, v, sm_scale, causal)
+
+
+@flash_attention_fwd_op.register_fake
+def _flash_attention_fwd_fake(q, k, v, sm_scale, causal):
+    b, sq, hq, d = q.shape
+    return (q.new_empty((b, sq, hq, d)),
+            q.new_empty((b, hq, sq), dtype=torch.float32))
+
+
+@torch.utils.flop_counter.register_flop_formula(
+    torch.ops.paddle_tpu_torch.flash_attention_fwd)
+def _flash_attention_fwd_flops(q_shape, k_shape, v_shape, sm_scale, causal,
+                               *args, out_shape=None, **kwargs) -> int:
+    return int(_matmul_flops(q_shape, k_shape, 2))
+
+
 def flash_attention(q, k, v, *, causal: bool = False,
                     sm_scale: Optional[float] = None,
                     block_q: int = 512, block_k: int = 512):
     """Memory-efficient attention. q: [b, s_q, h, d]; k/v: [b, s_k, h_kv,
     d] with h % h_kv == 0 (grouped-query). Returns [b, s_q, h, d].
 
-    Differentiable (B1 forward, B2 + B3 backward). ``block_q`` and
+    Differentiable (B1 forward, B2 + B3 backward); under
+    ``torch.export`` the forward is the op
+    :func:`flash_attention_fwd_op`. ``block_q`` and
     ``block_k`` are the TPU kernel's block targets, kept for the JAX
     package's signature: the CUDA kernels tile by 64 rows (any ``s_q``,
     ``s_k``), and the result does not depend on the tiling."""
@@ -372,6 +447,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
     if impl not in ("kernel", "plain"):
         raise ValueError(f"flash_attention.impl must be 'kernel' or "
                          f"'plain', got {impl!r}")
+    if torch.compiler.is_exporting():
+        # an exported forward records B1 as one op (no backward)
+        return flash_attention_fwd_op(q, k, v, sm_scale, causal)[0]
     plain = impl == "plain"
     return _FlashAttention.apply(q, k, v, sm_scale, causal, plain)
 
@@ -379,7 +457,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
 def flash_attention_available(q_shape, k_shape, attn_mask, dropout_p,
                               training, is_causal: bool = False) -> bool:
     """Whether the flash path handles this configuration (the JAX
-    package's rules, unchanged)."""
+    package's rules, unchanged, except in a program ``torch.export``
+    traces: there every length takes B1)."""
     if attn_mask is not None:
         return False
     if dropout_p > 0.0 and training:
@@ -392,5 +471,10 @@ def flash_attention_available(q_shape, k_shape, attn_mask, dropout_p,
         return False
     if is_causal and sq > sk:
         return False
+    if torch.compiler.is_exporting():
+        # an exported program takes any length (its sequence dims are
+        # symbolic), and so do the CUDA kernels: the TPU kernel's block
+        # rule below is not applied to it
+        return d >= 64 and d % 8 == 0
     return (d >= 64 and d % 8 == 0 and
             _pick_block(sq, 512) >= 128 and _pick_block(sk, 512) >= 128)

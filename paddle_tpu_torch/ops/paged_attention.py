@@ -358,6 +358,15 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables,
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {err}")
     launches += 1
+    if _kernels.cost_sinks:
+        # the work follows the context lengths: read on the host (a
+        # synchronization) only while a cost model counts
+        keys = int(context_lens.sum())
+        _kernels.report_cost(
+            "paged_attention", 4.0 * n_heads * d * keys,
+            2 * q.numel() * q.element_size() +
+            2 * keys * kv_heads * d * k_pages.element_size() +
+            block_tables.numel() * 4 + t * 4)
     return out
 
 

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..core import device as _device
+from ..core.xla_math import div as _div
 
 # elements of the largest intermediate a chunk of rois may build
 _CHUNK_ELEMS = 1 << 26
@@ -126,14 +127,6 @@ def _image_index(boxes_num, r: int, device):
     num = _t(boxes_num, torch.int64, device)
     return torch.repeat_interleave(torch.arange(num.shape[0], device=device),
                                    num, output_size=r)
-
-
-def _div(a, n):
-    """``a / n`` for a Python number ``n``, divided as the CPU and XLA
-    divide: given a Python divisor, CUDA multiplies by its reciprocal,
-    which can differ in the last bit and moves a sample coordinate of a
-    few hundred pixels by its ulp."""
-    return a / torch.tensor(float(n), dtype=a.dtype, device=a.device)
 
 
 def _pair(v):

@@ -3,10 +3,13 @@ the port: ``tensor``, ``linalg``, ``fft``, ``signal``, ``sparse``,
 ``sparse.nn.functional``, ``distribution`` (and its ``transform``),
 ``autograd``, ``regularizer``, ``device``, the models and data side
 (``models`` and its modules, ``vision`` with ``ops``, ``transforms`` and
-``datasets``, ``text``, ``hub``), and the top-level names these modules
-give ``paddle_tpu``. A public name is one without a leading
-underscore that is not a module, a ``typing`` object or a ``__future__``
-feature. A name the port leaves out sits in ``DECLINED`` with its reason
+``datasets``, ``text``, ``hub``), the tooling (``profiler``,
+``cost_model``, ``jit``, ``static`` and its ``program`` and ``nn``,
+``quant``, ``incubate`` and its ``autotune``, ``asp`` and
+``data_generator``, ``testing``, ``sysconfig``, ``version``), and the
+top-level names these modules give ``paddle_tpu``. A public name is one
+without a leading underscore that is not a module, a ``typing`` object
+or a ``__future__`` feature. A name the port leaves out sits in ``DECLINED`` with its reason
 (more than 30 characters); the list is empty."""
 
 import __future__
@@ -31,7 +34,12 @@ NAMESPACES = ["tensor", "tensor.extra", "linalg", "fft", "signal",
               "models.lenet", "models.vision_extra", "models.convert",
               "vision", "vision.ops", "vision.ops_fill",
               "vision.transforms", "vision.transforms_fill",
-              "vision.datasets", "text", "hub"]
+              "vision.datasets", "text", "hub",
+              # the tooling (ROADMAP A7.4)
+              "profiler", "cost_model", "jit", "static", "static.program",
+              "static.nn", "quant", "incubate", "incubate.autotune",
+              "incubate.asp", "incubate.data_generator", "testing",
+              "sysconfig", "version"]
 
 # (namespace, name) -> why the port leaves it out
 DECLINED: dict = {}
@@ -43,7 +51,11 @@ TOP_LEVEL_EXTRA = ["get_flags", "set_flags", "seed", "compile", "iinfo",
                    "is_compiled_with_tpu", "is_compiled_with_cuda",
                    "tensor", "linalg", "fft", "signal", "sparse",
                    "distribution", "autograd", "regularizer", "device",
-                   "models", "vision", "text", "hub"]
+                   "models", "vision", "text", "hub",
+                   "DataParallel", "distributed", "observability",
+                   "parallel", "reliability", "__version__", "jit",
+                   "profiler", "quant", "cost_model", "sysconfig",
+                   "version", "static", "incubate"]
 
 
 def _public(mod):

@@ -475,8 +475,8 @@ def test_summary_counts_match_jax(capsys):
         jpt.summary(jnet, print_table=False)
     out = capsys.readouterr().out
     assert "Total params" in out and "Embedding" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        tpt.flops(tnet, (1, 16))
+    assert tpt.flops(tnet, (1, 16), dtypes=["int64"]) == \
+        jpt.flops(jnet, (1, 16), dtypes=["int64"])
 
 
 def test_entry_points_raise_what_is_not_there(tmp_path):

@@ -78,6 +78,19 @@ def test_scan_covers_the_package():
                  "paddle_tpu_torch/observability/server.py",
                  "paddle_tpu_torch/observability/tracing.py",
                  "paddle_tpu_torch/observability/slo.py",
+                 "paddle_tpu_torch/profiler/__init__.py",
+                 "paddle_tpu_torch/cost_model.py",
+                 "paddle_tpu_torch/jit/__init__.py",
+                 "paddle_tpu_torch/static/__init__.py",
+                 "paddle_tpu_torch/static/program.py",
+                 "paddle_tpu_torch/static/nn.py",
+                 "paddle_tpu_torch/quant/__init__.py",
+                 "paddle_tpu_torch/incubate/autotune.py",
+                 "paddle_tpu_torch/incubate/asp.py",
+                 "paddle_tpu_torch/incubate/data_generator.py",
+                 "paddle_tpu_torch/testing/__init__.py",
+                 "paddle_tpu_torch/sysconfig.py",
+                 "paddle_tpu_torch/version.py",
                  "paddle_tpu_torch/distributed/tcp_store.py",
                  "paddle_tpu_torch/serving/autoscaler.py",
                  "paddle_tpu_torch/serving/breaker.py",

@@ -14,7 +14,10 @@ the result line:
    where it serializes wgmma and, where the toolkit has ``cuobjdump``,
    each kernel's count of HMMA, HGMMA and TMA-load instructions in its
    SASS: the ``mma.sync`` flash kernels must hold HMMA, the Hopper B1,
-   B2 and B3 HGMMA and UTMALDG);
+   B2 and B3 HGMMA and UTMALDG), and beside the nvcc builds, by g++
+   against the installed torch, the native runner, ``ptserve`` and the
+   native feed (the op library of B1, ``csrc/torch_ops.cc``, builds when
+   the port is first imported);
 3. kernels: kernel B4 against its plain PyTorch twin at the serving
    path's shapes and dtypes (decode, a prefill chunk of two sequences
    and padding, GQA, one 1024-token row, head dims 80 and 256, a mixed
@@ -260,7 +263,23 @@ the result line:
    state smaller than the f32 one's); a static program,
    ``testing.OpSpec`` cases and the int8 activation paths card against
    CPU (int32 sums equal); the phase within 60 s;
-20. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
+20. inference (after tooling, on its f32 artifact): the native runner
+   (``native/predictor.cc``: libtorch, B1 as the C++ op of
+   ``csrc/torch_ops.cc``; built by g++ in phase 2 beside nvcc) behind
+   ``inference.create_predictor`` on the card: logits at [8, 1024] and
+   [2, 100] within ``1e-5 + 1e-4 |ref|`` of ``jit.load``'s (bit-equality
+   reported) and of the eager model on the twins, B1 12 a request; 4
+   threads x 8 [1, 1024] requests bit-equal to the same requests run
+   serially; a ``DynamicBatcher`` (max_batch 8, 2 ms) over 32 requests
+   of 1-4 rows from 4 clients (rows within the limit of their own run,
+   B1 12 a device call); ``ptserve cuda`` in its own process (4 threads
+   x 4 iterations: exit 0, ``out0_sum`` within 1e-6 of the predictor's,
+   192 B1 launches); ``io.native_feed.FileDataFeed`` over a seeded
+   4096-row ``f32:784,i64:1`` CSV on 4 threads (rows equal to numpy's
+   parse); create / load seconds, request ms and tokens/s of the
+   predictor, jit.load and the eager model, batcher requests/s, ptserve
+   req/s, feed rows/s; the phase within 60 s;
+21. a ``{"phase": "timing"}`` line with each phase's wall seconds, a
    ``{"kernels": [...]}`` summary line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -408,10 +427,43 @@ FLASH_WGMMA_REGISTERS = {"flash_fwd_wgmma": {64: 64, 128: 128},
                          "flash_bwd_dkv_wgmma": {64: 168, 128: 168}}
 
 
-def phase_build() -> None:
-    from paddle_tpu_torch.ops import _kernels
+def _build_native() -> dict:
+    """The host builds (g++ against the installed torch): the runner,
+    ptserve and the native feed; seconds each."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.io import native_feed
+    out = {}
     t0 = time.perf_counter()
-    per_kernel = _kernels.build_all()
+    inference.build_ptserve()          # the runner library, then ptserve
+    out["predictor_and_ptserve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_feed._lib()
+    out["datafeed"] = time.perf_counter() - t0
+    return out
+
+
+def _kernels_module():
+    """``paddle_tpu_torch/ops/_kernels.py`` loaded on its own (it imports
+    nothing of the package), so that the nvcc builds start before the
+    port's first import, which builds B1's op library with g++."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "paddle_tpu_torch", "ops", "_kernels.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke_kernels",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_build() -> None:
+    _kernels = _kernels_module()
+    t0 = time.perf_counter()
+    # the runner's g++ builds beside the nvcc builds
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(_build_native)
+        per_kernel = _kernels.build_all()
+        native_s = native.result()
     seconds = time.perf_counter() - t0
     ptxas = {n: _ptxas_report(log) for n, log in _kernels.build_logs.items()}
     # ptxas's notes where it serializes wgmma (register pressure, a
@@ -428,7 +480,7 @@ def phase_build() -> None:
                    if k.split("<")[0] in FLASH_MMA_KERNELS |
                    FLASH_WGMMA_KERNELS}
     emit({"phase": "build", "seconds": seconds,
-          "per_kernel_s": per_kernel, "nvcc": nvcc,
+          "per_kernel_s": per_kernel, "native_s": native_s, "nvcc": nvcc,
           "flags": list(_kernels.NVCC_FLAGS), "ptxas": ptxas,
           "sass_counts": sass, "flash_tensor_core_kernels": tensor_core,
           "wgmma_serialized": serialized})
@@ -8214,6 +8266,10 @@ def phase_tooling(info) -> dict:
         checks.update({f"card_vs_cpu_{k}": v for k, v in
                        _tooling_card_vs_cpu().items()})
         times["card_vs_cpu"] = time.perf_counter() - t0
+        # the f32 artifact goes on to the inference phase
+        handoff = {"dir": _tooling_dir("served"), "init": init, "cfg": cfg}
+        os.rmdir(handoff["dir"])
+        shutil.move(os.path.join(root, "jit_f32"), handoff["dir"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_s = time.perf_counter() - t_phase
@@ -8225,7 +8281,300 @@ def phase_tooling(info) -> dict:
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise SystemExit(f"tooling checks failed: {failed}")
-    return launches
+    return launches, handoff
+
+
+
+# ---------------------------------------------------------------------------
+# the predictor, ptserve and the native feed
+# ---------------------------------------------------------------------------
+
+INFERENCE_BUDGET_S = 60.0
+INFERENCE_SHAPES = ((8, 1024), (2, 100))
+INFERENCE_TIMED = (((8, 1024), 3), ((1, 128), 20))   # (shape, reps)
+INFERENCE_THREADS, INFERENCE_PER_THREAD = 4, 8        # [1, 1024] requests
+BATCHER_MAX, BATCHER_DELAY_MS, BATCHER_REQUESTS = 8, 2.0, 32
+PTSERVE_THREADS, PTSERVE_ITERS = 4, 4
+PTSERVE_SUM_RTOL = 1e-6
+FEED_FILES, FEED_ROWS, FEED_SCHEMA = 4, 1024, "f32:784,i64:1"
+
+
+def _within_card(got, want) -> bool:
+    """``got`` (host) within ``1e-5 + 1e-4 |want|`` of ``want``, on the
+    card."""
+    g = torch.as_tensor(got, device=want.device)
+    return g.shape == want.shape and bool(
+        ((g - want).abs() <= 1e-5 + 1e-4 * want.abs()).all())
+
+
+def _feed_check(root) -> dict:
+    """``FileDataFeed`` over a seeded ``f32:784,i64:1`` CSV of
+    FEED_FILES x FEED_ROWS rows (values k / 64: exact in float32) on 4
+    threads: its rows against ``np.loadtxt``'s, as row sets (each
+    thread reads whole files)."""
+    from paddle_tpu_torch.io.native_feed import FileDataFeed
+    rs = np.random.RandomState(11)
+    files = []
+    for i in range(FEED_FILES):
+        x = rs.randint(-4096, 4096, (FEED_ROWS, 784)) / 64.0
+        y = rs.randint(0, 10, FEED_ROWS)
+        path = os.path.join(root, f"part-{i}.csv")
+        with open(path, "w") as f:
+            f.write("".join(",".join(map(str, r)) + f",{c}\n"
+                            for r, c in zip(x.tolist(), y.tolist())))
+        files.append(path)
+    t0 = time.perf_counter()
+    got = [np.concatenate([xb.astype(np.float64),
+                           yb[:, None].astype(np.float64)], 1)
+           for xb, yb in FileDataFeed(files, FEED_SCHEMA, batch_size=256,
+                                      num_threads=4)]
+    feed_s = time.perf_counter() - t0
+    got = np.concatenate(got)
+    want = np.concatenate([np.loadtxt(p, delimiter=",", ndmin=2)
+                           for p in files])
+
+    def rows(a):
+        return a[np.lexsort(a.T[::-1])]
+
+    return {"rows": len(got), "feed_s": feed_s,
+            "rows_per_s": len(got) / feed_s,
+            "equal": got.shape == want.shape and
+            bool(np.array_equal(rows(got), rows(want)))}
+
+
+def _host_ms(fn, reps) -> float:
+    """Milliseconds a call of ``fn`` (which ends on the host) takes,
+    after one call to warm up."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _inference_requests(pred, loaded, net, cfg, rs) -> tuple:
+    """Single requests at INFERENCE_SHAPES: the predictor's logits
+    against jit.load's and the eager model's on the twins, B1 12 a
+    request."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    checks, runs = {}, []
+    for shape in INFERENCE_SHAPES:
+        ids = rs.randint(0, cfg.vocab_size, shape)
+        x = torch.as_tensor(ids, device="cuda")
+        _reset_flash_counts()
+        got = pred.run([ids])[0]
+        b1 = _flash_counts()["flash_attention_fwd"]
+        ref = loaded(x)
+        fa.impl = "plain"
+        try:
+            with torch.no_grad():
+                twin = net(x)
+        finally:
+            fa.impl = "kernel"
+        key = "x".join(map(str, shape))
+        err = float((torch.as_tensor(got, device="cuda") - ref).abs().max())
+        runs.append({"shape": list(shape), "b1_launches": b1,
+                     "max_abs_err_vs_jit_load": err,
+                     "bit_equal_jit_load": bool(torch.equal(
+                         torch.as_tensor(got, device="cuda"), ref))})
+        checks[f"jit_load_{key}"] = _within_card(got, ref)
+        checks[f"twins_{key}"] = _within_card(got, twin)
+        checks[f"b1_12_{key}"] = b1 == LAYERS
+        del ref, twin, got
+    return checks, runs
+
+
+def _inference_concurrent(pred, cfg, rs) -> tuple:
+    """INFERENCE_THREADS threads x INFERENCE_PER_THREAD [1, 1024]
+    requests against the same requests run one by one, bit for bit."""
+    n = INFERENCE_THREADS * INFERENCE_PER_THREAD
+    reqs = [rs.randint(0, cfg.vocab_size, (1, 1024)) for _ in range(n)]
+    serial = [pred.run([r])[0] for r in reqs]
+    equal = [False] * n
+    _reset_flash_counts()
+
+    def worker(t):
+        for i in range(t * INFERENCE_PER_THREAD,
+                       (t + 1) * INFERENCE_PER_THREAD):
+            equal[i] = bool(np.array_equal(pred.run([reqs[i]])[0],
+                                           serial[i]))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(t,))
+               for t in range(INFERENCE_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    b1 = _flash_counts()["flash_attention_fwd"]
+    return ({"concurrent_bit_equal_serial": all(equal),
+             "concurrent_b1_12_a_request": b1 == LAYERS * n},
+            {"requests": n, "threads": INFERENCE_THREADS,
+             "requests_per_s": n / wall, "b1_launches": b1})
+
+
+def _inference_batcher(pred, cfg, rs) -> tuple:
+    """A DynamicBatcher (max_batch 8, 2 ms) taking BATCHER_REQUESTS
+    requests of 1-4 rows x 1024 from 4 client threads: each request's
+    rows within the limit of its own run, B1 12 a device call."""
+    from paddle_tpu_torch import inference
+    rows = rs.randint(1, 5, BATCHER_REQUESTS)
+    reqs = [rs.randint(0, cfg.vocab_size, (r, 1024)) for r in rows]
+    outs = [None] * len(reqs)
+    _reset_flash_counts()
+    with inference.DynamicBatcher(pred, max_batch=BATCHER_MAX,
+                                  max_delay_ms=BATCHER_DELAY_MS) as bat:
+        def client(t):
+            for i in range(t, len(reqs), 4):
+                outs[i] = bat.run([reqs[i]])[0]
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        wall = time.perf_counter() - t0
+    b1 = _flash_counts()["flash_attention_fwd"]
+    own = all(_within_card(o, torch.as_tensor(pred.run([r])[0],
+                                              device="cuda"))
+              for o, r in zip(outs, reqs))
+    return ({"batcher_rows_within_own_run": own,
+             "batcher_b1_12_a_device_call": b1 == LAYERS *
+             bat.n_device_calls and bat.n_device_calls > 0,
+             "batcher_served_all": bat.n_requests == len(reqs)},
+            {"requests": len(reqs), "rows": int(rows.sum()),
+             "device_calls": bat.n_device_calls, "b1_launches": b1,
+             "requests_per_s": len(reqs) / wall})
+
+
+def _inference_timing(pred, loaded, net, cfg) -> dict:
+    """Request ms and tokens/s from host ids to host logits: the
+    predictor (its outputs land in pinned host memory, handed to numpy
+    without a copy), jit.load and the eager model (kernels; ``.cpu()``
+    into pageable memory); and jit.load's and the eager model's forward
+    alone, to logits on the card."""
+    rs = np.random.RandomState(9)
+    out = {}
+    for shape, reps in INFERENCE_TIMED:
+        ids = rs.randint(0, cfg.vocab_size, shape)
+        key = "x".join(map(str, shape))
+
+        def to_host(fn):
+            return lambda: fn(torch.as_tensor(ids, device="cuda")).cpu()
+
+        def on_card(fn):
+            def run():
+                fn(torch.as_tensor(ids, device="cuda"))
+                torch.cuda.synchronize()
+            return run
+
+        with torch.no_grad():
+            ms = {"predictor": _host_ms(lambda: pred.run([ids]), reps),
+                  "jit_load": _host_ms(to_host(loaded), reps),
+                  "eager": _host_ms(to_host(net), reps),
+                  "jit_load_on_card": _host_ms(on_card(loaded), reps),
+                  "eager_on_card": _host_ms(on_card(net), reps)}
+        out[key] = {"ms": ms, "tokens_per_s": {
+            k: ids.size / (v / 1e3) for k, v in ms.items()}}
+    return out
+
+
+def phase_inference(info, handoff) -> dict:
+    """The tooling phase's f32 gpt2-small artifact served by the native
+    runner (libtorch, B1 as the C++ op): single requests against
+    jit.load and the eager twins, concurrent requests against serial
+    ones, the DynamicBatcher, ptserve in its own process, and the native
+    feed; within 60 s. Returns B1's launches of its runs."""
+    import shutil
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    t_phase = time.perf_counter()
+    art, cfg = handoff["dir"], handoff["cfg"]
+    root = _tooling_dir("inference")
+    times, checks, b1_total = {}, {}, 0
+    serve = None
+    try:
+        rs = np.random.RandomState(5)
+        serve_ids = rs.randint(0, cfg.vocab_size, (1, 1024))
+        ids_path = os.path.join(root, "ids.npy")
+        np.save(ids_path, serve_ids)
+        # ptserve's own process shares the card with the checks below;
+        # the timed runs come after it ends
+        serve = subprocess.Popen(
+            [inference.build_ptserve(), "cuda", "", art, ids_path,
+             "--threads", str(PTSERVE_THREADS), "--iters",
+             str(PTSERVE_ITERS)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        with ThreadPoolExecutor(1) as pool:
+            feed = pool.submit(_feed_check, root)
+            t0 = time.perf_counter()
+            pred = inference.create_predictor(inference.Config(art))
+            times["create_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = jit.load(art, device="cuda")
+            times["jit_load_s"] = time.perf_counter() - t0
+            net = GPTForCausalLM(cfg, device="cuda")
+            net.load_state_dict(handoff["init"])
+            net.eval()
+            c, runs = _inference_requests(pred, loaded, net, cfg, rs)
+            checks.update(c)
+            b1_total += sum(r["b1_launches"] for r in runs)
+            times["requests_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            c, conc = _inference_concurrent(pred, cfg, rs)
+            checks.update(c)
+            b1_total += conc["b1_launches"]
+            times["concurrent_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            c, bat = _inference_batcher(pred, cfg, rs)
+            checks.update(c)
+            b1_total += bat["b1_launches"]
+            times["batcher_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            serve_sum = float(pred.run([serve_ids])[0]
+                              .astype(np.float64).sum())
+            stdout, stderr = serve.communicate(timeout=INFERENCE_BUDGET_S)
+            times["ptserve_wait_s"] = time.perf_counter() - t0
+            last = stdout.strip().splitlines()[-1] if stdout.strip() else "{}"
+            served = json.loads(last) if serve.returncode == 0 else {}
+            checks["ptserve_exit_0"] = serve.returncode == 0
+            checks["ptserve_out0_sum"] = "out0_sum" in served and abs(
+                served["out0_sum"] - serve_sum) <= \
+                PTSERVE_SUM_RTOL * abs(serve_sum) + 5e-7
+            checks["ptserve_b1_192"] = served.get("b1_launches") == \
+                PTSERVE_THREADS * PTSERVE_ITERS * LAYERS
+            t0 = time.perf_counter()
+            timing = _inference_timing(pred, loaded, net, cfg)
+            times["timing_s"] = time.perf_counter() - t0
+            fed = feed.result()
+            checks["feed_rows_equal_numpy"] = fed["equal"] and \
+                fed["rows"] == FEED_FILES * FEED_ROWS
+    finally:
+        if serve is not None and serve.poll() is None:
+            serve.kill()
+            serve.wait()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(art, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    emit({"phase": "inference", "card": info["nvidia_smi"],
+          "requests": runs, "concurrent": conc, "batcher": bat,
+          "ptserve": served, "ptserve_stderr": stderr[-2000:],
+          "ptserve_out0_sum_predictor": serve_sum, "timing": timing,
+          "feed": fed, "create_s": times["create_s"],
+          "jit_load_s": times["jit_load_s"]})
+    checks["phase_within_budget"] = phase_s <= INFERENCE_BUDGET_S
+    checks = {k: bool(v) for k, v in checks.items()}
+    emit({"phase": "inference_checks", "card": info["nvidia_smi"],
+          "phase_s": phase_s, "budget_s": INFERENCE_BUDGET_S,
+          "part_s": times, "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise SystemExit(f"inference checks failed: {failed}")
+    return {"flash_attention_fwd": b1_total, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
 
 
 def main() -> None:
@@ -8268,10 +8617,12 @@ def main() -> None:
     moe_launches = timed("moe_ep", phase_moe_ep, info)
     timed("ctr", phase_ctr, info)
     models_launches = timed("models", phase_models, info)
-    tooling_launches = timed("tooling", phase_tooling, info)
+    tooling_launches, served = timed("tooling", phase_tooling, info)
+    inference_launches = timed("inference", phase_inference, info, served)
+    del served
     for launches_of in (dist_launches, mp_launches, sp_launches,
                         nn_launches, moe_launches, models_launches,
-                        tooling_launches):
+                        tooling_launches, inference_launches):
         for k, v in launches_of.items():
             train_launches[k] += v
     emit({"phase": "timing", "seconds": phase_s,

@@ -20,12 +20,37 @@ from __future__ import annotations
 
 import argparse
 import os
+import random
 import socket
 import sys
 from typing import List, Optional
 
 
+# rendezvous ports are drawn from here up to the ephemeral range
+_LOWEST_PORT = 20000
+
+
 def find_free_port() -> int:
+    """A port no socket of this host holds, for a rendezvous that binds
+    it later. Taken below the kernel's ephemeral range where there is
+    room: the kernel hands ports of that range to outgoing connections
+    and to binds of port 0 (gloo's pairs, store clients), so a port
+    picked there can be taken by another job's sockets before rank 0's
+    store binds it (EADDRINUSE). Else the kernel's pick."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            first = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        first = 0
+    rng = random.SystemRandom()
+    for _ in range(64 if first > _LOWEST_PORT + 1024 else 0):
+        port = rng.randrange(_LOWEST_PORT, first)
+        with socket.socket() as s:
+            try:
+                s.bind(("", port))
+            except OSError:
+                continue
+            return port
     with socket.socket() as s:
         s.bind(("", 0))
         return s.getsockname()[1]

@@ -32,8 +32,10 @@ directory ``path``:
 
 The JAX package also writes ``program.mlir.bc`` and
 ``compile_options.pb`` for its native PJRT predictor; they have no torch
-counterpart and are left to the native serving slice (ROADMAP A7.5),
-which loads ``program.pt2`` with ``params.pbin``. ``InputSpec`` ``None``
+counterpart. The port's native runner (``native/predictor.cc``, behind
+``inference.create_predictor`` and ``ptserve``) serves ``program.pt2``
+with ``params.pbin`` and ``meta.json`` from C++ over libtorch, its
+attention the same op. ``InputSpec`` ``None``
 dims become ``torch.export.Dim.DYNAMIC`` dims (traced at distinct
 example sizes, so no two are assumed equal); torch.export leaves sizes 0
 and 1 out of a dynamic dim's range.

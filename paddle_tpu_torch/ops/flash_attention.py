@@ -34,21 +34,21 @@ and mask a partial last tile.
 
 from __future__ import annotations
 
+import collections.abc
 import ctypes
 import math
+import sys
+import types
+from pathlib import Path
 from typing import Optional
 
 import torch
 import torch.utils.flop_counter
 
+from ..core import native_build
 from . import _kernels
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-
-# launches of kernels B1, B2 and B3 since the last reset; each wrapper adds
-# one per launch and nothing else touches them but a caller's reset to 0
-launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0}
 
 # dtype codes of csrc/flash_attention.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -59,6 +59,86 @@ _launcher = None
 
 # "kernel": CUDA tensors launch B1-B3; "plain": the twins run everywhere
 impl = "kernel"
+
+
+# ---------------------------------------------------------------------------
+# B1's op library (csrc/torch_ops.cc): the op, its launch counter, the
+# plain switch
+# ---------------------------------------------------------------------------
+
+_OPS_SRC = Path(__file__).resolve().parents[1] / "csrc" / "torch_ops.cc"
+
+
+def ops_build_flags():
+    """``(compile_flags, link_flags)`` of the op library: torch's, and on
+    a torch built for CUDA the path of B1's library, where a process
+    with no Python (ptserve) loads the launcher from."""
+    cflags, lflags = native_build.torch_flags()
+    if torch.version.cuda:
+        cflags.append(f'-DPT_FLASH_LIB="'
+                      f'{_kernels._library_path("flash_attention")}"')
+    return cflags, lflags
+
+
+def ops_library_path() -> Path:
+    """Where the op library lives (built or not)."""
+    return native_build.library_path(str(_OPS_SRC), *ops_build_flags())
+
+
+def _load_ops():
+    lib = ctypes.CDLL(native_build.build_native_lib(str(_OPS_SRC),
+                                                    *ops_build_flags()))
+    lib.ptop_b1_launches.restype = ctypes.c_int64
+    lib.ptop_set_b1_launches.argtypes = [ctypes.c_int64]
+    lib.ptop_add_b1_launches.argtypes = [ctypes.c_int64]
+    lib.ptop_set_plain.argtypes = [ctypes.c_int]
+    lib.ptop_set_flash_resolver.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+_ops = _load_ops()
+
+
+class _Launches(collections.abc.MutableMapping):
+    """Launches of kernels B1, B2 and B3 since the last reset. B1's count
+    is the op library's counter, which the op's CUDA impl (an exported
+    program, the native runner) and the eager wrapper both add to; B2's
+    and B3's live here. Each wrapper adds one per launch, and nothing
+    else touches them but a caller's reset."""
+
+    _KEYS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+
+    def __init__(self):
+        self._host = {k: 0 for k in self._KEYS[1:]}
+
+    def __getitem__(self, key):
+        if key == self._KEYS[0]:
+            return int(_ops.ptop_b1_launches())
+        return self._host[key]
+
+    def __setitem__(self, key, value):
+        if key == self._KEYS[0]:
+            _ops.ptop_set_b1_launches(int(value))
+        elif key in self._host:
+            self._host[key] = value
+        else:
+            raise KeyError(key)
+
+    def __delitem__(self, key):
+        raise TypeError("launch counters cannot be deleted")
+
+    def __iter__(self):
+        return iter(self._KEYS)
+
+    def __len__(self):
+        return len(self._KEYS)
+
+    def __repr__(self):
+        return repr(dict(self))
+
+
+launches = _Launches()
 
 
 def kernel_route(d: int, dtype: torch.dtype):
@@ -250,14 +330,17 @@ def _nbytes(*xs) -> int:
 
 
 def _fwd_launch(q, k, v, sm_scale: float, causal: bool):
-    """B1 on CUDA tensors: checks, launch, count."""
+    """B1 on CUDA tensors: checks, launch, count. (An exported program
+    launches B1 through the op's C++ CUDA impl instead: the same checks,
+    launch and count; here a counting ``cost_model``'s dispatch modes see
+    no op, and the wrapper reports the launch's work itself.)"""
     _check_cuda_args(q, k, v)
     b, sq, hq, d = q.shape
     o = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     _launch(_FWD, q, k, v, o, None, lse, None, None, None, None, sm_scale,
             causal)
-    launches["flash_attention_fwd"] += 1
+    _ops.ptop_add_b1_launches(1)
     return o, lse
 
 
@@ -386,30 +469,18 @@ class _FlashAttention(torch.autograd.Function):
 # kernel B1 as a registered op (what torch.export records)
 # ---------------------------------------------------------------------------
 
-@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
-                         mutates_args=(), device_types="cpu")
-def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, sm_scale: float,
-                           causal: bool) -> tuple[torch.Tensor,
-                                                  torch.Tensor]:
-    """Kernel B1 as the op ``torch.ops.paddle_tpu_torch.
-    flash_attention_fwd``: ``(o, lse)``. A program that
-    ``torch.export`` traced through :func:`flash_attention` records this
-    op, not the twin's math, so the loaded program launches B1 on the
-    card (and adds to ``launches`` each call); on the CPU it runs the
-    twin, as the wrappers do. ``impl = "plain"`` runs the twin on the
-    card too."""
-    return flash_attention_fwd_torch(q, k, v, sm_scale, causal)
+# Kernel B1 as the op ``torch.ops.paddle_tpu_torch.flash_attention_fwd``:
+# ``(o, lse)``, defined in C++ (csrc/torch_ops.cc) so that the native
+# runner calls the same op. A program that ``torch.export`` traced through
+# :func:`flash_attention` records this op, not the twin's math, so the
+# loaded program launches B1 on the card (and adds to ``launches`` each
+# call); on the CPU it runs the C++ twin, which gives
+# :func:`flash_attention_fwd_torch`'s bits. ``impl = "plain"`` runs the
+# twin on the card too.
+flash_attention_fwd_op = torch.ops.paddle_tpu_torch.flash_attention_fwd
 
 
-@flash_attention_fwd_op.register_kernel("cuda")
-def _flash_attention_fwd_cuda(q, k, v, sm_scale, causal):
-    if impl == "plain":
-        return flash_attention_fwd_torch(q, k, v, sm_scale, causal)
-    return _fwd_launch(q, k, v, sm_scale, causal)
-
-
-@flash_attention_fwd_op.register_fake
+@torch.library.register_fake("paddle_tpu_torch::flash_attention_fwd")
 def _flash_attention_fwd_fake(q, k, v, sm_scale, causal):
     b, sq, hq, d = q.shape
     return (q.new_empty((b, sq, hq, d)),
@@ -478,3 +549,35 @@ def flash_attention_available(q_shape, k_shape, attn_mask, dropout_p,
         return d >= 64 and d % 8 == 0
     return (d >= 64 and d % 8 == 0 and
             _pick_block(sq, 512) >= 128 and _pick_block(sk, 512) >= 128)
+
+
+# ---------------------------------------------------------------------------
+# the op library's view of this module: B1's launcher and the plain switch
+# ---------------------------------------------------------------------------
+
+@ctypes.CFUNCTYPE(ctypes.c_void_p)
+def _resolve_launcher():
+    # the op's CUDA impl asks once for B1's launcher: built here on first
+    # use, as the eager wrappers build it
+    return ctypes.cast(_load_launcher(), ctypes.c_void_p).value
+
+
+_ops.ptop_set_flash_resolver(ctypes.cast(_resolve_launcher,
+                                         ctypes.c_void_p))
+
+
+class _Module(types.ModuleType):
+    """Setting ``impl`` also sets the op library's plain switch, so that a
+    loaded program follows the module's choice."""
+
+    @property
+    def impl(self):
+        return self.__dict__["impl"]
+
+    @impl.setter
+    def impl(self, value):
+        self.__dict__["impl"] = value
+        _ops.ptop_set_plain(int(value == "plain"))
+
+
+sys.modules[__name__].__class__ = _Module

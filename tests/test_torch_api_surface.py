@@ -6,7 +6,8 @@ the port: ``tensor``, ``linalg``, ``fft``, ``signal``, ``sparse``,
 ``datasets``, ``text``, ``hub``), the tooling (``profiler``,
 ``cost_model``, ``jit``, ``static`` and its ``program`` and ``nn``,
 ``quant``, ``incubate`` and its ``autotune``, ``asp`` and
-``data_generator``, ``testing``, ``sysconfig``, ``version``), and the
+``data_generator``, ``testing``, ``sysconfig``, ``version``), the
+predictor and the native feed (``inference``, ``io.native_feed``), and the
 top-level names these modules give ``paddle_tpu``. A public name is one
 without a leading underscore that is not a module, a ``typing`` object
 or a ``__future__`` feature. A name the port leaves out sits in ``DECLINED`` with its reason
@@ -39,7 +40,9 @@ NAMESPACES = ["tensor", "tensor.extra", "linalg", "fft", "signal",
               "profiler", "cost_model", "jit", "static", "static.program",
               "static.nn", "quant", "incubate", "incubate.autotune",
               "incubate.asp", "incubate.data_generator", "testing",
-              "sysconfig", "version"]
+              "sysconfig", "version",
+              # the predictor and native/ (ROADMAP A7.5)
+              "inference", "io.native_feed"]
 
 # (namespace, name) -> why the port leaves it out
 DECLINED: dict = {}

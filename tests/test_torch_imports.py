@@ -55,6 +55,8 @@ def test_scan_covers_the_package():
                  "paddle_tpu_torch/nn/layers/sharded_embedding.py",
                  "paddle_tpu_torch/nn/layers/native_accessor.py",
                  "paddle_tpu_torch/core/native_build.py",
+                 "paddle_tpu_torch/inference/__init__.py",
+                 "paddle_tpu_torch/io/native_feed.py",
                  "paddle_tpu_torch/models/widedeep.py",
                  "paddle_tpu_torch/amp/__init__.py",
                  "paddle_tpu_torch/nn/clip.py",

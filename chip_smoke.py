@@ -14,20 +14,26 @@ the result line:
    where it serializes wgmma and, where the toolkit has ``cuobjdump``,
    each kernel's count of HMMA, HGMMA and TMA-load instructions in its
    SASS: the ``mma.sync`` flash kernels must hold HMMA, the Hopper B1,
-   B2 and B3 HGMMA and UTMALDG), and beside the nvcc builds, by g++
+   B2 and B3 HGMMA and UTMALDG, B4's tile kernels HMMA and UTMALDG),
+   and beside the nvcc builds, by g++
    against the installed torch, the native runner, ``ptserve`` and the
    native feed (the op library of B1, ``csrc/torch_ops.cc``, builds when
    the port is first imported);
 3. kernels: kernel B4 against its plain PyTorch twin at the serving
-   path's shapes and dtypes (decode, a prefill chunk of two sequences
+   path's shapes and dtypes (decode, decode batches of 32, 64 and 128
+   rows in f32 and bf16, a prefill chunk of two sequences
    and padding, GQA, one 1024-token row, head dims 80 and 256, a mixed
-   tick of 64 chunk rows and 8 decode rows sharing a 32-page prefix,
+   tick of 64 chunk rows and 8 decode rows sharing a 32-page prefix
+   (f32, bf16 and int8 pools),
    pages of 128 and 256 tokens, 40 and 64 q heads on one kv head, head
    dim 320, head dims 20 and 100 (not a multiple of 8), a speculative
    verify window of 8 slots x 4 rows with rising
    limits, f32 and int8, the same rows reversed within each slot, and
    head dims 16384 and 32768, the latter past a block's shared memory
-   (the streamed kernel)),
+   (the streamed kernel)); each case names the design
+   ``ops/paged_attention.py::paged_route`` gives it from the rows its
+   sequences hold, as the engine passes them, and a case on the
+   tile kernel is launched twice and must give the same bits),
    with its device time (``torch.profiler``; CUDA events
    beside it) beside the plain twin's, a one-call PyTorch yardstick's
    and the least time the card could take;
@@ -326,6 +332,7 @@ QKV_GRAD_RTOL = 1e-2
 PAGE_SIZE = 16
 NUM_PAGES = 1024
 SPEC_K = 4           # speculative tokens a round (K - 1 proposals)
+DECODE_SLOTS = (32, 64, 128)   # B4's wide decode batches
 PAGES_PER_SEQ = 64   # max_len 1024 over 16-token pages
 LAYERS = 12          # one launch per layer, as in one engine step
 REPS = 5
@@ -427,6 +434,12 @@ FLASH_WGMMA_REGISTERS = {"flash_fwd_wgmma": {64: 64, 128: 128},
                          "flash_bwd_dkv_wgmma": {64: 168, 128: 168}}
 
 
+# B4's tile kernels: one instantiation a pool type (f32, bf16, f16, int8)
+# and padded head dim (64, 128, 256)
+PAGED_TILE_KERNEL = "paged_attention_tile"
+PAGED_TILE_INSTANCES = 12
+
+
 def _build_native() -> dict:
     """The host builds (g++ against the installed torch): the runner,
     ptserve and the native feed; seconds each."""
@@ -479,11 +492,25 @@ def phase_build() -> None:
                    for k, v in (sass.get("flash_attention") or {}).items()
                    if k.split("<")[0] in FLASH_MMA_KERNELS |
                    FLASH_WGMMA_KERNELS}
+    paged_ptxas = ptxas.get("paged_attention", {})
+    paged_tile = {k: dict(v, **paged_ptxas.get(k, {}))
+                  for k, v in (sass.get("paged_attention") or {}).items()
+                  if k.startswith(PAGED_TILE_KERNEL)}
     emit({"phase": "build", "seconds": seconds,
           "per_kernel_s": per_kernel, "native_s": native_s, "nvcc": nvcc,
           "flags": list(_kernels.NVCC_FLAGS), "ptxas": ptxas,
           "sass_counts": sass, "flash_tensor_core_kernels": tensor_core,
+          "paged_tile_kernels": paged_tile,
           "wgmma_serialized": serialized})
+    # B4's tile kernels (f32, bf16, f16, int8 pools at D 64, 128, 256)
+    # hold tensor-core products (HMMA) and TMA loads (UTMALDG)
+    if sass.get("paged_attention") is not None:
+        bad = {k: v for k, v in paged_tile.items()
+               if not (v["HMMA"] and v["UTMALDG"])}
+        if len(paged_tile) != PAGED_TILE_INSTANCES or bad:
+            raise SystemExit(f"B4 tile kernels without their tensor-core "
+                             f"or TMA instructions in SASS: "
+                             f"{bad or paged_tile}")
     # each Hopper kernel this run built, at each dtype and D, holds
     # exactly its launch share of registers
     if "flash_attention" in _kernels.build_logs:
@@ -516,6 +543,44 @@ def phase_build() -> None:
 # ---------------------------------------------------------------------------
 # kernel B4 against its plain twin
 # ---------------------------------------------------------------------------
+
+# the parent's device ms of B4 cases (case, kv dtype, q dtype), from the
+# paired run of the parent and this tree on one card
+# (``tools/torch_kernel_pair.py paged``; PERF.md section 6)
+PAGED_PARENT_FROM = "tools/torch_kernel_pair.py paged, parent bd28a6c"
+PAGED_PARENT_MS = {
+    ("decode gpt2", "torch.float32", "torch.float32"):
+        0.025997208333333334,
+    ("decode gpt2", "torch.int8", "torch.float32"):
+        0.017571766666666665,
+    ("chunk gpt2", "torch.float32", "torch.float32"):
+        0.07575918333333333,
+    ("chunk gpt2", "torch.bfloat16", "torch.bfloat16"):
+        0.06829365000000001,
+    ("mixed chunk+decode shared", "torch.float32", "torch.float32"):
+        0.0943334333333333,
+    ("mixed chunk+decode shared", "torch.bfloat16", "torch.bfloat16"):
+        0.07354440000000002,
+    ("verify gpt2 (8 x K 4)", "torch.float32", "torch.float32"):
+        0.03984727500000001,
+    ("verify gpt2 (8 x K 4)", "torch.bfloat16", "torch.bfloat16"):
+        0.032957299999999995,
+    ("decode llama-gqa", "torch.bfloat16", "torch.bfloat16"):
+        0.019888958333333328,
+    ("decode gpt2 x32", "torch.float32", "torch.float32"):
+        0.07033829166666666,
+    ("decode gpt2 x32", "torch.bfloat16", "torch.bfloat16"):
+        0.04129831666666666,
+    ("decode gpt2 x64", "torch.float32", "torch.float32"):
+        0.1319740083333333,
+    ("decode gpt2 x64", "torch.bfloat16", "torch.bfloat16"):
+        0.07318304166666667,
+    ("decode gpt2 x128", "torch.float32", "torch.float32"):
+        0.2419564916666667,
+    ("decode gpt2 x128", "torch.bfloat16", "torch.bfloat16"):
+        0.12820573333333335,
+}
+
 
 def _case_inputs(g, t, heads, kv_heads, d, kv_dtype, q_dtype, lens_list,
                  seqs, page_size=PAGE_SIZE, shared=0, num_pages=None,
@@ -635,9 +700,10 @@ def _library_fn(pools, tables, lens, q, heads, kv_heads):
     return call
 
 
-def phase_kernels() -> dict:
-    pa = importlib.import_module("paddle_tpu_torch.ops.paged_attention")
-    g = torch.Generator(device="cuda").manual_seed(0)
+def paged_cases() -> list:
+    """Kernel B4's cases: (name, T, heads, kv heads, d, lens, seqs, [(kv
+    dtype, q dtype)], and optionally {page_size, shared, num_pages,
+    pages_per_seq}) at the serving path's shapes and beyond."""
     rng = np.random.RandomState(0)
     decode_lens = [0, 17, 143, 269, 400, 647, 773, 932]
     # a prefill chunk: the last 40 prompt rows of one sequence, the
@@ -656,9 +722,17 @@ def phase_kernels() -> dict:
     all_dtypes = [(f32, f32), (bf16, f32), (bf16, bf16), (i8, f32)]
     big_d_lens = [0, 5, 16, 17, 40, 64, 100, 128]
     big_d_pool = dict(num_pages=72, pages_per_seq=8)
-    shapes = [  # name, T, heads, kv heads, d, lens, seqs, (kv, q) dtypes
+    # decode batches of an engine with 32, 64 and 128 slots: one row a
+    # sequence, contexts drawn over the 1024-token span
+    wide = [(f"decode gpt2 x{n}", n, 12, 12, 64,
+             [int(x) for x in np.random.RandomState(n).randint(1, 1025, n)],
+             list(range(n)), [(f32, f32), (bf16, bf16)],
+             dict(num_pages=(n + 1) * PAGES_PER_SEQ))
+            for n in DECODE_SLOTS]
+    return [  # name, T, heads, kv heads, d, lens, seqs, (kv, q) dtypes
         ("decode gpt2", 8, 12, 12, 64, decode_lens, list(range(8)),
          all_dtypes),
+        *wide,
         ("chunk gpt2", 64, 12, 12, 64, chunk_lens, chunk_seqs, all_dtypes),
         ("decode llama-gqa", 8, 16, 4, 128,
          [int(n) for n in rng.permutation(decode_lens)], list(range(8)),
@@ -676,7 +750,8 @@ def phase_kernels() -> dict:
         # (a 512-token prefix) shared by all rows
         ("mixed chunk+decode shared", 72, 12, 12, 64,
          list(range(513, 577)) + [530, 560, 600, 650, 690, 700, 720, 740],
-         [0] * 64 + list(range(1, 9)), [(f32, f32)], dict(shared=32)),
+         [0] * 64 + list(range(1, 9)), [(f32, f32), (bf16, bf16), (i8, f32)],
+         dict(shared=32)),
         # shapes the Pallas kernel takes and a block does not hold whole:
         # 128- and 256-token pages, 40 and 64 q heads on one kv head
         # (gpt3-13b with num_kv_heads=1), d 320
@@ -699,7 +774,7 @@ def phase_kernels() -> dict:
         ("decode d100 gqa", 8, 8, 2, 100, decode_lens, list(range(8)),
          [(f32, f32), (bf16, bf16), (i8, f32)]),
         ("verify gpt2 (8 x K 4)", 8 * SPEC_K, 12, 12, 64, verify_lens,
-         verify_seqs, [(f32, f32), (i8, f32)]),
+         verify_seqs, [(f32, f32), (bf16, bf16), (i8, f32)]),
         ("verify gpt2, rows reversed", 8 * SPEC_K, 12, 12, 64, verify_rev,
          verify_seqs, [(f32, f32)]),
         # head dims whose staged K row, V column slice and q vectors pass
@@ -710,9 +785,14 @@ def phase_kernels() -> dict:
         ("decode d32768 (streamed)", 8, 2, 1, 32768, big_d_lens,
          list(range(8)), [(f32, f32), (bf16, bf16)], big_d_pool),
     ]
+
+
+def phase_kernels() -> dict:
+    pa = importlib.import_module("paddle_tpu_torch.ops.paged_attention")
+    g = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     for name, t, heads, kv_heads, d, lens_list, seqs, dtypes, *extra in \
-            shapes:
+            paged_cases():
         extra = extra[0] if extra else {}
         page_size = extra.get("page_size", PAGE_SIZE)
         for kv_dtype, q_dtype in dtypes:
@@ -720,23 +800,35 @@ def phase_kernels() -> dict:
                 g, t, heads, kv_heads, d, kv_dtype, q_dtype, lens_list,
                 seqs, **extra)
             kp, vp, ks, vs = _layer_args(pools, 0)
+            # the rows a sequence holds, as the engine passes them
+            seq_rows = pa.rows_per_run(lens_list, tables.cpu(), page_size)
+            route = pa.launch_route(q, kp, vp, ks, vs, seq_rows)
             got = pa.paged_attention_kernel(q, kp, vp, tables, lens,
-                                            k_scales=ks, v_scales=vs)
+                                            k_scales=ks, v_scales=vs,
+                                            seq_rows=seq_rows)
             want = pa.paged_attention_torch(q, kp, vp, tables, lens,
                                             k_scales=ks, v_scales=vs)
+            # the tile kernel sums in a fixed order: a second launch on
+            # the same inputs gives the same bits
+            again = pa.paged_attention_kernel(
+                q, kp, vp, tables, lens, k_scales=ks, v_scales=vs,
+                seq_rows=seq_rows) if route == "tile" else got
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             tol = TOLERANCE[q_dtype if q_dtype != torch.float32
                             else kv_dtype]
             zero_rows = got[lens == 0].abs().max().item() \
                 if (lens == 0).any() else 0.0
-            ok = math.isfinite(err) and err <= tol and zero_rows == 0.0
+            identical = torch.equal(got, again)
+            ok = math.isfinite(err) and err <= tol and zero_rows == 0.0 \
+                and identical
 
             def kern(i):
                 a = _layer_args(pools, i)
                 return pa.paged_attention_kernel(q, a[0], a[1], tables,
                                                  lens, k_scales=a[2],
-                                                 v_scales=a[3])
+                                                 v_scales=a[3],
+                                                 seq_rows=seq_rows)
 
             def plain(i):
                 a = _layer_args(pools, i)
@@ -751,7 +843,13 @@ def phase_kernels() -> dict:
             bound_ms, bound_by, nbytes, ops = _bound(
                 tables, lens_list, t, heads, kv_heads, d, page_size,
                 kv_dtype, q_dtype)
+            parent = PAGED_PARENT_MS.get(
+                (name, str(kv_dtype), str(q_dtype)))
             case = {"phase": "kernel_case", "kernel": "paged_attention",
+                    "route": route, "seq_rows": seq_rows,
+                    "bit_identical": identical,
+                    "parent_ms": parent, "parent_ms_from":
+                        PAGED_PARENT_FROM if parent is not None else None,
                     "case": name, "T": t, "heads": heads,
                     "kv_heads": kv_heads, "head_dim": d,
                     "page_size": page_size,
@@ -769,12 +867,13 @@ def phase_kernels() -> dict:
                     "bytes": nbytes, "ops": ops}
             emit(case)
             cases.append(case)
-            del pools, got, want
+            del pools, got, want, again
             torch.cuda.empty_cache()
     bad = [c for c in cases if not c["ok"]]
     if bad:
-        raise SystemExit(f"kernel B4 disagrees with its plain twin: "
-                         f"{[(c['case'], c['kv_dtype'], c['max_abs_err']) for c in bad]}")
+        raise SystemExit(f"kernel B4 disagrees with its plain twin or "
+                         f"with its own second launch: "
+                         f"{[(c['case'], c['kv_dtype'], c['max_abs_err'], c['bit_identical']) for c in bad]}")
     return cases[0]   # decode, gpt2 heads, f32: the headline shape
 
 

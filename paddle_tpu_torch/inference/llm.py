@@ -57,7 +57,8 @@ from ..observability import tracing as _trace
 from ..ops.paged_attention import (KV_DTYPES, KVStore, QuantizedKV,
                                    _split_kv, kv_layer, kv_nbytes,
                                    kv_page_size, kv_write, kv_zeros,
-                                   ragged_paged_attention)
+                                   ragged_paged_attention, rows_per_run,
+                                   run_counts)
 from ..ops.rotary import apply_rotary_pos_emb, rope_tables
 from ..reliability import faults as _faults
 from ..reliability.retry import DeadlineExceeded, as_deadline
@@ -330,9 +331,11 @@ def _write_slots(tables, positions, active, page_size):
 
 
 def _layer_step(net, x, layer, i, pos_ids, rope, page_idx, offs,
-                k_pages, v_pages, tables, lens, attention_impl):
+                k_pages, v_pages, tables, lens, attention_impl, seq_rows):
     """One decoder block over T token rows ``x`` [1 or B, ., H]: write
-    the rows' K/V into the pool, attend over each row's paged context,
+    the rows' K/V into the pool, attend over each row's paged context
+    (``seq_rows``: the rows a sequence holds on average, 0 where not
+    known),
     and return the block's output."""
     cfg = net.cfg
     hd = cfg.head_dim
@@ -355,7 +358,8 @@ def _layer_step(net, x, layer, i, pos_ids, rope, page_idx, offs,
     att = ragged_paged_attention(
         q.reshape(rows, cfg.num_heads, hd).contiguous(),
         kv_layer(k_pages, i),
-        kv_layer(v_pages, i), tables, lens, impl=attention_impl)
+        kv_layer(v_pages, i), tables, lens, impl=attention_impl,
+        seq_rows=seq_rows)
     x = x + layer.attn.out_proj(att.reshape(*lead, cfg.hidden_size))
     return x + layer.mlp(layer.ln_2(x))
 
@@ -370,10 +374,13 @@ def _rope(cfg, device):
 
 
 def _ragged_forward(net, tokens, positions, limits, tables, k_pages,
-                    v_pages, attention_impl):
+                    v_pages, attention_impl, seq_rows=0):
     """T token rows of any mix of sequences as one forward: each row
     writes its K/V at its position and attends its own table row up to
-    its limit (0 = padding). Returns the final hidden rows [T, H]."""
+    its limit (0 = padding); ``seq_rows``: the rows a sequence holds on
+    average among the live ones
+    (:func:`~paddle_tpu_torch.ops.paged_attention.rows_per_run`), 0 where
+    not known. Returns the final hidden rows [T, H]."""
     gpt = net.gpt
     pos_ids = positions[None, :]                        # [1, T]
     x = gpt.embeddings(tokens[None, :], position_ids=pos_ids)
@@ -382,7 +389,8 @@ def _ragged_forward(net, tokens, positions, limits, tables, k_pages,
     rope = _rope(net.cfg, x.device)
     for i, layer in enumerate(gpt.layers):
         x = _layer_step(net, x, layer, i, pos_ids, rope, page_idx, offs,
-                        k_pages, v_pages, tables, limits, attention_impl)
+                        k_pages, v_pages, tables, limits, attention_impl,
+                        seq_rows)
     return gpt.ln_f(x)[0]
 
 
@@ -539,7 +547,7 @@ class _PagedDecode(Layer):
         for i, layer in enumerate(gpt.layers):
             x = _layer_step(net, x, layer, i, pos_ids, rope, page_idx,
                             offs, k_pages, v_pages, block_tables,
-                            context_lens, self.attention_impl)
+                            context_lens, self.attention_impl, 1)
         logits = _lm_rows(net, gpt.ln_f(x)[:, 0])
         nxt = _sample(logits, temperature, key, nonces, positions,
                       any_sampled)
@@ -571,7 +579,7 @@ class _PagedVerify(Layer):
         x = _ragged_forward(self.net, tokens.reshape(-1), pos.reshape(-1),
                             lim.reshape(-1),
                             block_tables.repeat_interleave(kq, dim=0),
-                            k_pages, v_pages, self.attention_impl)
+                            k_pages, v_pages, self.attention_impl, kq)
         return _lm_rows(self.net, x).reshape(b, kq, -1)
 
 
@@ -621,9 +629,10 @@ class _ChunkedPrefill(Layer):
 
     def forward(self, tokens, positions, limits, tables, sample_idx,
                 sample_pos, k_pages, v_pages, temperatures, nonces, key,
-                any_sampled: bool = True):
+                any_sampled: bool = True, seq_rows: float = 0):
         x = _ragged_forward(self.net, tokens, positions, limits, tables,
-                            k_pages, v_pages, self.attention_impl)
+                            k_pages, v_pages, self.attention_impl,
+                            seq_rows)
         # only the finishing slots' last rows need the LM head
         logits = _lm_rows(self.net, x[sample_idx.long()])
         return _sample(logits, temperatures, key, nonces, sample_pos,
@@ -647,13 +656,13 @@ class _MixedTick(Layer):
 
     def forward(self, ptok, ppos, plim, ptbl, fin, fin_row, fin_pos,
                 dtok, dpos, dlens, tables, k_pages, v_pages, temps,
-                nonces, key, any_sampled: bool = True):
+                nonces, key, any_sampled: bool = True, seq_rows: float = 0):
         c, b = ptok.shape[0], dtok.shape[0]
         x = _ragged_forward(
             self.net, torch.cat([ptok, dtok]), torch.cat([ppos, dpos]),
             torch.cat([plim, dlens]),
             torch.cat([ptbl.clamp(min=0), tables.clamp(min=0)]),
-            k_pages, v_pages, self.attention_impl)
+            k_pages, v_pages, self.attention_impl, seq_rows)
         rows = torch.where(fin, fin_row.long(),
                            c + torch.arange(b, device=x.device))
         logits = _lm_rows(self.net, x[rows])
@@ -2038,7 +2047,7 @@ class LLMEngine:
         self._update_kv_gauge()
         return "ok"
 
-    def _draft_fill(self, tok, pos, lim, tbl):
+    def _draft_fill(self, tok, pos, lim, tbl, seq_rows: float = 0):
         """The draft's ride-along over a packed chunk schedule (device
         tensors [T] / [T, P]): the same rows through the draft net into
         its pool, so every prompt position a verify window reads has
@@ -2047,7 +2056,7 @@ class LLMEngine:
         that maps it."""
         _ragged_forward(self.draft_net, tok, pos, lim, tbl,
                         self.draft_k_pages, self.draft_v_pages,
-                        self._draft_decode.attention_impl)
+                        self._draft_decode.attention_impl, seq_rows)
         self.n_draft_passes += 1
 
     def _register_pages(self, touched: List[_Request]):
@@ -2145,16 +2154,18 @@ class LLMEngine:
             pc = self._perf_chunks
             self._perf_chunks = [pc[0] + 1, pc[1] + cost[0],
                                  pc[2] + cost[1]]
+        run = rows_per_run(lim, tbl, self.page_size)
         tok, pos, lim, tbl = map(self._dev, (tok, pos, lim, tbl))
         nxt = self._chunk(
             tok, pos, lim, tbl, self._dev(sample_idx),
             self._dev(sample_pos), self.k_pages, self.v_pages,
             self._dev(self.temperatures), self._dev(self._nonces),
             self._key,
-            any_sampled=self._any_sampled(r.slot for r, _ in finishing))
+            any_sampled=self._any_sampled(r.slot for r, _ in finishing),
+            seq_rows=run)
         self._count_dispatch()
         if self.spec_slab:
-            self._draft_fill(tok, pos, lim, tbl)
+            self._draft_fill(tok, pos, lim, tbl, run)
             self._count_dispatch()
         if finishing:
             mask = np.zeros((self.max_seqs,), bool)
@@ -2284,10 +2295,11 @@ class LLMEngine:
         return plan, entry_bud, n_eff
 
     def _run_slab(self, carry: DecodeCarry, n_ticks: int, any_sampled,
-                  xs: Optional[dict] = None):
+                  xs: Optional[dict] = None, seq_rows=()):
         """``n_ticks`` ticks issued back to back with no host read
         between them: each is the decode step (or, given the packed
-        chunk rows ``xs``, the mixed tick) masked by ``budgets > 0``.
+        chunk rows ``xs``, the mixed tick, whose sequences hold
+        ``seq_rows[j]`` rows on average) masked by ``budgets > 0``.
         A masked tick writes only scratch page 0 and holds the carry,
         so every tick runs (skipping an idle one would need the host to
         read the device). Returns ([n_ticks, max_seqs] tokens, carry)."""
@@ -2312,7 +2324,7 @@ class LLMEngine:
                     xs["tbl"][j], fin, xs["row"][j], xs["fpos"][j],
                     c.tokens, c.positions, lens, tables, c.k_pages,
                     c.v_pages, temps, nonces, self._key,
-                    any_sampled=any_sampled)
+                    any_sampled=any_sampled, seq_rows=seq_rows[j])
             emits = active | fin
             budgets = torch.where(active, c.budgets - 1, c.budgets)
             positions = torch.where(active, c.positions + 1, c.positions)
@@ -2496,16 +2508,25 @@ class LLMEngine:
               "grant": grant}
         xs = {k: self._dev(np.ascontiguousarray(v[:n_run]))
               for k, v in xs.items()}
+        # the rows a sequence holds in each tick: its chunk's runs, and a
+        # run of one row for each slot that decodes in the slab
+        runs = []
+        for j in range(n_run):
+            live, n = run_counts(plim[j], ptbl[j], ps)
+            runs.append((live + len(slots)) / (n + len(slots))
+                        if n + len(slots) else 0.0)
         toks, carry = self._run_slab(
             self._carry({s: plan[s][0] for s in plan},
                         {s: min(entry_bud[s], n_run) for s in plan}),
-            n_run, self._any_sampled(slots), xs)
+            n_run, self._any_sampled(slots), xs, runs)
         self._count_dispatch()
         if self.spec_slab:
             # padding rows carry limit 0 and write scratch page 0
             self._draft_fill(xs["tok"].reshape(-1), xs["pos"].reshape(-1),
                              xs["lim"].reshape(-1),
-                             xs["tbl"].reshape(-1, self.pages_per_seq))
+                             xs["tbl"].reshape(-1, self.pages_per_seq),
+                             rows_per_run(plim[:n_run].reshape(-1),
+                                          ptbl[:n_run].reshape(-1, P), ps))
             self._count_dispatch()
         self._tokens_dev = carry.tokens
         self._issue_seq += 1

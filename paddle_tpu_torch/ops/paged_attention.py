@@ -10,8 +10,9 @@ query row carries its own table row and causal limit.
 Three implementations, chosen by ``impl``:
 
 - ``"kernel"`` (default): :func:`paged_attention_kernel`, the
-  hand-written CUDA kernel B4 (``csrc/paged_attention.cu``) for a CUDA
-  tensor, and its plain twin for a CPU tensor;
+  hand-written CUDA kernel B4 (``csrc/paged_attention.cu``; the design
+  a launch takes is :func:`paged_route`'s) for a CUDA tensor, and its
+  plain twin for a CPU tensor;
 - ``"plain"``: :func:`paged_attention_torch`, the gather + dense masked
   softmax of the JAX package's ``_gathered_attention``;
 - ``"reference"``: :func:`ragged_paged_attention_reference`, all f32.
@@ -26,6 +27,7 @@ import ctypes
 import math
 from typing import NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from ..core.device import resolve_device
@@ -229,9 +231,109 @@ launches = 0
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
              torch.int8: 3}
-# paged_attention_launch's code for pools not aligned to the rows' copies
+# paged_attention_launch's codes for pools not aligned as the route
+# needs, and for a shape the route does not take
 _MISALIGNED = -1
+_REFUSED = -2
+# kernel designs, as csrc/paged_attention.cu's Route numbers them
+_ROUTES = {"simt": 0, "tile": 1}
 _launcher = None
+
+# rows a tile launch takes at most (csrc/paged_attention.cu, kPlanRows:
+# the plan kernel keeps a flag a row in shared memory)
+_PLAN_ROWS = 16384
+# pages of a tile partition at most, at 16-token pages (fewer at larger
+# pages): two 64-row stages, so a long chunk run splits over more blocks
+_TILE_PART_PAGES = 8
+# rows a sequence holds on average in a launch that takes the tile route:
+# the routes timed against each other on one card (tools/
+# torch_kernel_pair.py routes; PERF.md, section 6) found tile faster on
+# 64-row chunks in runs of 8 rows or more and on a mixed tick of 64 chunk
+# rows and 8 decode rows, slower on runs of 4 (chunks, verify windows),
+# on decode batches of every width and on a mixed tick of 64 chunk rows
+# and 56 decode rows, in every pool type
+_TILE_SEQ_ROWS = 8
+
+
+def run_counts(lens, tables, page_size: int):
+    """(live rows, runs) of a launch: its rows with a limit above 0, and
+    the runs they form as the kernels' run detection joins them
+    (consecutive live rows with limits that do not fall, whose tables
+    agree over the earlier row's live pages). ``lens`` [T] and
+    ``tables`` [T, P] are host arrays (the engine's, before they go to
+    the card)."""
+    lens = np.asarray(lens)
+    tables = np.asarray(tables)
+    live = int((lens > 0).sum())
+    if lens.size < 2:
+        return live, live
+    prev = lens[:-1]
+    pages = np.arange(tables.shape[1]) < -(-prev[:, None] // page_size)
+    join = (prev > 0) & (lens[1:] >= prev) & \
+        ((tables[1:] == tables[:-1]) | ~pages).all(axis=1)
+    return live, live - int(join.sum())
+
+
+def rows_per_run(lens, tables, page_size: int) -> float:
+    """The rows a sequence holds on average among a launch's live rows
+    (:func:`run_counts`; 1 for a decode batch, K for a verify window of
+    K, 0 with no live row): what :func:`paged_route` decides by."""
+    live, runs = run_counts(lens, tables, page_size)
+    return live / runs if runs else 0.0
+
+
+def paged_route(t: int, heads: int, kv_heads: int, d: int, page_size: int,
+                kv_dtype: torch.dtype, q_dtype: torch.dtype,
+                seq_rows: float = 0, aligned: bool = True) -> Optional[str]:
+    """The design of kernel B4 that a launch of ``t`` q rows [t, heads,
+    d] in ``q_dtype`` over pools [NP, page_size, kv_heads, d] in
+    ``kv_dtype`` takes, as :func:`..flash_attention.kernel_route` names
+    B1-B3's. ``seq_rows``: the rows a sequence holds on average among
+    the launch's live rows (:func:`rows_per_run`) where the caller knows
+    it, 0 where not; ``aligned``: the pools, and int8 scales, start on 16
+    bytes, as TMA reads them.
+
+    - ``"tile"``: ``paged_attention_plan`` (the launch's runs and
+      partitions listed on the card) and ``paged_attention_tile``, TMA
+      page loads through an mbarrier ring and the products on the tensor
+      cores (``mma.sync``; 3xTF32 for f32 pools), where sequences hold
+      ``_TILE_SEQ_ROWS`` rows or more on average (prefill chunks, mixed
+      ticks with few decode rows), up to ``_PLAN_ROWS`` rows, d a
+      multiple of 16 up to 256 and pages of a power of two from 8 rows;
+    - ``"simt"``: float32 FMAs over ``cp.async`` stages
+      (``paged_attention``, or ``paged_attention_streamed`` where the
+      staged rows would pass a block's shared memory, which the launcher
+      decides), for the rest: shorter runs (decode batches of any size,
+      verify windows of 4, mixed ticks with many decode rows) or runs not
+      known, d not a multiple of 16 or above 256, other page sizes,
+      misaligned pools.
+
+    The tile kernel pays a fixed cost a launch (its plan) and an item
+    (a run and partition) that short runs do not pay back: the rule
+    follows the rows a run holds, not the rows of the launch. None where
+    no design takes the arguments. A pure function of its arguments: the
+    launch passes the route, and nothing falls back."""
+    if t < 0 or d <= 0 or page_size <= 0 or kv_heads <= 0 or \
+            heads % kv_heads or kv_dtype not in _KV_CODES or \
+            q_dtype not in _Q_CODES:
+        return None
+    if aligned and seq_rows >= _TILE_SEQ_ROWS and \
+            t <= _PLAN_ROWS and d % 16 == 0 and d <= 256 and \
+            page_size >= 8 and page_size & (page_size - 1) == 0:
+        return "tile"
+    return "simt"
+
+
+def launch_route(q, k_pages, v_pages, k_scales=None, v_scales=None,
+                 seq_rows: float = 0):
+    """:func:`paged_route` of a launch on these tensors, alignment
+    read from their addresses."""
+    ptrs = [k_pages, v_pages] + ([k_scales, v_scales]
+                                 if k_scales is not None else [])
+    t, heads, d = q.shape
+    return paged_route(t, heads, k_pages.shape[2], d, k_pages.shape[1],
+                       k_pages.dtype, q.dtype, seq_rows,
+                       aligned=all(x.data_ptr() % 16 == 0 for x in ptrs))
 
 
 def partition_pages(t: int, kv_heads: int, pages_per_seq: int,
@@ -256,7 +358,7 @@ def _load_launcher():
         fn = _kernels.library("paged_attention").paged_attention_launch
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, i, p, p, i, p, p, p, p, p, p, p, i, i, i, i, i,
-                       i, i, ctypes.c_float, p]
+                       i, i, i, ctypes.c_float, i, i, p, p]
         fn.restype = i
         _launcher = fn
     return _launcher
@@ -311,11 +413,17 @@ def _check_cuda_args(q, k_pages, v_pages, tables, lens, k_scales,
 
 def paged_attention_kernel(q, k_pages, v_pages, block_tables,
                            context_lens, scale: Optional[float] = None,
-                           k_scales=None, v_scales=None):
+                           k_scales=None, v_scales=None,
+                           seq_rows: float = 0,
+                           route: Optional[str] = None):
     """Kernel B4: ragged paged attention, same contract as
     :func:`paged_attention_torch`. A CUDA tensor launches the CUDA
-    kernel (raising on what it does not take, or on a failed launch); a
-    CPU tensor runs the plain twin."""
+    kernel of :func:`launch_route`'s design (raising on what it does not
+    take, or on a failed launch); a CPU tensor runs the plain twin.
+    ``seq_rows``: the rows a sequence holds on average among the live
+    rows (:func:`rows_per_run`; 1 for a decode batch) where the caller
+    knows it, 0 where not; ``route``: a design the caller names ("tile"
+    or "simt": tests and timings), else :func:`launch_route`'s."""
     if not q.is_cuda:
         return paged_attention_torch(q, k_pages, v_pages, block_tables,
                                      context_lens, scale, k_scales,
@@ -325,12 +433,20 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables,
                      k_scales, v_scales)
     fn = _load_launcher()
     t, n_heads, d = q.shape
-    _, page_size, kv_heads, _ = k_pages.shape
+    num_pages, page_size, kv_heads, _ = k_pages.shape
+    if route is None:
+        route = launch_route(q, k_pages, v_pages, k_scales, v_scales,
+                             seq_rows)
+    elif route not in _ROUTES:
+        raise ValueError(f"unknown route {route!r}")
     out = torch.empty_like(q)
     if t == 0:
         return out
     pages_per_seq = block_tables.shape[1]
     part_pages = partition_pages(t, kv_heads, pages_per_seq, page_size)
+    if route == "tile":
+        part_pages = min(part_pages,
+                         max(1, _TILE_PART_PAGES // max(1, page_size // 16)))
     n_parts = -(-pages_per_seq // part_pages)
     part_ml = part_acc = None
     if n_parts > 1:   # partials of rows that span several partitions
@@ -338,6 +454,11 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables,
                               device=q.device)
         part_acc = torch.empty((t, n_heads, n_parts, d),
                                dtype=torch.float32, device=q.device)
+    # the tile route's work list (csrc/paged_attention.cu,
+    # paged_attention_plan): a count, then an item a run and partition
+    # at most
+    plan = torch.empty(1 + 3 * t * n_parts, dtype=torch.int32,
+                       device=q.device) if route == "tile" else None
     sm_scale = scale if scale is not None else 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), _Q_CODES[q.dtype], k_pages.data_ptr(),
@@ -348,12 +469,17 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables,
              out.data_ptr(),
              part_ml.data_ptr() if part_ml is not None else None,
              part_acc.data_ptr() if part_acc is not None else None,
-             t, n_heads, kv_heads, d, page_size, pages_per_seq,
-             part_pages, sm_scale, stream)
+             t, n_heads, kv_heads, d, page_size, num_pages, pages_per_seq,
+             part_pages, sm_scale, _ROUTES[route], int(seq_rows == 1),
+             plan.data_ptr() if plan is not None else None, stream)
     if err == _MISALIGNED:
         raise ValueError("k_pages and v_pages must be aligned to the "
                          "widest copy (16, 8, 4, 2 or 1 bytes) that "
                          "divides a row")
+    if err == _REFUSED:
+        raise RuntimeError(f"paged_attention: route {route!r} refused "
+                           f"d {d}, page size {page_size}, {n_heads} / "
+                           f"{kv_heads} heads")
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {err}")
@@ -373,19 +499,22 @@ def paged_attention_kernel(q, k_pages, v_pages, block_tables,
 def ragged_paged_attention(q, kv_k: KVStore, kv_v: KVStore,
                            token_tables, token_lens,
                            scale: Optional[float] = None,
-                           impl: str = "kernel"):
+                           impl: str = "kernel", seq_rows: float = 0):
     """THE ragged paged-attention entry point: q [T, heads, d], each
     row t with its own block-table row ``token_tables[t]`` [P] and
     causal limit ``token_lens[t]`` (0 = padding -> zero row), over a
     plain or int8 (:class:`QuantizedKV`) pool. Returns [T, heads, d] in
     q's dtype. ``impl``: ``"kernel"``, ``"plain"`` or ``"reference"``
-    (see the module docstring)."""
+    (see the module docstring); ``seq_rows``: the rows a sequence holds
+    on average among the live rows (:func:`rows_per_run`) where the
+    caller knows it, which picks the kernel's design
+    (:func:`paged_route`)."""
     kp, ks = _split_kv(kv_k)
     vp, vs = _split_kv(kv_v)
     if impl == "kernel":
         return paged_attention_kernel(q, kp, vp, token_tables, token_lens,
                                       scale=scale, k_scales=ks,
-                                      v_scales=vs)
+                                      v_scales=vs, seq_rows=seq_rows)
     if impl == "plain":
         return paged_attention_torch(q, kp, vp, token_tables, token_lens,
                                      scale, ks, vs)

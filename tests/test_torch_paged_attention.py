@@ -583,3 +583,98 @@ def test_kernel_takes_head_dims_past_shared_memory(d, heads, kv_dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                rtol=tol)
     assert torch.count_nonzero(got[lt == 0]) == 0
+
+
+TILE_DTYPES = [("float32", "float32"), ("bfloat16", "float32"),
+               ("bfloat16", "bfloat16"), ("int8", "float32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype, q_dtype", TILE_DTYPES,
+                         ids=lambda v: str(v))
+@pytest.mark.parametrize("case", [
+    # name: (heads, kv heads, rows of the run, limit of its first row)
+    ("4-q", 12, 12, 4, 300), ("16-q", 12, 12, 16, 531),
+    ("64-q", 12, 12, 64, 800), ("72-q-run-cap", 12, 12, 72, 401),
+    ("gqa-16-q", 16, 4, 4, 290), ("gqa-64-q", 8, 2, 16, 177)],
+    ids=lambda c: c[0])
+def test_tile_route_on_card(case, kv_dtype, q_dtype):
+    """The tile kernel (route "tile", named by the caller) against its
+    plain twin at runs of 4, 16, 64 and 72 q vectors (a run of one
+    sequence's rows with limits rising by one, times the GQA group; 72
+    rows pass the 64-q-vector cap and split into two runs), beside 3
+    decode rows of other sequences and zero rows, in all four dtype
+    pairs; and two launches on the same inputs bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("kernel B4 runs only on a CUDA card")
+    _, h, kvh, rows, first = case
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ps, P, n_pages = 16, 64, 1024
+    pad = 2
+    lens = list(range(first, first + rows)) + [77, 512, 1000] + [0] * pad
+    seqs = [0] * rows + [1, 2, 3] + [4] * pad
+    kp = torch.randn(n_pages, ps, kvh, 64, generator=g, device="cuda")
+    vp = torch.randn(n_pages, ps, kvh, 64, generator=g, device="cuda")
+    ks = vs = None
+    if kv_dtype == "int8":
+        (kp, ks), (vp, vs) = tpa.quantize_kv(kp), tpa.quantize_kv(vp)
+    else:
+        kp, vp = kp.to(getattr(torch, kv_dtype)), \
+            vp.to(getattr(torch, kv_dtype))
+    tables = _new_shape_tables(g, lens, seqs, ps, P, 0, n_pages)
+    lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(len(lens), h, 64, generator=g,
+                    device="cuda").to(getattr(torch, q_dtype))
+    before = tpa.launches
+    got = tpa.paged_attention_kernel(q, kp, vp, tables, lt, k_scales=ks,
+                                     v_scales=vs, route="tile")
+    again = tpa.paged_attention_kernel(q, kp, vp, tables, lt, k_scales=ks,
+                                       v_scales=vs, route="tile")
+    want = tpa.paged_attention_torch(q, kp, vp, tables, lt, k_scales=ks,
+                                     v_scales=vs)
+    torch.cuda.synchronize()
+    assert tpa.launches == before + 2
+    assert torch.equal(got, again)
+    tol = {"float32": 2e-5, "int8": 1e-4}.get(kv_dtype, 2e-2) \
+        if q_dtype == "float32" else 2e-2
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, err
+    assert torch.count_nonzero(got[lt == 0]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads, kv_heads, kv_dtype", [
+    (12, 12, "float32"), (12, 12, "bfloat16"), (12, 12, "int8"),
+    (16, 4, "bfloat16"), (64, 1, "float32")], ids=lambda v: str(v))
+def test_decode_hint_keeps_the_bits_on_card(heads, kv_heads, kv_dtype):
+    """A decode batch of 64 rows, one a sequence: the simt kernel with the
+    caller's one-row hint (its blocks compare no tables) gives the bits
+    it gives without it, and the route stays "simt"."""
+    if not torch.cuda.is_available():
+        pytest.skip("kernel B4 runs only on a CUDA card")
+    g = torch.Generator(device="cuda").manual_seed(6)
+    ps, P, n = 16, 64, 64
+    lens = [int(x) for x in np.random.RandomState(3).randint(0, 1025, n)]
+    kp, vp = [torch.randn(n * P + 1, ps, kv_heads, 64, generator=g,
+                          device="cuda") for _ in range(2)]
+    ks = vs = None
+    if kv_dtype == "int8":
+        (kp, ks), (vp, vs) = tpa.quantize_kv(kp), tpa.quantize_kv(vp)
+    else:
+        kp, vp = kp.to(getattr(torch, kv_dtype)), \
+            vp.to(getattr(torch, kv_dtype))
+    tables = _new_shape_tables(g, lens, list(range(n)), ps, P, 0,
+                               n * P + 1)
+    lt = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q = torch.randn(n, heads, 64, generator=g, device="cuda")
+    if kv_dtype == "bfloat16":
+        q = q.to(torch.bfloat16)
+    run = tpa.rows_per_run(lens, tables.cpu(), ps)
+    assert run == 1
+    assert tpa.launch_route(q, kp, vp, ks, vs, seq_rows=run) == "simt"
+    hinted = tpa.paged_attention_kernel(q, kp, vp, tables, lt, k_scales=ks,
+                                        v_scales=vs, seq_rows=1)
+    plain = tpa.paged_attention_kernel(q, kp, vp, tables, lt, k_scales=ks,
+                                       v_scales=vs)
+    torch.cuda.synchronize()
+    assert torch.equal(hinted, plain)
